@@ -1,0 +1,89 @@
+"""Port core (tracy_tpu_torch/core) against tracy_tpu/core on the same inputs.
+
+Contract: the counter hashes are integer work and must match bit for bit;
+camera rays are float work, held to 4 ulp (both sides run the same float32
+operations in the same order, so only a reduction order may differ).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tracy_tpu.core import math as jm
+from tracy_tpu.core import rng as jrng
+from tracy_tpu.core.camera import Camera as JCamera
+from tracy_tpu.core.camera import pixel_samples_rows as j_pixel_samples_rows
+from tracy_tpu_torch.core import math as tm
+from tracy_tpu_torch.core import rng as trng
+from tracy_tpu_torch.core.camera import Camera, pixel_samples_rows
+
+torch.set_num_threads(2)
+
+SEED = 0xABCDEF
+
+
+@pytest.mark.parametrize("kind", ["fast", "xorshift", "lcg"])
+def test_hash_bits_match(kind):
+    rng = np.random.default_rng(1)
+    pix = rng.integers(0, 2**32, 50_000, dtype=np.uint64).astype(np.uint32)
+    for frame, bounce, draw in ((0, 0, 0), (7, 3, 2), (2**32 - 1, 255, 1)):
+        ref = np.asarray(jrng._mix(SEED, jnp.asarray(pix), frame, bounce, draw, kind))
+        got = trng.mix(SEED, torch.as_tensor(pix.astype(np.int64)), frame, bounce,
+                       draw, kind).numpy()
+        np.testing.assert_array_equal(got, ref.astype(np.int64))
+        ref_u = np.asarray(jrng.uniform_fast(SEED, jnp.asarray(pix), frame, bounce,
+                                             draw, kind=kind))
+        got_u = trng.RngSpec(kind, SEED).uniform(
+            torch.as_tensor(pix.astype(np.int64)), frame, bounce, draw).numpy()
+        np.testing.assert_array_equal(got_u, ref_u)
+
+
+def test_threefry_raises():
+    with pytest.raises(ValueError, match="threefry"):
+        trng.RngSpec("threefry", SEED)
+
+
+def test_vector_math_matches():
+    """normalize / reflect / refract (incl. TIR -> zero) within 4 ulp."""
+    rng = np.random.default_rng(2)
+    v = rng.standard_normal((4096, 3)).astype(np.float32)
+    n = rng.standard_normal((4096, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    d = v / np.linalg.norm(v, axis=-1, keepdims=True)
+    eta = rng.uniform(0.5, 1.8, (4096, 1)).astype(np.float32)
+    T = torch.as_tensor
+    pairs = [
+        (jm.normalize(jnp.asarray(v)), tm.normalize(T(v))),
+        (jm.reflect(jnp.asarray(d), jnp.asarray(n)), tm.reflect(T(d), T(n))),
+        (jm.refract(jnp.asarray(d), jnp.asarray(n), jnp.asarray(eta)),
+         tm.refract(T(d), T(n), T(eta))),
+    ]
+    for ref, got in pairs:
+        np.testing.assert_array_max_ulp(got.numpy(), np.asarray(ref), maxulp=4)
+    tir = np.asarray(jm.refract(jnp.asarray(d), jnp.asarray(n), jnp.asarray(eta)))
+    assert (tir == 0).all(axis=-1).any()  # some lanes hit total internal reflection
+
+
+def test_generate_rays_and_pixel_samples_match():
+    args = dict(eye=(-0.5, 1.2, 1.5), center=(0.0, 0.0, -1.0), up=(0.0, 1.0, 0.0),
+                fov_degrees=60.0, aspect_ratio=320 / 240)
+    jc, tc = JCamera.setup(**args), Camera.setup(**args)
+    for name in ("eye", "inv_view_projection", "view", "projection"):
+        np.testing.assert_array_equal(getattr(tc, name).numpy(), np.asarray(getattr(jc, name)))
+
+    w, h = 320, 240
+    rng = np.random.default_rng(3)
+    rows = np.arange(0, h, 3, dtype=np.int32)
+    ju = rng.uniform(size=(len(rows), w)).astype(np.float32)
+    jv = rng.uniform(size=(len(rows), w)).astype(np.float32)
+    js, jt = j_pixel_samples_rows(w, h, jnp.asarray(rows), jnp.asarray(ju), jnp.asarray(jv))
+    ts, tt = pixel_samples_rows(w, h, torch.as_tensor(rows), torch.as_tensor(ju),
+                                torch.as_tensor(jv))
+    np.testing.assert_array_max_ulp(ts.numpy(), np.asarray(js), maxulp=4)
+    np.testing.assert_array_max_ulp(tt.numpy(), np.asarray(jt), maxulp=4)
+
+    jo, jd = jc.generate_rays(js, jt)
+    to, td = tc.generate_rays(torch.tensor(np.asarray(js)), torch.tensor(np.asarray(jt)))
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    np.testing.assert_array_max_ulp(td.numpy(), np.asarray(jd), maxulp=4)

@@ -1,0 +1,136 @@
+"""Port scene build and BVH against tracy_tpu's, plus BVH table invariants.
+
+Contract: the host builders are numpy copies of the JAX package's, so every
+array of the port's build() must EQUAL tracy_tpu's (both round the same
+float64 host values to float32 once), and the BVH node arrays must be
+equal too. The kernel tables must reach every triangle exactly once, and
+every node box must contain the triangles below it.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from tracy_tpu.accel.bvh import _build_auto as j_build_auto
+from tracy_tpu.accel.bvh_build import build_bvh as j_build_bvh
+from tracy_tpu.scene import scn_parser as jscn
+from tracy_tpu_torch.accel.bvh_build import build_bvh, build_bvh_auto
+from tracy_tpu_torch.accel.tables import build_tables
+from tracy_tpu_torch.scene import scn_parser as tscn
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCN = os.path.join(REPO, "tests", "goldens", "scn")
+SCENES = ["furnace", "cornell", "testtree", "random", "default", "grid"]
+
+
+def _path(name):
+    if name == "default":
+        return os.path.join(REPO, "data", "scenes", "default.scn")
+    return os.path.join(SCN, f"{name}.scn")
+
+
+def builders(name):
+    """(tracy_tpu builder, port builder) for one in-repo scene."""
+    if name == "grid":  # a small sphere grid (tools/tpu_bigscene.py's loop)
+        jb = jscn.default_scene(32, 24)
+        g = 3
+        for i in range(9):
+            jb.add_sphere((i % g * 2.5 - g, 0.5, i // g * 2.5 - g), 1.0, 1 + (i % 3), steps=8)
+        return jb, tscn.sphere_grid(32, 24, nsph=9, steps=8)
+    return jscn.load_scene(_path(name)), tscn.load_scene(_path(name))
+
+
+def _tri_bounds(pos, idx):
+    v = pos[idx]
+    return v.min(axis=1), v.max(axis=1)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_build_arrays_equal(name):
+    jb, tb = builders(name)
+    js, ts = jb.build(), tb.build()
+    assert (ts.width, ts.height, ts.name) == (js.width, js.height, js.name)
+    for field in ("vertex_pos", "vertex_normal", "vertex_uv", "vertex_tangent",
+                  "indices", "tri_material", "tex_data", "tex_table"):
+        np.testing.assert_array_equal(getattr(ts, field).numpy(),
+                                      np.asarray(getattr(js, field)), err_msg=field)
+    for field in ("albedo", "roughness", "metalness", "ior", "emissive",
+                  "translucent", "tex_index"):
+        np.testing.assert_array_equal(getattr(ts.materials, field).numpy(),
+                                      np.asarray(getattr(js.materials, field)),
+                                      err_msg=field)
+    for field in ("eye", "inv_view_projection", "view", "projection"):
+        np.testing.assert_array_equal(getattr(ts.camera, field).numpy(),
+                                      np.asarray(getattr(js.camera, field)), err_msg=field)
+
+
+@pytest.mark.parametrize("name", ["cornell", "testtree", "random", "grid"])
+def test_bvh_nodes_equal(name):
+    """numpy builder vs numpy builder, and the auto (native) route vs the
+    JAX package's auto route: identical trees."""
+    _, tb = builders(name)
+    s = tb.build()
+    lo, hi = _tri_bounds(s.vertex_pos.numpy(), s.indices.numpy())
+    pairs = [(build_bvh(lo, hi, 8, 36), j_build_bvh(lo, hi, 8, 36)),
+             (build_bvh_auto(lo, hi, 4, 20), j_build_auto(lo, hi, 4, 20))]
+    for got, ref in pairs:
+        np.testing.assert_array_equal(got.node_bounds, ref.node_bounds)
+        np.testing.assert_array_equal(got.node_meta, ref.node_meta)
+        np.testing.assert_array_equal(got.tri_order, ref.tri_order)
+        assert got.max_depth == ref.max_depth
+
+
+@pytest.mark.parametrize("name,leaf,depth", [("random", 8, 60), ("grid", 4, 6)])
+def test_tables_reach_every_triangle(name, leaf, depth):
+    """Every triangle sits in exactly one leaf reachable from the root, every
+    node box contains its subtree's triangles, slot data matches the scene,
+    and the stack bound covers the real depth. depth=6 forces leaves far
+    wider than leaf_size: none may drop a triangle."""
+    _, tb = builders(name)
+    s = tb.build()
+    tab = build_tables(s, leaf_size=leaf, max_depth=depth)
+    nb, nm = tab.node_bounds.numpy(), tab.node_meta.numpy()
+    pos, idx = s.vertex_pos.numpy(), s.indices.numpy()
+    lo, hi = _tri_bounds(pos, idx)
+    tri_id = tab.tri_id.numpy()
+
+    seen = np.zeros(len(idx), np.int64)
+    deepest = 0
+
+    def walk(node, depth_now):
+        nonlocal deepest
+        deepest = max(deepest, depth_now)
+        first, count, right = nm[node, :3]
+        if count > 0:
+            tris = tri_id[first:first + count]
+            np.add.at(seen, tris, 1)
+        else:
+            tris = np.concatenate([walk(first, depth_now + 1), walk(right, depth_now + 1)])
+        assert (nb[node, 0:3] <= lo[tris].min(axis=0)).all()
+        assert (nb[node, 4:7] >= hi[tris].max(axis=0)).all()
+        return tris
+
+    walk(0, 0)
+    assert (seen == 1).all()
+    assert deepest == tab.max_depth <= depth and tab.stack_size > deepest
+    if name == "grid":
+        assert nm[nm[:, 1] > 0, 1].max() > leaf
+    order = tri_id.astype(np.int64)
+    tri = tab.tri.numpy()
+    np.testing.assert_array_equal(tri[:, 0:3], pos[idx[order, 0]])
+    np.testing.assert_array_equal(tri[:, 4:7], pos[idx[order, 1]] - pos[idx[order, 0]])
+    np.testing.assert_array_equal(tri[:, 8:11], pos[idx[order, 2]] - pos[idx[order, 0]])
+    np.testing.assert_array_equal(tab.tri_meta.numpy()[:, 0:3], idx[order])
+    np.testing.assert_array_equal(tab.tri_meta.numpy()[:, 3], s.tri_material.numpy()[order])
+
+
+def test_textured_features_raise(tmp_path):
+    for line in ("TEX Grey B tex.png", "SKY sky.hdr", "TRI mesh.obj Grey"):
+        p = tmp_path / "x.scn"
+        p.write_text("MTL Grey (0.5, 0.5, 0.5) 1 0\n" + line + "\n")
+        with pytest.raises(NotImplementedError, match="textured slice"):
+            tscn.load_scene(str(p))

@@ -1,0 +1,111 @@
+"""Build and load the CUDA kernels of csrc/ as one ctypes library.
+
+`nvcc` compiles each kernel source to an object for sm_90a, then links them
+into one shared library with a plain C interface. The library is cached
+under build/kernels/<hash>/ in the repository root, keyed by a hash of the
+sources and flags, and is written to a temporary name and renamed into
+place, so several test workers may build at once. The build happens at
+first use, never at import.
+
+Flags: no FMA contraction (--fmad=false) and IEEE division and square root
+(nvcc's defaults, no fast math), so that a kernel and its plain PyTorch
+version round alike.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from typing import Dict, Optional
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+SOURCES = ("intersect.cu", "shade.cu")
+ARCH = "sm_90a"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xcompiler", "-fPIC"]
+
+_C = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint32
+# C signatures (csrc/*.cu): every pointer and the stream as c_void_p.
+SIGNATURES = {
+    "tracy_intersect": [_C, _C, _C, _I, _C, _C, _C, _C, _C, _C,
+                        _C, _C, _C, _C, _C, _C, _C],
+    "tracy_shade": [_C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _I, _C, _I,
+                    _U, _U, _U, _I, _C, _C, _C, _C, _C, _C],
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    return h.hexdigest()[:16]
+
+
+class KernelLibrary:
+    """The loaded library plus how its build went."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._lib: Optional[ctypes.CDLL] = None
+        self.path = ""
+        self.build_seconds: Dict[str, float] = {}  # per source; empty if cached
+
+    def get(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                self._lib = self._load()
+            return self._lib
+
+    def _load(self) -> ctypes.CDLL:
+        out_dir = os.path.join(BUILD_ROOT, _digest())
+        self.path = os.path.join(out_dir, "libtracy_kernels.so")
+        if not os.path.exists(self.path):
+            self._build(out_dir)
+        lib = ctypes.CDLL(self.path)
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        return lib
+
+    def _build(self, out_dir: str):
+        nvcc = _nvcc()
+        os.makedirs(out_dir, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            objs = []
+            for name in SOURCES:
+                obj = os.path.join(tmp, name + ".o")
+                t0 = time.perf_counter()
+                _run([nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, name), "-o", obj])
+                self.build_seconds[name] = time.perf_counter() - t0
+                objs.append(obj)
+            so = os.path.join(tmp, "libtracy_kernels.so")
+            _run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs])
+            os.replace(so, self.path)
+
+
+def _run(cmd):
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} failed:\n{res.stdout}{res.stderr}")
+
+
+LIBRARY = KernelLibrary()

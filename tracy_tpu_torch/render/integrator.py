@@ -1,0 +1,121 @@
+"""Wavefront path-tracing integrator.
+
+Port of tracy_tpu/render/integrator.py (reference CpuTrace::Trace,
+cpu_trace.cpp:107-170). All rays advance together through a Python loop
+over bounces with masked lanes. Each bounce runs an intersector and then
+the shade stage (ops/shade.py: K2 on CUDA, its plain version on CPU):
+
+* radiance += emission * throughput on hit; throughput *= attenuation;
+* a miss adds the constant sky (material slot 0's emissive) and ends;
+* Russian roulette with p = EPS + max(throughput), survivors reweighted 1/p;
+* one ray is counted per live lane per bounce (cpu_trace.cpp:113-116).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Tuple
+
+import torch
+
+from tracy_tpu.config import RenderConfig
+from tracy_tpu_torch.ops.intersect import SurfaceHit
+from tracy_tpu_torch.ops.shade import build_material_table, shade
+from tracy_tpu_torch.render.intersect import intersect_bruteforce
+from tracy_tpu_torch.scene.scene import SKY_MATERIAL_ID, SceneArrays
+
+# Pseudo-bounce id of the camera jitter draws.
+JITTER_BOUNCE = 255
+
+IntersectFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], SurfaceHit]
+# (origin [N,3], direction [N,3], active [N]) -> SurfaceHit
+
+
+class HitAttributes(NamedTuple):
+    point: torch.Tensor  # [N, 3]
+    normal: torch.Tensor  # [N, 3] interpolated, NOT normalized (reference quirk)
+    tangent: torch.Tensor  # [N, 3] interpolated, NOT normalized
+    uv: torch.Tensor  # [N, 2] texture coords
+    material: torch.Tensor  # [N] int32
+
+
+def interpolate_hit(scene: SceneArrays, hit, origin, direction) -> HitAttributes:
+    """Barycentric attribute interpolation (cpu_details.cpp:169-182)."""
+    tri = hit.tri.long()
+    idx = scene.indices[tri].long()
+    u = hit.uv[..., 0:1]
+    v = hit.uv[..., 1:2]
+    w = 1.0 - u - v
+
+    def interp(attr):
+        return w * attr[idx[:, 0]] + u * attr[idx[:, 1]] + v * attr[idx[:, 2]]
+
+    return HitAttributes(
+        point=origin + hit.t[:, None] * direction,
+        normal=interp(scene.vertex_normal),
+        tangent=interp(scene.vertex_tangent),
+        uv=interp(scene.vertex_uv),
+        material=scene.tri_material[tri],
+    )
+
+
+def sky_emission(scene: SceneArrays, direction) -> torch.Tensor:
+    """Sky radiance for miss lanes: slot 0's constant emissive (the port has
+    no textured sky yet)."""
+    return scene.materials.emissive[SKY_MATERIAL_ID].expand(direction.shape)
+
+
+def make_bruteforce_intersector(scene: SceneArrays, tri_chunk: int = 512) -> IntersectFn:
+    """The exact oracle as an intersector: every triangle, every ray."""
+    p0, p1, p2 = scene.triangle_vertices()
+    e1, e2 = p1 - p0, p2 - p0
+
+    def intersect(origin, direction, active):
+        hit = intersect_bruteforce(origin, direction, p0, e1, e2,
+                                   tri_chunk=tri_chunk, active=active)
+        attrs = interpolate_hit(scene, hit, origin, direction)
+        return SurfaceHit(hit, attrs.normal, attrs.material)
+
+    return intersect
+
+
+class PathState(NamedTuple):
+    origin: torch.Tensor  # [N, 3]
+    direction: torch.Tensor  # [N, 3]
+    throughput: torch.Tensor  # [N, 3]
+    radiance: torch.Tensor  # [N, 3]
+    alive: torch.Tensor  # [N] bool
+
+
+def trace_paths(scene: SceneArrays, origin, direction, pixel_idx, sample_key: int,
+                cfg: RenderConfig, intersect_fn: IntersectFn, active0=None,
+                mtab=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Trace N paths for cfg.max_bounces bounces.
+
+    pixel_idx: [N] int32 global pixel ids keying the RNG; sample_key: the
+    frame/sample counter. active0: [N] bool, None = all live; dead lanes
+    (tile-padding rows) are never counted and gather no radiance.
+    Returns (radiance [N, 3], rays: a 0-d int64 tensor).
+    """
+    if cfg.rng != "fast":
+        raise ValueError(f"rng={cfg.rng!r}: the shade stage draws from the "
+                         "'fast' counter hash only")
+    n = origin.shape[0]
+    dev = origin.device
+    mtab = build_material_table(scene.materials) if mtab is None else mtab
+    s = PathState(
+        origin=origin.contiguous(),
+        direction=direction.contiguous(),
+        throughput=torch.ones((n, 3), dtype=origin.dtype, device=dev),
+        radiance=torch.zeros((n, 3), dtype=origin.dtype, device=dev),
+        alive=(torch.ones((n,), dtype=torch.bool, device=dev) if active0 is None
+               else active0.contiguous()),
+    )
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    for bounce in range(cfg.max_bounces):
+        rays = rays + s.alive.sum()
+        hit, normal, mat = intersect_fn(s.origin, s.direction, s.alive)
+        s = PathState(*shade(s.origin, s.direction, s.throughput, s.radiance,
+                             s.alive, pixel_idx, hit.mask, hit.t, normal, mat,
+                             mtab, sample_key, bounce, seed=cfg.seed,
+                             russian_roulette=cfg.russian_roulette))
+    return s.radiance, rays

@@ -1,0 +1,112 @@
+"""Material lookup and scatter: the Unreal-ish BRDF/BTDF, untextured.
+
+Port of tracy_tpu/render/material.py (reference Material::Scatter,
+src/material.h:210-268), branch-free over all lanes:
+
+* spec direction = lerp(reflect, normal + unit_sphere_sample, roughness);
+* BRDF: specular chance = lerp(lerp(.1, 1, metalness), 1,
+  (1-roughness) * schlick(-VdotN, 1)); specular colour = lerp(0.85,
+  basecolor, metalness); diffuse = normal + unit sphere sample;
+* BTDF (translucent > EPS): inside test VdotN > EPS, Snell cosine, eta
+  swap, refraction lerped to the diffuse sample by roughness, Schlick
+  choosing reflection or transmission, attenuation basecolor;
+* the new origin is offset by RAY_OFFSET along the new direction.
+
+On total internal reflection the Snell cosine is clamped to 0, so the ray
+reflects (the JAX package's deliberate, NaN-free divergence from the
+reference). Powers are explicit products, in the order jax.lax.integer_pow
+multiplies, so that both packages round alike.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from tracy_tpu_torch.core import math as tm
+
+RAY_OFFSET = 1.0e-3  # kRayOffset, material.h:213
+EPS = tm.EPS
+
+
+class SurfaceParams(NamedTuple):
+    basecolor: torch.Tensor  # [N, 3]
+    roughness: torch.Tensor  # [N]
+    metalness: torch.Tensor  # [N]
+    ior: torch.Tensor  # [N]
+    emissive: torch.Tensor  # [N, 3]
+    translucent: torch.Tensor  # [N]
+    normal: torch.Tensor  # [N, 3] shading normal
+
+
+class ScatterResult(NamedTuple):
+    origin: torch.Tensor
+    direction: torch.Tensor
+    attenuation: torch.Tensor
+    emission: torch.Tensor
+
+
+def schlick(cos, ref_idx):
+    """material.h:137-142: r0 + (1 - r0) (1 - cos)^5."""
+    r = (1.0 - ref_idx) / (1.0 + ref_idx)
+    r0 = r * r
+    c = 1.0 - cos
+    c2 = c * c
+    return r0 + (1.0 - r0) * (c * (c2 * c2))
+
+
+def random_on_unit_sphere(r1, r2):
+    """material.h:144-157: r1 -> z, r2 -> phi."""
+    z = 2.0 * r1 - 1.0
+    phi = 2.0 * tm.PI * r2
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def material_table_lookup(materials, mat_id):
+    """Material rows for [N] ids: (albedo, roughness, metalness, ior,
+    emissive, translucent). A gather: cheap on a GPU, exact everywhere."""
+    i = mat_id.long()
+    m = materials
+    return (m.albedo[i], m.roughness[i], m.metalness[i], m.ior[i],
+            m.emissive[i], m.translucent[i])
+
+
+def scatter(ray_dir, hit_point, params: SurfaceParams, u_sphere_z, u_sphere_phi,
+            u_spec) -> ScatterResult:
+    """Branch-free Material::Scatter over all lanes at once."""
+    normal = params.normal
+    roughness = params.roughness[:, None]
+    v_dot_n = tm.dot(ray_dir, normal)[..., 0]
+
+    scattered = normal + random_on_unit_sphere(u_sphere_z, u_sphere_phi)
+    specular = tm.lerp(tm.reflect(ray_dir, normal), scattered, roughness)
+
+    # BTDF (material.h:236-249)
+    inside = v_dot_n > EPS
+    ior = params.ior
+    cos_in = torch.sqrt(torch.clamp(1.0 - (ior * ior) * (1.0 - v_dot_n * v_dot_n), min=0.0))
+    cosine = torch.where(inside, cos_in, -v_dot_n)
+    eta = torch.where(inside, ior, 1.0 / torch.clamp(ior, min=1e-8))
+    transmitted = tm.lerp(tm.refract(ray_dir, normal, eta[:, None]), scattered, roughness)
+    btdf_is_spec = u_spec < schlick(cosine, eta)
+    btdf_dir = torch.where(btdf_is_spec[:, None], specular, transmitted)
+
+    # BRDF (material.h:250-261)
+    metalness = params.metalness
+    specularcolor = tm.lerp(torch.full_like(params.basecolor, 0.85), params.basecolor,
+                            metalness[:, None])
+    mat_spec_chance = 0.1 + (1.0 - 0.1) * metalness
+    fresnel = (1.0 - params.roughness) * schlick(-v_dot_n, 1.0)
+    spec_chance = mat_spec_chance + (1.0 - mat_spec_chance) * fresnel
+    brdf_is_spec = u_spec < spec_chance
+    brdf_dir = torch.where(brdf_is_spec[:, None], specular, scattered)
+    brdf_atten = torch.where(brdf_is_spec[:, None], specularcolor, params.basecolor)
+
+    translucent = params.translucent[:, None] > EPS
+    direction = tm.normalize(torch.where(translucent, btdf_dir, brdf_dir))
+    attenuation = torch.where(translucent, params.basecolor, brdf_atten)
+    return ScatterResult(origin=hit_point + RAY_OFFSET * direction,
+                         direction=direction, attenuation=attenuation,
+                         emission=params.emissive)

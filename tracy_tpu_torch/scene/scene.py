@@ -1,0 +1,253 @@
+"""Scene container: host-side builder -> flat tensors on one device.
+
+Port of tracy_tpu/scene/scene.py, untextured. The scene is a global triangle
+soup with a shared vertex buffer, a SoA material table and the camera.
+Material slot 0 is the sky (reference scene.h:21).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import numpy as np
+import torch
+
+from tracy_tpu.utils.log import log
+from tracy_tpu_torch.core.camera import Camera
+from tracy_tpu_torch.scene import tessellate
+from tracy_tpu_torch.scene.hostmesh import HostMesh
+
+SKY_MATERIAL_ID = 0
+NUM_TEX_SLOTS = 5
+
+TEXTURED_SLICE = ("textures, textured skies and OBJ meshes belong to the "
+                  "port's textured slice, which is not ported yet")
+
+
+@dataclasses.dataclass
+class HostMaterial:
+    """Host-side material record (reference Material, material.h:103-117).
+
+    `emissive` is premultiplied by albedo, like the reference constructor.
+    """
+
+    albedo: np.ndarray
+    roughness: float = 1.0
+    metalness: float = 0.0
+    ior: float = 1.0
+    emissive_multiplier: float = 0.0
+    translucency: float = 0.0
+
+    def __post_init__(self):
+        self.albedo = np.asarray(self.albedo, dtype=np.float64).reshape(3)
+
+    @property
+    def emissive(self) -> np.ndarray:
+        return self.emissive_multiplier * self.albedo
+
+
+@dataclasses.dataclass
+class MaterialTable:
+    """SoA material parameters on device."""
+
+    albedo: torch.Tensor  # [M, 3]
+    roughness: torch.Tensor  # [M]
+    metalness: torch.Tensor  # [M]
+    ior: torch.Tensor  # [M]
+    emissive: torch.Tensor  # [M, 3] (premultiplied)
+    translucent: torch.Tensor  # [M]
+    tex_index: torch.Tensor  # [M, 5] int32, always -1 here
+
+    @property
+    def num_materials(self) -> int:
+        return self.albedo.shape[0]
+
+
+@dataclasses.dataclass
+class SceneArrays:
+    """The complete scene as tensors on one device (global triangle soup)."""
+
+    vertex_pos: torch.Tensor  # [V, 3] f32
+    vertex_normal: torch.Tensor  # [V, 3] f32
+    vertex_uv: torch.Tensor  # [V, 2] f32
+    vertex_tangent: torch.Tensor  # [V, 3] f32
+    indices: torch.Tensor  # [T, 3] int32
+    tri_material: torch.Tensor  # [T] int32
+    materials: MaterialTable
+    tex_data: torch.Tensor  # [1, 4] f32 placeholder texel (no textures)
+    tex_table: torch.Tensor  # [1, 4] int32
+    camera: Camera
+    width: int = 640
+    height: int = 480
+    name: str = ""
+
+    @property
+    def num_triangles(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.vertex_pos.device
+
+    def triangle_vertices(self):
+        """The three corner positions of every triangle: 3x [T, 3]."""
+        idx = self.indices.long()
+        return tuple(self.vertex_pos[idx[:, c]] for c in range(3))
+
+
+class SceneBuilder:
+    """Host-side scene assembly (reference Scene::AddSphere/AddBox/AddTriangle,
+    scene.h:24-32)."""
+
+    def __init__(self, width: int = 640, height: int = 480, name: str = ""):
+        self.width = width
+        self.height = height
+        self.name = name
+        self.meshes: List[HostMesh] = []
+        # Slot 0 = sky (default: black emissive), like the reference.
+        self.materials: List[HostMaterial] = [HostMaterial(albedo=np.zeros(3))]
+        self.camera_params = dict(
+            eye=(0.0, 0.0, 1.0), center=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0), fov_degrees=60.0
+        )
+
+    def set_camera(self, eye, center, up, fov_degrees: float):
+        self.camera_params = dict(eye=eye, center=center, up=up, fov_degrees=fov_degrees)
+        return self
+
+    def add_material(self, albedo, roughness=1.0, metalness=0.0, ior=1.0,
+                     emissive=0.0, translucency=0.0) -> int:
+        self.materials.append(
+            HostMaterial(albedo, roughness, metalness, ior, emissive, translucency)
+        )
+        return len(self.materials) - 1
+
+    def set_sky_color(self, albedo):
+        """SKY constant: Material(albedo, 0, 0, 0, 1) per scene.cpp:368."""
+        self.materials[SKY_MATERIAL_ID] = HostMaterial(
+            albedo, roughness=0.0, metalness=0.0, ior=0.0, emissive_multiplier=1.0)
+        return self
+
+    def _add(self, mesh: HostMesh, material_id: int) -> HostMesh:
+        mesh.material_id = material_id
+        self.meshes.append(mesh)
+        return mesh
+
+    def add_sphere(self, center, radius, material_id: int, steps: int = 32) -> HostMesh:
+        return self._add(tessellate.sphere(center, radius, steps), material_id)
+
+    def add_box(self, bottom, top, material_id: int, transform=None) -> HostMesh:
+        return self._add(tessellate.box(bottom, top, transform), material_id)
+
+    def add_triangle(self, v1, v2, v3, material_id: int) -> HostMesh:
+        return self._add(tessellate.triangle(v1, v2, v3), material_id)
+
+    def build(self, device="cpu") -> SceneArrays:
+        """Flatten into tensors on `device` (float32 / int32)."""
+        if self.meshes:
+            pos, nrm, uv, tan, idx, mat = [], [], [], [], [], []
+            voffset = 0
+            for m in self.meshes:
+                if m.tangents is None:
+                    m.compute_tangents()
+                pos.append(m.positions)
+                nrm.append(m.normals)
+                uv.append(m.uvs)
+                tan.append(m.tangents)
+                idx.append(m.indices.astype(np.int64) + voffset)
+                mid = m.material_id if m.material_id >= 0 else 0
+                mat.append(np.full((m.num_triangles,), mid, dtype=np.int32))
+                voffset += m.num_vertices
+            pos, nrm, uv, tan = (np.concatenate(a) for a in (pos, nrm, uv, tan))
+            idx = np.concatenate(idx).astype(np.int32)
+            mat = np.concatenate(mat)
+        else:
+            # Degenerate placeholder triangle keeps shapes non-empty.
+            pos = np.zeros((3, 3))
+            nrm = np.tile(np.array([[0.0, 0.0, 1.0]]), (3, 1))
+            uv = np.zeros((3, 2))
+            tan = np.tile(np.array([[1.0, 0.0, 0.0]]), (3, 1))
+            idx = np.array([[0, 1, 2]], dtype=np.int32)
+            mat = np.zeros((1,), dtype=np.int32)
+
+        mats = self.materials
+        arrays = dict(
+            vertex_pos=pos, vertex_normal=nrm, vertex_uv=uv, vertex_tangent=tan,
+            indices=idx, tri_material=mat,
+            mat_albedo=np.stack([m.albedo for m in mats]),
+            mat_roughness=[m.roughness for m in mats],
+            mat_metalness=[m.metalness for m in mats],
+            mat_ior=[m.ior for m in mats],
+            mat_emissive=np.stack([m.emissive for m in mats]),
+            mat_translucent=[m.translucency for m in mats],
+            mat_tex_index=np.full((len(mats), NUM_TEX_SLOTS), -1, np.int32),
+            tex_data=np.ones((1, 4), np.float32),
+            tex_table=np.array([[0, 1, 1, 0]], np.int32),
+        )
+        log("scene '%s': %d objects, %d tris, %d verts, %d materials"
+            % (self.name, len(self.meshes), len(idx), len(pos), len(mats)))
+        camera = Camera.setup(
+            aspect_ratio=float(self.width) / float(max(self.height, 1)),
+            device=device, **self.camera_params)
+        return _scene_from_arrays(arrays, camera, self.width, self.height,
+                                  self.name, device)
+
+
+def _scene_from_arrays(a: dict, camera: Camera, width: int, height: int,
+                       name: str, device) -> SceneArrays:
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    def i32(x):
+        return torch.tensor(np.asarray(x, np.int32), device=device)
+
+    return SceneArrays(
+        vertex_pos=f32(a["vertex_pos"]),
+        vertex_normal=f32(a["vertex_normal"]),
+        vertex_uv=f32(a["vertex_uv"]),
+        vertex_tangent=f32(a["vertex_tangent"]),
+        indices=i32(a["indices"]),
+        tri_material=i32(a["tri_material"]),
+        materials=MaterialTable(
+            albedo=f32(a["mat_albedo"]),
+            roughness=f32(a["mat_roughness"]),
+            metalness=f32(a["mat_metalness"]),
+            ior=f32(a["mat_ior"]),
+            emissive=f32(a["mat_emissive"]),
+            translucent=f32(a["mat_translucent"]),
+            tex_index=i32(a["mat_tex_index"]),
+        ),
+        tex_data=f32(a["tex_data"]),
+        tex_table=i32(a["tex_table"]),
+        camera=camera,
+        width=width,
+        height=height,
+        name=name,
+    )
+
+
+def from_jax_arrays(src, device="cpu") -> SceneArrays:
+    """The port's SceneArrays from a tracy_tpu SceneArrays.
+
+    `src` is read only through numpy (np.asarray of its fields), so this
+    module needs no jax; a test can hand both packages the very same scene.
+    """
+    if np.asarray(src.tex_data).shape[0] > 1:
+        raise NotImplementedError(TEXTURED_SLICE)
+    m, cam = src.materials, src.camera
+    a = dict(
+        vertex_pos=src.vertex_pos, vertex_normal=src.vertex_normal,
+        vertex_uv=src.vertex_uv, vertex_tangent=src.vertex_tangent,
+        indices=src.indices, tri_material=src.tri_material,
+        mat_albedo=m.albedo, mat_roughness=m.roughness, mat_metalness=m.metalness,
+        mat_ior=m.ior, mat_emissive=m.emissive, mat_translucent=m.translucent,
+        mat_tex_index=m.tex_index, tex_data=src.tex_data, tex_table=src.tex_table,
+    )
+    a = {k: np.asarray(v) for k, v in a.items()}
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    camera = Camera(eye=f32(cam.eye), inv_view_projection=f32(cam.inv_view_projection),
+                    view=f32(cam.view), projection=f32(cam.projection))
+    return _scene_from_arrays(a, camera, src.width, src.height, src.name, device)
