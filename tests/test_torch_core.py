@@ -68,7 +68,7 @@ def test_vector_math_matches():
 def test_generate_rays_and_pixel_samples_match():
     args = dict(eye=(-0.5, 1.2, 1.5), center=(0.0, 0.0, -1.0), up=(0.0, 1.0, 0.0),
                 fov_degrees=60.0, aspect_ratio=320 / 240)
-    jc, tc = JCamera.setup(**args), Camera.setup(**args)
+    jc, tc = JCamera.setup(**args), Camera.setup(**args, device="cpu")
     for name in ("eye", "inv_view_projection", "view", "projection"):
         np.testing.assert_array_equal(getattr(tc, name).numpy(), np.asarray(getattr(jc, name)))
 

@@ -1,9 +1,10 @@
 """tracy_tpu_torch must load and render where jax does not exist (the GPU
 machine has none). A fresh interpreter with `sys.modules['jax'] = None`
 (so any `import jax` raises) imports every module of the port, renders
-furnace.scn at 32x24 for one frame on CPU, and reports which tracy_tpu
-modules got loaded: only the jax-free config, utils.native and utils.log
-(with their packages) are allowed.
+furnace.scn at 32x24 for one frame and the textured spheres.scn (HDR sky)
+at 16x12 for one frame on CPU, and reports which tracy_tpu modules got
+loaded: none may be, since the port keeps its own copies of what it needs
+(config, utils.native, utils.log).
 """
 
 import json
@@ -33,9 +34,15 @@ cfg = RenderConfig(width=32, height=24, spp=1)
 r = Renderer(cfg)
 st, rays = r.step(scene, init_state(cfg, "cpu"))
 img = r.display(st)
+sb = load_scene(os.path.join(REPO, "tests", "goldens", "scn", "spheres.scn"))
+sb.width, sb.height = 16, 12
+scfg = RenderConfig(width=16, height=12, spp=1)
+sst, _ = Renderer(scfg).step(sb.build(device="cpu"), init_state(scfg, "cpu"))
 print(json.dumps({
     "shape": list(img.shape), "finite": bool(np.isfinite(img).all()),
     "corner": float(st.accum[0, 0, 0]), "rays": rays,
+    "spheres_finite": bool(np.isfinite(sst.accum.numpy()).all()),
+    "spheres_fallbacks": sb.fallbacks,
     "tracy_tpu": sorted(k for k in sys.modules if k.startswith("tracy_tpu.")
                         or k == "tracy_tpu"),
 }))
@@ -51,6 +58,5 @@ def test_port_imports_and_renders_without_jax():
     assert res["shape"] == [24, 32, 3] and res["finite"]
     assert res["corner"] == 1.0  # the white sky, seen directly
     assert res["rays"] >= 32 * 24
-    allowed = {"tracy_tpu", "tracy_tpu.config", "tracy_tpu.version",
-               "tracy_tpu.utils", "tracy_tpu.utils.native", "tracy_tpu.utils.log"}
-    assert set(res["tracy_tpu"]) <= allowed, res["tracy_tpu"]
+    assert res["spheres_finite"] and res["spheres_fallbacks"] == []
+    assert res["tracy_tpu"] == [], res["tracy_tpu"]

@@ -1,5 +1,5 @@
-"""K1 and K2 on the card against their plain PyTorch versions on the same
-CUDA tensors, with the contracts of tracy_tpu_torch/ops/compare.py (those of
+"""K1, K2, K3 and K4 on the card against their plain PyTorch versions on
+the same CUDA tensors, with the contracts of tracy_tpu_torch/ops/compare.py (those of
 chip_smoke.py's kernel phase, at smaller sizes). Marked `cuda`: without an
 NVIDIA GPU these tests skip. On a GPU machine without jax, where
 tests/conftest.py cannot load, run them with
@@ -18,8 +18,10 @@ from tracy_tpu_torch.accel.tables import build_tables
 from tracy_tpu_torch.ops import compare
 from tracy_tpu_torch.ops import intersect as k1
 from tracy_tpu_torch.ops import shade as k2
+from tracy_tpu_torch.ops import texfetch as k3
 from tracy_tpu_torch.render.renderer import Renderer, init_state
-from tracy_tpu_torch.scene import load_scene, sphere_grid
+from tracy_tpu_torch.scene import SceneBuilder, load_scene, sphere_grid
+from tracy_tpu_torch.scene.scene import TEX_BASECOLOR
 
 torch.set_num_threads(2)
 
@@ -60,4 +62,52 @@ def test_renderer_runs_on_the_kernels(cuda):
     assert k1.COUNT.kernel == k2.COUNT.kernel == 2 * cfg.max_bounces
     assert k1.COUNT.plain == k2.COUNT.plain == 0
     assert rays >= 2 * 64 * 48
+    assert np.isfinite(r.display(st)).all()
+
+
+def textured_scene(device):
+    """tests/test_pallas_texfetch.py's fixture: a fully textured material
+    (5 slots, 20x24), a basecolor-only one (8x8), an untextured one and an
+    equirect sky (16x32)."""
+    rng = np.random.default_rng(42)
+    b = SceneBuilder(32, 24, "texfix")
+    b.set_sky_color((0.1, 0.2, 0.3))
+    b.set_sky_texture(b.add_texture(rng.uniform(0.0, 3.0, (16, 32, 4)).astype(np.float32)))
+    m1 = b.add_material((0.5, 0.4, 0.3), roughness=0.7, metalness=0.2)
+    for slot in range(5):
+        b.set_material_texture(m1, slot, b.add_texture(
+            rng.uniform(0.0, 1.0, (20, 24, 4)).astype(np.float32)))
+    m2 = b.add_material((0.2, 0.8, 0.2), roughness=0.3)
+    b.set_material_texture(m2, TEX_BASECOLOR, b.add_texture(
+        rng.uniform(0.0, 1.0, (8, 8, 4)).astype(np.float32)))
+    m3 = b.add_material((0.9, 0.1, 0.1), roughness=1.0)
+    b.add_sphere((0.0, 0.0, -3.0), 1.0, m1, steps=8)
+    b.add_box((-2.5, -1.0, -4.0), (-1.0, 0.5, -2.5), m2)
+    b.add_triangle((1.0, -1.0, -2.0), (2.5, -1.0, -2.0), (1.5, 1.0, -2.5), m3)
+    b.set_camera((0, 0, 2), (0, 0, -3), (0, 1, 0), 60.0)
+    return b.build(device=device)
+
+
+@pytest.mark.parametrize("rr", [True, False])
+def test_texfetch_and_textured_shade_kernels_match_plain(cuda, rr):
+    scene = textured_scene(cuda)
+    mtab = k2.build_material_table_tex(scene.materials)
+    lanes = compare.textured_lanes(mtab.shape[0], 65536, seed=3, device=cuda)
+    c3 = compare.compare_texfetch(lanes, scene)
+    assert c3["hit_lanes"] > 0 and c3["sky_lanes"] > 0
+    compare.compare_shade_textured(lanes, c3["texels"], mtab, 3, 1, seed=0xABCDEF,
+                                   russian_roulette=rr)
+
+
+def test_textured_renderer_runs_on_the_kernels(cuda):
+    scene = textured_scene(cuda)
+    cfg = RenderConfig(width=32, height=24, spp=1)
+    r = Renderer(cfg)
+    for c in (k1.COUNT, k2.COUNT, k2.COUNT_TEX, k3.COUNT):
+        c.reset()
+    st, rays = r.step_many(scene, init_state(cfg, cuda), 2)
+    assert k1.COUNT.kernel == k3.COUNT.kernel == k2.COUNT_TEX.kernel == 2 * cfg.max_bounces
+    assert k2.COUNT.kernel == 0
+    assert k1.COUNT.plain == k3.COUNT.plain == k2.COUNT_TEX.plain == 0
+    assert rays >= 2 * 32 * 24
     assert np.isfinite(r.display(st)).all()

@@ -24,7 +24,7 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCN = os.path.join(REPO, "tests", "goldens", "scn")
-SCENES = ["furnace", "cornell", "testtree", "random", "default", "grid"]
+SCENES = ["furnace", "cornell", "testtree", "random", "default", "grid", "spheres"]
 
 
 def _path(name):
@@ -49,10 +49,8 @@ def _tri_bounds(pos, idx):
     return v.min(axis=1), v.max(axis=1)
 
 
-@pytest.mark.parametrize("name", SCENES)
-def test_build_arrays_equal(name):
-    jb, tb = builders(name)
-    js, ts = jb.build(), tb.build()
+def assert_scenes_equal(ts, js):
+    """Every array of the port's SceneArrays equals tracy_tpu's."""
     assert (ts.width, ts.height, ts.name) == (js.width, js.height, js.name)
     for field in ("vertex_pos", "vertex_normal", "vertex_uv", "vertex_tangent",
                   "indices", "tri_material", "tex_data", "tex_table"):
@@ -68,12 +66,21 @@ def test_build_arrays_equal(name):
                                       np.asarray(getattr(js.camera, field)), err_msg=field)
 
 
+@pytest.mark.parametrize("name", SCENES)
+def test_build_arrays_equal(name):
+    """spheres.scn's HDR sky (tests/goldens/data/sky.hdr) gives the same
+    atlas, tex_table and tex_index as tracy_tpu's."""
+    jb, tb = builders(name)
+    assert tb.fallbacks == []
+    assert_scenes_equal(tb.build(device="cpu"), jb.build())
+
+
 @pytest.mark.parametrize("name", ["cornell", "testtree", "random", "grid"])
 def test_bvh_nodes_equal(name):
     """numpy builder vs numpy builder, and the auto (native) route vs the
     JAX package's auto route: identical trees."""
     _, tb = builders(name)
-    s = tb.build()
+    s = tb.build(device="cpu")
     lo, hi = _tri_bounds(s.vertex_pos.numpy(), s.indices.numpy())
     pairs = [(build_bvh(lo, hi, 8, 36), j_build_bvh(lo, hi, 8, 36)),
              (build_bvh_auto(lo, hi, 4, 20), j_build_auto(lo, hi, 4, 20))]
@@ -91,7 +98,7 @@ def test_tables_reach_every_triangle(name, leaf, depth):
     and the stack bound covers the real depth. depth=6 forces leaves far
     wider than leaf_size: none may drop a triangle."""
     _, tb = builders(name)
-    s = tb.build()
+    s = tb.build(device="cpu")
     tab = build_tables(s, leaf_size=leaf, max_depth=depth)
     nb, nm = tab.node_bounds.numpy(), tab.node_meta.numpy()
     pos, idx = s.vertex_pos.numpy(), s.indices.numpy()
@@ -128,9 +135,31 @@ def test_tables_reach_every_triangle(name, leaf, depth):
     np.testing.assert_array_equal(tab.tri_meta.numpy()[:, 3], s.tri_material.numpy()[order])
 
 
-def test_textured_features_raise(tmp_path):
-    for line in ("TEX Grey B tex.png", "SKY sky.hdr", "TRI mesh.obj Grey"):
+def test_textured_features_raise():
+    """The builder's texture calls raise where tracy_tpu's do: on a material
+    or a slot out of range."""
+    from tracy_tpu.scene.scene import SceneBuilder as JSceneBuilder
+    from tracy_tpu_torch.scene.scene import SceneBuilder
+
+    for cls in (JSceneBuilder, SceneBuilder):
+        b = cls(width=8, height=8)
+        grey = b.add_material((0.5, 0.5, 0.5))
+        tid = b.add_texture(np.full((2, 2, 4), 0.5, np.float32))
+        with pytest.raises(IndexError):
+            b.set_material_texture(grey + 1, 0, tid)
+        with pytest.raises(IndexError):
+            b.set_material_texture(grey, 5, tid)
+
+
+def test_textured_tags_load_or_list_fallbacks(tmp_path):
+    """The textured tags load, and a file one names that is missing is
+    replaced as tracy_tpu does and listed in builder.fallbacks."""
+    for line, fallback in (("TEX Grey B tex.png", "texture tex.png"),
+                           ("SKY sky.hdr", "texture sky.hdr"),
+                           ("TRI mesh.obj Grey", "mesh mesh.obj")):
         p = tmp_path / "x.scn"
         p.write_text("MTL Grey (0.5, 0.5, 0.5) 1 0\n" + line + "\n")
-        with pytest.raises(NotImplementedError, match="textured slice"):
-            tscn.load_scene(str(p))
+        b = tscn.load_scene(str(p))
+        assert b.fallbacks == [fallback]
+        assert len(b.atlas) == (0 if fallback.startswith("mesh") else 1)
+        assert np.isfinite(b.build(device="cpu").tex_data.numpy()).all()

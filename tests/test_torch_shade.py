@@ -61,7 +61,7 @@ def test_shade_plain_matches_shade_packets(rr):
         interpret=True))()
     ref = [torch.tensor(np.asarray(x)) for x in ref]
 
-    scene = from_jax_arrays(jscene)
+    scene = from_jax_arrays(jscene, device="cpu")
     before = k2.COUNT.plain
     got = k2.shade(t["origin"], t["direction"], t["throughput"], t["radiance"],
                    t["alive"], t["pixel_idx"], t["hit_mask"], t["t"], t["normal"],
@@ -89,6 +89,6 @@ def test_material_table_lookup_matches():
     num_m = int(np.asarray(jscene.materials.albedo).shape[0])
     ids = np.random.default_rng(8).integers(0, num_m, 512).astype(np.int32)
     ref = j_lookup(jscene.materials, jnp.asarray(ids))[:6]
-    got = material_table_lookup(from_jax_arrays(jscene).materials, torch.as_tensor(ids))
+    got = material_table_lookup(from_jax_arrays(jscene, device="cpu").materials, torch.as_tensor(ids))
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))

@@ -19,8 +19,8 @@ import dataclasses
 
 import numpy as np
 
-from tracy_tpu.utils.log import warn
-from tracy_tpu.utils.native import get_native_lib
+from tracy_tpu_torch.utils.log import warn
+from tracy_tpu_torch.utils.native import get_native_lib
 
 NUM_BINS = 64
 TRAVERSAL_COST = 1.0

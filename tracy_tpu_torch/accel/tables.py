@@ -13,6 +13,9 @@ binary tree as it is:
   tri_meta    [T, 4] i32    per slot: vertex ids v0 v1 v2, material
   tri_id      [T] i32       slot -> original triangle id
   vertex_normal [V, 3] f32  for the winner's interpolated normal
+  vertex_uv     [V, 2] f32  texture uv, or None: only when some non-sky
+                            material is textured (pallas_packet.py:448)
+  vertex_tangent [V, 3] f32 tangent, or None: only with uv and a normal map
 
 A leaf holds any number of triangles (the builder's depth cap can leave
 more than leaf_size), so no triangle is ever dropped. The traversal stack
@@ -23,11 +26,14 @@ depth and the kernel refuses a tree deeper than its fixed stack.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from tracy_tpu_torch.accel.bvh_build import build_bvh_auto
+from tracy_tpu_torch.render.material import scene_has_textures
+from tracy_tpu_torch.scene.scene import TEX_NORMAL
 
 # Slots in the kernel's per-thread stack (csrc/intersect.cu STACK_MAX).
 KERNEL_STACK_MAX = 64
@@ -42,6 +48,8 @@ class BVHTables:
     tri_id: torch.Tensor
     vertex_normal: torch.Tensor
     max_depth: int  # deepest node (root = 0)
+    vertex_uv: Optional[torch.Tensor] = None
+    vertex_tangent: Optional[torch.Tensor] = None
 
     @property
     def stack_size(self) -> int:
@@ -52,6 +60,20 @@ class BVHTables:
     @property
     def device(self) -> torch.device:
         return self.node_bounds.device
+
+
+def attribute_flags(scene):
+    """(has_uv, with_tangent): which extra attributes K1 interpolates.
+
+    As tracy_tpu/ops/pallas_packet.py:448-466 decides them, on textured
+    scenes only: uv when any non-sky material references a texture (the
+    sky's uv comes from the ray direction), the tangent only with uv and a
+    normal map somewhere."""
+    if not scene_has_textures(scene):
+        return False, False
+    tex_idx = scene.materials.tex_index.cpu().numpy()
+    has_uv = bool((tex_idx[1:] >= 0).any())
+    return has_uv, has_uv and bool((tex_idx[:, TEX_NORMAL] >= 0).any())
 
 
 def build_tables(scene, leaf_size: int = 8, max_depth: int = 60) -> BVHTables:
@@ -88,6 +110,7 @@ def build_tables(scene, leaf_size: int = 8, max_depth: int = 60) -> BVHTables:
     tmeta[:, 3] = scene.tri_material.cpu().numpy()[order]
 
     dev = scene.device
+    has_uv, with_tangent = attribute_flags(scene)
     return BVHTables(
         node_bounds=torch.as_tensor(nb, device=dev),
         node_meta=torch.as_tensor(nm, device=dev),
@@ -96,4 +119,6 @@ def build_tables(scene, leaf_size: int = 8, max_depth: int = 60) -> BVHTables:
         tri_id=torch.as_tensor(order.astype(np.int32), device=dev),
         vertex_normal=scene.vertex_normal.contiguous(),
         max_depth=int(host.max_depth),
+        vertex_uv=scene.vertex_uv.contiguous() if has_uv else None,
+        vertex_tangent=scene.vertex_tangent.contiguous() if with_tangent else None,
     )

@@ -1,0 +1,87 @@
+"""Runtime render configuration of the port.
+
+The fields the port reads, with the names, defaults and string constants of
+tracy_tpu/config.py::RenderConfig. The JAX package's TPU-only knobs (the
+`pallas_*` and `use_pallas*` fields, `packet_*`, `ray_chunk`, `dtype`) have
+no meaning here and are left out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+AOV_BEAUTY = "beauty"
+AOV_BASECOLOR = "basecolor"
+AOV_NORMALS = "normals"
+AOV_METALNESS = "metalness"
+AOV_ROUGHNESS = "roughness"
+AOV_EMISSIVE = "emissive"
+AOV_DEPTH = "depth"
+AOVS = (AOV_BEAUTY, AOV_BASECOLOR, AOV_NORMALS, AOV_METALNESS, AOV_ROUGHNESS,
+        AOV_EMISSIVE, AOV_DEPTH)
+
+TONEMAP_NONE = "none"
+TONEMAP_SRGB = "srgb"
+TONEMAP_ACES = "aces"
+TONEMAP_REINHARD = "reinhard"
+TONEMAPS = (TONEMAP_NONE, TONEMAP_SRGB, TONEMAP_ACES, TONEMAP_REINHARD)
+
+ACCEL_NONE = "none"
+ACCEL_BVH = "bvh"
+ACCEL_PACKET = "packet"
+ACCEL_TLAS = "tlas"
+ACCELS = (ACCEL_NONE, ACCEL_BVH, ACCEL_PACKET, ACCEL_TLAS)
+
+RNG_FAST = "fast"
+RNG_XORSHIFT = "xorshift"
+RNG_LCG = "lcg"
+RNG_THREEFRY = "threefry"
+RNGS = (RNG_FAST, RNG_XORSHIFT, RNG_LCG, RNG_THREEFRY)
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static configuration of a render (reference CMakeLists.txt:92-116
+    defaults for the path-tracing knobs)."""
+
+    width: int = 640
+    height: int = 480
+    max_bounces: int = 5
+    russian_roulette: bool = True
+    accumulate: bool = True
+    spp: int = 1  # samples per pixel per step
+    tonemap: str = TONEMAP_SRGB
+    exposure: float = 1.0
+    aov: str = AOV_BEAUTY
+    accel: str = ACCEL_PACKET
+    bvh_leaf_size: int = 8
+    traversal_stack_depth: int = 40
+    rng: str = RNG_FAST
+    seed: int = 0xABCDEF  # reference random.h fixed seed
+    wave_compact_group: int = 0  # live-ray compaction block (0 = off)
+
+    def __post_init__(self):
+        if self.tonemap not in TONEMAPS:
+            raise ValueError(f"unknown tonemap {self.tonemap!r}; pick one of {TONEMAPS}")
+        if self.aov not in AOVS:
+            raise ValueError(f"unknown AOV {self.aov!r}; pick one of {AOVS}")
+        if self.accel not in ACCELS:
+            raise ValueError(f"unknown accel {self.accel!r}; pick one of {ACCELS}")
+        if self.rng not in RNGS:
+            raise ValueError(f"unknown rng {self.rng!r}; pick one of {RNGS}")
+        if self.max_bounces < 1:
+            raise ValueError("max_bounces must be >= 1")
+        if self.spp < 1:
+            raise ValueError("spp must be >= 1")
+
+    @property
+    def resolution(self) -> Tuple[int, int]:
+        return (self.width, self.height)
+
+    @property
+    def num_pixels(self) -> int:
+        return self.width * self.height
+
+    def replace(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from tracy_tpu_torch.core import math as tm
+from tracy_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 @dataclasses.dataclass
@@ -26,9 +27,11 @@ class Camera:
     @classmethod
     def setup(cls, eye, center, up, fov_degrees: float, aspect_ratio: float,
               znear: float = 0.1, zfar: float = 10000.0,
-              device="cpu") -> "Camera":
+              device=DEFAULT_DEVICE) -> "Camera":
         """Build from lookAt parameters (reference Camera::Setup). The
-        matrices are computed in float64 on the host, then cast once."""
+        matrices are computed in float64 on the host, then cast once, onto
+        the card by default (device="cpu" for the CPU)."""
+        device = resolve_device(device)
         view = tm.look_at(eye, center, up)
         proj = tm.perspective(tm.radians(fov_degrees), aspect_ratio, znear, zfar)
         inv_vp = np.linalg.inv(proj @ view)

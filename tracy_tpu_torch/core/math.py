@@ -118,6 +118,15 @@ def translate(t) -> np.ndarray:
     return m
 
 
+def scale(s) -> np.ndarray:
+    s = np.asarray(s, dtype=np.float64)
+    if s.ndim == 0:
+        s = np.full((3,), float(s))
+    m = np.eye(4, dtype=np.float64)
+    m[0, 0], m[1, 1], m[2, 2] = s
+    return m
+
+
 def rotate_axis(angle_radians: float, axis) -> np.ndarray:
     """Rotation about an arbitrary axis (GLM rotate)."""
     axis = np.asarray(axis, dtype=np.float64)

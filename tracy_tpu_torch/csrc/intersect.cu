@@ -20,7 +20,13 @@
 //
 // Dead rays (active == false) do no work and return a miss. Outputs per
 // ray: t (FLT_MAX on a miss), barycentric u/v, the hit mask, the winner's
-// unnormalised interpolated vertex normal, its material id and triangle id.
+// unnormalised interpolated vertex normal, its material id and triangle id;
+// on textured scenes also the interpolated texture uv and (with normal maps)
+// the unnormalised tangent, as the TPU kernel's has_uv / with_tangent rows
+// (pallas_packet.py:448-466). Those two are template parameters, so the
+// untextured launch does no extra loads or stores. Every attribute is
+// w*a0 + u*a1 + v*a2 with w = 1-u-v, in tracy_tpu/render/integrator.py's
+// order: one ulp of uv can move a texel index at a cell edge.
 
 #include <cfloat>
 #include <cstdint>
@@ -54,15 +60,29 @@ __device__ __forceinline__ bool slab(const float4* __restrict__ nb, int node,
   return tmax >= fmaxf(EPS, tmin) && tmin < best_t;
 }
 
+// Barycentric interpolation of a per-vertex attribute of width W.
+template <int W>
+__device__ __forceinline__ void interp(const float* __restrict__ attr, int4 tm,
+                                       float w, float u, float v,
+                                       float* __restrict__ out) {
+  for (int c = 0; c < W; ++c) {
+    out[c] = w * attr[W * tm.x + c] + u * attr[W * tm.y + c] +
+             v * attr[W * tm.z + c];
+  }
+}
+
+template <bool UV, bool TANGENT>
 __global__ void __launch_bounds__(BLOCK) intersect_kernel(
     const float* __restrict__ orig, const float* __restrict__ dir,
     const bool* __restrict__ active, int n, const float4* __restrict__ nb,
     const int4* __restrict__ nm, const float4* __restrict__ tri,
     const int4* __restrict__ tmeta, const int* __restrict__ tri_id,
-    const float* __restrict__ vnormal, float* __restrict__ t_out,
+    const float* __restrict__ vnormal, const float* __restrict__ vuv,
+    const float* __restrict__ vtan, float* __restrict__ t_out,
     float* __restrict__ uv_out, bool* __restrict__ mask_out,
     float* __restrict__ n_out, int* __restrict__ mat_out,
-    int* __restrict__ tri_out) {
+    int* __restrict__ tri_out, float* __restrict__ texuv_out,
+    float* __restrict__ tan_out) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   if (i >= n) return;
   float best_t = FLT_MAX, bu = 0.0f, bv = 0.0f;
@@ -127,14 +147,15 @@ __global__ void __launch_bounds__(BLOCK) intersect_kernel(
   if (best >= 0) {
     const int4 tm = tmeta[best];
     const float w = 1.0f - bu - bv;
-    for (int c = 0; c < 3; ++c) {
-      n_out[3 * i + c] = w * vnormal[3 * tm.x + c] + bu * vnormal[3 * tm.y + c] +
-                         bv * vnormal[3 * tm.z + c];
-    }
+    interp<3>(vnormal, tm, w, bu, bv, n_out + 3 * i);
+    if (UV) interp<2>(vuv, tm, w, bu, bv, texuv_out + 2 * i);
+    if (TANGENT) interp<3>(vtan, tm, w, bu, bv, tan_out + 3 * i);
     mat_out[i] = tm.w;
     tri_out[i] = tri_id[best];
   } else {
     n_out[3 * i] = n_out[3 * i + 1] = n_out[3 * i + 2] = 0.0f;
+    if (UV) texuv_out[2 * i] = texuv_out[2 * i + 1] = 0.0f;
+    if (TANGENT) tan_out[3 * i] = tan_out[3 * i + 1] = tan_out[3 * i + 2] = 0.0f;
     mat_out[i] = 0;
     tri_out[i] = 0;
   }
@@ -142,22 +163,50 @@ __global__ void __launch_bounds__(BLOCK) intersect_kernel(
   uv_out[2 * i + 1] = bv;
 }
 
+template <bool UV, bool TANGENT>
+void launch(const float* orig, const float* dir, const bool* active, int n,
+            const float* nb, const int* nm, const float* tri, const int* tmeta,
+            const int* tri_id, const float* vnormal, const float* vuv,
+            const float* vtan, float* t_out, float* uv_out, bool* mask_out,
+            float* n_out, int* mat_out, int* tri_out, float* texuv_out,
+            float* tan_out, cudaStream_t stream) {
+  intersect_kernel<UV, TANGENT><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
+      orig, dir, active, n, reinterpret_cast<const float4*>(nb),
+      reinterpret_cast<const int4*>(nm), reinterpret_cast<const float4*>(tri),
+      reinterpret_cast<const int4*>(tmeta), tri_id, vnormal, vuv, vtan, t_out,
+      uv_out, mask_out, n_out, mat_out, tri_out, texuv_out, tan_out);
+}
+
 }  // namespace
 
+// vuv/texuv_out and vtan/tan_out are null when the scene needs no texture
+// uv or tangent; a tangent without uv is refused.
 extern "C" int tracy_intersect(const float* orig, const float* dir,
                                const bool* active, int n, const float* nb,
                                const int* nm, const float* tri,
                                const int* tmeta, const int* tri_id,
-                               const float* vnormal, float* t_out,
-                               float* uv_out, bool* mask_out, float* n_out,
-                               int* mat_out, int* tri_out, void* stream) {
-  if (n > 0) {
-    intersect_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        orig, dir, active, n, reinterpret_cast<const float4*>(nb),
-        reinterpret_cast<const int4*>(nm), reinterpret_cast<const float4*>(tri),
-        reinterpret_cast<const int4*>(tmeta), tri_id, vnormal, t_out, uv_out,
-        mask_out, n_out, mat_out, tri_out);
+                               const float* vnormal, const float* vuv,
+                               const float* vtan, float* t_out, float* uv_out,
+                               bool* mask_out, float* n_out, int* mat_out,
+                               int* tri_out, float* texuv_out, float* tan_out,
+                               void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vtan != nullptr && vuv == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (vtan != nullptr) {
+    launch<true, true>(orig, dir, active, n, nb, nm, tri, tmeta, tri_id,
+                       vnormal, vuv, vtan, t_out, uv_out, mask_out, n_out,
+                       mat_out, tri_out, texuv_out, tan_out, st);
+  } else if (vuv != nullptr) {
+    launch<true, false>(orig, dir, active, n, nb, nm, tri, tmeta, tri_id,
+                        vnormal, vuv, vtan, t_out, uv_out, mask_out, n_out,
+                        mat_out, tri_out, texuv_out, tan_out, st);
+  } else {
+    launch<false, false>(orig, dir, active, n, nb, nm, tri, tmeta, tri_id,
+                         vnormal, vuv, vtan, t_out, uv_out, mask_out, n_out,
+                         mat_out, tri_out, texuv_out, tan_out, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

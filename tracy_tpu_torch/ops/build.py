@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of csrc/ as one ctypes library.
 
-`nvcc` compiles each kernel source to an object for sm_90a, then links them
-into one shared library with a plain C interface. The library is cached
+`nvcc` compiles each kernel source to an object for sm_90a, one process per
+source, all started together, then links them into one shared library with
+a plain C interface. The library is cached
 under build/kernels/<hash>/ in the repository root, keyed by a hash of the
 sources and flags, and is written to a temporary name and renamed into
 place, so several test workers may build at once. The build happens at
@@ -9,7 +10,8 @@ first use, never at import.
 
 Flags: no FMA contraction (--fmad=false) and IEEE division and square root
 (nvcc's defaults, no fast math), so that a kernel and its plain PyTorch
-version round alike.
+version round alike; `-Xptxas -v`, so that each kernel's registers and
+spills are kept in `LIBRARY.build_log`.
 """
 
 from __future__ import annotations
@@ -27,20 +29,20 @@ from typing import Dict, Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("intersect.cu", "shade.cu")
+SOURCES = ("intersect.cu", "shade.cu", "texfetch.cu")
 ARCH = "sm_90a"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xcompiler", "-fPIC"]
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 # C signatures (csrc/*.cu): every pointer and the stream as c_void_p.
 SIGNATURES = {
-    "tracy_intersect": [_C, _C, _C, _I, _C, _C, _C, _C, _C, _C,
-                        _C, _C, _C, _C, _C, _C, _C],
-    "tracy_shade": [_C, _C, _C, _C, _C, _C, _C, _C, _C, _C, _I, _C, _I,
-                    _U, _U, _U, _I, _C, _C, _C, _C, _C, _C],
+    "tracy_intersect": [_C, _C, _C, _I] + [_C] * 8 + [_C] * 8 + [_C],
+    "tracy_shade": [_C] * 10 + [_I, _C, _I, _U, _U, _U, _I] + [_C] * 5 + [_C],
+    "tracy_shade_textured": [_C] * 12 + [_I, _C, _I, _U, _U, _U, _I] + [_C] * 5 + [_C],
+    "tracy_texfetch": [_C] * 5 + [_I, _C, _C, _I, _C, _I, _C, _C],
 }
 
 
@@ -67,6 +69,7 @@ class KernelLibrary:
         self._lib: Optional[ctypes.CDLL] = None
         self.path = ""
         self.build_seconds: Dict[str, float] = {}  # per source; empty if cached
+        self.build_log: Dict[str, str] = {}  # per source: nvcc's output
 
     def get(self) -> ctypes.CDLL:
         with self._lock:
@@ -90,13 +93,21 @@ class KernelLibrary:
         nvcc = _nvcc()
         os.makedirs(out_dir, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-            objs = []
-            for name in SOURCES:
-                obj = os.path.join(tmp, name + ".o")
-                t0 = time.perf_counter()
-                _run([nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, name), "-o", obj])
+            objs = [os.path.join(tmp, name + ".o") for name in SOURCES]
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, name),
+                                       "-o", obj], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for name, obj in zip(SOURCES, objs)]
+            failed = []
+            for name, proc in zip(SOURCES, procs):
+                out, _ = proc.communicate()
                 self.build_seconds[name] = time.perf_counter() - t0
-                objs.append(obj)
+                self.build_log[name] = out
+                if proc.returncode != 0:
+                    failed.append(f"nvcc {name} failed:\n{out}")
+            if failed:
+                raise RuntimeError("\n".join(failed))
             so = os.path.join(tmp, "libtracy_kernels.so")
             _run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs])
             os.replace(so, self.path)

@@ -7,8 +7,21 @@ built without FMA contraction or fast math), so the contracts are tight:
 
 * K1: hit masks agree on >= 99.99% of rays; on rays both sides hit,
   |dt| <= 1e-5 * t + 1e-6.
-* K2: lanes whose alive flag or lobe differ <= 0.01%; every float of every
-  other lane within rtol 1e-5, atol 1e-6.
+* K2 and K4: lanes whose alive flag or lobe differ <= 0.01%; every float
+  of every other lane within rtol 1e-5, atol 1e-6.
+* K3: hit lanes' texels identical; sky lanes (misses, which address the
+  equirect through atan2f/asinf against torch's CUDA atan2/asin) on another
+  texel on at most 0.01% of lanes.
+
+Beside each kernel, `bound_ms`: the least time an H100 could take for the
+same work, the larger of the bytes it must move over 3.35 TB/s and its
+float32 operations over 67 TFLOP/s (NVIDIA's H100 SXM data sheet), with the
+counts taken from this run's inputs. The bytes count each input byte the
+work needs once, by lane class (a dead lane needs its alive flag only, a
+miss lane no hit record, a hit lane no direction for its sky texel), each
+distinct atlas texel once however many lanes read it, and each output where
+the work changes it: a K3 row only for a lane that fetched a texel, K2/K4's
+state only for the lanes the bounce moves.
 """
 
 from __future__ import annotations
@@ -20,7 +33,38 @@ import torch
 
 from tracy_tpu_torch.ops import intersect as k1
 from tracy_tpu_torch.ops import shade as k2
+from tracy_tpu_torch.ops import texfetch as k3
 from tracy_tpu_torch.render.material import RAY_OFFSET
+from tracy_tpu_torch.render.texture import SLOT_COLUMNS
+from tracy_tpu_torch.scene.scene import SKY_MATERIAL_ID, TEX_EMISSIVE, TEX_NORMAL
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# Float32 operations counted per unit of work, from csrc/: a slab test is 6
+# sub, 6 mul, 10 min/max and 3 compares, two per inner node; a triangle test
+# does at least its cross product, determinant and first compare (15) before
+# it can exit early. K3: the address math of one texel (frac, flip, clip,
+# scale: 12) and the sky's atan2 + asin (about 40). K2/K4: the shading math
+# of one live lane (about 250; K4's normal mapping about 60 more).
+OPS_INNER_NODE = 50
+OPS_TRI_TEST = 15
+OPS_TEXEL = 12
+OPS_SKY_UV = 40
+OPS_SHADE_LANE = 250
+OPS_NORMAL_MAP = 60
+
+
+def bound_ms(nbytes: float, ops: float) -> Dict[str, object]:
+    """The least time for `nbytes` moved and `ops` float32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": float(nbytes), "ops": float(ops)}
+
+
+def nbytes(*tensors) -> int:
+    return sum(0 if x is None else x.numel() * x.element_size() for x in tensors)
 
 
 def cuda_ms(fn: Callable[[], object], reps: int) -> float:
@@ -62,9 +106,12 @@ def intersect_rays(scene, tables, n: int, seed: int):
 
 
 def compare_intersect(origin, direction, active, tables) -> Dict[str, float]:
-    """K1 vs intersect_plain on CUDA tensors; raises on a broken contract."""
+    """K1 vs intersect_plain on CUDA tensors; raises on a broken contract.
+    Also K1's bound on these rays, from the node visits and triangle tests
+    the plain traversal counted."""
     got = k1.intersect(origin, direction, active, tables)
-    ref = k1.intersect_plain(origin, direction, active, tables)
+    counts = {}
+    ref = k1.intersect_plain(origin, direction, active, tables, counts=counts)
     gm, rm = got.hit.mask, ref.hit.mask
     agree = float((gm == rm).float().mean())
     both = gm & rm
@@ -77,8 +124,24 @@ def compare_intersect(origin, direction, active, tables) -> Dict[str, float]:
            "mask_agree": agree, "max_abs_err": float(err.max()) if both.any() else 0.0,
            "normal_max_abs_err": n_err,
            "material_equal": bool((got.material[same] == ref.material[same]).all())}
+    for name in ("tex_uv", "tangent"):
+        g, r = getattr(got, name), getattr(ref, name)
+        if (g is None) != (r is None):
+            raise RuntimeError(f"K1 and its plain version disagree on {name}")
+        if g is not None:
+            res[f"{name}_max_abs_err"] = (float((g[same] - r[same]).abs().max())
+                                          if same.any() else 0.0)
     if agree < 0.9999 or excess > 0.0 or not res["material_equal"]:
         raise RuntimeError(f"K1 disagrees with its plain version: {res}")
+    tb = tables
+    moved = (nbytes(origin, direction, active, *got.hit, got.normal, got.material,
+                    got.tex_uv, got.tangent)
+             + nbytes(tb.node_bounds, tb.node_meta, tb.tri, tb.tri_meta, tb.tri_id,
+                      tb.vertex_normal, tb.vertex_uv, tb.vertex_tangent))
+    ops = (OPS_INNER_NODE * float(counts["inner"]) + OPS_TRI_TEST * float(counts["tri_tests"]))
+    res.update(bound_ms(moved, ops))
+    res["inner_visits"] = int(counts["inner"])
+    res["tri_tests"] = int(counts["tri_tests"])
     return res
 
 
@@ -121,6 +184,121 @@ def compare_shade(lanes, mtab, sample_key: int, bounce: int, *, seed: int,
     kw = dict(seed=seed, russian_roulette=russian_roulette)
     got = k2.shade(*args, mtab, sample_key, bounce, **kw)
     ref = k2.shade_plain(*args, mtab, sample_key, bounce, **kw)
+    res = _bounce_agreement("K2", got, ref, decision_frac)
+    res.update(_bounce_bound(lanes, mtab, textured=False))
+    return res
+
+
+def textured_lanes(num_materials: int, n: int, seed: int, device) -> Dict[str, torch.Tensor]:
+    """canned_lanes plus what a textured bounce also reads: the texture uv
+    (with repeats and negative values) and an unnormalised tangent."""
+    lanes = canned_lanes(num_materials, n, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    f32 = np.float32
+    lanes["tex_uv"] = torch.as_tensor(rng.uniform(-1.5, 2.5, (n, 2)).astype(f32), device=device)
+    lanes["tangent"] = torch.as_tensor(rng.standard_normal((n, 3)).astype(f32), device=device)
+    return lanes
+
+
+TEXFETCH_ARGS = ("mat_id", "tex_uv", "direction", "hit_mask", "alive")
+
+
+def compare_texfetch(lanes, scene, sky_frac: float = 1e-4) -> Dict[str, object]:
+    """K3 vs fetch_texels_plain on CUDA tensors; raises on a broken contract.
+    Also returns the kernel's texel rows ("texels", for K4's comparison) and
+    the atlas rows they read ("addresses", for the index_select yardstick)."""
+    args = [lanes[k] for k in TEXFETCH_ARGS]
+    tex = (scene.tex_data, scene.tex_table, scene.materials.tex_index)
+    got = k3.fetch_texels(*args, *tex)
+    ref = k3.fetch_texels_plain(*args, *tex)
+    hit = lanes["alive"] & lanes["hit_mask"]
+    sky = lanes["alive"] & ~lanes["hit_mask"]
+    differ = (got != ref).any(dim=1)
+    res = {"lanes": args[0].shape[0], "hit_lanes": int(hit.sum()),
+           "hit_lanes_differ": int((differ & hit).sum()),
+           "sky_lanes": int(sky.sum()), "sky_lanes_differ": int((differ & sky).sum()),
+           "other_lanes_nonzero": int((got[~(hit | sky)] != 0).any(dim=1).sum()),
+           "max_abs_err": float((got - ref).abs().max())}
+    if (res["hit_lanes_differ"] or res["other_lanes_nonzero"]
+            or res["sky_lanes_differ"] > sky_frac * max(res["lanes"], 1)):
+        raise RuntimeError(f"K3 disagrees with its plain version: {res}")
+    # The bound. Inputs by lane class: every lane its alive flag, a live lane
+    # its hit flag, a hit lane its material and (where it fetches) its uv, a
+    # sky lane that fetches its direction; the two tables once; each distinct
+    # texel once (16 bytes); 11 floats (44 bytes) out for each lane that
+    # fetched. Ops:
+    # the address math of each fetch and the sky lanes' atan2 + asin.
+    tex_index = scene.materials.tex_index
+    flat = k3.texel_addresses(*args, scene.tex_table, tex_index)
+    fetched = int((flat >= 0).sum())
+    fetching = (flat >= 0).any(dim=1)
+    n_hit_fetch = int((fetching & hit).sum())
+    n_sky = int((fetching & sky).sum())
+    distinct = int(flat[flat >= 0].unique().numel())
+    moved = (res["lanes"] + int(lanes["alive"].sum()) + 4 * res["hit_lanes"]
+             + 8 * n_hit_fetch + 12 * n_sky + nbytes(scene.tex_table, tex_index)
+             + 16 * distinct + sum(SLOT_BYTES) * (n_hit_fetch + n_sky))
+    res.update(bound_ms(moved, OPS_TEXEL * fetched + OPS_SKY_UV * n_sky))
+    res["texels_fetched"] = fetched
+    res["texels_distinct"] = distinct
+    res["texels"] = got
+    res["addresses"] = flat[flat >= 0]
+    return res
+
+
+def compare_shade_textured(lanes, texels, mtab, sample_key: int, bounce: int, *,
+                           seed: int, russian_roulette: bool,
+                           decision_frac: float = 1e-4) -> Dict[str, float]:
+    """K4 vs shade_textured_plain on CUDA tensors, both on the same texel
+    rows; raises on a broken contract."""
+    args = [lanes[k] for k in SHADE_TEX_ARGS]
+    kw = dict(seed=seed, russian_roulette=russian_roulette)
+    got = k2.shade_textured(*args, texels, mtab, sample_key, bounce, **kw)
+    ref = k2.shade_textured_plain(*args, texels, mtab, sample_key, bounce, **kw)
+    res = _bounce_agreement("K4", got, ref, decision_frac)
+    res.update(_bounce_bound(lanes, mtab, textured=True))
+    return res
+
+
+SHADE_TEX_ARGS = ("origin", "direction", "throughput", "radiance", "alive",
+                  "pixel_idx", "hit_mask", "t", "normal", "tangent", "mat_id")
+# Bytes a lane of the bounce reads and writes, by class (csrc/shade.cu). A
+# dead lane reads its alive flag and its state passes through. A miss lane
+# reads alive, hit_mask, throughput and radiance and writes radiance and
+# alive. A hit lane reads alive, hit_mask, pixel_idx, mat_id, origin,
+# direction, throughput, radiance, t and normal and writes the whole state.
+DEAD_LANE_BYTES = 1
+MISS_LANE_BYTES = 2 + 24 + 12 + 1
+HIT_LANE_BYTES = 2 + 4 + 4 + 48 + 4 + 12 + 48 + 1
+# K4 also reads, on a hit lane, the texel values of each slot its material
+# has (TEX_* order) and the tangent where it has a normal map; on a miss
+# lane, the sky's three emissive texel values when the sky is textured.
+SLOT_BYTES = tuple(4 * nch for _, nch in SLOT_COLUMNS)
+TANGENT_BYTES = 12
+
+
+def _bounce_bound(lanes, mtab, *, textured: bool) -> Dict[str, object]:
+    """K2's or K4's bound on these lanes: the bytes by lane class above, the
+    material table once, and the shading math of each hit lane."""
+    alive, hit_mask = lanes["alive"], lanes["hit_mask"]
+    hit = alive & hit_mask
+    n_hit, n_miss = int(hit.sum()), int((alive & ~hit_mask).sum())
+    n_dead = alive.numel() - n_hit - n_miss
+    moved = (DEAD_LANE_BYTES * n_dead + MISS_LANE_BYTES * n_miss + HIT_LANE_BYTES * n_hit
+             + nbytes(mtab))
+    ops = OPS_SHADE_LANE * n_hit
+    if textured:
+        has = k2._material_rows(mtab, lanes["mat_id"][hit])[:, k2.HAS_COL:k2.HAS_COL + 5] > 0
+        with_slot = [int(has[:, s].sum()) for s in range(len(SLOT_BYTES))]
+        moved += sum(b * k for b, k in zip(SLOT_BYTES, with_slot))
+        moved += TANGENT_BYTES * with_slot[TEX_NORMAL]
+        if float(mtab[SKY_MATERIAL_ID, k2.HAS_COL + TEX_EMISSIVE]) > 0.0:
+            moved += SLOT_BYTES[TEX_EMISSIVE] * n_miss
+        ops += OPS_NORMAL_MAP * with_slot[TEX_NORMAL]
+    return bound_ms(moved, ops)
+
+
+def _bounce_agreement(kernel: str, got, ref, decision_frac: float) -> Dict[str, float]:
     flipped = decisions_flipped(got, ref)
     keep = ~flipped
     err, bad = 0.0, False
@@ -128,8 +306,8 @@ def compare_shade(lanes, mtab, sample_key: int, bounce: int, *, seed: int,
         g, r = g[keep], r[keep]
         err = max(err, float((g - r).abs().max()))
         bad |= bool(((g - r).abs() > 1e-6 + 1e-5 * r.abs()).any())
-    res = {"lanes": args[0].shape[0], "flipped": float(flipped.float().mean()),
+    res = {"lanes": got[0].shape[0], "flipped": float(flipped.float().mean()),
            "max_abs_err": err}
     if res["flipped"] > decision_frac or bad:
-        raise RuntimeError(f"K2 disagrees with its plain version: {res}")
+        raise RuntimeError(f"{kernel} disagrees with its plain version: {res}")
     return res

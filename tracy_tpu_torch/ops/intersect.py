@@ -9,7 +9,7 @@ same tables. The kernel replaces tracy_tpu/ops/pallas_packet.py::_kernel
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -23,17 +23,22 @@ COUNT = LaunchCount()
 
 
 class SurfaceHit(NamedTuple):
-    """A Hit plus the winner's attributes (zeros on a miss)."""
+    """A Hit plus the winner's attributes (zeros on a miss). `hit.uv` holds
+    the barycentrics; tex_uv and tangent are None unless the tables carry
+    them (accel/tables.py::attribute_flags)."""
 
     hit: Hit
     normal: torch.Tensor  # [N, 3] interpolated vertex normal, NOT normalized
     material: torch.Tensor  # [N] int32
+    tex_uv: Optional[torch.Tensor] = None  # [N, 2] interpolated texture uv
+    tangent: Optional[torch.Tensor] = None  # [N, 3] interpolated, NOT normalized
 
 
 def intersect(origin, direction, active, tables: BVHTables) -> SurfaceHit:
     """Closest front-facing hit for each ray; inactive rays miss.
 
-    origin/direction: [N, 3] float32; active: [N] bool.
+    origin/direction: [N, 3] float32; active: [N] bool. The texture uv
+    and tangent come out when the tables carry their vertex attributes.
     """
     if origin.device.type == "cpu":
         COUNT.plain += 1
@@ -49,8 +54,15 @@ def intersect(origin, direction, active, tables: BVHTables) -> SurfaceHit:
     check("tri", tables.tri, torch.float32, (nt, 12), dev)
     check("tri_meta", tables.tri_meta, torch.int32, (nt, 4), dev)
     check("tri_id", tables.tri_id, torch.int32, (nt,), dev)
-    check("vertex_normal", tables.vertex_normal, torch.float32,
-          (tables.vertex_normal.shape[0], 3), dev)
+    nv = tables.vertex_normal.shape[0]
+    check("vertex_normal", tables.vertex_normal, torch.float32, (nv, 3), dev)
+    vuv, vtan = tables.vertex_uv, tables.vertex_tangent
+    if vuv is not None:
+        check("vertex_uv", vuv, torch.float32, (nv, 2), dev)
+    if vtan is not None:
+        if vuv is None:
+            raise ValueError("vertex_tangent needs vertex_uv (tangents orient normal maps)")
+        check("vertex_tangent", vtan, torch.float32, (nv, 3), dev)
     for name, x in (("node_bounds", tables.node_bounds), ("node_meta", tables.node_meta),
                     ("tri", tables.tri), ("tri_meta", tables.tri_meta)):
         if x.data_ptr() % 16:
@@ -68,17 +80,24 @@ def intersect(origin, direction, active, tables: BVHTables) -> SurfaceHit:
     normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
     mat = torch.empty((n,), dtype=torch.int32, device=dev)
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
+    tex_uv = torch.empty((n, 2), dtype=torch.float32, device=dev) if vuv is not None else None
+    tangent = torch.empty((n, 3), dtype=torch.float32, device=dev) if vtan is not None else None
+
+    def ptr(x):
+        return 0 if x is None else x.data_ptr()
+
     lib = LIBRARY.get()
     tb = tables
     code = lib.tracy_intersect(
         origin.data_ptr(), direction.data_ptr(), active.data_ptr(), n,
         tb.node_bounds.data_ptr(), tb.node_meta.data_ptr(), tb.tri.data_ptr(),
         tb.tri_meta.data_ptr(), tb.tri_id.data_ptr(), tb.vertex_normal.data_ptr(),
-        t.data_ptr(), uv.data_ptr(), mask.data_ptr(), normal.data_ptr(),
-        mat.data_ptr(), tri.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        ptr(vuv), ptr(vtan), t.data_ptr(), uv.data_ptr(), mask.data_ptr(),
+        normal.data_ptr(), mat.data_ptr(), tri.data_ptr(), ptr(tex_uv), ptr(tangent),
+        torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("intersect", code)
     COUNT.kernel += 1
-    return SurfaceHit(Hit(t=t, tri=tri, uv=uv, mask=mask), normal, mat)
+    return SurfaceHit(Hit(t=t, tri=tri, uv=uv, mask=mask), normal, mat, tex_uv, tangent)
 
 
 def _slab(o, inv_d, bounds, best_t):
@@ -107,10 +126,14 @@ def _mt(o, d, tri, best_t):
     return valid, t, u * inv_det, v * inv_det
 
 
-def intersect_plain(origin, direction, active, tables: BVHTables) -> SurfaceHit:
+def intersect_plain(origin, direction, active, tables: BVHTables,
+                    counts: Optional[Dict[str, torch.Tensor]] = None) -> SurfaceHit:
     """The kernel's traversal as vectorised PyTorch: every live ray holds a
     current node and a stack row; each step handles one node per ray, in
-    the kernel's order, until no ray has work left."""
+    the kernel's order, until no ray has work left.
+
+    counts: if given, receives the work these rays needed, as 0-d tensors:
+    "inner" node visits (two box tests each) and "tri_tests"."""
     n = origin.shape[0]
     dev = origin.device
     nb, nm = tables.node_bounds, tables.node_meta.long()
@@ -128,10 +151,15 @@ def intersect_plain(origin, direction, active, tables: BVHTables) -> SurfaceHit:
     node = torch.zeros((n,), dtype=torch.long, device=dev)
     live = torch.nonzero(active).flatten()
 
+    n_inner = torch.zeros((), dtype=torch.int64, device=dev)
+    n_tris = torch.zeros((), dtype=torch.int64, device=dev)
     while live.numel():
         m = nm[node[live]]
         is_leaf = m[:, 1] > 0
         pop = is_leaf.clone()
+        if counts is not None:
+            n_inner += (~is_leaf).sum()
+            n_tris += m[is_leaf, 1].sum()
 
         # Leaves: test slots first .. first+count-1 in order.
         rays, first, count = live[is_leaf], m[is_leaf, 0], m[is_leaf, 1]
@@ -168,16 +196,25 @@ def intersect_plain(origin, direction, active, tables: BVHTables) -> SurfaceHit:
         done[pop] = ~has
         live = live[~done]
 
+    if counts is not None:
+        counts["inner"] = counts.get("inner", 0) + n_inner
+        counts["tri_tests"] = counts.get("tri_tests", 0) + n_tris
     mask = best >= 0
     slot = best.clamp(min=0)
     meta = tables.tri_meta[slot].long()
-    vn = tables.vertex_normal
     w = 1.0 - bu - bv
-    normal = (w[:, None] * vn[meta[:, 0]] + bu[:, None] * vn[meta[:, 1]]
-              + bv[:, None] * vn[meta[:, 2]])
+
+    def interp(attr):  # w a0 + u a1 + v a2 (integrator.py:63-72); 0 on a miss
+        if attr is None:
+            return None
+        val = (w[:, None] * attr[meta[:, 0]] + bu[:, None] * attr[meta[:, 1]]
+               + bv[:, None] * attr[meta[:, 2]])
+        return torch.where(mask[:, None], val, torch.zeros_like(val))
+
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     return SurfaceHit(
         Hit(t=best_t, tri=torch.where(mask, tables.tri_id[slot], zero),
             uv=torch.stack([bu, bv], dim=-1), mask=mask),
-        torch.where(mask[:, None], normal, torch.zeros_like(normal)),
-        torch.where(mask, meta[:, 3].to(torch.int32), zero))
+        interp(tables.vertex_normal),
+        torch.where(mask, meta[:, 3].to(torch.int32), zero),
+        interp(tables.vertex_uv), interp(tables.vertex_tangent))

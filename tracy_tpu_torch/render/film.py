@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tracy_tpu.config import RenderConfig
+from tracy_tpu_torch.config import RenderConfig
 from tracy_tpu_torch.core import math as tm
 
 

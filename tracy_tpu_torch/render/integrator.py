@@ -3,10 +3,15 @@
 Port of tracy_tpu/render/integrator.py (reference CpuTrace::Trace,
 cpu_trace.cpp:107-170). All rays advance together through a Python loop
 over bounces with masked lanes. Each bounce runs an intersector and then
-the shade stage (ops/shade.py: K2 on CUDA, its plain version on CPU):
+the shade stage: on an untextured scene K2 (ops/shade.py::shade), on a
+textured one K3 (ops/texfetch.py, the texels of each lane) and then K4
+(ops/shade.py::shade_textured). On CUDA tensors these launch the kernels;
+on CPU tensors, their plain versions.
 
 * radiance += emission * throughput on hit; throughput *= attenuation;
-* a miss adds the constant sky (material slot 0's emissive) and ends;
+* a miss adds the sky (material slot 0's emissive, or its equirect texture
+  at uv = (atan2(z, x) / 2pi, asin(y) / pi) + .5, cpu_trace.cpp:149) and
+  ends;
 * Russian roulette with p = EPS + max(throughput), survivors reweighted 1/p;
 * one ray is counted per live lane per bounce (cpu_trace.cpp:113-116).
 """
@@ -17,11 +22,19 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
-from tracy_tpu.config import RenderConfig
+from tracy_tpu_torch.config import RenderConfig
 from tracy_tpu_torch.ops.intersect import SurfaceHit
-from tracy_tpu_torch.ops.shade import build_material_table, shade
+from tracy_tpu_torch.ops.shade import (
+    build_material_table,
+    build_material_table_tex,
+    shade,
+    shade_textured,
+)
+from tracy_tpu_torch.ops.texfetch import fetch_texels
 from tracy_tpu_torch.render.intersect import intersect_bruteforce
-from tracy_tpu_torch.scene.scene import SKY_MATERIAL_ID, SceneArrays
+from tracy_tpu_torch.render.material import scene_has_textures
+from tracy_tpu_torch.render.texture import sample_nearest, sky_uv
+from tracy_tpu_torch.scene.scene import SKY_MATERIAL_ID, TEX_EMISSIVE, SceneArrays
 
 # Pseudo-bounce id of the camera jitter draws.
 JITTER_BOUNCE = 255
@@ -59,9 +72,18 @@ def interpolate_hit(scene: SceneArrays, hit, origin, direction) -> HitAttributes
 
 
 def sky_emission(scene: SceneArrays, direction) -> torch.Tensor:
-    """Sky radiance for miss lanes: slot 0's constant emissive (the port has
-    no textured sky yet)."""
-    return scene.materials.emissive[SKY_MATERIAL_ID].expand(direction.shape)
+    """Sky radiance for miss lanes via material slot 0 (cpu_trace.cpp:
+    147-156): its constant emissive, or on a textured scene whose sky has an
+    emissive texture, that equirect texture's nearest texel."""
+    m = scene.materials
+    const = m.emissive[SKY_MATERIAL_ID].expand(direction.shape)
+    if not scene_has_textures(scene):
+        return const
+    tid = int(m.tex_index[SKY_MATERIAL_ID, TEX_EMISSIVE])
+    if tid < 0:
+        return const
+    tids = torch.full(direction.shape[:-1], tid, dtype=torch.int32, device=direction.device)
+    return sample_nearest(scene.tex_data, scene.tex_table, tids, sky_uv(direction))[:, :3]
 
 
 def make_bruteforce_intersector(scene: SceneArrays, tri_chunk: int = 512) -> IntersectFn:
@@ -73,7 +95,7 @@ def make_bruteforce_intersector(scene: SceneArrays, tri_chunk: int = 512) -> Int
         hit = intersect_bruteforce(origin, direction, p0, e1, e2,
                                    tri_chunk=tri_chunk, active=active)
         attrs = interpolate_hit(scene, hit, origin, direction)
-        return SurfaceHit(hit, attrs.normal, attrs.material)
+        return SurfaceHit(hit, attrs.normal, attrs.material, attrs.uv, attrs.tangent)
 
     return intersect
 
@@ -93,7 +115,9 @@ def trace_paths(scene: SceneArrays, origin, direction, pixel_idx, sample_key: in
 
     pixel_idx: [N] int32 global pixel ids keying the RNG; sample_key: the
     frame/sample counter. active0: [N] bool, None = all live; dead lanes
-    (tile-padding rows) are never counted and gather no radiance.
+    (tile-padding rows) are never counted and gather no radiance. mtab:
+    the shade stage's material table (build_material_table, or
+    build_material_table_tex on a textured scene), None to build it here.
     Returns (radiance [N, 3], rays: a 0-d int64 tensor).
     """
     if cfg.rng != "fast":
@@ -101,7 +125,9 @@ def trace_paths(scene: SceneArrays, origin, direction, pixel_idx, sample_key: in
                          "'fast' counter hash only")
     n = origin.shape[0]
     dev = origin.device
-    mtab = build_material_table(scene.materials) if mtab is None else mtab
+    textured = scene_has_textures(scene)
+    if mtab is None:
+        mtab = (build_material_table_tex if textured else build_material_table)(scene.materials)
     s = PathState(
         origin=origin.contiguous(),
         direction=direction.contiguous(),
@@ -113,9 +139,18 @@ def trace_paths(scene: SceneArrays, origin, direction, pixel_idx, sample_key: in
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     for bounce in range(cfg.max_bounces):
         rays = rays + s.alive.sum()
-        hit, normal, mat = intersect_fn(s.origin, s.direction, s.alive)
-        s = PathState(*shade(s.origin, s.direction, s.throughput, s.radiance,
-                             s.alive, pixel_idx, hit.mask, hit.t, normal, mat,
-                             mtab, sample_key, bounce, seed=cfg.seed,
-                             russian_roulette=cfg.russian_roulette))
+        sh = intersect_fn(s.origin, s.direction, s.alive)
+        hit = sh.hit
+        if textured:
+            texels = fetch_texels(sh.material, sh.tex_uv, s.direction, hit.mask, s.alive,
+                                  scene.tex_data, scene.tex_table, scene.materials.tex_index)
+            s = PathState(*shade_textured(
+                s.origin, s.direction, s.throughput, s.radiance, s.alive, pixel_idx,
+                hit.mask, hit.t, sh.normal, sh.tangent, sh.material, texels, mtab,
+                sample_key, bounce, seed=cfg.seed, russian_roulette=cfg.russian_roulette))
+        else:
+            s = PathState(*shade(s.origin, s.direction, s.throughput, s.radiance,
+                                 s.alive, pixel_idx, hit.mask, hit.t, sh.normal,
+                                 sh.material, mtab, sample_key, bounce, seed=cfg.seed,
+                                 russian_roulette=cfg.russian_roulette))
     return s.radiance, rays

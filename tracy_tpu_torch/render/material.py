@@ -1,7 +1,8 @@
-"""Material lookup and scatter: the Unreal-ish BRDF/BTDF, untextured.
+"""Material lookup, textures and scatter: the Unreal-ish BRDF/BTDF.
 
 Port of tracy_tpu/render/material.py (reference Material::Scatter,
-src/material.h:210-268), branch-free over all lanes:
+src/material.h:210-268, and the textured parameter getters,
+material.h:164-203), branch-free over all lanes:
 
 * spec direction = lerp(reflect, normal + unit_sphere_sample, roughness);
 * BRDF: specular chance = lerp(lerp(.1, 1, metalness), 1,
@@ -10,7 +11,10 @@ src/material.h:210-268), branch-free over all lanes:
 * BTDF (translucent > EPS): inside test VdotN > EPS, Snell cosine, eta
   swap, refraction lerped to the diffuse sample by roughness, Schlick
   choosing reflection or transmission, attenuation basecolor;
-* the new origin is offset by RAY_OFFSET along the new direction.
+* the new origin is offset by RAY_OFFSET along the new direction;
+* a textured slot overrides its parameter; a normal map perturbs the
+  shading normal through the interpolated, unnormalised tangent (a
+  reference quirk kept by the JAX package).
 
 On total internal reflection the Snell cosine is clamped to 0, so the ray
 reflects (the JAX package's deliberate, NaN-free divergence from the
@@ -25,6 +29,14 @@ from typing import NamedTuple
 import torch
 
 from tracy_tpu_torch.core import math as tm
+from tracy_tpu_torch.render.texture import SLOT_COLUMNS
+from tracy_tpu_torch.scene.scene import (
+    TEX_BASECOLOR,
+    TEX_EMISSIVE,
+    TEX_METALNESS,
+    TEX_NORMAL,
+    TEX_ROUGHNESS,
+)
 
 RAY_OFFSET = 1.0e-3  # kRayOffset, material.h:213
 EPS = tm.EPS
@@ -71,6 +83,48 @@ def material_table_lookup(materials, mat_id):
     m = materials
     return (m.albedo[i], m.roughness[i], m.metalness[i], m.ior[i],
             m.emissive[i], m.translucent[i])
+
+
+def scene_has_textures(scene) -> bool:
+    """tracy_tpu's static check, quirk and all: the atlas placeholder is a
+    single texel, so a scene whose only texture is 1x1 counts as untextured."""
+    return scene.tex_data.shape[0] > 1
+
+
+def apply_textures(params: SurfaceParams, texels, has, tangent) -> SurfaceParams:
+    """The textured branch of tracy_tpu's gather_surface_params
+    (material.h:164-203), on texel rows that K3 (ops/texfetch.py) fetched.
+
+    texels: [N, TEXEL_COLS] rows (render/texture.py layout); has: [N, 5] bool,
+    slot present (TEX_* order); tangent: [N, 3] interpolated, unnormalised.
+    Normal mapping: tbn columns = [bitangent, RAW tangent, shading normal]
+    with bitangent = cross(N, normalize(T - dot(T, N) N)).
+    """
+    def col(slot):
+        return texels[:, SLOT_COLUMNS[slot][0]]
+
+    def rgb(slot):
+        return texels[:, SLOT_COLUMNS[slot][0]:SLOT_COLUMNS[slot][0] + 3]
+
+    n = params.normal
+    n_tex = rgb(TEX_NORMAL) * 2.0 - 1.0
+    t_ortho = tm.normalize(tangent - tm.dot(tangent, n) * n)
+    bitangent = tm.cross(n, t_ortho)
+    mapped = tm.normalize(bitangent * n_tex[:, 0:1] + tangent * n_tex[:, 1:2]
+                          + n * n_tex[:, 2:3])
+    return SurfaceParams(
+        basecolor=torch.where(has[:, TEX_BASECOLOR, None], rgb(TEX_BASECOLOR),
+                              params.basecolor),
+        roughness=torch.where(has[:, TEX_ROUGHNESS], col(TEX_ROUGHNESS),
+                              params.roughness),
+        metalness=torch.where(has[:, TEX_METALNESS], col(TEX_METALNESS),
+                              params.metalness),
+        ior=params.ior,
+        emissive=torch.where(has[:, TEX_EMISSIVE, None], rgb(TEX_EMISSIVE),
+                             params.emissive),
+        translucent=params.translucent,
+        normal=torch.where(has[:, TEX_NORMAL, None], mapped, n),
+    )
 
 
 def scatter(ray_dir, hit_point, params: SurfaceParams, u_sphere_z, u_sphere_phi,

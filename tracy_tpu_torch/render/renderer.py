@@ -5,8 +5,11 @@ cfg.spp samples per pixel: jittered camera rays, the bounce loop,
 accumulation. MRays/s counts one ray per live lane per bounce, the
 reference's accounting (win_raytracer.cpp:521-553).
 
-Each bounce runs K1 (ops/intersect.py) over the BVH tables, then K2
-(ops/shade.py); RenderConfig's accel must be 'packet'. The image is folded
+Each bounce runs K1 (ops/intersect.py) over the BVH tables, then on an
+untextured scene K2 (ops/shade.py), on a textured one K3 (ops/texfetch.py)
+and K4 (ops/shade.py::shade_textured), K1 then also interpolating the
+texture uv and, with normal maps, the tangent. RenderConfig's accel must
+be 'packet'. The image is folded
 into 32x32-pixel tiles, so that neighbouring rays of a wave are neighbours
 on screen. On CUDA tensors both stages launch their kernels; on CPU tensors,
 their plain versions.
@@ -21,14 +24,15 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from tracy_tpu.config import RenderConfig
+from tracy_tpu_torch.config import RenderConfig
 from tracy_tpu_torch.accel.tables import BVHTables, build_tables
 from tracy_tpu_torch.core.camera import pixel_samples_rows
 from tracy_tpu_torch.core.rng import RngSpec
 from tracy_tpu_torch.ops.intersect import intersect
-from tracy_tpu_torch.ops.shade import build_material_table
+from tracy_tpu_torch.ops.shade import build_material_table, build_material_table_tex
 from tracy_tpu_torch.render import film
 from tracy_tpu_torch.render.integrator import JITTER_BOUNCE, trace_paths
+from tracy_tpu_torch.render.material import scene_has_textures
 from tracy_tpu_torch.scene.scene import SceneArrays
 
 
@@ -159,7 +163,9 @@ class Renderer:
         self.tables = build_tables(scene, leaf_size=self.cfg.bvh_leaf_size,
                                    max_depth=max(self.cfg.traversal_stack_depth - 4, 8))
         self._intersect = functools.partial(intersect, tables=self.tables)
-        self._mtab = build_material_table(scene.materials)
+        textured = scene_has_textures(scene)
+        self._mtab = (build_material_table_tex if textured
+                      else build_material_table)(scene.materials)
 
     def reset(self, device) -> RenderState:
         self.total_rays = 0

@@ -1,8 +1,12 @@
 """Scene container: host-side builder -> flat tensors on one device.
 
-Port of tracy_tpu/scene/scene.py, untextured. The scene is a global triangle
-soup with a shared vertex buffer, a SoA material table and the camera.
-Material slot 0 is the sky (reference scene.h:21).
+Port of tracy_tpu/scene/scene.py. The scene is a global triangle soup with a
+shared vertex buffer, a SoA material table, a flat texture atlas
+(scene/textures.py) and the camera. Material slot 0 is the sky (reference
+scene.h:21); its emissive texture slot holds the equirect sky.
+
+`SceneBuilder.build()` puts the tensors on the card unless the caller asks
+for the CPU (`build(device="cpu")`).
 """
 
 from __future__ import annotations
@@ -13,16 +17,17 @@ from typing import List
 import numpy as np
 import torch
 
-from tracy_tpu.utils.log import log
 from tracy_tpu_torch.core.camera import Camera
 from tracy_tpu_torch.scene import tessellate
 from tracy_tpu_torch.scene.hostmesh import HostMesh
+from tracy_tpu_torch.scene.textures import TextureAtlas
+from tracy_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from tracy_tpu_torch.utils.log import log
 
 SKY_MATERIAL_ID = 0
+# Texture slot order matches reference Material::TextureID (material.h:17).
+TEX_BASECOLOR, TEX_NORMAL, TEX_ROUGHNESS, TEX_METALNESS, TEX_EMISSIVE = range(5)
 NUM_TEX_SLOTS = 5
-
-TEXTURED_SLICE = ("textures, textured skies and OBJ meshes belong to the "
-                  "port's textured slice, which is not ported yet")
 
 
 @dataclasses.dataclass
@@ -38,9 +43,12 @@ class HostMaterial:
     ior: float = 1.0
     emissive_multiplier: float = 0.0
     translucency: float = 0.0
+    textures: np.ndarray = None  # [5] int, -1 = unset
 
     def __post_init__(self):
         self.albedo = np.asarray(self.albedo, dtype=np.float64).reshape(3)
+        if self.textures is None:
+            self.textures = np.full((NUM_TEX_SLOTS,), -1, dtype=np.int32)
 
     @property
     def emissive(self) -> np.ndarray:
@@ -57,7 +65,7 @@ class MaterialTable:
     ior: torch.Tensor  # [M]
     emissive: torch.Tensor  # [M, 3] (premultiplied)
     translucent: torch.Tensor  # [M]
-    tex_index: torch.Tensor  # [M, 5] int32, always -1 here
+    tex_index: torch.Tensor  # [M, 5] int32, -1 = none
 
     @property
     def num_materials(self) -> int:
@@ -75,8 +83,8 @@ class SceneArrays:
     indices: torch.Tensor  # [T, 3] int32
     tri_material: torch.Tensor  # [T] int32
     materials: MaterialTable
-    tex_data: torch.Tensor  # [1, 4] f32 placeholder texel (no textures)
-    tex_table: torch.Tensor  # [1, 4] int32
+    tex_data: torch.Tensor  # [P, 4] f32 atlas (one white texel if none)
+    tex_table: torch.Tensor  # [K, 4] int32 (offset, width, height, 0)
     camera: Camera
     width: int = 640
     height: int = 480
@@ -97,8 +105,13 @@ class SceneArrays:
 
 
 class SceneBuilder:
-    """Host-side scene assembly (reference Scene::AddSphere/AddBox/AddTriangle,
-    scene.h:24-32)."""
+    """Host-side scene assembly (reference Scene::AddSphere/AddBox/AddTriangle/
+    AddMesh/AddTexture, scene.h:24-32).
+
+    `fallbacks` lists every texture or mesh file the parser could not load
+    and replaced (a grey texel, the procedural sky) or skipped, as the JAX
+    package does; a caller that must not render a substitute checks it.
+    """
 
     def __init__(self, width: int = 640, height: int = 480, name: str = ""):
         self.width = width
@@ -107,6 +120,8 @@ class SceneBuilder:
         self.meshes: List[HostMesh] = []
         # Slot 0 = sky (default: black emissive), like the reference.
         self.materials: List[HostMaterial] = [HostMaterial(albedo=np.zeros(3))]
+        self.atlas = TextureAtlas()
+        self.fallbacks: List[str] = []
         self.camera_params = dict(
             eye=(0.0, 0.0, 1.0), center=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0), fov_degrees=60.0
         )
@@ -122,10 +137,23 @@ class SceneBuilder:
         )
         return len(self.materials) - 1
 
+    def add_texture(self, image: np.ndarray, srgb: bool = False) -> int:
+        return self.atlas.add(image, srgb=srgb)
+
+    def set_material_texture(self, material_id: int, slot: int, texture_id: int):
+        self.materials[material_id].textures[slot] = texture_id
+        return self
+
     def set_sky_color(self, albedo):
         """SKY constant: Material(albedo, 0, 0, 0, 1) per scene.cpp:368."""
-        self.materials[SKY_MATERIAL_ID] = HostMaterial(
-            albedo, roughness=0.0, metalness=0.0, ior=0.0, emissive_multiplier=1.0)
+        sky = HostMaterial(albedo, roughness=0.0, metalness=0.0, ior=0.0,
+                           emissive_multiplier=1.0)
+        sky.textures = self.materials[SKY_MATERIAL_ID].textures
+        self.materials[SKY_MATERIAL_ID] = sky
+        return self
+
+    def set_sky_texture(self, texture_id: int):
+        self.materials[SKY_MATERIAL_ID].textures[TEX_EMISSIVE] = texture_id
         return self
 
     def _add(self, mesh: HostMesh, material_id: int) -> HostMesh:
@@ -142,8 +170,22 @@ class SceneBuilder:
     def add_triangle(self, v1, v2, v3, material_id: int) -> HostMesh:
         return self._add(tessellate.triangle(v1, v2, v3), material_id)
 
-    def build(self, device="cpu") -> SceneArrays:
-        """Flatten into tensors on `device` (float32 / int32)."""
+    def add_mesh(self, mesh: HostMesh, material_id: int, transform=None,
+                 compute_normals: bool = False) -> HostMesh:
+        """Mirrors Scene::AddMesh (scene.cpp:224-229): transform, bbox, then
+        (optionally) flat normals, then tangents."""
+        if transform is not None:
+            mesh.transform(transform)
+        mesh.compute_bounding_box()
+        if compute_normals:
+            mesh.compute_normals()
+        mesh.compute_tangents()
+        return self._add(mesh, material_id)
+
+    def build(self, device=DEFAULT_DEVICE) -> SceneArrays:
+        """Flatten into tensors on `device` (float32 / int32): the card by
+        default; raises if there is none. Pass device="cpu" for the CPU."""
+        device = resolve_device(device)
         if self.meshes:
             pos, nrm, uv, tan, idx, mat = [], [], [], [], [], []
             voffset = 0
@@ -180,12 +222,12 @@ class SceneBuilder:
             mat_ior=[m.ior for m in mats],
             mat_emissive=np.stack([m.emissive for m in mats]),
             mat_translucent=[m.translucency for m in mats],
-            mat_tex_index=np.full((len(mats), NUM_TEX_SLOTS), -1, np.int32),
-            tex_data=np.ones((1, 4), np.float32),
-            tex_table=np.array([[0, 1, 1, 0]], np.int32),
+            mat_tex_index=np.stack([m.textures for m in mats]),
         )
-        log("scene '%s': %d objects, %d tris, %d verts, %d materials"
-            % (self.name, len(self.meshes), len(idx), len(pos), len(mats)))
+        arrays["tex_data"], arrays["tex_table"] = self.atlas.pack()
+        log("scene '%s': %d objects, %d tris, %d verts, %d materials, %d textures"
+            % (self.name, len(self.meshes), len(idx), len(pos), len(mats),
+               len(self.atlas)))
         camera = Camera.setup(
             aspect_ratio=float(self.width) / float(max(self.height, 1)),
             device=device, **self.camera_params)
@@ -226,14 +268,14 @@ def _scene_from_arrays(a: dict, camera: Camera, width: int, height: int,
     )
 
 
-def from_jax_arrays(src, device="cpu") -> SceneArrays:
-    """The port's SceneArrays from a tracy_tpu SceneArrays.
+def from_jax_arrays(src, device=DEFAULT_DEVICE) -> SceneArrays:
+    """The port's SceneArrays from a tracy_tpu SceneArrays, textures and
+    all, on the card by default (device="cpu" for the CPU).
 
     `src` is read only through numpy (np.asarray of its fields), so this
     module needs no jax; a test can hand both packages the very same scene.
     """
-    if np.asarray(src.tex_data).shape[0] > 1:
-        raise NotImplementedError(TEXTURED_SLICE)
+    device = resolve_device(device)
     m, cam = src.materials, src.camera
     a = dict(
         vertex_pos=src.vertex_pos, vertex_normal=src.vertex_normal,
