@@ -6,22 +6,33 @@
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit;
-2. build: nvcc builds the three kernel sources of csrc/ for sm_90a, one
+2. build: nvcc builds the five kernel sources of csrc/ for sm_90a, one
    process per source, all at once;
-3. kernel vs plain: K1 (intersect), K2 (shade), K3 (texel fetch) and K4
-   (textured shade) against their plain PyTorch versions on the same CUDA
-   tensors at the main path's wave shape (2,088,960 lanes), K3 and K4 on
-   both canned lanes and the real lanes of the textured scene; then each
-   one's time beside its plain version's, its bound and, for K3, a
+3. kernel vs plain: K1 (intersect), K2 (shade), K3 (texel fetch), K4
+   (textured shade) and K5 (fused bounce) against their plain PyTorch
+   versions on the same CUDA tensors at the main path's wave shape
+   (2,088,960 lanes), K3 and K4 on both canned lanes and the real lanes of
+   the textured scene, K5 on the real lanes of grid64x28 and also against
+   K1 then K2 on the same lanes (all five outputs equal); then each one's
+   time beside its plain version's, its bound and, for K3, a
    `tex_data.index_select` of the same texels as a yardstick;
-4. main path: Renderer.step_many at 1920x1080, 4 progressive frames of
-   1 spp, 5 bounces, on grid64x28 (100,748 triangles: K1 + K2) and on
-   grid64x28-tex, the same geometry with helmet-sized maps (K1 + K3 + K4);
-   each path must launch its kernels and no plain version; then where the
-   device time of one more such run goes (torch.profiler);
-5. physics: furnace.scn (untextured) and spheres.scn (HDR equirect sky,
-   textured path) at 256x192 for 24 frames against the reference's own
-   renders (tests/goldens/ref/*.npz), linear block means.
+4. main paths: Renderer.step_many at 1920x1080, 4 progressive frames of
+   1 spp, 5 bounces, on grid64x28 (100,748 triangles) compacted as
+   bench.py's main path is (pick_compact_group: group 262,144, bounce 0
+   uncompacted; K1 + K2), uncompacted, and fused (K5, compacted), and on
+   grid64x28-tex, the same geometry with helmet-sized maps (K1 + K3 + K4),
+   compacted and uncompacted; each path must launch exactly its kernels
+   and no plain version, and each path's accumulator must equal the other
+   paths' of its scene; each path is timed 5 times, in turn with the
+   others; then where the device time of one more such run goes
+   (torch.profiler), and the live-lane fraction of each bounce of one
+   frame with the compaction round trip's time at that wave;
+5. physics: furnace.scn (untextured; also on the fused, compacted path)
+   and spheres.scn (HDR equirect sky, textured path) at 256x192 for 24
+   frames against the reference's own renders (tests/goldens/ref/*.npz),
+   linear block means;
+6. K6: each variant of the leaf-visit microbenchmark against its plain
+   version, and its nanoseconds per iteration.
 
 Prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
@@ -43,6 +54,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0xABCDEF
 WIDTH, HEIGHT, FRAMES = 1920, 1080, 4
+REPEATS = 5  # timed runs of each main path
 MAP_SIZE = 2048  # helmet.scn's maps are 2048x2048
 SKY_SIZE = (1024, 2048)  # rows, columns of the equirect sky
 
@@ -100,7 +112,13 @@ def textured_grid(width: int, height: int, map_size: int = MAP_SIZE,
 # The __global__ name of each kernel in csrc/, as the profiler's demangled
 # kernel names give it after the return type and namespace.
 KERNEL_NAMES = {"intersect_kernel": "K1", "shade_kernel": "K2",
-                "texfetch_kernel": "K3", "shade_textured_kernel": "K4"}
+                "texfetch_kernel": "K3", "shade_textured_kernel": "K4",
+                "bounce_kernel": "K5", "micro_kernel": "K6"}
+# The torch kernels of wave compaction's routing (accel/reorder.py): the
+# alive mask's cumsum, the inverse permutation's index_copy_, and the
+# index_select gathers down and back.
+ROUTING = re.compile(r"index_copy|indexSelect|index_select|scatter_gather|scan",
+                     re.IGNORECASE)
 
 
 def device_breakdown(run, counts) -> str:
@@ -120,6 +138,7 @@ def device_breakdown(run, counts) -> str:
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     ms, launches, glue = {}, {}, {}
+    routing = 0.0
     first, last = float("inf"), 0.0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -129,6 +148,8 @@ def device_breakdown(run, counts) -> str:
         base = re.split(r"[<(]", re.sub(r"^void |\(anonymous namespace\)::", "", e.name), 1)[0]
         k = KERNEL_NAMES.get(base)
         if k is None:  # label a torch kernel by its functor
+            if ROUTING.search(e.name):
+                routing += t
             label = re.sub(r"^void at::native::(\w+::)*\w+<\d+, (at::native::)?", "", e.name)
             glue[label[:70]] = glue.get(label[:70], 0.0) + t
         else:
@@ -142,10 +163,52 @@ def device_breakdown(run, counts) -> str:
     span = (last - first) / 1e3
     top = sorted(glue.items(), key=lambda kv: -kv[1])[:4]
     return (", ".join(f"{k} {ms[k]:.3f} ms ({launches[k]} launches)" for k in sorted(ms))
-            + f", torch ops {sum(glue.values()):.3f} ms in {len(glue)} kinds (largest: "
+            + f", torch ops {sum(glue.values()):.3f} ms in {len(glue)} kinds (of which "
+            f"compaction routing {routing:.3f} ms; largest: "
             + "; ".join(f"{n} {t:.3f} ms" for n, t in top)
             + f"); busy {busy:.3f} ms of a {span:.3f} ms device span, idle "
             f"{max(0.0, 1.0 - busy / span):.1%}; host wall {wall_ms:.3f} ms, all under the profiler")
+
+
+def ptxas_summary(log: str) -> str:
+    """Registers, stack frame and spill stores of each kernel in nvcc's
+    -Xptxas -v output, by __global__ name and template arguments."""
+    out = []
+    for fn, stack, spill, regs in re.findall(
+            r"Function properties for (\S+)\s+(\d+) bytes stack frame, (\d+) bytes "
+            r"spill stores.*?Used (\d+) registers", log, re.S):
+        base = next((k for k in KERNEL_NAMES if k in fn), fn)
+        tmpl = re.search(re.escape(base) + r"I(\w+?)EEv", fn)
+        label = base + (f"<{tmpl.group(1)}>" if tmpl else "")
+        out.append(f"{label} {regs} registers, {stack} B stack, {spill} B spilled")
+    return "; ".join(out)
+
+
+def live_lanes(scene, cfg, tables, frame: int = 0):
+    """Per bounce of one frame (uncompacted, K1 + K2): the live lanes, the
+    32-lane warps that hold a live lane, and the warps that would hold one
+    after compaction with cfg.wave_compact_group; and the rays of bounce 1,
+    to time the compaction round trip on."""
+    from tracy_tpu_torch.ops import intersect as k1
+    from tracy_tpu_torch.render.renderer import sample_radiance_rows
+
+    group = cfg.wave_compact_group
+    seen = []
+
+    def record(o, d, a):
+        seen.append((o, d, a))
+        return k1.intersect(o, d, a, tables)
+
+    sample_radiance_rows(scene, cfg.replace(wave_compact_group=0), frame, record)
+    rows = []
+    for _, _, a in seen:
+        n = a.numel()
+        npad = -(-n // group) * group
+        per_block = torch.nn.functional.pad(a.int(), (0, npad - n)).view(-1, group).sum(1)
+        rows.append({"live": int(a.sum()), "lanes": n,
+                     "warps_live": int(a.view(-1, 32).any(1).sum()), "warps": n // 32,
+                     "warps_live_compacted": int(((per_block + 31) // 32).sum())})
+    return rows, seen[1]
 
 
 def main() -> int:
@@ -154,16 +217,20 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from tracy_tpu_torch import RenderConfig
+    from tracy_tpu_torch.accel.reorder import pick_compact_group
+    from tracy_tpu_torch.ops import bounce as k5
     from tracy_tpu_torch.ops import build, compare
     from tracy_tpu_torch.ops import intersect as k1
     from tracy_tpu_torch.ops import shade as k2
     from tracy_tpu_torch.ops import texfetch as k3
     from tracy_tpu_torch.render.renderer import Renderer, init_state, pick_tile
     from tracy_tpu_torch.scene import load_scene, sphere_grid
+    from tracy_tpu_torch.tools import micro as k6
     from tracy_tpu_torch.utils import parity
 
     dev = torch.device("cuda", 0)
-    counts = {"K1": k1.COUNT, "K2": k2.COUNT, "K3": k3.COUNT, "K4": k2.COUNT_TEX}
+    counts = {"K1": k1.COUNT, "K2": k2.COUNT, "K3": k3.COUNT, "K4": k2.COUNT_TEX,
+              "K5": k5.COUNT}
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -184,9 +251,7 @@ def main() -> int:
           + f"; total with link and load {time.perf_counter() - t0:.1f} s"
           + ("" if secs else " (cached)"))
     for src, log in build.LIBRARY.build_log.items():
-        print(f"  ptxas {src}: registers per kernel "
-              + ", ".join(re.findall(r"Used (\d+) registers", log))
-              + "; bytes of spill stores " + ", ".join(re.findall(r"(\d+) bytes spill stores", log)))
+        print(f"  ptxas {src}: " + ptxas_summary(log))
 
     # 3. kernel vs plain
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, max_bounces=5,
@@ -202,6 +267,11 @@ def main() -> int:
           f"BVH nodes, depth {tables.max_depth}; host build {time.perf_counter() - t0:.1f} s")
     if scene.num_triangles != 100_748:
         raise RuntimeError(f"grid64x28 should hold 100,748 triangles, got {scene.num_triangles}")
+    # bench.py's compaction group for this scene at this resolution.
+    group = pick_compact_group(WIDTH * HEIGHT, num_tris=builder.num_triangles,
+                               has_translucent=builder.has_translucent)
+    if group != 262_144:
+        raise RuntimeError(f"pick_compact_group gave {group} for grid64x28, not 262,144")
 
     t0 = time.perf_counter()
     tbuilder = textured_grid(WIDTH, HEIGHT)
@@ -271,6 +341,20 @@ def main() -> int:
                   f"{c['flipped']:.6f} (<= 1e-4), max abs err {c['max_abs_err']:.3g} "
                   f"(rtol 1e-5, atol 1e-6)")
 
+    # K5 on the real lanes of the grid64x28 wave, with grid64x28's materials
+    # and the canned lanes' throughput, radiance and pixel ids.
+    mtab_g = k2.build_material_table(scene.materials)
+    glanes = compare.canned_lanes(mtab_g.shape[0], wave, seed=4, device=dev)
+    blanes = dict(glanes, origin=o, direction=d, alive=a)
+    c5 = {}
+    for rr in (True, False):
+        c5[rr] = compare.compare_bounce(blanes, tables, mtab_g, 3, 1, seed=SEED,
+                                        russian_roulette=rr)
+        print(f"K5 vs plain, {c5[rr]['lanes']} real lanes of grid64x28, RR {rr}: decisions "
+              f"flipped {c5[rr]['flipped']:.6f} (<= 1e-4), max abs err "
+              f"{c5[rr]['max_abs_err']:.3g} (rtol 1e-5, atol 1e-6); vs K1 then K2 on the "
+              f"same lanes, outputs equal {c5[rr]['equal_to_k1_k2']} (all must be)")
+
     t_k1 = compare.cuda_ms(lambda: k1.intersect(o, d, a, tables), 10)
     t_p1 = compare.cuda_ms(lambda: k1.intersect_plain(o, d, a, tables), 1)
     t_k1t = compare.cuda_ms(lambda: k1.intersect(to, td, ta, ttables), 10)
@@ -288,9 +372,20 @@ def main() -> int:
     texels = c3["real"]["texels"]
     t_k4 = compare.cuda_ms(lambda: k2.shade_textured(*sargs, texels, mtab_t, 3, 1, **kw), 20)
     t_p4 = compare.cuda_ms(lambda: k2.shade_textured_plain(*sargs, texels, mtab_t, 3, 1, **kw), 3)
-    b3, b4 = c3["real"], c4[("real", True)]
-    print(f"time at the 1080p wave ({wave} lanes; K1 on half camera, half secondary rays; "
-          f"K3/K4 on the real lanes of grid64x28-tex) {card}:")
+    bargs = [blanes[k] for k in compare.BOUNCE_ARGS]
+    bkw = dict(tables=tables, mtab=mtab_g, **kw)
+    t_k5 = compare.cuda_ms(lambda: k5.trace_bounce(*bargs, 3, 1, **bkw), 10)
+    t_p5 = compare.cuda_ms(lambda: k5.trace_bounce_plain(*bargs, 3, 1, **bkw), 1)
+
+    def two_stage():
+        sh = k1.intersect(o, d, a, tables)
+        return k2.shade(*bargs[:6], sh.hit.mask, sh.hit.t, sh.normal, sh.material, mtab_g,
+                        3, 1, **kw)
+
+    t_k12 = compare.cuda_ms(two_stage, 10)
+    b3, b4, b5 = c3["real"], c4[("real", True)], c5[True]
+    print(f"time at the 1080p wave ({wave} lanes; K1 and K5 on half camera, half secondary "
+          f"rays; K3/K4 on the real lanes of grid64x28-tex) {card}:")
     print(f"  K1 {t_k1:.3f} ms vs plain {t_p1:.1f} ms, bound {c1['bound_ms']:.4f} ms "
           f"({c1['bound_by']}: {c1['bytes']:.4g} B, {c1['ops']:.4g} ops); "
           f"K1 uv+tangent on grid64x28-tex {t_k1t:.3f} ms, bound {c1t['bound_ms']:.4f} ms")
@@ -301,48 +396,105 @@ def main() -> int:
           f"({b3['bound_by']}: {b3['bytes']:.4g} B, {b3['ops']:.4g} ops)")
     print(f"  K4 {t_k4:.3f} ms vs plain {t_p4:.3f} ms, bound {b4['bound_ms']:.4f} ms "
           f"({b4['bound_by']}: {b4['bytes']:.4g} B)")
+    print(f"  K5 {t_k5:.3f} ms vs plain {t_p5:.1f} ms, bound {b5['bound_ms']:.4f} ms "
+          f"({b5['bound_by']}: {b5['bytes']:.4g} B, {b5['ops']:.4g} ops; {b5['hit_lanes']} hit, "
+          f"{b5['miss_lanes']} miss, {b5['dead_lanes']} dead lanes); K1 then K2 on the same "
+          f"lanes {t_k12:.3f} ms")
 
     # 4. main paths
+    ccfg = cfg.replace(wave_compact_group=group)
+    paths = (("grid64x28 compacted", scene, ccfg, ("K1", "K2")),
+             ("grid64x28", scene, cfg, ("K1", "K2")),
+             ("grid64x28 fused", scene, ccfg.replace(use_pallas_bounce=True), ("K5",)),
+             ("grid64x28-tex compacted", tscene, ccfg, ("K1", "K3", "K4")),
+             ("grid64x28-tex", tscene, cfg, ("K1", "K3", "K4")))
     print("config: " + json.dumps({"width": cfg.width, "height": cfg.height, "spp": cfg.spp,
                                    "frames": FRAMES, "max_bounces": cfg.max_bounces,
                                    "russian_roulette": cfg.russian_roulette,
                                    "tonemap": cfg.tonemap, "accel": cfg.accel,
-                                   "rng": cfg.rng, "wave_compact_group": 0,
+                                   "rng": cfg.rng, "wave_compact_group": group,
+                                   "wave_compact_skip_first": ccfg.wave_compact_skip_first,
                                    "bvh_leaf_size": cfg.bvh_leaf_size,
-                                   "scenes": ["grid64x28", "grid64x28-tex"]}))
-    launches = {}
-    for sname, sc, rend, need in (("grid64x28", scene, r, ("K1", "K2")),
-                                  ("grid64x28-tex", tscene, rt, ("K1", "K3", "K4"))):
-        rend.step_many(sc, init_state(cfg, dev), 1)  # warm-up frame
-        rend.reset(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        for c in counts.values():
-            c.reset()
-        state, nrays = rend.step_many(sc, init_state(cfg, dev), FRAMES)
-        got = {k: (c.kernel, c.plain) for k, c in counts.items()}
-        launches[sname] = {k: kern for k, (kern, _) in got.items()}
-        peak = torch.cuda.max_memory_allocated(dev) / 1e9
-        img = rend.display(state)
-        if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(state.accum.cpu().numpy()).all():
-            raise RuntimeError(f"{sname} image: shape {img.shape} or non-finite values")
-        for kname, (kern, plain) in got.items():
-            want = cfg.max_bounces * FRAMES if kname in need else 0
-            if (kern < want if want else kern != 0) or plain != 0:
-                raise RuntimeError(f"{sname}: {kname} {kern} kernel launches, {plain} plain runs")
-        print(f"main path {sname}: {sc.num_triangles} triangles, {FRAMES} frames, {nrays} rays "
-              f"in {rend.total_seconds:.4f} s = {rend.mrays_per_sec:.2f} MRays/s {card}; "
-              f"launches " + ", ".join(f"{k} {v[0]}" for k, v in got.items())
-              + f", plain {sum(v[1] for v in got.values())}; peak device memory "
-              f"{peak:.2f} GB; image mean {float(state.accum.mean()):.4f}")
-        print(f"  device time of {FRAMES} more frames {card}: " + device_breakdown(
-            lambda: rend.step_many(sc, init_state(cfg, dev), FRAMES), counts))
+                                   "paths": [p[0] for p in paths]}))
+    # Every path is timed REPEATS times, the paths in turn, before any of
+    # them runs under the profiler (a profiled window leaves the host
+    # slower for later runs).
+    rends, launches, accum, rates, peak = {}, {}, {}, {}, {}
+    for pname, sc, pcfg, need in paths:
+        rend = Renderer(pcfg)
+        rend.step_many(sc, init_state(pcfg, dev), 1)  # warm-up frame
+        want_path = "fused" if "K5" in need else "two-stage"
+        if rend.path != want_path:
+            raise RuntimeError(f"{pname}: the renderer bound the {rend.path} path")
+        rends[pname] = rend
+        rates[pname] = []
+    for rep in range(REPEATS):
+        for pname, sc, pcfg, need in paths:
+            rend = rends[pname]
+            rend.reset(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            for c in counts.values():
+                c.reset()
+            state, nrays = rend.step_many(sc, init_state(pcfg, dev), FRAMES)
+            got = {k: (c.kernel, c.plain) for k, c in counts.items()}
+            for kname, (kern, plain) in got.items():
+                want = pcfg.max_bounces * FRAMES if kname in need else 0
+                if kern != want or plain != 0:
+                    raise RuntimeError(f"{pname}: {kname} {kern} kernel launches (want "
+                                       f"{want}), {plain} plain runs")
+            rates[pname].append(rend.mrays_per_sec)
+            if rep == 0:
+                launches[pname] = {k: kern for k, (kern, _) in got.items()}
+                accum[pname] = state.accum
+                peak[pname] = torch.cuda.max_memory_allocated(dev) / 1e9
+                img = rend.display(state)
+                if (img.shape != (HEIGHT, WIDTH, 3)
+                        or not np.isfinite(state.accum.cpu().numpy()).all()):
+                    raise RuntimeError(f"{pname} image: shape {img.shape} or non-finite values")
+                print(f"main path {pname} ({rend.path}, group {pcfg.wave_compact_group}): "
+                      f"{sc.num_triangles} triangles, {FRAMES} frames, {nrays} rays; launches "
+                      + ", ".join(f"{k} {v[0]}" for k, v in got.items())
+                      + f", plain {sum(v[1] for v in got.values())}; peak device memory "
+                      f"{peak[pname]:.2f} GB; image mean {float(state.accum.mean()):.4f}")
+    for pname, sc, pcfg, _ in paths:
+        r_ = sorted(rates[pname])
+        print(f"main path {pname}: MRays/s over {REPEATS} runs of {FRAMES} frames, taken in "
+              f"turn with the other paths {card}: median {r_[len(r_) // 2]:.2f}, min "
+              f"{r_[0]:.2f}, max {r_[-1]:.2f}")
+    for pname, sc, pcfg, _ in paths:
+        rend = rends[pname]
+        print(f"  {pname}: device time of {FRAMES} more frames {card}: " + device_breakdown(
+            lambda: rend.step_many(sc, init_state(pcfg, dev), FRAMES), counts))
+    for ref, others in (("grid64x28", ("grid64x28 compacted", "grid64x28 fused")),
+                        ("grid64x28-tex", ("grid64x28-tex compacted",))):
+        same = {p: bool(torch.equal(accum[p], accum[ref])) for p in others}
+        print(f"accumulators equal to {ref}'s: {same}")
+        if not all(same.values()):
+            raise RuntimeError(f"accumulators differ from {ref}'s: {same}")
+
+    rows, (lo, ld, la) = live_lanes(scene, ccfg, tables)
+    print(f"live lanes per bounce of frame 0, grid64x28, {rows[0]['lanes']} lanes in "
+          f"{rows[0]['warps']} warps of 32 (warps holding a live lane: as traced uncompacted / "
+          f"after compaction in groups of {group}):")
+    for b, row in enumerate(rows):
+        print(f"  bounce {b}: live {row['live']} ({row['live'] / row['lanes']:.4f}), warps "
+              f"{row['warps_live']} / {row['warps_live_compacted']}")
+    zeros = torch.zeros_like(lo)
+    pix = torch.arange(la.numel(), dtype=torch.int32, device=dev)
+    rt_ms = compare.compaction_ms(lo, ld, zeros, zeros, la, pix, group)
+    print(f"compaction round trip at the {la.numel()}-lane wave (bounce 1's live lanes, group "
+          f"{group}) {card}: rays down + hit record back {rt_ms['intersector_ms']:.3f} ms, "
+          f"state down + next state back {rt_ms['bounce_ms']:.3f} ms")
 
     # 5. physics against the reference's own renders
-    for gname in ("furnace", "spheres"):
+    for gname, fused in (("furnace", False), ("spheres", False), ("furnace", True)):
         gb = load_scene(os.path.join(REPO, "tests", "goldens", "scn", f"{gname}.scn"))
         if gb.fallbacks:
             raise RuntimeError(f"{gname}.scn substituted files: {gb.fallbacks}")
         gcfg = RenderConfig(width=gb.width, height=gb.height, spp=1)
+        if fused:
+            gcfg = gcfg.replace(use_pallas_bounce=True,
+                                wave_compact_group=pick_compact_group(gb.width * gb.height))
         gr = Renderer(gcfg)
         for c in counts.values():
             c.reset()
@@ -351,20 +503,45 @@ def main() -> int:
         ours = parity.srgb_to_linear(ours / 255.99)[::-1]  # goldens are bottom row first
         ref = parity.load_golden(os.path.join(REPO, "tests", "goldens", "ref", f"{gname}.npz"))
         dmean, p95, dmax = parity.compare(ref, ours)
-        print(f"{gname} {gb.width}x{gb.height}, 24 frames vs tests/goldens/ref/{gname}.npz: "
-              f"mean diff {dmean:.5f} (<= 0.01), block p95 {p95:.5f} (<= 0.02), block max "
-              f"{dmax:.5f} (<= 0.05); launches "
+        print(f"{gname} {gb.width}x{gb.height} ({gr.path}, group {gcfg.wave_compact_group}), "
+              f"24 frames vs tests/goldens/ref/{gname}.npz: mean diff {dmean:.5f} (<= 0.01), "
+              f"block p95 {p95:.5f} (<= 0.02), block max {dmax:.5f} (<= 0.05); launches "
               + ", ".join(f"{k} {c.kernel}" for k, c in counts.items()))
         if dmean > 0.01 or p95 > 0.02 or dmax > 0.05:
             raise RuntimeError(f"{gname} parity failed")
         if any(c.plain for c in counts.values()):
             raise RuntimeError(f"{gname}: a plain version ran on the card")
+        if fused and (k5.COUNT.kernel != 24 * gcfg.max_bounces or k1.COUNT.kernel):
+            raise RuntimeError(f"{gname}: the fused path did not run on K5 alone")
+
+    # 6. K6, the leaf-visit microbenchmark, through its own entry point's
+    # measurement (tools/micro.py: time each variant at 270,336 rays x 2000
+    # visits); then each variant against its plain version.
+    leaves = k6.make_leaves(device=dev)
+    mrays = k6.make_rays(device=dev)
+    k6.COUNT.reset()
+    t6 = {v: k6.time_variant(v, mrays, leaves) for v in k6.VARIANTS}
+    k6_launches = k6.COUNT.kernel
+    c6 = {v: k6.check_variant(v, mrays, leaves) for v in k6.VARIANTS}
+    t_p6 = compare.cuda_ms(lambda: k6.micro_plain("vres", mrays, leaves), 1)
+    b6 = k6.bound(mrays, leaves)
+    print(f"K6 vs plain, {mrays.shape[0]} rays x {k6.ITERS} visits of {k6.NUM_LEAVES} leaves of "
+          f"{k6.LEAF_SIZE} triangles (hit fraction {c6['vres']['hit_fraction']:.3f}, "
+          f"improving warp-visits {c6['vred']['improving_warp_visits']}): every variant equal "
+          f"to its plain version; {k6_launches} timed launches {card}:")
+    for v in k6.VARIANTS:
+        print(f"  {v:5s} {t6[v]['ns_per_iter']:.3f} ns/iter, {t6[v]['ns_per_ray_visit']:.6f} ns "
+              f"per ray-visit, {t6[v]['ms']:.3f} ms a launch")
+    print(f"  vres bound {b6['bound_ms']:.4f} ms ({b6['bound_by']}: {b6['ops']:.4g} ops), "
+          f"plain {t_p6:.1f} ms")
+    launches["tools.micro"] = {k: 0 for k in counts}
+    launches["tools.micro"]["K6"] = k6_launches
 
     def entry(kname, label, source, replaces, err, ms, plain_ms, bound, library_ms):
         return {"name": f"{kname} {label}", "route": "cuda",
                 "source": f"tracy_tpu_torch/csrc/{source}", "replaces": replaces,
-                "launches": sum(p[kname] for p in launches.values()),
-                "launches_by_path": {p: v[kname] for p, v in launches.items()},
+                "launches": sum(p.get(kname, 0) for p in launches.values()),
+                "launches_by_path": {p: v.get(kname, 0) for p, v in launches.items()},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
                 "library_ms": library_ms}
@@ -378,9 +555,15 @@ def main() -> int:
               max(c["max_abs_err"] for c in c3.values()), t_k3, t_p3, b3, t_l3),
         entry("K4", "shade_textured", "shade.cu", "tracy_tpu/ops/pallas_shade.py:355",
               max(c["max_abs_err"] for c in c4.values()), t_k4, t_p4, b4, None),
+        entry("K5", "bounce", "bounce.cu", "tracy_tpu/ops/pallas_packet.py:2292",
+              max(c["max_abs_err"] for c in c5.values()), t_k5, t_p5, b5, None),
+        entry("K6", "micro (vres)", "micro.cu", "tools/tpu_micro.py:213",
+              c6["vres"]["max_abs_err"], t6["vres"]["ms"], t_p6, b6, None),
     ]
     kernels[0]["textured_ms"] = t_k1t
     kernels[0]["textured_bound_ms"] = c1t["bound_ms"]
+    kernels[4]["k1_then_k2_ms"] = t_k12
+    kernels[5]["ns_per_iter"] = {v: t6[v]["ns_per_iter"] for v in k6.VARIANTS}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,9 @@
-"""K1, K2, K3 and K4 on the card against their plain PyTorch versions on
-the same CUDA tensors, with the contracts of tracy_tpu_torch/ops/compare.py (those of
-chip_smoke.py's kernel phase, at smaller sizes). Marked `cuda`: without an
+"""K1-K6 on the card against their plain PyTorch versions on the same CUDA
+tensors, with the contracts of tracy_tpu_torch/ops/compare.py (those of
+chip_smoke.py's kernel phase, at smaller sizes): K5 also against K1 then
+K2 on the same lanes (equal), compacted and fused renders against the
+uncompacted one (equal), each K6 variant against its plain version
+(equal). Marked `cuda`: without an
 NVIDIA GPU these tests skip. On a GPU machine without jax, where
 tests/conftest.py cannot load, run them with
 
@@ -15,6 +18,7 @@ import torch
 
 from tracy_tpu_torch import RenderConfig
 from tracy_tpu_torch.accel.tables import build_tables
+from tracy_tpu_torch.ops import bounce as k5
 from tracy_tpu_torch.ops import compare
 from tracy_tpu_torch.ops import intersect as k1
 from tracy_tpu_torch.ops import shade as k2
@@ -111,3 +115,44 @@ def test_textured_renderer_runs_on_the_kernels(cuda):
     assert k1.COUNT.plain == k3.COUNT.plain == k2.COUNT_TEX.plain == 0
     assert rays >= 2 * 32 * 24
     assert np.isfinite(r.display(st)).all()
+
+
+@pytest.mark.parametrize("rr", [True, False])
+def test_bounce_kernel_matches_plain_and_two_stage(cuda, rr):
+    scene = sphere_grid(64, 48, nsph=16, steps=16).build(device=cuda)
+    tables = build_tables(scene)
+    mtab = k2.build_material_table(scene.materials)
+    o, d, a = compare.intersect_rays(scene, tables, 65536, seed=1)
+    canned = compare.canned_lanes(mtab.shape[0], 65536, seed=2, device=cuda)
+    lanes = dict(canned, origin=o, direction=d, alive=a & canned["alive"])
+    res = compare.compare_bounce(lanes, tables, mtab, 3, 1, seed=0xABCDEF,
+                                 russian_roulette=rr)
+    assert all(res["equal_to_k1_k2"]) and res["hit_lanes"] > 0 and res["miss_lanes"] > 0
+
+
+def test_compacted_and_fused_renders_equal_on_the_card(cuda):
+    scene = sphere_grid(64, 64, nsph=16, steps=12).build(device=cuda)
+    out = {}
+    for name, kw in (("plain", {}), ("compacted", dict(wave_compact_group=2048)),
+                     ("fused", dict(wave_compact_group=2048, use_pallas_bounce=True))):
+        cfg = RenderConfig(width=64, height=64, spp=1, **kw)
+        r = Renderer(cfg)
+        for c in (k1.COUNT, k2.COUNT, k5.COUNT):
+            c.reset()
+        st, rays = r.step_many(scene, init_state(cfg, cuda), 2)
+        out[name] = (st.accum, rays)
+        want = (0, 0, 10) if name == "fused" else (10, 10, 0)
+        assert (k1.COUNT.kernel, k2.COUNT.kernel, k5.COUNT.kernel) == want
+        assert k1.COUNT.plain == k2.COUNT.plain == k5.COUNT.plain == 0
+    for name in ("compacted", "fused"):
+        assert torch.equal(out[name][0], out["plain"][0]) and out[name][1] == out["plain"][1]
+
+
+def test_micro_kernel_variants_match_plain(cuda):
+    from tracy_tpu_torch.tools import micro as k6
+
+    leaves = k6.make_leaves(device=cuda)
+    rays = k6.make_rays(8192, device=cuda)
+    for v in k6.VARIANTS:
+        res = k6.check_variant(v, rays, leaves, iters=100)
+        assert res["outputs_equal"] and res["counts_equal"]

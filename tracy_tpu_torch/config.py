@@ -2,8 +2,10 @@
 
 The fields the port reads, with the names, defaults and string constants of
 tracy_tpu/config.py::RenderConfig. The JAX package's TPU-only knobs (the
-`pallas_*` and `use_pallas*` fields, `packet_*`, `ray_chunk`, `dtype`) have
-no meaning here and are left out.
+`pallas_*` fields, `use_pallas`, `use_pallas_shade`, `packet_*`,
+`ray_chunk`, `dtype`) have no meaning here and are left out.
+`use_pallas_bounce` keeps its name: in the port it selects the fused bounce
+kernel K5 (csrc/bounce.cu) on untextured scenes.
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ RNG_LCG = "lcg"
 RNG_THREEFRY = "threefry"
 RNGS = (RNG_FAST, RNG_XORSHIFT, RNG_LCG, RNG_THREEFRY)
 
+# tracy_tpu's packet_size default: wave compaction groups are multiples of it.
+PACKET_SIZE = 1024
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -59,7 +64,12 @@ class RenderConfig:
     traversal_stack_depth: int = 40
     rng: str = RNG_FAST
     seed: int = 0xABCDEF  # reference random.h fixed seed
-    wave_compact_group: int = 0  # live-ray compaction block (0 = off)
+    # Per-bounce live-ray compaction (accel/reorder.py): each block of this
+    # many lanes moves its live rays to its front; a power of two multiple
+    # of PACKET_SIZE, 0 = off.
+    wave_compact_group: int = 0
+    wave_compact_skip_first: bool = True  # bounce 0 (all live) uncompacted
+    use_pallas_bounce: bool = False  # fused bounce K5 on untextured scenes
 
     def __post_init__(self):
         if self.tonemap not in TONEMAPS:
@@ -74,6 +84,10 @@ class RenderConfig:
             raise ValueError("max_bounces must be >= 1")
         if self.spp < 1:
             raise ValueError("spp must be >= 1")
+        g = self.wave_compact_group
+        if g and (g & (g - 1) or g % PACKET_SIZE):
+            raise ValueError("wave_compact_group must be a power of two multiple of "
+                             f"{PACKET_SIZE}, got {g}")
 
     @property
     def resolution(self) -> Tuple[int, int]:

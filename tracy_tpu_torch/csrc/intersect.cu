@@ -18,6 +18,7 @@
 // triangle three) and early exits in the triangle test; wider nodes, node
 // compression and ray reordering are later work.
 //
+// The traversal itself is tracy::traverse (traverse.cuh), which K5 shares.
 // Dead rays (active == false) do no work and return a miss. Outputs per
 // ray: t (FLT_MAX on a miss), barycentric u/v, the hit mask, the winner's
 // unnormalised interpolated vertex normal, its material id and triangle id;
@@ -28,48 +29,12 @@
 // w*a0 + u*a1 + v*a2 with w = 1-u-v, in tracy_tpu/render/integrator.py's
 // order: one ulp of uv can move a texel index at a cell edge.
 
-#include <cfloat>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "traverse.cuh"
 
 namespace {
 
-constexpr int STACK_MAX = 64;  // accel/tables.py KERNEL_STACK_MAX
-constexpr float EPS = 1.0e-8f;
+using tracy::interp;
 constexpr int BLOCK = 128;
-
-// Sign-preserving clamp of tiny direction components before the reciprocal:
-// |1/d| <= 1e12, so no infinities reach the slab test.
-__device__ __forceinline__ float safe_inv(float d) {
-  return 1.0f / (fabsf(d) < 1.0e-12f ? copysignf(1.0e-12f, d) : d);
-}
-
-// Reference RayAABB (collision.h:119-131).
-__device__ __forceinline__ bool slab(const float4* __restrict__ nb, int node,
-                                     float ox, float oy, float oz, float ix,
-                                     float iy, float iz, float best_t,
-                                     float* t_enter) {
-  const float4 lo = nb[2 * node];
-  const float4 hi = nb[2 * node + 1];
-  const float x0 = (lo.x - ox) * ix, x1 = (hi.x - ox) * ix;
-  const float y0 = (lo.y - oy) * iy, y1 = (hi.y - oy) * iy;
-  const float z0 = (lo.z - oz) * iz, z1 = (hi.z - oz) * iz;
-  const float tmin = fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fminf(z0, z1));
-  const float tmax = fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fmaxf(z0, z1));
-  *t_enter = tmin;
-  return tmax >= fmaxf(EPS, tmin) && tmin < best_t;
-}
-
-// Barycentric interpolation of a per-vertex attribute of width W.
-template <int W>
-__device__ __forceinline__ void interp(const float* __restrict__ attr, int4 tm,
-                                       float w, float u, float v,
-                                       float* __restrict__ out) {
-  for (int c = 0; c < W; ++c) {
-    out[c] = w * attr[W * tm.x + c] + u * attr[W * tm.y + c] +
-             v * attr[W * tm.z + c];
-  }
-}
 
 template <bool UV, bool TANGENT>
 __global__ void __launch_bounds__(BLOCK) intersect_kernel(
@@ -88,59 +53,9 @@ __global__ void __launch_bounds__(BLOCK) intersect_kernel(
   float best_t = FLT_MAX, bu = 0.0f, bv = 0.0f;
   int best = -1;
   if (active[i]) {
-    const float ox = orig[3 * i], oy = orig[3 * i + 1], oz = orig[3 * i + 2];
-    const float dx = dir[3 * i], dy = dir[3 * i + 1], dz = dir[3 * i + 2];
-    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-    int stack[STACK_MAX];
-    int sp = 0;
-    int node = 0;
-    while (true) {
-      const int4 m = nm[node];
-      if (m.y > 0) {  // leaf: slots [m.x, m.x + m.y)
-        for (int s = m.x; s < m.x + m.y; ++s) {
-          const float4 p0 = tri[3 * s], e1 = tri[3 * s + 1], e2 = tri[3 * s + 2];
-          const float px = dy * e2.z - dz * e2.y;
-          const float py = dz * e2.x - dx * e2.z;
-          const float pz = dx * e2.y - dy * e2.x;
-          const float det = e1.x * px + e1.y * py + e1.z * pz;
-          if (!(det > EPS)) continue;
-          const float tx = ox - p0.x, ty = oy - p0.y, tz = oz - p0.z;
-          const float u = tx * px + ty * py + tz * pz;
-          if (!(u >= EPS && u <= det)) continue;
-          const float qx = ty * e1.z - tz * e1.y;
-          const float qy = tz * e1.x - tx * e1.z;
-          const float qz = tx * e1.y - ty * e1.x;
-          const float v = dx * qx + dy * qy + dz * qz;
-          if (!(v >= EPS && u + v <= det)) continue;
-          const float inv_det = 1.0f / det;
-          const float t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
-          if (t > EPS && t < best_t) {
-            best_t = t;
-            best = s;
-            bu = u * inv_det;
-            bv = v * inv_det;
-          }
-        }
-      } else {  // inner: children m.x (left) and m.z (right)
-        float tl, tr;
-        const bool hl = slab(nb, m.x, ox, oy, oz, ix, iy, iz, best_t, &tl);
-        const bool hr = slab(nb, m.z, ox, oy, oz, ix, iy, iz, best_t, &tr);
-        if (hl && hr) {
-          // The stack holds at most one far child per tree level, and the
-          // wrapper refuses trees deeper than STACK_MAX - 1.
-          const bool left_first = tl <= tr;
-          stack[sp++] = left_first ? m.z : m.x;
-          node = left_first ? m.x : m.z;
-          continue;
-        }
-        if (hl || hr) {
-          node = hl ? m.x : m.z;
-          continue;
-        }
-      }
-      if (sp == 0) break;
-      node = stack[--sp];
-    }
+    tracy::traverse(nb, nm, tri, orig[3 * i], orig[3 * i + 1], orig[3 * i + 2],
+                    dir[3 * i], dir[3 * i + 1], dir[3 * i + 2], &best_t,
+                    &best, &bu, &bv);
   }
   t_out[i] = best_t;
   mask_out[i] = best >= 0;

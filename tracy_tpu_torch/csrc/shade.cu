@@ -5,7 +5,9 @@
 // pallas_shade.py::_kernel_tex (entered through shade_packets_textured).
 // As shade_planes serves both TPU kernels, one device function serves both
 // here: shade_bounce<TEXTURED>, launched as shade_kernel (K2) and
-// shade_textured_kernel (K4). The bounce is the material row lookup,
+// shade_textured_kernel (K4). Its per-lane math is tracy::shade_miss and
+// tracy::shade_hit (shade_lane.cuh), which K5 (bounce.cu) shares. The
+// bounce is the material row lookup,
 // Material::Scatter
 // (reference material.h:210-268: diffuse, specular and refraction lobes,
 // Schlick, the specular-chance lerps, the TIR clamp), constant-sky emission
@@ -32,57 +34,11 @@
 // with FMA contraction off at build time, so the two agree to rounding;
 // speed work (packed state, fusing K3's gather in) is later work.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "shade_lane.cuh"
 
 namespace {
 
-constexpr float EPS = 1.0e-8f;
-constexpr float RAY_OFFSET = 1.0e-3f;
-constexpr float TWO_PI = 6.283185307179586f;  // float32(2 * pi)
-constexpr int MTAB_COLS = 10;  // albedo3, rough, metal, ior, emissive3, transl
-constexpr int MTAB_TEX_COLS = 16;  // + has basecolor/normal/rough/metal/emissive, pad
-constexpr int HAS_BC = 10, HAS_N = 11, HAS_R = 12, HAS_M = 13, HAS_E = 14;
-constexpr int TX_BC = 0, TX_NM = 3, TX_ROUGH = 6, TX_METAL = 7, TX_EM = 8;
 constexpr int BLOCK = 256;
-constexpr uint32_t K_PIXEL = 0x9E3779B9u, K_FRAME = 0x85EBCA6Bu;
-constexpr uint32_t K_BOUNCE = 0xC2B2AE35u, K_DRAW = 0x27D4EB2Fu;
-
-__device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
-  x = x * 747796405u + 2891336453u;
-  x = ((x >> ((x >> 28u) + 4u)) ^ x) * 277803737u;
-  return (x >> 22u) ^ x;
-}
-
-// Uniform [0, 1) from the top 24 hashed bits (core/rng.py::uniform_fast).
-__device__ __forceinline__ float rand01(uint32_t seed, uint32_t pix,
-                                        uint32_t skey, uint32_t bounce,
-                                        uint32_t draw) {
-  uint32_t h = seed + pix * K_PIXEL;
-  h = pcg_hash(h + skey * K_FRAME);
-  h = pcg_hash(h + bounce * K_BOUNCE + draw * K_DRAW);
-  return static_cast<float>(pcg_hash(h) >> 8u) * (1.0f / 16777216.0f);
-}
-
-__device__ __forceinline__ float schlick(float cosine, float ref_idx) {
-  const float r = (1.0f - ref_idx) / (1.0f + ref_idx);
-  const float r0 = r * r;
-  const float c = 1.0f - cosine;
-  const float c2 = c * c;
-  return r0 + (1.0f - r0) * (c * (c2 * c2));
-}
-
-// The lane's 12-float texel row (render/texture.py layout), three float4s.
-__device__ __forceinline__ void load_texels(const float4* __restrict__ texels,
-                                            int i, float* tex) {
-  for (int k = 0; k < 3; ++k) {
-    const float4 q = texels[3 * i + k];
-    tex[4 * k] = q.x;
-    tex[4 * k + 1] = q.y;
-    tex[4 * k + 2] = q.z;
-    tex[4 * k + 3] = q.w;
-  }
-}
 
 template <bool TEXTURED>
 __device__ __forceinline__ void shade_bounce(
@@ -97,7 +53,6 @@ __device__ __forceinline__ void shade_bounce(
     float* __restrict__ o_out, float* __restrict__ d_out,
     float* __restrict__ thr_out, float* __restrict__ rad_out,
     bool* __restrict__ alive_out) {
-  constexpr int COLS = TEXTURED ? MTAB_TEX_COLS : MTAB_COLS;
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   if (i >= n) return;
   float o[3], d[3], thr[3], rad[3];
@@ -108,124 +63,17 @@ __device__ __forceinline__ void shade_bounce(
     rad[c] = rad_in[3 * i + c];
   }
   bool alive = false;
+  const float4* tex_row = TEXTURED ? texels + 3 * i : nullptr;
   if (alive_in[i]) {
     if (!hit_in[i]) {
-      // Miss: the sky (material slot 0's emissive, or its equirect texels
-      // that K3 fetched for this lane) and the path ends.
-      float sky[3] = {mtab[6], mtab[7], mtab[8]};
-      if (TEXTURED && mtab[HAS_E] > 0.0f) {
-        float tex[12];
-        load_texels(texels, i, tex);
-        for (int c = 0; c < 3; ++c) sky[c] = tex[TX_EM + c];
-      }
-      for (int c = 0; c < 3; ++c) rad[c] = rad[c] + sky[c] * thr[c];
+      tracy::shade_miss<TEXTURED>(rad, thr, mtab, tex_row);
     } else {
-      const uint32_t pix = static_cast<uint32_t>(pix_in[i]);
-      const float r_z = rand01(seed, pix, skey, bounce, 0u);
-      const float r_phi = rand01(seed, pix, skey, bounce, 1u);
-      const float r_spec = rand01(seed, pix, skey, bounce, 2u);
-
-      int m = mat_in[i];
-      m = (m < 0 || m >= num_materials) ? 0 : m;
-      const float* row = mtab + m * COLS;
-      float bc[3] = {row[0], row[1], row[2]};
-      float rough = row[3], metal = row[4];
-      const float ior = row[5];
-      float emis[3] = {row[6], row[7], row[8]};
-      const float transl = row[9];
-      float nv[3] = {nrm_in[3 * i], nrm_in[3 * i + 1], nrm_in[3 * i + 2]};
-
-      if (TEXTURED) {
-        // Texture overrides and normal mapping (render/material.py::
-        // apply_textures, in its operation order).
-        float tex[12];
-        load_texels(texels, i, tex);
-        if (row[HAS_BC] > 0.0f) {
-          for (int c = 0; c < 3; ++c) bc[c] = tex[TX_BC + c];
-        }
-        if (row[HAS_R] > 0.0f) rough = tex[TX_ROUGH];
-        if (row[HAS_M] > 0.0f) metal = tex[TX_METAL];
-        if (row[HAS_E] > 0.0f) {
-          for (int c = 0; c < 3; ++c) emis[c] = tex[TX_EM + c];
-        }
-        if (row[HAS_N] > 0.0f) {
-          float tg[3] = {0.0f, 0.0f, 0.0f};
-          if (tan_in != nullptr) {
-            for (int c = 0; c < 3; ++c) tg[c] = tan_in[3 * i + c];
-          }
-          const float tdn = tg[0] * nv[0] + tg[1] * nv[1] + tg[2] * nv[2];
-          float to[3];
-          for (int c = 0; c < 3; ++c) to[c] = tg[c] - tdn * nv[c];
-          const float tl = sqrtf(fmaxf(to[0] * to[0] + to[1] * to[1] + to[2] * to[2], 1.0e-20f));
-          for (int c = 0; c < 3; ++c) to[c] = to[c] / tl;
-          const float bt[3] = {nv[1] * to[2] - nv[2] * to[1],
-                               nv[2] * to[0] - nv[0] * to[2],
-                               nv[0] * to[1] - nv[1] * to[0]};
-          float nt[3], mp[3];
-          for (int c = 0; c < 3; ++c) nt[c] = tex[TX_NM + c] * 2.0f - 1.0f;
-          for (int c = 0; c < 3; ++c) mp[c] = bt[c] * nt[0] + tg[c] * nt[1] + nv[c] * nt[2];
-          const float ml = sqrtf(fmaxf(mp[0] * mp[0] + mp[1] * mp[1] + mp[2] * mp[2], 1.0e-20f));
-          for (int c = 0; c < 3; ++c) nv[c] = mp[c] / ml;
-        }
-      }
-
-      const float vdn = d[0] * nv[0] + d[1] * nv[1] + d[2] * nv[2];
-
-      // random_on_unit_sphere (material.h:144-157)
-      const float sz = 2.0f * r_z - 1.0f;
-      const float phi = TWO_PI * r_phi;
-      const float sr = sqrtf(fmaxf(1.0f - sz * sz, 0.0f));
-      const float sph[3] = {sr * cosf(phi), sr * sinf(phi), sz};
-
-      // BTDF (material.h:236-249; Snell cosine clamped to 0 on TIR)
-      const bool inside = vdn > EPS;
-      const float cos_in = sqrtf(fmaxf(1.0f - ior * ior * (1.0f - vdn * vdn), 0.0f));
-      const float cosine = inside ? cos_in : -vdn;
-      const float eta = inside ? ior : 1.0f / fmaxf(ior, 1.0e-8f);
-      const float ndi = nv[0] * d[0] + nv[1] * d[1] + nv[2] * d[2];
-      const float k_r = 1.0f - eta * eta * (1.0f - ndi * ndi);
-      const float coef = eta * ndi + sqrtf(fmaxf(k_r, 0.0f));
-      const bool btdf_spec = r_spec < schlick(cosine, eta);
-
-      // BRDF (material.h:250-261)
-      const float mat_spec_chance = 0.1f + 0.9f * metal;
-      const float fresnel = (1.0f - rough) * schlick(-vdn, 1.0f);
-      const float spec_chance = mat_spec_chance + (1.0f - mat_spec_chance) * fresnel;
-      const bool brdf_spec = r_spec < spec_chance;
-      const bool is_btdf = transl > EPS;
-
-      float nd[3], att[3];
-      const float two_dn = 2.0f * ndi;
-      for (int c = 0; c < 3; ++c) {
-        const float scat = nv[c] + sph[c];
-        const float refl = d[c] - two_dn * nv[c];
-        const float spec = refl + (scat - refl) * rough;
-        const float refr = k_r < 0.0f ? 0.0f : eta * d[c] - coef * nv[c];
-        const float trans = refr + (scat - refr) * rough;
-        const float speccol = 0.85f + (bc[c] - 0.85f) * metal;
-        nd[c] = is_btdf ? (btdf_spec ? spec : trans) : (brdf_spec ? spec : scat);
-        att[c] = is_btdf ? bc[c] : (brdf_spec ? speccol : bc[c]);
-      }
-      const float len = sqrtf(fmaxf(nd[0] * nd[0] + nd[1] * nd[1] + nd[2] * nd[2], 1.0e-20f));
-      for (int c = 0; c < 3; ++c) nd[c] = nd[c] / len;
-
-      const float t = t_in[i];
-      for (int c = 0; c < 3; ++c) {
-        const float p = o[c] + t * d[c];
-        o[c] = p + RAY_OFFSET * nd[c];
-        d[c] = nd[c];
-        rad[c] = rad[c] + emis[c] * thr[c];
-        thr[c] = thr[c] * att[c];
-      }
-      alive = true;
-      if (russian_roulette) {
-        const float p = EPS + fmaxf(thr[0], fmaxf(thr[1], thr[2]));
-        alive = rand01(seed, pix, skey, bounce, 3u) <= p;
-        if (alive) {
-          const float den = fmaxf(p, EPS);
-          for (int c = 0; c < 3; ++c) thr[c] = thr[c] / den;
-        }
-      }
+      const float nv[3] = {nrm_in[3 * i], nrm_in[3 * i + 1], nrm_in[3 * i + 2]};
+      alive = tracy::shade_hit<TEXTURED>(
+          o, d, thr, rad, t_in[i], nv, mat_in[i],
+          static_cast<uint32_t>(pix_in[i]), mtab, num_materials, skey, bounce,
+          seed, russian_roulette, tex_row,
+          (TEXTURED && tan_in != nullptr) ? tan_in + 3 * i : nullptr);
     }
   }
   for (int c = 0; c < 3; ++c) {

@@ -2,11 +2,11 @@
 
 `nvcc` compiles each kernel source to an object for sm_90a, one process per
 source, all started together, then links them into one shared library with
-a plain C interface. The library is cached
-under build/kernels/<hash>/ in the repository root, keyed by a hash of the
-sources and flags, and is written to a temporary name and renamed into
-place, so several test workers may build at once. The build happens at
-first use, never at import.
+a plain C interface. The library is cached under build/kernels/<hash>/ in
+the repository root, keyed by a hash of the sources, the headers they share
+and the flags, and is written to a temporary name and renamed into place,
+so several test workers may build at once. The build happens at first use,
+never at import.
 
 Flags: no FMA contraction (--fmad=false) and IEEE division and square root
 (nvcc's defaults, no fast math), so that a kernel and its plain PyTorch
@@ -29,7 +29,8 @@ from typing import Dict, Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("intersect.cu", "shade.cu", "texfetch.cu")
+SOURCES = ("intersect.cu", "shade.cu", "texfetch.cu", "bounce.cu", "micro.cu")
+HEADERS = ("traverse.cuh", "shade_lane.cuh")
 ARCH = "sm_90a"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -43,6 +44,8 @@ SIGNATURES = {
     "tracy_shade": [_C] * 10 + [_I, _C, _I, _U, _U, _U, _I] + [_C] * 5 + [_C],
     "tracy_shade_textured": [_C] * 12 + [_I, _C, _I, _U, _U, _U, _I] + [_C] * 5 + [_C],
     "tracy_texfetch": [_C] * 5 + [_I, _C, _C, _I, _C, _I, _C, _C],
+    "tracy_bounce": [_C] * 6 + [_I] + [_C] * 8 + [_I, _U, _U, _U, _I] + [_C] * 5 + [_C],
+    "tracy_micro": [_I, _C, _I, _C, _C, _C, _I, _I, _I, _C, _C, _C],
 }
 
 
@@ -55,7 +58,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + f.read())
     return h.hexdigest()[:16]

@@ -12,6 +12,9 @@ built without FMA contraction or fast math), so the contracts are tight:
 * K3: hit lanes' texels identical; sky lanes (misses, which address the
   equirect through atan2f/asinf against torch's CUDA atan2/asin) on another
   texel on at most 0.01% of lanes.
+* K5: K2's contract against its plain version (K1's plain version, then
+  K2's); and against K1 then K2 launched on the same lanes, all five
+  outputs equal: the three kernels share their device functions.
 
 Beside each kernel, `bound_ms`: the least time an H100 could take for the
 same work, the larger of the bytes it must move over 3.35 TB/s and its
@@ -31,9 +34,12 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from tracy_tpu_torch.accel.reorder import compact_bounce, compact_intersector
+from tracy_tpu_torch.ops import bounce as k5
 from tracy_tpu_torch.ops import intersect as k1
 from tracy_tpu_torch.ops import shade as k2
 from tracy_tpu_torch.ops import texfetch as k3
+from tracy_tpu_torch.render.intersect import Hit
 from tracy_tpu_torch.render.material import RAY_OFFSET
 from tracy_tpu_torch.render.texture import SLOT_COLUMNS
 from tracy_tpu_torch.scene.scene import SKY_MATERIAL_ID, TEX_EMISSIVE, TEX_NORMAL
@@ -311,3 +317,74 @@ def _bounce_agreement(kernel: str, got, ref, decision_frac: float) -> Dict[str, 
     if res["flipped"] > decision_frac or bad:
         raise RuntimeError(f"{kernel} disagrees with its plain version: {res}")
     return res
+
+
+BOUNCE_ARGS = ("origin", "direction", "throughput", "radiance", "alive", "pixel_idx")
+# Bytes a lane of K5 reads and writes, by class (csrc/bounce.cu). A dead
+# lane reads its alive flag and its state passes through. A miss lane reads
+# alive, origin, direction (its traversal), throughput and radiance, and
+# writes radiance and alive. A hit lane also reads its pixel id and writes
+# the whole state. No hit record: the kernel keeps it in registers.
+BOUNCE_MISS_LANE_BYTES = 1 + 24 + 24 + 12 + 1
+BOUNCE_HIT_LANE_BYTES = 1 + 24 + 24 + 4 + 48 + 1
+
+
+def compare_bounce(lanes, tables, mtab, sample_key: int, bounce: int, *, seed: int,
+                   russian_roulette: bool, decision_frac: float = 1e-4) -> Dict[str, object]:
+    """K5 vs trace_bounce_plain on CUDA tensors (K2's contract), and K5 vs
+    K1 then K2 launched on the same lanes (all five outputs equal); raises
+    on a broken contract. Also K5's bound on these lanes: K1's operations
+    (from the plain traversal's counts), the bytes by lane class above, the
+    tables and the material table once, and the shading math of each hit
+    lane."""
+    args = [lanes[k] for k in BOUNCE_ARGS]
+    kw = dict(seed=seed, russian_roulette=russian_roulette)
+    got = k5.trace_bounce(*args, sample_key, bounce, tables=tables, mtab=mtab, **kw)
+    counts = {}
+    ref = k5.trace_bounce_plain(*args, sample_key, bounce, tables=tables, mtab=mtab,
+                                counts=counts, **kw)
+    res = _bounce_agreement("K5", got, ref, decision_frac)
+    o, d, thr, rad, alive, pix = args
+    sh = k1.intersect(o, d, alive, tables)
+    two = k2.shade(o, d, thr, rad, alive, pix, sh.hit.mask, sh.hit.t, sh.normal,
+                   sh.material, mtab, sample_key, bounce, **kw)
+    res["equal_to_k1_k2"] = [bool(torch.equal(g, r)) for g, r in zip(got, two)]
+    if not all(res["equal_to_k1_k2"]):
+        raise RuntimeError(f"K5 differs from K1 then K2 on the same lanes: {res}")
+    hit = alive & sh.hit.mask
+    n_hit, n_miss = int(hit.sum()), int((alive & ~sh.hit.mask).sum())
+    n_dead = alive.numel() - n_hit - n_miss
+    tb = tables
+    moved = (DEAD_LANE_BYTES * n_dead + BOUNCE_MISS_LANE_BYTES * n_miss
+             + BOUNCE_HIT_LANE_BYTES * n_hit
+             + nbytes(tb.node_bounds, tb.node_meta, tb.tri, tb.tri_meta, tb.vertex_normal, mtab))
+    ops = (OPS_INNER_NODE * float(counts["inner"]) + OPS_TRI_TEST * float(counts["tri_tests"])
+           + OPS_SHADE_LANE * n_hit)
+    res.update(bound_ms(moved, ops))
+    res.update(inner_visits=int(counts["inner"]), tri_tests=int(counts["tri_tests"]),
+               hit_lanes=n_hit, miss_lanes=n_miss, dead_lanes=n_dead)
+    return res
+
+
+def compaction_ms(origin, direction, throughput, radiance, alive, pixel_idx, group: int,
+                  reps: int = 20) -> Dict[str, float]:
+    """CUDA-event milliseconds of one compaction round trip on these lanes,
+    with the kernel left out: compact_intersector around an intersector
+    that returns a ready SurfaceHit (the rays route down, the hit record
+    back), and compact_bounce around a bounce that returns its input (the
+    state down, the next state back)."""
+    n = origin.shape[0]
+    dev = origin.device
+
+    def f32(*shape):
+        return torch.zeros((n,) + shape, dtype=torch.float32, device=dev)
+
+    ready = k1.SurfaceHit(
+        Hit(t=f32(), tri=torch.zeros(n, dtype=torch.int32, device=dev), uv=f32(2),
+            mask=torch.zeros(n, dtype=torch.bool, device=dev)),
+        f32(3), torch.zeros(n, dtype=torch.int32, device=dev))
+    isect = compact_intersector(lambda o, d, a: ready, group)
+    fused = compact_bounce(lambda o, d, t, r, a, p, k, b: (o, d, t, r, a), group)
+    return {"intersector_ms": cuda_ms(lambda: isect(origin, direction, alive), reps),
+            "bounce_ms": cuda_ms(lambda: fused(origin, direction, throughput, radiance,
+                                               alive, pixel_idx, 0, 0), reps)}

@@ -34,20 +34,10 @@ class SurfaceHit(NamedTuple):
     tangent: Optional[torch.Tensor] = None  # [N, 3] interpolated, NOT normalized
 
 
-def intersect(origin, direction, active, tables: BVHTables) -> SurfaceHit:
-    """Closest front-facing hit for each ray; inactive rays miss.
-
-    origin/direction: [N, 3] float32; active: [N] bool. The texture uv
-    and tangent come out when the tables carry their vertex attributes.
-    """
-    if origin.device.type == "cpu":
-        COUNT.plain += 1
-        return intersect_plain(origin, direction, active, tables)
-    n = origin.shape[0]
-    dev = origin.device
-    check("origin", origin, torch.float32, (n, 3), dev)
-    check("direction", direction, torch.float32, (n, 3), dev)
-    check("active", active, torch.bool, (n,), dev)
+def check_tables(tables: BVHTables, dev: torch.device):
+    """Raise unless the BVH tables are what the traversal (K1, K5) reads:
+    contiguous, on `dev`, 16-byte aligned where read as vectors, and no
+    deeper than the kernel's stack."""
     nn, nt = tables.node_meta.shape[0], tables.tri.shape[0]
     check("node_bounds", tables.node_bounds, torch.float32, (nn, 8), dev)
     check("node_meta", tables.node_meta, torch.int32, (nn, 4), dev)
@@ -71,8 +61,26 @@ def intersect(origin, direction, active, tables: BVHTables) -> SurfaceHit:
     if tables.stack_size > KERNEL_STACK_MAX:
         raise ValueError(f"BVH needs a {tables.stack_size}-entry stack; the "
                          f"kernel holds {KERNEL_STACK_MAX}")
+
+
+def intersect(origin, direction, active, tables: BVHTables) -> SurfaceHit:
+    """Closest front-facing hit for each ray; inactive rays miss.
+
+    origin/direction: [N, 3] float32; active: [N] bool. The texture uv
+    and tangent come out when the tables carry their vertex attributes.
+    """
+    if origin.device.type == "cpu":
+        COUNT.plain += 1
+        return intersect_plain(origin, direction, active, tables)
+    n = origin.shape[0]
+    dev = origin.device
+    check("origin", origin, torch.float32, (n, 3), dev)
+    check("direction", direction, torch.float32, (n, 3), dev)
+    check("active", active, torch.bool, (n,), dev)
+    check_tables(tables, dev)
     if n >= 2**31 // 3:
         raise ValueError(f"{n} rays overflow the kernel's int32 indexing")
+    vuv, vtan = tables.vertex_uv, tables.vertex_tangent
 
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
@@ -109,7 +117,7 @@ def _slab(o, inv_d, bounds, best_t):
     return (tmax >= torch.clamp(tmin, min=tm.EPS)) & (tmin < best_t), tmin
 
 
-def _mt(o, d, tri, best_t):
+def moller_trumbore(o, d, tri, best_t):
     """Möller–Trumbore of ray k against slot k (tri rows of 12), in the
     kernel's operation order. Returns (valid, t, u, v)."""
     p0, e1, e2 = tri[:, 0:3], tri[:, 4:7], tri[:, 8:11]
@@ -166,7 +174,7 @@ def intersect_plain(origin, direction, active, tables: BVHTables,
         for j in range(int(count.max()) if rays.numel() else 0):
             sel = j < count
             r, s = rays[sel], first[sel] + j
-            ok, t, u, v = _mt(origin[r], direction[r], tables.tri[s], best_t[r])
+            ok, t, u, v = moller_trumbore(origin[r], direction[r], tables.tri[s], best_t[r])
             r, s = r[ok], s[ok]
             best_t[r], best[r], bu[r], bv[r] = t[ok], s, u[ok], v[ok]
 

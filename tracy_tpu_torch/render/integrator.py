@@ -5,8 +5,9 @@ cpu_trace.cpp:107-170). All rays advance together through a Python loop
 over bounces with masked lanes. Each bounce runs an intersector and then
 the shade stage: on an untextured scene K2 (ops/shade.py::shade), on a
 textured one K3 (ops/texfetch.py, the texels of each lane) and then K4
-(ops/shade.py::shade_textured). On CUDA tensors these launch the kernels;
-on CPU tensors, their plain versions.
+(ops/shade.py::shade_textured). A fused bounce (ops/bounce.py, K5) may take
+the place of both stages. On CUDA tensors these launch the kernels; on CPU
+tensors, their plain versions.
 
 * radiance += emission * throughput on hit; throughput *= attenuation;
 * a miss adds the sky (material slot 0's emissive, or its equirect texture
@@ -18,7 +19,7 @@ on CPU tensors, their plain versions.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,6 +42,9 @@ JITTER_BOUNCE = 255
 
 IntersectFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], SurfaceHit]
 # (origin [N,3], direction [N,3], active [N]) -> SurfaceHit
+BounceFn = Callable[..., Tuple[torch.Tensor, ...]]
+# (origin, direction, throughput, radiance, alive, pixel_idx, sample_key,
+#  bounce) -> next (origin, direction, throughput, radiance, alive)
 
 
 class HitAttributes(NamedTuple):
@@ -110,7 +114,10 @@ class PathState(NamedTuple):
 
 def trace_paths(scene: SceneArrays, origin, direction, pixel_idx, sample_key: int,
                 cfg: RenderConfig, intersect_fn: IntersectFn, active0=None,
-                mtab=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                mtab=None, bounce_fn: Optional[BounceFn] = None,
+                first_intersect_fn: Optional[IntersectFn] = None,
+                first_bounce_fn: Optional[BounceFn] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Trace N paths for cfg.max_bounces bounces.
 
     pixel_idx: [N] int32 global pixel ids keying the RNG; sample_key: the
@@ -118,6 +125,11 @@ def trace_paths(scene: SceneArrays, origin, direction, pixel_idx, sample_key: in
     (tile-padding rows) are never counted and gather no radiance. mtab:
     the shade stage's material table (build_material_table, or
     build_material_table_tex on a textured scene), None to build it here.
+    bounce_fn: a fused bounce (ops/bounce.py, maybe compaction-wrapped); it
+    supersedes intersect_fn and the shade stage. first_intersect_fn /
+    first_bounce_fn: what bounce 0 runs instead (the wave is all live
+    there, so the Renderer gives the uncompacted function); the result is
+    the same. Rays are counted before any routing, over the real lanes.
     Returns (radiance [N, 3], rays: a 0-d int64 tensor).
     """
     if cfg.rng != "fast":
@@ -139,7 +151,14 @@ def trace_paths(scene: SceneArrays, origin, direction, pixel_idx, sample_key: in
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     for bounce in range(cfg.max_bounces):
         rays = rays + s.alive.sum()
-        sh = intersect_fn(s.origin, s.direction, s.alive)
+        if bounce_fn is not None:
+            fn = first_bounce_fn if bounce == 0 and first_bounce_fn is not None else bounce_fn
+            s = PathState(*fn(s.origin, s.direction, s.throughput, s.radiance, s.alive,
+                              pixel_idx, sample_key, bounce))
+            continue
+        fn = (first_intersect_fn if bounce == 0 and first_intersect_fn is not None
+              else intersect_fn)
+        sh = fn(s.origin, s.direction, s.alive)
         hit = sh.hit
         if textured:
             texels = fetch_texels(sh.material, sh.tex_uv, s.direction, hit.mask, s.alive,

@@ -8,10 +8,16 @@ reference's accounting (win_raytracer.cpp:521-553).
 Each bounce runs K1 (ops/intersect.py) over the BVH tables, then on an
 untextured scene K2 (ops/shade.py), on a textured one K3 (ops/texfetch.py)
 and K4 (ops/shade.py::shade_textured), K1 then also interpolating the
-texture uv and, with normal maps, the tangent. RenderConfig's accel must
-be 'packet'. The image is folded
+texture uv and, with normal maps, the tangent: the "two-stage" path. With
+use_pallas_bounce on an untextured scene, K5 (ops/bounce.py) runs the whole
+bounce instead: the "fused" path (`Renderer.path` says which was bound).
+With wave_compact_group > 0, K1 (or K5) runs inside accel/reorder.py's
+compaction, and K3/K4 on the routed-back lanes, as tracy_tpu binds them
+(tracy_tpu/render/renderer.py:488-512, :619-689); with
+wave_compact_skip_first, bounce 0 runs uncompacted. RenderConfig's accel
+must be 'packet'. The image is folded
 into 32x32-pixel tiles, so that neighbouring rays of a wave are neighbours
-on screen. On CUDA tensors both stages launch their kernels; on CPU tensors,
+on screen. On CUDA tensors the stages launch their kernels; on CPU tensors,
 their plain versions.
 """
 
@@ -25,9 +31,11 @@ import numpy as np
 import torch
 
 from tracy_tpu_torch.config import RenderConfig
+from tracy_tpu_torch.accel.reorder import compact_bounce, compact_intersector
 from tracy_tpu_torch.accel.tables import BVHTables, build_tables
 from tracy_tpu_torch.core.camera import pixel_samples_rows
 from tracy_tpu_torch.core.rng import RngSpec
+from tracy_tpu_torch.ops.bounce import trace_bounce
 from tracy_tpu_torch.ops.intersect import intersect
 from tracy_tpu_torch.ops.shade import build_material_table, build_material_table_tex
 from tracy_tpu_torch.render import film
@@ -70,13 +78,14 @@ def pick_tile(num_rows: int, w: int) -> Tuple[int, int]:
 
 
 def sample_radiance_rows(scene: SceneArrays, cfg: RenderConfig, frame: int,
-                         intersect_fn, mtab=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                         intersect_fn, mtab=None, **paths) -> Tuple[torch.Tensor, torch.Tensor]:
     """cfg.spp jittered samples of every pixel.
 
     Returns (mean radiance [H, W, 3], rays: a 0-d int64 tensor). RNG streams
     are keyed by the global pixel index and the global sample id. Row counts
     that are not a multiple of the tile height (1080 % 32 = 24) are padded
-    with dead rows, which trace nothing and are not counted.
+    with dead rows, which trace nothing and are not counted. paths:
+    trace_paths' bounce_fn, first_intersect_fn and first_bounce_fn.
     """
     h, w = cfg.height, cfg.width
     dev = scene.device
@@ -113,16 +122,17 @@ def sample_radiance_rows(scene: SceneArrays, cfg: RenderConfig, frame: int,
         radiance, r = trace_paths(
             scene, fold(origin), fold(direction), fold(pixel_idx).contiguous(),
             sample_key, cfg, intersect_fn,
-            active0=fold(live).contiguous() if rows_r > h else None, mtab=mtab)
+            active0=fold(live).contiguous() if rows_r > h else None, mtab=mtab, **paths)
         acc = acc + unfold(radiance)[:h]
         rays = rays + r
     return (acc if cfg.spp == 1 else acc / cfg.spp), rays
 
 
 def render_step(scene: SceneArrays, state: RenderState, cfg: RenderConfig,
-                intersect_fn, mtab=None) -> Tuple[RenderState, torch.Tensor]:
+                intersect_fn, mtab=None, **paths) -> Tuple[RenderState, torch.Tensor]:
     """One progressive frame: sample, accumulate, bump the frame counter."""
-    radiance, rays = sample_radiance_rows(scene, cfg, state.frame, intersect_fn, mtab)
+    radiance, rays = sample_radiance_rows(scene, cfg, state.frame, intersect_fn, mtab,
+                                          **paths)
     accum = film.accumulate(state.accum, radiance, state.frame) if cfg.accumulate else radiance
     return RenderState(accum=accum, frame=state.frame + 1), rays
 
@@ -145,27 +155,41 @@ class Renderer:
         if cfg.rng != "fast":
             raise ValueError(f"rng={cfg.rng!r}: the shade stage draws from the "
                              "'fast' counter hash only")
-        if cfg.wave_compact_group:
-            raise NotImplementedError("wave compaction is not ported yet: "
-                                      "set wave_compact_group=0")
         self.cfg = cfg
         self.tables: Optional[BVHTables] = None
+        self.path: Optional[str] = None  # "two-stage" or "fused", once prepared
         self._intersect = None
+        self._paths = {}
         self._mtab = None
         self.total_rays = 0
         self.total_seconds = 0.0
 
     def prepare(self, scene: SceneArrays):
-        """Build the BVH tables (host side) and the material table, once per
-        renderer; step and step_many call it."""
+        """Build the BVH tables (host side) and the material table, and bind
+        the bounce path, once per renderer; step and step_many call it."""
         if self._intersect is not None:
             return
-        self.tables = build_tables(scene, leaf_size=self.cfg.bvh_leaf_size,
-                                   max_depth=max(self.cfg.traversal_stack_depth - 4, 8))
-        self._intersect = functools.partial(intersect, tables=self.tables)
+        cfg = self.cfg
+        self.tables = build_tables(scene, leaf_size=cfg.bvh_leaf_size,
+                                   max_depth=max(cfg.traversal_stack_depth - 4, 8))
         textured = scene_has_textures(scene)
         self._mtab = (build_material_table_tex if textured
                       else build_material_table)(scene.materials)
+        group = cfg.wave_compact_group
+        peel = group > 0 and cfg.wave_compact_skip_first
+        isect = functools.partial(intersect, tables=self.tables)
+        self._intersect = compact_intersector(isect, group) if group else isect
+        self._paths = {"first_intersect_fn": isect} if peel else {}
+        self.path = "two-stage"
+        if cfg.use_pallas_bounce and not textured:
+            # The fused bounce is untextured only: a textured scene keeps the
+            # two-stage path, as in tracy_tpu (renderer.py:635-640).
+            bounce = functools.partial(trace_bounce, tables=self.tables, mtab=self._mtab,
+                                       seed=cfg.seed, russian_roulette=cfg.russian_roulette)
+            self._paths = {"bounce_fn": compact_bounce(bounce, group) if group else bounce}
+            if peel:
+                self._paths["first_bounce_fn"] = bounce
+            self.path = "fused"
 
     def reset(self, device) -> RenderState:
         self.total_rays = 0
@@ -181,7 +205,8 @@ class Renderer:
         t0 = time.perf_counter()
         rays = torch.zeros((), dtype=torch.int64, device=scene.device)
         for _ in range(num_steps):
-            state, r = render_step(scene, state, self.cfg, self._intersect, self._mtab)
+            state, r = render_step(scene, state, self.cfg, self._intersect, self._mtab,
+                                   **self._paths)
             rays = rays + r
         if scene.device.type == "cuda":
             torch.cuda.synchronize(scene.device)

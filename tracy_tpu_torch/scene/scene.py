@@ -130,6 +130,17 @@ class SceneBuilder:
         self.camera_params = dict(eye=eye, center=center, up=up, fov_degrees=fov_degrees)
         return self
 
+    @property
+    def num_triangles(self) -> int:
+        return sum(m.num_triangles for m in self.meshes)
+
+    @property
+    def has_translucent(self) -> bool:
+        """Any BTDF material: its rays refract through and survive Russian
+        roulette for all bounces, so the waves stay dense
+        (accel/reorder.py::pick_compact_group)."""
+        return any(m.translucency > 0.0 for m in self.materials)
+
     def add_material(self, albedo, roughness=1.0, metalness=0.0, ior=1.0,
                      emissive=0.0, translucency=0.0) -> int:
         self.materials.append(
