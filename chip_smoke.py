@@ -11,22 +11,27 @@ Phases, each fatal on failure:
 3. kernel vs plain: K1 (intersect), K2 (shade), K3 (texel fetch), K4
    (textured shade) and K5 (fused bounce) against their plain PyTorch
    versions on the same CUDA tensors at the main path's wave shape
-   (2,088,960 lanes), K3 and K4 on both canned lanes and the real lanes of
-   the textured scene, K5 on the real lanes of grid64x28 and also against
-   K1 then K2 on the same lanes (all five outputs equal); then each one's
-   time beside its plain version's, its bound and, for K3, a
-   `tex_data.index_select` of the same texels as a yardstick;
+   (2,088,960 lanes), K1 and K5 at both BVH widths (4, the default, and
+   2), K3 and K4 on both canned lanes and the real lanes of the textured
+   scene, K5 on the real lanes of grid64x28 and also against K1 then K2 on
+   the same lanes (all five outputs equal); then each one's time beside
+   its plain version's, its bound and, for K3, a `tex_data.index_select`
+   of the same texels as a yardstick; K1 and K5 timed at both widths in
+   turns;
 4. main paths: Renderer.step_many at 1920x1080, 4 progressive frames of
-   1 spp, 5 bounces, on grid64x28 (100,748 triangles) compacted as
-   bench.py's main path is (pick_compact_group: group 262,144, bounce 0
-   uncompacted; K1 + K2), uncompacted, and fused (K5, compacted), and on
-   grid64x28-tex, the same geometry with helmet-sized maps (K1 + K3 + K4),
-   compacted and uncompacted; each path must launch exactly its kernels
-   and no plain version, and each path's accumulator must equal the other
-   paths' of its scene; each path is timed 5 times, in turn with the
-   others; then where the device time of one more such run goes
-   (torch.profiler), and the live-lane fraction of each bounce of one
-   frame with the compaction round trip's time at that wave;
+   1 spp, 5 bounces, on the 4-wide BVH (pallas_bvh_width's default), on
+   grid64x28 (100,748 triangles) compacted as bench.py's main path is
+   (pick_compact_group: group 262,144, bounce 0 uncompacted; K1 + K2),
+   uncompacted, and fused (K5, compacted), and on grid64x28-tex, the same
+   geometry with helmet-sized maps (K1 + K3 + K4), compacted and
+   uncompacted; and grid64x28 compacted and uncompacted on the binary
+   BVH, for the A/B of the widths; each path must launch exactly its
+   kernels and no plain version, and each path's accumulator must equal
+   the other paths' of its scene and width; each path is timed 5 times,
+   in turn with the others; then where the device time of one more such
+   run goes (torch.profiler), with K1's time per bounce of frame 0, and
+   the live-lane fraction of each bounce of one frame with the compaction
+   round trip's time at that wave;
 5. physics: furnace.scn (untextured; also on the fused, compacted path)
    and spheres.scn (HDR equirect sky, textured path) at 256x192 for 24
    frames against the reference's own renders (tests/goldens/ref/*.npz),
@@ -121,12 +126,14 @@ ROUTING = re.compile(r"index_copy|indexSelect|index_select|scatter_gather|scan",
                      re.IGNORECASE)
 
 
-def device_breakdown(run, counts) -> str:
+def device_breakdown(run, counts):
     """Where the device time of run() goes: our kernels, the torch ops
     around them, and the device's idle share of the span from the first
     kernel's start to the last one's end, all from one torch.profiler
     window (the profiler adds its own launch overhead). Fails unless each
-    kernel shows exactly the launches its wrapper counted."""
+    kernel shows exactly the launches its wrapper counted. Returns the
+    summary line and each of our kernels' launch times (ms) in launch
+    order."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -137,12 +144,11 @@ def device_breakdown(run, counts) -> str:
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    ms, launches, glue = {}, {}, {}
+    ms, launches, glue, seq = {}, {}, {}, {}
     routing = 0.0
     first, last = float("inf"), 0.0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
         t = e.time_range.elapsed_us() / 1e3
         first, last = min(first, e.time_range.start), max(last, e.time_range.end)
         base = re.split(r"[<(]", re.sub(r"^void |\(anonymous namespace\)::", "", e.name), 1)[0]
@@ -155,6 +161,7 @@ def device_breakdown(run, counts) -> str:
         else:
             ms[k] = ms.get(k, 0.0) + t
             launches[k] = launches.get(k, 0) + 1
+            seq.setdefault(k, []).append(t)
     for k, c in counts.items():
         if launches.get(k, 0) != c.kernel:
             raise RuntimeError(f"profile shows {launches.get(k, 0)} launches of {k}, "
@@ -167,7 +174,8 @@ def device_breakdown(run, counts) -> str:
             f"compaction routing {routing:.3f} ms; largest: "
             + "; ".join(f"{n} {t:.3f} ms" for n, t in top)
             + f"); busy {busy:.3f} ms of a {span:.3f} ms device span, idle "
-            f"{max(0.0, 1.0 - busy / span):.1%}; host wall {wall_ms:.3f} ms, all under the profiler")
+            f"{max(0.0, 1.0 - busy / span):.1%}; host wall {wall_ms:.3f} ms, all under the "
+            "profiler"), seq
 
 
 def ptxas_summary(log: str) -> str:
@@ -263,10 +271,15 @@ def main() -> int:
     r = Renderer(cfg)
     r.prepare(scene)
     tables = r.tables
+    tables2 = tables.binary()  # the same tree walked binary, for the A/B
     print(f"scene grid64x28: {scene.num_triangles} triangles, {tables.node_meta.shape[0]} "
-          f"BVH nodes, depth {tables.max_depth}; host build {time.perf_counter() - t0:.1f} s")
+          f"binary BVH nodes, depth {tables.max_depth}; {tables.wide.shape[0]} 4-wide nodes, "
+          f"depth4 {tables.depth4}, stack {tables.stack_size} entries; host build "
+          f"{time.perf_counter() - t0:.1f} s")
     if scene.num_triangles != 100_748:
         raise RuntimeError(f"grid64x28 should hold 100,748 triangles, got {scene.num_triangles}")
+    if cfg.pallas_bvh_width != 4 or tables.width != 4:
+        raise RuntimeError(f"the main path should walk the 4-wide BVH, not width {tables.width}")
     # bench.py's compaction group for this scene at this resolution.
     group = pick_compact_group(WIDTH * HEIGHT, num_tris=builder.num_triangles,
                                has_translucent=builder.has_translucent)
@@ -288,6 +301,8 @@ def main() -> int:
         raise RuntimeError(f"grid64x28-tex substituted files: {tbuilder.fallbacks}")
     if ttables.vertex_uv is None or ttables.vertex_tangent is None:
         raise RuntimeError("grid64x28-tex: K1 must interpolate uv and tangent")
+    if ttables.width != 4:
+        raise RuntimeError(f"grid64x28-tex should walk the 4-wide BVH, not width {ttables.width}")
 
     # Every kernel is held against its plain version and timed at the main
     # path's wave shape: 1080 rows padded to the 32-row tile -> 1088 x 1920 =
@@ -296,11 +311,20 @@ def main() -> int:
     wave = (HEIGHT + (-HEIGHT) % th) * WIDTH
     o, d, a = compare.intersect_rays(scene, tables, wave, seed=1)
     c1 = compare.compare_intersect(o, d, a, tables)
-    print(f"K1 vs plain, grid64x28, {c1['rays']} rays (half secondary): mask agreement "
-          f"{c1['mask_agree']:.6f} (>= 0.9999), max |dt| {c1['max_abs_err']:.3g} "
-          f"(<= 1e-5 t + 1e-6), normal max err {c1['normal_max_abs_err']:.3g}, "
-          f"hit fraction {c1['hit_fraction']:.3f}; {c1['inner_visits']} inner-node visits, "
-          f"{c1['tri_tests']} triangle tests")
+    c1b = compare.compare_intersect(o, d, a, tables2)
+    for c in (c1, c1b):
+        print(f"K1 vs plain, grid64x28, width {c['width']}, {c['rays']} rays (half secondary): "
+              f"mask agreement {c['mask_agree']:.6f} (>= 0.9999), max |dt| "
+              f"{c['max_abs_err']:.3g} (<= 1e-5 t + 1e-6), normal max err "
+              f"{c['normal_max_abs_err']:.3g}, materials equal {c['material_equal']}, hit "
+              f"fraction {c['hit_fraction']:.3f}")
+    print(f"  bound's yardstick (binary traversal of these rays): {c1['inner_visits']} inner-node "
+          f"visits, {c1['tri_tests']} triangle tests; the 4-wide tree's own work: "
+          f"{c1['wide_inner_visits']} node visits, {c1['wide_box_tests']} box tests, "
+          f"{c1['wide_tri_tests']} triangle tests, {c1['wide_culled_pops']} pops culled; lanes "
+          f"busy in a warp's node / triangle iterations (as the plain traversal steps warps of "
+          f"32): width 4 {c1['wide_simt']['node']:.3f} / {c1['wide_simt']['tri']:.3f}, width 2 "
+          f"{c1['binary_simt']['node']:.3f} / {c1['binary_simt']['tri']:.3f}")
     to, td, ta = compare.intersect_rays(tscene, ttables, wave, seed=1)
     c1t = compare.compare_intersect(to, td, ta, ttables)
     print(f"K1 vs plain, grid64x28-tex (uv + tangent), {c1t['rays']} rays: mask agreement "
@@ -347,19 +371,37 @@ def main() -> int:
     glanes = compare.canned_lanes(mtab_g.shape[0], wave, seed=4, device=dev)
     blanes = dict(glanes, origin=o, direction=d, alive=a)
     c5 = {}
-    for rr in (True, False):
-        c5[rr] = compare.compare_bounce(blanes, tables, mtab_g, 3, 1, seed=SEED,
-                                        russian_roulette=rr)
-        print(f"K5 vs plain, {c5[rr]['lanes']} real lanes of grid64x28, RR {rr}: decisions "
-              f"flipped {c5[rr]['flipped']:.6f} (<= 1e-4), max abs err "
-              f"{c5[rr]['max_abs_err']:.3g} (rtol 1e-5, atol 1e-6); vs K1 then K2 on the "
-              f"same lanes, outputs equal {c5[rr]['equal_to_k1_k2']} (all must be)")
+    for tb in (tables, tables2):
+        for rr in (True, False):
+            c = compare.compare_bounce(blanes, tb, mtab_g, 3, 1, seed=SEED, russian_roulette=rr)
+            c5[(tb.width, rr)] = c
+            print(f"K5 vs plain, width {tb.width}, {c['lanes']} real lanes of grid64x28, RR "
+                  f"{rr}: decisions flipped {c['flipped']:.6f} (<= 1e-4), max abs err "
+                  f"{c['max_abs_err']:.3g} (rtol 1e-5, atol 1e-6); vs K1 then K2 on the "
+                  f"same lanes, outputs equal {c['equal_to_k1_k2']} (all must be)")
 
-    t_k1 = compare.cuda_ms(lambda: k1.intersect(o, d, a, tables), 10)
+    # K1 and K5 at both widths, in turns (2, 4, 4, 2): the A/B of the
+    # redesign on one card; K1 also on each half of the wave (the camera
+    # rays at random pixels, the secondary rays).
+    t1w, t5w, t1h = {2: [], 4: []}, {2: [], 4: []}, {}
+    bargs = [blanes[k] for k in compare.BOUNCE_ARGS]
+    kw = dict(seed=SEED, russian_roulette=True)
+    half = {"camera": slice(0, wave // 2), "secondary": slice(wave // 2, wave)}
+    for tb in (tables2, tables, tables, tables2):
+        t1w[tb.width].append(compare.cuda_ms(lambda: k1.intersect(o, d, a, tb), 10))
+        t5w[tb.width].append(compare.cuda_ms(
+            lambda: k5.trace_bounce(*bargs, 3, 1, tables=tb, mtab=mtab_g, **kw), 10))
+        for hname, sl in half.items():
+            ho, hd, ha = o[sl].contiguous(), d[sl].contiguous(), a[sl].contiguous()
+            t1h.setdefault(f"{hname} width {tb.width}", []).append(
+                compare.cuda_ms(lambda: k1.intersect(ho, hd, ha, tb), 10))
+    t1w = {w: sum(v) / len(v) for w, v in t1w.items()}
+    t5w = {w: sum(v) / len(v) for w, v in t5w.items()}
+    t1h = {h: sum(v) / len(v) for h, v in t1h.items()}
+    t_k1, t_k5 = t1w[4], t5w[4]
     t_p1 = compare.cuda_ms(lambda: k1.intersect_plain(o, d, a, tables), 1)
     t_k1t = compare.cuda_ms(lambda: k1.intersect(to, td, ta, ttables), 10)
     args = [lanes[k] for k in compare.SHADE_ARGS]
-    kw = dict(seed=SEED, russian_roulette=True)
     t_k2 = compare.cuda_ms(lambda: k2.shade(*args, mtab, 3, 1, **kw), 20)
     t_p2 = compare.cuda_ms(lambda: k2.shade_plain(*args, mtab, 3, 1, **kw), 3)
     fargs = [real[k] for k in compare.TEXFETCH_ARGS]
@@ -372,9 +414,7 @@ def main() -> int:
     texels = c3["real"]["texels"]
     t_k4 = compare.cuda_ms(lambda: k2.shade_textured(*sargs, texels, mtab_t, 3, 1, **kw), 20)
     t_p4 = compare.cuda_ms(lambda: k2.shade_textured_plain(*sargs, texels, mtab_t, 3, 1, **kw), 3)
-    bargs = [blanes[k] for k in compare.BOUNCE_ARGS]
     bkw = dict(tables=tables, mtab=mtab_g, **kw)
-    t_k5 = compare.cuda_ms(lambda: k5.trace_bounce(*bargs, 3, 1, **bkw), 10)
     t_p5 = compare.cuda_ms(lambda: k5.trace_bounce_plain(*bargs, 3, 1, **bkw), 1)
 
     def two_stage():
@@ -383,12 +423,15 @@ def main() -> int:
                         3, 1, **kw)
 
     t_k12 = compare.cuda_ms(two_stage, 10)
-    b3, b4, b5 = c3["real"], c4[("real", True)], c5[True]
+    b3, b4, b5 = c3["real"], c4[("real", True)], c5[(4, True)]
     print(f"time at the 1080p wave ({wave} lanes; K1 and K5 on half camera, half secondary "
           f"rays; K3/K4 on the real lanes of grid64x28-tex) {card}:")
-    print(f"  K1 {t_k1:.3f} ms vs plain {t_p1:.1f} ms, bound {c1['bound_ms']:.4f} ms "
-          f"({c1['bound_by']}: {c1['bytes']:.4g} B, {c1['ops']:.4g} ops); "
-          f"K1 uv+tangent on grid64x28-tex {t_k1t:.3f} ms, bound {c1t['bound_ms']:.4f} ms")
+    print(f"  K1 width 4 {t1w[4]:.3f} ms, width 2 {t1w[2]:.3f} ms (means of 2 turns each) vs "
+          f"plain {t_p1:.1f} ms, bound {c1['bound_ms']:.4f} ms ({c1['bound_by']}: "
+          f"{c1['bytes']:.4g} B, {c1['ops']:.4g} ops, the binary yardstick at both widths); "
+          f"K1 uv+tangent on grid64x28-tex, width 4, {t_k1t:.3f} ms, bound "
+          f"{c1t['bound_ms']:.4f} ms; K1 on each half of the wave ({wave // 2} lanes): "
+          + ", ".join(f"{h} {t:.3f} ms" for h, t in t1h.items()))
     print(f"  K2 {t_k2:.3f} ms vs plain {t_p2:.3f} ms, bound {c2[True]['bound_ms']:.4f} ms "
           f"({c2[True]['bound_by']}: {c2[True]['bytes']:.4g} B)")
     print(f"  K3 {t_k3:.3f} ms vs plain {t_p3:.3f} ms, index_select of the same "
@@ -396,10 +439,11 @@ def main() -> int:
           f"({b3['bound_by']}: {b3['bytes']:.4g} B, {b3['ops']:.4g} ops)")
     print(f"  K4 {t_k4:.3f} ms vs plain {t_p4:.3f} ms, bound {b4['bound_ms']:.4f} ms "
           f"({b4['bound_by']}: {b4['bytes']:.4g} B)")
-    print(f"  K5 {t_k5:.3f} ms vs plain {t_p5:.1f} ms, bound {b5['bound_ms']:.4f} ms "
+    print(f"  K5 width 4 {t5w[4]:.3f} ms, width 2 {t5w[2]:.3f} ms vs plain {t_p5:.1f} ms, "
+          f"bound {b5['bound_ms']:.4f} ms "
           f"({b5['bound_by']}: {b5['bytes']:.4g} B, {b5['ops']:.4g} ops; {b5['hit_lanes']} hit, "
           f"{b5['miss_lanes']} miss, {b5['dead_lanes']} dead lanes); K1 then K2 on the same "
-          f"lanes {t_k12:.3f} ms")
+          f"lanes, width 4, {t_k12:.3f} ms")
 
     # 4. main paths
     ccfg = cfg.replace(wave_compact_group=group)
@@ -407,7 +451,10 @@ def main() -> int:
              ("grid64x28", scene, cfg, ("K1", "K2")),
              ("grid64x28 fused", scene, ccfg.replace(use_pallas_bounce=True), ("K5",)),
              ("grid64x28-tex compacted", tscene, ccfg, ("K1", "K3", "K4")),
-             ("grid64x28-tex", tscene, cfg, ("K1", "K3", "K4")))
+             ("grid64x28-tex", tscene, cfg, ("K1", "K3", "K4")),
+             ("grid64x28 compacted width 2", scene, ccfg.replace(pallas_bvh_width=2),
+              ("K1", "K2")),
+             ("grid64x28 width 2", scene, cfg.replace(pallas_bvh_width=2), ("K1", "K2")))
     print("config: " + json.dumps({"width": cfg.width, "height": cfg.height, "spp": cfg.spp,
                                    "frames": FRAMES, "max_bounces": cfg.max_bounces,
                                    "russian_roulette": cfg.russian_roulette,
@@ -415,6 +462,7 @@ def main() -> int:
                                    "rng": cfg.rng, "wave_compact_group": group,
                                    "wave_compact_skip_first": ccfg.wave_compact_skip_first,
                                    "bvh_leaf_size": cfg.bvh_leaf_size,
+                                   "pallas_bvh_width": cfg.pallas_bvh_width,
                                    "paths": [p[0] for p in paths]}))
     # Every path is timed REPEATS times, the paths in turn, before any of
     # them runs under the profiler (a profiled window leaves the host
@@ -426,6 +474,9 @@ def main() -> int:
         want_path = "fused" if "K5" in need else "two-stage"
         if rend.path != want_path:
             raise RuntimeError(f"{pname}: the renderer bound the {rend.path} path")
+        if rend.tables.width != pcfg.pallas_bvh_width:
+            raise RuntimeError(f"{pname}: the tables have width {rend.tables.width}, "
+                               f"not {pcfg.pallas_bvh_width}")
         rends[pname] = rend
         rates[pname] = []
     for rep in range(REPEATS):
@@ -451,7 +502,8 @@ def main() -> int:
                 if (img.shape != (HEIGHT, WIDTH, 3)
                         or not np.isfinite(state.accum.cpu().numpy()).all()):
                     raise RuntimeError(f"{pname} image: shape {img.shape} or non-finite values")
-                print(f"main path {pname} ({rend.path}, group {pcfg.wave_compact_group}): "
+                print(f"main path {pname} ({rend.path}, group {pcfg.wave_compact_group}, "
+                      f"BVH width {rend.tables.width}): "
                       f"{sc.num_triangles} triangles, {FRAMES} frames, {nrays} rays; launches "
                       + ", ".join(f"{k} {v[0]}" for k, v in got.items())
                       + f", plain {sum(v[1] for v in got.values())}; peak device memory "
@@ -461,12 +513,24 @@ def main() -> int:
         print(f"main path {pname}: MRays/s over {REPEATS} runs of {FRAMES} frames, taken in "
               f"turn with the other paths {card}: median {r_[len(r_) // 2]:.2f}, min "
               f"{r_[0]:.2f}, max {r_[-1]:.2f}")
+    k1_bounce = {}
     for pname, sc, pcfg, _ in paths:
         rend = rends[pname]
-        print(f"  {pname}: device time of {FRAMES} more frames {card}: " + device_breakdown(
-            lambda: rend.step_many(sc, init_state(pcfg, dev), FRAMES), counts))
+        line, seq = device_breakdown(
+            lambda: rend.step_many(sc, init_state(pcfg, dev), FRAMES), counts)
+        print(f"  {pname}: device time of {FRAMES} more frames {card}: {line}")
+        if "K1" in seq:  # frame 0's launches are bounces 0..max_bounces-1
+            k1_bounce[pname] = seq["K1"][:pcfg.max_bounces]
+            print(f"  {pname}: K1 ms per bounce of frame 0 {card}: "
+                  + ", ".join(f"{t:.3f}" for t in k1_bounce[pname]))
+    for p2 in ("grid64x28 compacted width 2", "grid64x28 width 2"):
+        a2, a4 = accum[p2], accum["grid64x28"]
+        print(f"{p2} vs width 4: {int((a2 != a4).any(-1).sum())} of "
+              f"{a4.shape[0] * a4.shape[1]} pixels differ, max |difference| "
+              f"{float((a2 - a4).abs().max()):.3g} (the widths may break an equal-t tie apart)")
     for ref, others in (("grid64x28", ("grid64x28 compacted", "grid64x28 fused")),
-                        ("grid64x28-tex", ("grid64x28-tex compacted",))):
+                        ("grid64x28-tex", ("grid64x28-tex compacted",)),
+                        ("grid64x28 width 2", ("grid64x28 compacted width 2",))):
         same = {p: bool(torch.equal(accum[p], accum[ref])) for p in others}
         print(f"accumulators equal to {ref}'s: {same}")
         if not all(same.values()):
@@ -548,7 +612,8 @@ def main() -> int:
 
     kernels = [
         entry("K1", "intersect", "intersect.cu", "tracy_tpu/ops/pallas_packet.py:519",
-              max(c1["max_abs_err"], c1t["max_abs_err"]), t_k1, t_p1, c1, None),
+              max(c1["max_abs_err"], c1b["max_abs_err"], c1t["max_abs_err"]), t_k1, t_p1, c1,
+              None),
         entry("K2", "shade", "shade.cu", "tracy_tpu/ops/pallas_shade.py:72",
               max(c["max_abs_err"] for c in c2.values()), t_k2, t_p2, c2[True], None),
         entry("K3", "texfetch", "texfetch.cu", "tracy_tpu/ops/pallas_texfetch.py:231",
@@ -562,6 +627,14 @@ def main() -> int:
     ]
     kernels[0]["textured_ms"] = t_k1t
     kernels[0]["textured_bound_ms"] = c1t["bound_ms"]
+    kernels[0]["ms_per_bounce_frame0"] = k1_bounce
+    kernels[0]["half_wave_ms"] = t1h
+    for kern, tw, c in ((kernels[0], t1w, c1), (kernels[4], t5w, b5)):
+        kern.update(width4_ms=tw[4], width2_ms=tw[2], binary_inner_visits=c["inner_visits"],
+                    binary_tri_tests=c["tri_tests"], wide_inner_visits=c["wide_inner_visits"],
+                    wide_box_tests=c["wide_box_tests"], wide_tri_tests=c["wide_tri_tests"],
+                    wide_culled_pops=c["wide_culled_pops"], wide_simt=c["wide_simt"],
+                    binary_simt=c["binary_simt"])
     kernels[4]["k1_then_k2_ms"] = t_k12
     kernels[5]["ns_per_iter"] = {v: t6[v]["ns_per_iter"] for v in k6.VARIANTS}
     print(json.dumps({"kernels": kernels}))

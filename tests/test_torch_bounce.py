@@ -9,7 +9,10 @@ on the CPU.
   into bf16 halves, about 4e-3 off, which turns about 2% of the scatter
   directions by more than 1e-3), on cornell.scn: 4,096 lanes, half camera rays and half secondary
   rays, about 70% alive; Russian roulette on and off; and once more with
-  both sides wrapped in compact_bounce(group=1024). The contract is
+  both sides wrapped in compact_bounce(group=1024). These three walk the
+  binary BVH on both sides; one more case walks the 4-wide BVH on both
+  sides (the port's traverse4 order against tracy_tpu's body4,
+  build_tables(width=4), as tests/test_pallas_packet.py:434-446 runs it). The contract is
   test_torch_shade.py's, for the same reasons (an ulp of torch CPU vs XLA
   CPU can flip a discrete decision; the two BVHs may also break an equal-t
   tie differently): lanes whose alive flag or lobe differ at most 0.1%,
@@ -82,10 +85,13 @@ def cornell():
     return b.build()
 
 
-@pytest.mark.parametrize("rr,group", [(True, 0), (False, 0), (True, 1024)])
-def test_bounce_plain_matches_pallas_trace_bounce(cornell, rr, group):
+@pytest.mark.parametrize("rr,group,width", [
+    pytest.param(True, 0, 2, id="True-0"), pytest.param(False, 0, 2, id="False-0"),
+    pytest.param(True, 1024, 2, id="True-1024"), pytest.param(True, 0, 4, id="True-0-width4")])
+def test_bounce_plain_matches_pallas_trace_bounce(cornell, rr, group, width):
     scene = from_jax_arrays(cornell, device="cpu")
-    tables = build_tables(scene)
+    tables = build_tables(scene, width=width)
+    assert tables.width == width
     mtab = k2.build_material_table(scene.materials)
     n = 4096
     o, d, a = intersect_rays(scene, tables, n, seed=11)
@@ -104,7 +110,8 @@ def test_bounce_plain_matches_pallas_trace_bounce(cornell, rr, group):
     assert k5.COUNT.plain == before + 1
 
     bvh, _ = build_packet_bvh(cornell, leaf_size=64)
-    jt = j_build_tables(cornell, bvh, with_tangent=False, pack_pairs=False)
+    jt = j_build_tables(cornell, bvh, with_tangent=False, pack_pairs=False, width=width)
+    assert jt.width == width
     jm = j_build_mtab(cornell.materials)
     num_m = int(np.asarray(cornell.materials.albedo).shape[0])
 

@@ -80,8 +80,12 @@ def check_against_oracle(jscene, origin, direction, active, hit, normal, mat):
 
 
 @pytest.mark.parametrize("name", ["cornell", "testtree", "grid"])
-@pytest.mark.parametrize("route", ["k1_plain", "bruteforce"])
-def test_intersect_matches_jax_oracle(name, route):
+@pytest.mark.parametrize("route,width", [pytest.param("k1_plain", 2, id="k1_plain"),
+                                         pytest.param("k1_plain", 4, id="k1_plain-width4"),
+                                         pytest.param("bruteforce", None, id="bruteforce")])
+def test_intersect_matches_jax_oracle(name, route, width):
+    """K1's plain version at both BVH widths (testtree's root is a leaf, so
+    its width-4 tables are the binary ones), and the port's brute force."""
     jb, _ = builders(name)
     jscene = jb.build()
     scene = from_jax_arrays(jscene, device="cpu")
@@ -89,10 +93,41 @@ def test_intersect_matches_jax_oracle(name, route):
     active = np.random.default_rng(6).uniform(size=len(origin)) < 0.9
     o, d, a = (torch.as_tensor(x) for x in (origin, direction, active))
     if route == "k1_plain":
-        tables = build_tables(scene, leaf_size=4, max_depth=32)
+        tables = build_tables(scene, leaf_size=4, max_depth=32, width=width)
+        assert tables.width == (2 if name == "testtree" else width)
         before = k1.COUNT.plain
         hit, normal, mat = k1.intersect(o, d, a, tables)[:3]
         assert k1.COUNT.plain == before + 1  # CPU tensors take the plain route
     else:
         hit, normal, mat = make_bruteforce_intersector(scene)(o, d, a)[:3]
     check_against_oracle(jscene, origin, direction, active, hit, normal, mat)
+
+
+@pytest.mark.parametrize("width", [2, 4])
+def test_plain_counts_warp_steps(width):
+    """intersect_plain's warp counts: 32 copies of one ray keep every lane
+    of the warp busy (share 1), one live ray per warp keeps one lane in 32
+    busy, and the work counts do not depend on the batch's layout."""
+    from tracy_tpu_torch.ops.compare import simt
+
+    jb, _ = builders("grid")
+    scene = from_jax_arrays(jb.build(), device="cpu")
+    tables = build_tables(scene, width=width)
+    origin, direction = (torch.as_tensor(x) for x in make_rays(scene, 64, seed=7))
+    nodes = "wide_inner" if width == 4 else "inner"
+    per_ray = []
+    for layout in ("copies", "alone"):
+        if layout == "copies":  # ray j repeated in lanes 32j .. 32j+31
+            o, d = origin.repeat_interleave(32, 0), direction.repeat_interleave(32, 0)
+            a = torch.ones(len(o), dtype=torch.bool)
+        else:  # ray j in lane 32j, the other lanes dead
+            o, d = origin.repeat_interleave(32, 0), direction.repeat_interleave(32, 0)
+            a = torch.arange(len(o)) % 32 == 0
+        counts = {}
+        k1.intersect_plain(o, d, a, tables, counts=counts)
+        share = simt(counts, nodes)
+        want = 1.0 if layout == "copies" else 1.0 / 32
+        assert share["node"] == pytest.approx(want) and share["tri"] == pytest.approx(want)
+        per_ray.append((int(counts[nodes]) // int(a.sum() // 64), int(counts["tri_tests"])
+                        // int(a.sum() // 64)))
+    assert per_ray[0] == per_ray[1]

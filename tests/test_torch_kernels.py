@@ -1,9 +1,9 @@
 """K1-K6 on the card against their plain PyTorch versions on the same CUDA
 tensors, with the contracts of tracy_tpu_torch/ops/compare.py (those of
-chip_smoke.py's kernel phase, at smaller sizes): K5 also against K1 then
-K2 on the same lanes (equal), compacted and fused renders against the
-uncompacted one (equal), each K6 variant against its plain version
-(equal). Marked `cuda`: without an
+chip_smoke.py's kernel phase, at smaller sizes), K1 and K5 on the binary
+and the 4-wide BVH: K5 also against K1 then K2 on the same lanes (equal),
+compacted and fused renders against the uncompacted one (equal), each K6
+variant against its plain version (equal). Marked `cuda`: without an
 NVIDIA GPU these tests skip. On a GPU machine without jax, where
 tests/conftest.py cannot load, run them with
 
@@ -40,9 +40,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def test_intersect_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("width", [2, 4])
+def test_intersect_kernel_matches_plain(cuda, width):
     scene = sphere_grid(64, 48, nsph=16, steps=16).build(device=cuda)
-    tables = build_tables(scene)
+    tables = build_tables(scene, width=width)
+    assert tables.width == width
     rays = compare.intersect_rays(scene, tables, 65536, seed=1)
     res = compare.compare_intersect(*rays, tables)
     assert res["hit_fraction"] > 0.2
@@ -117,10 +119,12 @@ def test_textured_renderer_runs_on_the_kernels(cuda):
     assert np.isfinite(r.display(st)).all()
 
 
+@pytest.mark.parametrize("width", [2, 4])
 @pytest.mark.parametrize("rr", [True, False])
-def test_bounce_kernel_matches_plain_and_two_stage(cuda, rr):
+def test_bounce_kernel_matches_plain_and_two_stage(cuda, rr, width):
     scene = sphere_grid(64, 48, nsph=16, steps=16).build(device=cuda)
-    tables = build_tables(scene)
+    tables = build_tables(scene, width=width)
+    assert tables.width == width
     mtab = k2.build_material_table(scene.materials)
     o, d, a = compare.intersect_rays(scene, tables, 65536, seed=1)
     canned = compare.canned_lanes(mtab.shape[0], 65536, seed=2, device=cuda)
@@ -140,6 +144,7 @@ def test_compacted_and_fused_renders_equal_on_the_card(cuda):
         for c in (k1.COUNT, k2.COUNT, k5.COUNT):
             c.reset()
         st, rays = r.step_many(scene, init_state(cfg, cuda), 2)
+        assert r.tables.width == cfg.pallas_bvh_width == 4
         out[name] = (st.accum, rays)
         want = (0, 0, 10) if name == "fused" else (10, 10, 0)
         assert (k1.COUNT.kernel, k2.COUNT.kernel, k5.COUNT.kernel) == want

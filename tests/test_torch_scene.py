@@ -3,8 +3,10 @@
 Contract: the host builders are numpy copies of the JAX package's, so every
 array of the port's build() must EQUAL tracy_tpu's (both round the same
 float64 host values to float32 once), and the BVH node arrays must be
-equal too. The kernel tables must reach every triangle exactly once, and
-every node box must contain the triangles below it.
+equal too, as must the 4-wide collapse of one binary tree. The kernel
+tables, binary and 4-wide, must reach every triangle exactly once, every
+node box must contain the triangles below it, and the stack bounds must
+cover the trees' depths.
 """
 
 import os
@@ -17,7 +19,10 @@ from tracy_tpu.accel.bvh import _build_auto as j_build_auto
 from tracy_tpu.accel.bvh_build import build_bvh as j_build_bvh
 from tracy_tpu.scene import scn_parser as jscn
 from tracy_tpu_torch.accel.bvh_build import build_bvh, build_bvh_auto
-from tracy_tpu_torch.accel.tables import build_tables
+from tracy_tpu.ops.pallas_packet import _collapse4 as j_collapse4
+from tracy_tpu_torch.accel.tables import (BIG, KERNEL_STACK4_MAX, build_tables, collapse4,
+                                          wide_lines)
+from tracy_tpu_torch.ops.intersect import check_tables
 from tracy_tpu_torch.scene import scn_parser as tscn
 
 torch.set_num_threads(2)
@@ -163,3 +168,106 @@ def test_textured_tags_load_or_list_fallbacks(tmp_path):
         assert b.fallbacks == [fallback]
         assert len(b.atlas) == (0 if fallback.startswith("mesh") else 1)
         assert np.isfinite(b.build(device="cpu").tex_data.numpy()).all()
+
+
+@pytest.mark.parametrize("name", ["cornell", "random", "grid"])
+def test_collapse4_equals_jax(name):
+    """The port's collapse4 gives tracy_tpu's _collapse4(width=4) arrays on
+    the same binary tree, bit for bit."""
+    _, tb = builders(name)
+    s = tb.build(device="cpu")
+    lo, hi = _tri_bounds(s.vertex_pos.numpy(), s.indices.numpy())
+    host = build_bvh_auto(lo, hi, 4, 60)
+    got, ref = collapse4(host.node_bounds, host.node_meta), j_collapse4(
+        host.node_bounds, host.node_meta, 4)
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+    assert got[2] == ref[2] > 1
+
+
+@pytest.mark.parametrize("name,leaf,depth", [("random", 8, 60), ("grid", 4, 6)])
+def test_wide_tables_reach_every_triangle(name, leaf, depth):
+    """The 4-wide lines reach every triangle exactly once, every child box
+    contains its subtree's triangles, empty slots are never-hit boxes with
+    count -1, the lines are the binary tree's boxes and leaves, and the
+    stack bound is (W - 1) * depth4 + 1 within the kernel's stack."""
+    _, tb = builders(name)
+    s = tb.build(device="cpu")
+    tab = build_tables(s, leaf_size=leaf, max_depth=depth, width=4)
+    assert tab.width == 4 and tab.wide.shape[1] == 32
+    line = tab.wide.numpy()
+    bits = line.view(np.int32)
+    pos, idx = s.vertex_pos.numpy(), s.indices.numpy()
+    lo, hi = _tri_bounds(pos, idx)
+    tri_id = tab.tri_id.numpy()
+    seen = np.zeros(len(idx), np.int64)
+    deepest = 0
+
+    def walk(row, depth4):
+        nonlocal deepest
+        deepest = max(deepest, depth4)
+        tris = []
+        for k in range(4):
+            ref, count = bits[row, 24 + k], bits[row, 28 + k]
+            box_lo, box_hi = line[row, k:24:8], line[row, 4 + k:24:8]
+            if count < 0:
+                assert (box_lo == BIG).all() and (box_hi == -BIG).all()
+                continue
+            if count > 0:
+                sub = tri_id[~ref:~ref + count]
+                np.add.at(seen, sub, 1)
+            else:
+                sub = walk(ref, depth4 + 1)
+            assert (box_lo <= lo[sub].min(axis=0)).all()
+            assert (box_hi >= hi[sub].max(axis=0)).all()
+            tris.append(sub)
+        return np.concatenate(tris)
+
+    walk(0, 1)
+    assert (seen == 1).all()
+    assert deepest == tab.depth4 <= (tab.max_depth - 1) // 2 + 1
+    assert tab.stack_size == 3 * tab.depth4 + 1 <= KERNEL_STACK4_MAX
+
+
+def test_wide_stack_bound_at_the_depth_cap():
+    """A binary chain as deep as the builder's cap (60) and as the binary
+    stack allows (63) collapses to depth4 30 and 32: stacks of 91 and 97
+    entries, which the kernel's stack holds; one more level is refused."""
+    for depth, want4 in ((60, 30), (63, 32)):
+        # inner node i (row 2i, depth i) has a leaf left child (row 2i+1)
+        # and inner node i+1 right; the last right child is a leaf at depth
+        # `depth`.
+        meta = np.zeros((2 * depth + 1, 3), np.int32)
+        for i in range(depth):
+            meta[2 * i] = (2 * i + 1, 0, 2 * i + 2)
+            meta[2 * i + 1] = (i, 1, -1)
+        meta[2 * depth] = (depth, 1, -1)
+        nb = np.tile(np.array([0, 0, 0, 1, 1, 1], np.float32), (len(meta), 1))
+        b4, m4, depth4 = collapse4(nb, meta)
+        assert depth4 == want4 == j_collapse4(nb, meta, 4)[2]
+        assert 3 * depth4 + 1 <= KERNEL_STACK4_MAX
+        bits = wide_lines(b4, m4, meta).view(np.int32)
+        assert (bits[:, 28:32] >= -1).all()
+    tab = build_tables(builders("cornell")[1].build(device="cpu"), width=4)
+    tab.depth4 = (KERNEL_STACK4_MAX - 1) // 3 + 1
+    with pytest.raises(ValueError, match="stack"):
+        check_tables(tab, torch.device("cpu"))
+
+
+def test_root_leaf_gives_binary_tables():
+    """When the root is a leaf there is nothing to collapse: the tables are
+    the binary ones and say so (width 2), as tracy_tpu's build_tables
+    falls back (pallas_packet.py:497-500); K1's plain version runs them."""
+    from tracy_tpu_torch.ops import intersect as k1
+
+    _, tb = builders("testtree")
+    s = tb.build(device="cpu")
+    tab = build_tables(s, leaf_size=8, width=4)
+    assert tab.node_meta[0, 1] > 0
+    assert tab.width == 2 and tab.wide is None and tab.depth4 == 0
+    assert collapse4(tab.node_bounds.numpy(), tab.node_meta.numpy()) is None
+    assert j_collapse4(tab.node_bounds.numpy(), tab.node_meta.numpy(), 4) is None
+    o = torch.zeros((1, 3))
+    d = torch.tensor([[0.0, 0.0, -1.0]])
+    hit = k1.intersect(o, d, torch.ones(1, dtype=torch.bool), tab).hit
+    assert hit.t.shape == (1,)

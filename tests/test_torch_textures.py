@@ -131,12 +131,32 @@ def test_render_config_defaults_match():
 
     ours, theirs = RenderConfig(), JConfig()
     names = [f.name for f in dataclasses.fields(RenderConfig)]
-    assert len(names) == 17
+    assert len(names) == 18
     for name in names:
         assert getattr(ours, name) == getattr(theirs, name), name
     from tracy_tpu import config as jconfig
     for const in ("AOVS", "TONEMAPS", "ACCELS", "RNGS"):
         assert getattr(tconfig, const) == getattr(jconfig, const), const
+
+
+def test_bvh_width_is_validated_and_bound():
+    """pallas_bvh_width defaults to tracy_tpu's 4, takes 2, refuses 8 (not
+    ported: the error points at ROADMAP.md) and anything else, and the
+    Renderer builds its tables at that width."""
+    from tracy_tpu_torch.config import RenderConfig
+    from tracy_tpu_torch.render.renderer import Renderer
+
+    assert RenderConfig().pallas_bvh_width == 4
+    with pytest.raises(ValueError, match="ROADMAP"):
+        RenderConfig(pallas_bvh_width=8)
+    with pytest.raises(ValueError, match="2 or 4"):
+        RenderConfig(pallas_bvh_width=3)
+    scene = tscn.load_scene(os.path.join(REPO, "tests", "goldens", "scn",
+                                         "cornell.scn")).build(device="cpu")
+    for width in (2, 4):
+        r = Renderer(RenderConfig(width=32, height=32, pallas_bvh_width=width))
+        r.prepare(scene)
+        assert r.tables.width == width and (r.tables.wide is None) == (width == 2)
 
 
 def test_default_device_is_the_card():

@@ -2,10 +2,11 @@
 
 The fields the port reads, with the names, defaults and string constants of
 tracy_tpu/config.py::RenderConfig. The JAX package's TPU-only knobs (the
-`pallas_*` fields, `use_pallas`, `use_pallas_shade`, `packet_*`,
+other `pallas_*` fields, `use_pallas`, `use_pallas_shade`, `packet_*`,
 `ray_chunk`, `dtype`) have no meaning here and are left out.
 `use_pallas_bounce` keeps its name: in the port it selects the fused bounce
-kernel K5 (csrc/bounce.cu) on untextured scenes.
+kernel K5 (csrc/bounce.cu) on untextured scenes. `pallas_bvh_width` keeps
+its name too: the branching factor of the tree that K1 and K5 walk.
 """
 
 from __future__ import annotations
@@ -70,8 +71,16 @@ class RenderConfig:
     wave_compact_group: int = 0
     wave_compact_skip_first: bool = True  # bounce 0 (all live) uncompacted
     use_pallas_bounce: bool = False  # fused bounce K5 on untextured scenes
+    # The BVH K1 and K5 walk: 4-wide (accel/tables.py's collapsed tree) or
+    # binary (2). tracy_tpu's 8 is not ported yet (ROADMAP.md, queue 2 #1).
+    pallas_bvh_width: int = 4
 
     def __post_init__(self):
+        if self.pallas_bvh_width == 8:
+            raise ValueError("pallas_bvh_width=8: the 8-wide BVH is not ported yet "
+                             "(ROADMAP.md, queue 2 #1); use 4 or 2")
+        if self.pallas_bvh_width not in (2, 4):
+            raise ValueError(f"pallas_bvh_width must be 2 or 4, got {self.pallas_bvh_width}")
         if self.tonemap not in TONEMAPS:
             raise ValueError(f"unknown tonemap {self.tonemap!r}; pick one of {TONEMAPS}")
         if self.aov not in AOVS:

@@ -3,8 +3,9 @@
 // Replaces tracy_tpu/ops/pallas_packet.py::pallas_trace_bounce (its
 // `_kernel` run with `shade=`): the TPU's fused bounce megakernel, K1 and K2
 // in one kernel so that the hit record never goes to memory. Here a live
-// lane runs K1's traversal (tracy::traverse, traverse.cuh), interpolates the
-// winner's normal and reads its material, and runs K2's bounce
+// lane runs K1's traversal (tracy::traverse4 on the 4-wide tree, the
+// default, or tracy::traverse on the binary one; traverse.cuh), interpolates
+// the winner's normal and reads its material, and runs K2's bounce
 // (tracy::shade_miss / tracy::shade_hit, shade_lane.cuh), all in registers.
 // It writes only the next state (origin, direction, throughput, radiance,
 // alive). Dead lanes pass through unchanged. Since the three kernels share
@@ -28,12 +29,14 @@ namespace {
 
 constexpr int BLOCK = 128;
 
+template <bool WIDE>
 __global__ void __launch_bounds__(BLOCK) bounce_kernel(
     const float* __restrict__ orig, const float* __restrict__ dir,
     const float* __restrict__ thr_in, const float* __restrict__ rad_in,
     const bool* __restrict__ alive_in, const int* __restrict__ pix_in, int n,
     const float4* __restrict__ nb, const int4* __restrict__ nm,
-    const float4* __restrict__ tri, const int4* __restrict__ tmeta,
+    const float4* __restrict__ wide, const float4* __restrict__ tri,
+    const int4* __restrict__ tmeta,
     const float* __restrict__ vnormal, const float* __restrict__ mtab,
     int num_materials, uint32_t skey, uint32_t bounce, uint32_t seed,
     int russian_roulette, float* __restrict__ o_out,
@@ -52,8 +55,13 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(
   if (alive_in[i]) {
     float best_t = FLT_MAX, bu = 0.0f, bv = 0.0f;
     int best = -1;
-    tracy::traverse(nb, nm, tri, o[0], o[1], o[2], d[0], d[1], d[2], &best_t,
-                    &best, &bu, &bv);
+    if constexpr (WIDE) {
+      tracy::traverse4(wide, tri, o[0], o[1], o[2], d[0], d[1], d[2], &best_t,
+                       &best, &bu, &bv);
+    } else {
+      tracy::traverse(nb, nm, tri, o[0], o[1], o[2], d[0], d[1], d[2],
+                      &best_t, &best, &bu, &bv);
+    }
     if (best < 0) {
       tracy::shade_miss<false>(rad, thr, mtab, nullptr);
     } else {
@@ -75,32 +83,59 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(
   alive_out[i] = alive;
 }
 
+template <bool WIDE>
+void launch(const float* orig, const float* dir, const float* thr,
+            const float* rad, const bool* alive, const int* pix, int n,
+            const float* nb, const int* nm, const float* wide, const float* tri,
+            const int* tmeta, const float* vnormal, const float* mtab,
+            int num_materials, uint32_t sample_key, uint32_t bounce,
+            uint32_t seed, int russian_roulette, float* o_out, float* d_out,
+            float* thr_out, float* rad_out, bool* alive_out,
+            cudaStream_t stream) {
+  bounce_kernel<WIDE><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
+      orig, dir, thr, rad, alive, pix, n, reinterpret_cast<const float4*>(nb),
+      reinterpret_cast<const int4*>(nm), reinterpret_cast<const float4*>(wide),
+      reinterpret_cast<const float4*>(tri),
+      reinterpret_cast<const int4*>(tmeta), vnormal, mtab, num_materials,
+      sample_key, bounce, seed, russian_roulette, o_out, d_out, thr_out,
+      rad_out, alive_out);
+}
+
 }  // namespace
 
-// vuv and vtan are the tables' texture uv and tangent: K5 is untextured and
-// refuses them when they are not null.
+// width 2 walks nb/nm (the binary tree), width 4 walks `wide` (the 4-wide
+// lines), which must then not be null: as tracy_intersect. vuv and vtan are
+// the tables' texture uv and tangent: K5 is untextured and refuses them
+// when they are not null.
 extern "C" int tracy_bounce(const float* orig, const float* dir,
                             const float* thr, const float* rad,
                             const bool* alive, const int* pix, int n,
-                            const float* nb, const int* nm, const float* tri,
-                            const int* tmeta, const float* vnormal,
-                            const float* vuv, const float* vtan,
-                            const float* mtab, int num_materials,
-                            uint32_t sample_key, uint32_t bounce,
-                            uint32_t seed, int russian_roulette, float* o_out,
-                            float* d_out, float* thr_out, float* rad_out,
-                            bool* alive_out, void* stream) {
-  if (vuv != nullptr || vtan != nullptr) {
+                            const float* nb, const int* nm, const float* wide,
+                            int width, const float* tri, const int* tmeta,
+                            const float* vnormal, const float* vuv,
+                            const float* vtan, const float* mtab,
+                            int num_materials, uint32_t sample_key,
+                            uint32_t bounce, uint32_t seed,
+                            int russian_roulette, float* o_out, float* d_out,
+                            float* thr_out, float* rad_out, bool* alive_out,
+                            void* stream) {
+  if (vuv != nullptr || vtan != nullptr || (width != 2 && width != 4) ||
+      (width == 4 && wide == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
-    bounce_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        orig, dir, thr, rad, alive, pix, n, reinterpret_cast<const float4*>(nb),
-        reinterpret_cast<const int4*>(nm), reinterpret_cast<const float4*>(tri),
-        reinterpret_cast<const int4*>(tmeta), vnormal, mtab, num_materials,
-        sample_key, bounce, seed, russian_roulette, o_out, d_out, thr_out,
-        rad_out, alive_out);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (width == 4) {
+      launch<true>(orig, dir, thr, rad, alive, pix, n, nb, nm, wide, tri,
+                   tmeta, vnormal, mtab, num_materials, sample_key, bounce,
+                   seed, russian_roulette, o_out, d_out, thr_out, rad_out,
+                   alive_out, st);
+    } else {
+      launch<false>(orig, dir, thr, rad, alive, pix, n, nb, nm, wide, tri,
+                    tmeta, vnormal, mtab, num_materials, sample_key, bounce,
+                    seed, russian_roulette, o_out, d_out, thr_out, rad_out,
+                    alive_out, st);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

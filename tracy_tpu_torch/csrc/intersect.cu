@@ -4,30 +4,35 @@
 // through pallas_intersect). That kernel shares one traversal stack among a
 // packet of 4096 rays and DMAs 128-triangle leaf chunks into VMEM, because
 // the TPU serialises gathers. A GPU thread gathers freely, so this kernel
-// ports the function, not those mechanics: each thread walks the binary BVH
-// of accel/tables.py for its own ray with a stack in local memory, visits
-// the nearer child first, and runs the exact backface-culled Möller–Trumbore
-// test of tracy_tpu/render/intersect.py:61-72 on every triangle of a leaf.
+// ports the function, not those mechanics: each thread walks a BVH of
+// accel/tables.py for its own ray with a stack in local memory, nearest
+// child first, and runs the exact backface-culled Möller–Trumbore test of
+// tracy_tpu/render/intersect.py:61-72 on every triangle of a leaf. As in
+// tracy_tpu (pallas_bvh_width), the tree is binary (width 2,
+// tracy::traverse) or 4-wide (width 4, the default, tracy::traverse4).
 //
 // What bounds it on an H100: the traversal is a chain of dependent loads
-// (node, then its children's boxes, then triangles) whose addresses diverge
-// across a warp on secondary rays, so it is bound by load latency and
-// divergence, not by arithmetic or DRAM bandwidth. The node and triangle
-// tables of a scene of about 100K triangles take a few MB and stay in the
-// 50 MB L2. The design answers with 16-byte loads (a box is two float4s, a
-// triangle three) and early exits in the triangle test; wider nodes, node
-// compression and ray reordering are later work.
+// whose addresses diverge across a warp on secondary rays, so it is bound
+// by load latency and divergence, not by arithmetic or DRAM bandwidth. The
+// node and triangle tables of a scene of about 100K triangles take a few
+// MB and stay in the 50 MB L2. The binary walk pays two dependent steps a
+// level (the node's meta, then its children's boxes). The 4-wide walk
+// pays one: a node is one 128-byte line holding its 4 children's boxes,
+// references and counts, loaded as 8 float4s at once, over about half as
+// many levels; it visits the nearest child first and skips a popped entry
+// that the best hit since its push has left behind. Node compression and
+// ray reordering are later work.
 //
-// The traversal itself is tracy::traverse (traverse.cuh), which K5 shares.
 // Dead rays (active == false) do no work and return a miss. Outputs per
 // ray: t (FLT_MAX on a miss), barycentric u/v, the hit mask, the winner's
 // unnormalised interpolated vertex normal, its material id and triangle id;
 // on textured scenes also the interpolated texture uv and (with normal maps)
 // the unnormalised tangent, as the TPU kernel's has_uv / with_tangent rows
-// (pallas_packet.py:448-466). Those two are template parameters, so the
-// untextured launch does no extra loads or stores. Every attribute is
-// w*a0 + u*a1 + v*a2 with w = 1-u-v, in tracy_tpu/render/integrator.py's
-// order: one ulp of uv can move a texel index at a cell edge.
+// (pallas_packet.py:448-466). Those two and the width are template
+// parameters, so the untextured launch does no extra loads or stores.
+// Every attribute is w*a0 + u*a1 + v*a2 with w = 1-u-v, in
+// tracy_tpu/render/integrator.py's order: one ulp of uv can move a texel
+// index at a cell edge.
 
 #include "traverse.cuh"
 
@@ -36,11 +41,12 @@ namespace {
 using tracy::interp;
 constexpr int BLOCK = 128;
 
-template <bool UV, bool TANGENT>
+template <bool UV, bool TANGENT, bool WIDE>
 __global__ void __launch_bounds__(BLOCK) intersect_kernel(
     const float* __restrict__ orig, const float* __restrict__ dir,
     const bool* __restrict__ active, int n, const float4* __restrict__ nb,
-    const int4* __restrict__ nm, const float4* __restrict__ tri,
+    const int4* __restrict__ nm, const float4* __restrict__ wide,
+    const float4* __restrict__ tri,
     const int4* __restrict__ tmeta, const int* __restrict__ tri_id,
     const float* __restrict__ vnormal, const float* __restrict__ vuv,
     const float* __restrict__ vtan, float* __restrict__ t_out,
@@ -53,9 +59,15 @@ __global__ void __launch_bounds__(BLOCK) intersect_kernel(
   float best_t = FLT_MAX, bu = 0.0f, bv = 0.0f;
   int best = -1;
   if (active[i]) {
-    tracy::traverse(nb, nm, tri, orig[3 * i], orig[3 * i + 1], orig[3 * i + 2],
-                    dir[3 * i], dir[3 * i + 1], dir[3 * i + 2], &best_t,
-                    &best, &bu, &bv);
+    if constexpr (WIDE) {
+      tracy::traverse4(wide, tri, orig[3 * i], orig[3 * i + 1],
+                       orig[3 * i + 2], dir[3 * i], dir[3 * i + 1],
+                       dir[3 * i + 2], &best_t, &best, &bu, &bv);
+    } else {
+      tracy::traverse(nb, nm, tri, orig[3 * i], orig[3 * i + 1],
+                      orig[3 * i + 2], dir[3 * i], dir[3 * i + 1],
+                      dir[3 * i + 2], &best_t, &best, &bu, &bv);
+    }
   }
   t_out[i] = best_t;
   mask_out[i] = best >= 0;
@@ -78,50 +90,80 @@ __global__ void __launch_bounds__(BLOCK) intersect_kernel(
   uv_out[2 * i + 1] = bv;
 }
 
-template <bool UV, bool TANGENT>
+template <bool UV, bool TANGENT, bool WIDE>
 void launch(const float* orig, const float* dir, const bool* active, int n,
-            const float* nb, const int* nm, const float* tri, const int* tmeta,
-            const int* tri_id, const float* vnormal, const float* vuv,
-            const float* vtan, float* t_out, float* uv_out, bool* mask_out,
-            float* n_out, int* mat_out, int* tri_out, float* texuv_out,
-            float* tan_out, cudaStream_t stream) {
-  intersect_kernel<UV, TANGENT><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
-      orig, dir, active, n, reinterpret_cast<const float4*>(nb),
-      reinterpret_cast<const int4*>(nm), reinterpret_cast<const float4*>(tri),
-      reinterpret_cast<const int4*>(tmeta), tri_id, vnormal, vuv, vtan, t_out,
-      uv_out, mask_out, n_out, mat_out, tri_out, texuv_out, tan_out);
+            const float* nb, const int* nm, const float* wide, const float* tri,
+            const int* tmeta, const int* tri_id, const float* vnormal,
+            const float* vuv, const float* vtan, float* t_out, float* uv_out,
+            bool* mask_out, float* n_out, int* mat_out, int* tri_out,
+            float* texuv_out, float* tan_out, cudaStream_t stream) {
+  intersect_kernel<UV, TANGENT, WIDE>
+      <<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
+          orig, dir, active, n, reinterpret_cast<const float4*>(nb),
+          reinterpret_cast<const int4*>(nm),
+          reinterpret_cast<const float4*>(wide),
+          reinterpret_cast<const float4*>(tri),
+          reinterpret_cast<const int4*>(tmeta), tri_id, vnormal, vuv, vtan,
+          t_out, uv_out, mask_out, n_out, mat_out, tri_out, texuv_out,
+          tan_out);
+}
+
+template <bool WIDE>
+void launch_width(const float* orig, const float* dir, const bool* active,
+                  int n, const float* nb, const int* nm, const float* wide,
+                  const float* tri, const int* tmeta, const int* tri_id,
+                  const float* vnormal, const float* vuv, const float* vtan,
+                  float* t_out, float* uv_out, bool* mask_out, float* n_out,
+                  int* mat_out, int* tri_out, float* texuv_out, float* tan_out,
+                  cudaStream_t st) {
+  if (vtan != nullptr) {
+    launch<true, true, WIDE>(orig, dir, active, n, nb, nm, wide, tri, tmeta,
+                             tri_id, vnormal, vuv, vtan, t_out, uv_out,
+                             mask_out, n_out, mat_out, tri_out, texuv_out,
+                             tan_out, st);
+  } else if (vuv != nullptr) {
+    launch<true, false, WIDE>(orig, dir, active, n, nb, nm, wide, tri, tmeta,
+                              tri_id, vnormal, vuv, vtan, t_out, uv_out,
+                              mask_out, n_out, mat_out, tri_out, texuv_out,
+                              tan_out, st);
+  } else {
+    launch<false, false, WIDE>(orig, dir, active, n, nb, nm, wide, tri, tmeta,
+                               tri_id, vnormal, vuv, vtan, t_out, uv_out,
+                               mask_out, n_out, mat_out, tri_out, texuv_out,
+                               tan_out, st);
+  }
 }
 
 }  // namespace
 
-// vuv/texuv_out and vtan/tan_out are null when the scene needs no texture
-// uv or tangent; a tangent without uv is refused.
+// width 2 walks nb/nm (the binary tree), width 4 walks `wide` (the 4-wide
+// lines), which must then not be null. vuv/texuv_out and vtan/tan_out are
+// null when the scene needs no texture uv or tangent; a tangent without uv
+// is refused.
 extern "C" int tracy_intersect(const float* orig, const float* dir,
                                const bool* active, int n, const float* nb,
-                               const int* nm, const float* tri,
-                               const int* tmeta, const int* tri_id,
-                               const float* vnormal, const float* vuv,
-                               const float* vtan, float* t_out, float* uv_out,
-                               bool* mask_out, float* n_out, int* mat_out,
-                               int* tri_out, float* texuv_out, float* tan_out,
+                               const int* nm, const float* wide, int width,
+                               const float* tri, const int* tmeta,
+                               const int* tri_id, const float* vnormal,
+                               const float* vuv, const float* vtan,
+                               float* t_out, float* uv_out, bool* mask_out,
+                               float* n_out, int* mat_out, int* tri_out,
+                               float* texuv_out, float* tan_out,
                                void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vtan != nullptr && vuv == nullptr) {
+  if ((vtan != nullptr && vuv == nullptr) || (width != 2 && width != 4) ||
+      (width == 4 && wide == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (vtan != nullptr) {
-    launch<true, true>(orig, dir, active, n, nb, nm, tri, tmeta, tri_id,
+  if (width == 4) {
+    launch_width<true>(orig, dir, active, n, nb, nm, wide, tri, tmeta, tri_id,
                        vnormal, vuv, vtan, t_out, uv_out, mask_out, n_out,
                        mat_out, tri_out, texuv_out, tan_out, st);
-  } else if (vuv != nullptr) {
-    launch<true, false>(orig, dir, active, n, nb, nm, tri, tmeta, tri_id,
+  } else {
+    launch_width<false>(orig, dir, active, n, nb, nm, wide, tri, tmeta, tri_id,
                         vnormal, vuv, vtan, t_out, uv_out, mask_out, n_out,
                         mat_out, tri_out, texuv_out, tan_out, st);
-  } else {
-    launch<false, false>(orig, dir, active, n, nb, nm, tri, tmeta, tri_id,
-                         vnormal, vuv, vtan, t_out, uv_out, mask_out, n_out,
-                         mat_out, tri_out, texuv_out, tan_out, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,23 +2,26 @@
 // (bounce.cu) and K6 (micro.cu), so that all of them find the same winner
 // bit for bit.
 //
-// Each thread walks the binary BVH of accel/tables.py for its own ray with
-// a stack in local memory, visits the nearer child first, and runs the
-// exact backface-culled Möller–Trumbore test of
-// tracy_tpu/render/intersect.py:61-72 on every triangle of a leaf. Every
-// attribute of the winner is w*a0 + u*a1 + v*a2 with w = 1-u-v, in
-// tracy_tpu/render/integrator.py's order: one ulp of uv can move a texel
-// index at a cell edge.
+// Each thread walks a BVH of accel/tables.py for its own ray with a stack
+// in local memory, nearest child first, and runs the exact backface-culled
+// Möller–Trumbore test of tracy_tpu/render/intersect.py:61-72 on every
+// triangle of a leaf. `traverse` walks the binary tree (width 2),
+// `traverse4` the 4-wide one (width 4, tracy_tpu's default
+// pallas_bvh_width). Every attribute of the winner is w*a0 + u*a1 + v*a2
+// with w = 1-u-v, in tracy_tpu/render/integrator.py's order: one ulp of uv
+// can move a texel index at a cell edge.
 
 #pragma once
 
 #include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace tracy {
 
-constexpr int STACK_MAX = 64;  // accel/tables.py KERNEL_STACK_MAX
+constexpr int STACK_MAX = 64;    // accel/tables.py KERNEL_STACK_MAX
+constexpr int STACK4_MAX = 97;  // accel/tables.py KERNEL_STACK4_MAX
 constexpr float TRAVERSE_EPS = 1.0e-8f;
 
 // Sign-preserving clamp of tiny direction components before the reciprocal:
@@ -27,20 +30,30 @@ __device__ __forceinline__ float safe_inv(float d) {
   return 1.0f / (fabsf(d) < 1.0e-12f ? copysignf(1.0e-12f, d) : d);
 }
 
-// Reference RayAABB (collision.h:119-131).
+// Reference RayAABB (collision.h:119-131) on the box (lo, hi).
+__device__ __forceinline__ bool slab_box(float lox, float loy, float loz,
+                                         float hix, float hiy, float hiz,
+                                         float ox, float oy, float oz,
+                                         float ix, float iy, float iz,
+                                         float best_t, float* t_enter) {
+  const float x0 = (lox - ox) * ix, x1 = (hix - ox) * ix;
+  const float y0 = (loy - oy) * iy, y1 = (hiy - oy) * iy;
+  const float z0 = (loz - oz) * iz, z1 = (hiz - oz) * iz;
+  const float tmin = fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fminf(z0, z1));
+  const float tmax = fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fmaxf(z0, z1));
+  *t_enter = tmin;
+  return tmax >= fmaxf(TRAVERSE_EPS, tmin) && tmin < best_t;
+}
+
+// The binary tree's node box: two float4s of node_bounds.
 __device__ __forceinline__ bool slab(const float4* __restrict__ nb, int node,
                                      float ox, float oy, float oz, float ix,
                                      float iy, float iz, float best_t,
                                      float* t_enter) {
   const float4 lo = nb[2 * node];
   const float4 hi = nb[2 * node + 1];
-  const float x0 = (lo.x - ox) * ix, x1 = (hi.x - ox) * ix;
-  const float y0 = (lo.y - oy) * iy, y1 = (hi.y - oy) * iy;
-  const float z0 = (lo.z - oz) * iz, z1 = (hi.z - oz) * iz;
-  const float tmin = fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fminf(z0, z1));
-  const float tmax = fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fmaxf(z0, z1));
-  *t_enter = tmin;
-  return tmax >= fmaxf(TRAVERSE_EPS, tmin) && tmin < best_t;
+  return slab_box(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, ox, oy, oz, ix, iy, iz,
+                  best_t, t_enter);
 }
 
 // Möller–Trumbore of the ray against triangle slot s (three float4s:
@@ -110,6 +123,104 @@ __device__ __forceinline__ void traverse(
     }
     if (sp == 0) break;
     node = stack[--sp];
+  }
+}
+
+// One child of a 4-wide node, as the traversal carries it: its reference
+// (wide row, or ~first slot of a leaf), its triangle count (> 0 leaf, 0
+// inner) and its entry distance.
+struct Child {
+  int ref;
+  int count;
+  float t;
+};
+
+// Orders children a, b (slots ka, kb) so that a comes first: by entry
+// distance, ties by child slot. A missed child carries t = +inf.
+__device__ __forceinline__ void order(Child& a, int& ka, Child& b, int& kb) {
+  if (b.t < a.t || (b.t == a.t && kb < ka)) {
+    const Child c = a;
+    a = b;
+    b = c;
+    const int k = ka;
+    ka = kb;
+    kb = k;
+  }
+}
+
+// The 4-wide tree of accel/tables.py (`wide`, one 128-byte line a node).
+// Each level is one dependent step: the node's 8 float4s load at once
+// (lo.x hi.x lo.y hi.y lo.z hi.z of its 4 children, references, counts),
+// then 4 slab tests (slab_box's operations, so box decisions are the
+// binary kernel's), a 5-comparator sorting network by entry distance
+// (ties by child slot), a descent into the nearest hit child, and a push
+// of the others far-to-near as (reference, count, t_enter). A leaf child is
+// tested when it is reached, with the binary kernel's triangle loop. A
+// popped entry whose t_enter is no nearer than the best hit found since it
+// was pushed is skipped (culling on pop). The wrapper refuses trees whose
+// stack bound (3 * depth4 + 1) exceeds STACK4_MAX. Results as traverse's.
+__device__ __forceinline__ void traverse4(
+    const float4* __restrict__ wide, const float4* __restrict__ tri, float ox,
+    float oy, float oz, float dx, float dy, float dz, float* best_t, int* best,
+    float* bu, float* bv) {
+  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+  Child stack[STACK4_MAX];
+  int sp = 0;
+  int ref = 0, count = 0;  // the root, a wide inner node
+  while (true) {
+    if (count > 0) {  // leaf: slots [~ref, ~ref + count)
+      const int first = ~ref;
+      for (int s = first; s < first + count; ++s) {
+        test_triangle(tri, s, ox, oy, oz, dx, dy, dz, best_t, best, bu, bv);
+      }
+    } else {  // inner: one line
+      const float4* line = wide + 8 * ref;
+      const float4 lx = __ldg(line), hx = __ldg(line + 1);
+      const float4 ly = __ldg(line + 2), hy = __ldg(line + 3);
+      const float4 lz = __ldg(line + 4), hz = __ldg(line + 5);
+      const int4 rf = __ldg(reinterpret_cast<const int4*>(line + 6));
+      const int4 ct = __ldg(reinterpret_cast<const int4*>(line + 7));
+      const float bt = *best_t;
+      Child c0{rf.x, ct.x, 0.0f}, c1{rf.y, ct.y, 0.0f};
+      Child c2{rf.z, ct.z, 0.0f}, c3{rf.w, ct.w, 0.0f};
+      // An empty slot (count -1) has an inverted box, which the min/max
+      // slab test would hit: its count masks it.
+      if (!(slab_box(lx.x, ly.x, lz.x, hx.x, hy.x, hz.x, ox, oy, oz, ix, iy,
+                     iz, bt, &c0.t) && ct.x >= 0)) c0.t = CUDART_INF_F;
+      if (!(slab_box(lx.y, ly.y, lz.y, hx.y, hy.y, hz.y, ox, oy, oz, ix, iy,
+                     iz, bt, &c1.t) && ct.y >= 0)) c1.t = CUDART_INF_F;
+      if (!(slab_box(lx.z, ly.z, lz.z, hx.z, hy.z, hz.z, ox, oy, oz, ix, iy,
+                     iz, bt, &c2.t) && ct.z >= 0)) c2.t = CUDART_INF_F;
+      if (!(slab_box(lx.w, ly.w, lz.w, hx.w, hy.w, hz.w, ox, oy, oz, ix, iy,
+                     iz, bt, &c3.t) && ct.w >= 0)) c3.t = CUDART_INF_F;
+      int k0 = 0, k1 = 1, k2 = 2, k3 = 3;
+      order(c0, k0, c1, k1);
+      order(c2, k2, c3, k3);
+      order(c0, k0, c2, k2);
+      order(c1, k1, c3, k3);
+      order(c1, k1, c2, k2);
+      // A hit child's entry distance is finite (|1/d| <= 1e12), so the hit
+      // children come first.
+      if (c0.t != CUDART_INF_F) {
+        if (c3.t != CUDART_INF_F) stack[sp++] = c3;
+        if (c2.t != CUDART_INF_F) stack[sp++] = c2;
+        if (c1.t != CUDART_INF_F) stack[sp++] = c1;
+        ref = c0.ref;
+        count = c0.count;
+        continue;
+      }
+    }
+    bool found = false;
+    while (sp > 0) {
+      const Child e = stack[--sp];
+      if (e.t < *best_t) {
+        ref = e.ref;
+        count = e.count;
+        found = true;
+        break;
+      }
+    }
+    if (!found) break;
   }
 }
 

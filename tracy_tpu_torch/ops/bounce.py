@@ -32,7 +32,8 @@ def trace_bounce(origin, direction, throughput, radiance, alive, pixel_idx,
 
     [N, 3] float32 origin, direction, throughput, radiance; [N] bool alive;
     [N] int32 pixel_idx; tables without texture uv or tangent (K5 is
-    untextured); mtab from ops/shade.py::build_material_table.
+    untextured), walked at their width; mtab from
+    ops/shade.py::build_material_table.
     """
     if tables.vertex_uv is not None or tables.vertex_tangent is not None:
         raise ValueError("trace_bounce: untextured scenes only (the tables carry "
@@ -60,7 +61,8 @@ def trace_bounce(origin, direction, throughput, radiance, alive, pixel_idx,
     tb = tables
     code = LIBRARY.get().tracy_bounce(
         *(x.data_ptr() for x in (origin, direction, throughput, radiance, alive, pixel_idx)),
-        n, tb.node_bounds.data_ptr(), tb.node_meta.data_ptr(), tb.tri.data_ptr(),
+        n, tb.node_bounds.data_ptr(), tb.node_meta.data_ptr(),
+        0 if tb.wide is None else tb.wide.data_ptr(), tb.width, tb.tri.data_ptr(),
         tb.tri_meta.data_ptr(), tb.vertex_normal.data_ptr(), 0, 0, mtab.data_ptr(),
         mtab.shape[0], sample_key & MASK32, bounce & MASK32, seed & MASK32,
         int(bool(russian_roulette)), *(x.data_ptr() for x in out),
@@ -73,8 +75,8 @@ def trace_bounce(origin, direction, throughput, radiance, alive, pixel_idx,
 def trace_bounce_plain(origin, direction, throughput, radiance, alive, pixel_idx,
                        sample_key: int, bounce: int, *, tables: BVHTables, mtab,
                        seed: int, russian_roulette: bool, counts=None):
-    """K5's bounce in PyTorch: intersect_plain, then shade_plain. counts:
-    as intersect_plain's (the traversal work, for the kernel's bound)."""
+    """K5's bounce in PyTorch: intersect_plain (at the tables' width), then
+    shade_plain. counts: as intersect_plain's (the traversal work)."""
     sh = intersect_plain(origin, direction, alive, tables, counts=counts)
     return shade_plain(origin, direction, throughput, radiance, alive, pixel_idx,
                        sh.hit.mask, sh.hit.t, sh.normal, sh.material, mtab, sample_key,

@@ -24,7 +24,12 @@ work needs once, by lane class (a dead lane needs its alive flag only, a
 miss lane no hit record, a hit lane no direction for its sky texel), each
 distinct atlas texel once however many lanes read it, and each output where
 the work changes it: a K3 row only for a lane that fetched a texel, K2/K4's
-state only for the lanes the bounce moves.
+state only for the lanes the bounce moves. K1's and K5's traversal work has
+one yardstick at both widths: the binary tree's inner-node visits and
+triangle tests, counted by the plain binary traversal of the same rays, and
+the bytes of the binary tables, so that a kernel does not earn a better
+share of its bound by walking another tree. The 4-wide tree's own counts
+are reported beside it.
 """
 
 from __future__ import annotations
@@ -112,9 +117,9 @@ def intersect_rays(scene, tables, n: int, seed: int):
 
 
 def compare_intersect(origin, direction, active, tables) -> Dict[str, float]:
-    """K1 vs intersect_plain on CUDA tensors; raises on a broken contract.
-    Also K1's bound on these rays, from the node visits and triangle tests
-    the plain traversal counted."""
+    """K1 vs intersect_plain on CUDA tensors, both at the tables' width;
+    raises on a broken contract. Also K1's bound on these rays, from the
+    yardstick of traversal_work."""
     got = k1.intersect(origin, direction, active, tables)
     counts = {}
     ref = k1.intersect_plain(origin, direction, active, tables, counts=counts)
@@ -144,11 +149,37 @@ def compare_intersect(origin, direction, active, tables) -> Dict[str, float]:
                     got.tex_uv, got.tangent)
              + nbytes(tb.node_bounds, tb.node_meta, tb.tri, tb.tri_meta, tb.tri_id,
                       tb.vertex_normal, tb.vertex_uv, tb.vertex_tangent))
-    ops = (OPS_INNER_NODE * float(counts["inner"]) + OPS_TRI_TEST * float(counts["tri_tests"]))
-    res.update(bound_ms(moved, ops))
-    res["inner_visits"] = int(counts["inner"])
-    res["tri_tests"] = int(counts["tri_tests"])
+    res.update(traversal_work(origin, direction, active, tables, counts))
+    res.update(bound_ms(moved, res["traversal_ops"]))
     return res
+
+
+def traversal_work(origin, direction, active, tables, counts) -> Dict[str, object]:
+    """The yardstick of K1's and K5's traversal (module docstring): the
+    binary traversal's inner visits and triangle tests on these rays (from
+    `counts` when the tables are binary, else from one more plain binary
+    run), their operations, and at width 4 the wide tree's own counts."""
+    res = {"width": tables.width}
+    if tables.width == 4:
+        res.update(wide_inner_visits=int(counts["wide_inner"]),
+                   wide_box_tests=int(counts["box_tests"]),
+                   wide_tri_tests=int(counts["tri_tests"]),
+                   wide_culled_pops=int(counts["culled_pops"]),
+                   wide_simt=simt(counts, "wide_inner"))
+        counts = {}
+        k1.intersect_plain(origin, direction, active, tables.binary(), counts=counts)
+    res.update(inner_visits=int(counts["inner"]), tri_tests=int(counts["tri_tests"]),
+               binary_simt=simt(counts, "inner"))
+    res["traversal_ops"] = (OPS_INNER_NODE * float(counts["inner"])
+                            + OPS_TRI_TEST * float(counts["tri_tests"]))
+    return res
+
+
+def simt(counts, nodes: str) -> Dict[str, float]:
+    """The share of a warp's 32 lanes doing useful work, in the kernel's
+    node and triangle-test iterations (intersect_plain's warp counts)."""
+    return {"node": float(counts[nodes]) / max(32 * float(counts["warp_node_steps"]), 1.0),
+            "tri": float(counts["tri_tests"]) / max(32 * float(counts["warp_tri_steps"]), 1.0)}
 
 
 def canned_lanes(num_materials: int, n: int, seed: int, device) -> Dict[str, torch.Tensor]:
@@ -332,11 +363,11 @@ BOUNCE_HIT_LANE_BYTES = 1 + 24 + 24 + 4 + 48 + 1
 def compare_bounce(lanes, tables, mtab, sample_key: int, bounce: int, *, seed: int,
                    russian_roulette: bool, decision_frac: float = 1e-4) -> Dict[str, object]:
     """K5 vs trace_bounce_plain on CUDA tensors (K2's contract), and K5 vs
-    K1 then K2 launched on the same lanes (all five outputs equal); raises
-    on a broken contract. Also K5's bound on these lanes: K1's operations
-    (from the plain traversal's counts), the bytes by lane class above, the
-    tables and the material table once, and the shading math of each hit
-    lane."""
+    K1 then K2 launched on the same lanes (all five outputs equal), all at
+    the tables' width; raises on a broken contract. Also K5's bound on
+    these lanes: K1's yardstick operations (traversal_work), the bytes by
+    lane class above, the binary tables and the material table once, and
+    the shading math of each hit lane."""
     args = [lanes[k] for k in BOUNCE_ARGS]
     kw = dict(seed=seed, russian_roulette=russian_roulette)
     got = k5.trace_bounce(*args, sample_key, bounce, tables=tables, mtab=mtab, **kw)
@@ -358,11 +389,9 @@ def compare_bounce(lanes, tables, mtab, sample_key: int, bounce: int, *, seed: i
     moved = (DEAD_LANE_BYTES * n_dead + BOUNCE_MISS_LANE_BYTES * n_miss
              + BOUNCE_HIT_LANE_BYTES * n_hit
              + nbytes(tb.node_bounds, tb.node_meta, tb.tri, tb.tri_meta, tb.vertex_normal, mtab))
-    ops = (OPS_INNER_NODE * float(counts["inner"]) + OPS_TRI_TEST * float(counts["tri_tests"])
-           + OPS_SHADE_LANE * n_hit)
-    res.update(bound_ms(moved, ops))
-    res.update(inner_visits=int(counts["inner"]), tri_tests=int(counts["tri_tests"]),
-               hit_lanes=n_hit, miss_lanes=n_miss, dead_lanes=n_dead)
+    res.update(traversal_work(o, d, alive, tables, counts))
+    res.update(bound_ms(moved, res["traversal_ops"] + OPS_SHADE_LANE * n_hit))
+    res.update(hit_lanes=n_hit, miss_lanes=n_miss, dead_lanes=n_dead)
     return res
 
 

@@ -3,8 +3,9 @@
 `intersect` is the wrapper the renderer calls. On CUDA tensors it launches
 the hand-written kernel csrc/intersect.cu; on CPU tensors, and only there,
 it runs `intersect_plain`, the same traversal as vectorised PyTorch over the
-same tables. The kernel replaces tracy_tpu/ops/pallas_packet.py::_kernel
-(entered through pallas_intersect).
+same tables, at the same width (the binary tree, or the 4-wide one in the
+kernel's visiting order). The kernel replaces
+tracy_tpu/ops/pallas_packet.py::_kernel (entered through pallas_intersect).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from tracy_tpu_torch.accel.tables import KERNEL_STACK_MAX, BVHTables
+from tracy_tpu_torch.accel.tables import WIDTHS, BVHTables
 from tracy_tpu_torch.core import math as tm
 from tracy_tpu_torch.ops.build import LIBRARY
 from tracy_tpu_torch.ops.launch import LaunchCount, check, raise_on_error
@@ -36,8 +37,13 @@ class SurfaceHit(NamedTuple):
 
 def check_tables(tables: BVHTables, dev: torch.device):
     """Raise unless the BVH tables are what the traversal (K1, K5) reads:
-    contiguous, on `dev`, 16-byte aligned where read as vectors, and no
-    deeper than the kernel's stack."""
+    contiguous, on `dev`, 16-byte aligned where read as vectors, the 4-wide
+    lines 128-byte aligned, and no deeper than the kernel's stack."""
+    if tables.width not in WIDTHS:
+        raise ValueError(f"BVH width {tables.width}: the kernels walk widths {WIDTHS}")
+    if tables.stack_size > tables.stack_max:
+        raise ValueError(f"BVH needs a {tables.stack_size}-entry stack at width "
+                         f"{tables.width}; the kernel holds {tables.stack_max}")
     nn, nt = tables.node_meta.shape[0], tables.tri.shape[0]
     check("node_bounds", tables.node_bounds, torch.float32, (nn, 8), dev)
     check("node_meta", tables.node_meta, torch.int32, (nn, 4), dev)
@@ -58,9 +64,13 @@ def check_tables(tables: BVHTables, dev: torch.device):
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel reads it in 16-byte vectors; "
                              "it must be 16-byte aligned")
-    if tables.stack_size > KERNEL_STACK_MAX:
-        raise ValueError(f"BVH needs a {tables.stack_size}-entry stack; the "
-                         f"kernel holds {KERNEL_STACK_MAX}")
+    if tables.width == 4:
+        if tables.wide is None:
+            raise ValueError("width 4 needs the 4-wide node lines (tables.wide)")
+        check("wide", tables.wide, torch.float32, (tables.wide.shape[0], 32), dev)
+        if tables.wide.data_ptr() % 128:
+            raise ValueError("wide: the kernel reads one 128-byte line a node; "
+                             "it must be 128-byte aligned")
 
 
 def intersect(origin, direction, active, tables: BVHTables) -> SurfaceHit:
@@ -98,7 +108,8 @@ def intersect(origin, direction, active, tables: BVHTables) -> SurfaceHit:
     tb = tables
     code = lib.tracy_intersect(
         origin.data_ptr(), direction.data_ptr(), active.data_ptr(), n,
-        tb.node_bounds.data_ptr(), tb.node_meta.data_ptr(), tb.tri.data_ptr(),
+        tb.node_bounds.data_ptr(), tb.node_meta.data_ptr(), ptr(tb.wide), tb.width,
+        tb.tri.data_ptr(),
         tb.tri_meta.data_ptr(), tb.tri_id.data_ptr(), tb.vertex_normal.data_ptr(),
         ptr(vuv), ptr(vtan), t.data_ptr(), uv.data_ptr(), mask.data_ptr(),
         normal.data_ptr(), mat.data_ptr(), tri.data_ptr(), ptr(tex_uv), ptr(tangent),
@@ -134,49 +145,49 @@ def moller_trumbore(o, d, tri, best_t):
     return valid, t, u * inv_det, v * inv_det
 
 
-def intersect_plain(origin, direction, active, tables: BVHTables,
-                    counts: Optional[Dict[str, torch.Tensor]] = None) -> SurfaceHit:
-    """The kernel's traversal as vectorised PyTorch: every live ray holds a
-    current node and a stack row; each step handles one node per ray, in
-    the kernel's order, until no ray has work left.
+def _warp_steps(rays, work, num_warps: int):
+    """Sum over the warps holding one of `rays` of the most `work` a ray of
+    that warp has (warps of 32 consecutive rays)."""
+    most = torch.zeros((num_warps,), dtype=torch.int64, device=rays.device)
+    most.scatter_reduce_(0, rays // 32, work, "amax")
+    return most.sum()
 
-    counts: if given, receives the work these rays needed, as 0-d tensors:
-    "inner" node visits (two box tests each) and "tri_tests"."""
+
+def _test_leaves(origin, direction, tri, rays, first, count, rec):
+    """Each ray of `rays` tests slots first .. first+count-1 in order,
+    keeping a nearer hit in rec = (best_t, best, bu, bv)."""
+    best_t, best, bu, bv = rec
+    for j in range(int(count.max()) if rays.numel() else 0):
+        sel = j < count
+        r, s = rays[sel], first[sel] + j
+        ok, t, u, v = moller_trumbore(origin[r], direction[r], tri[s], best_t[r])
+        r, s = r[ok], s[ok]
+        best_t[r], best[r], bu[r], bv[r] = t[ok], s, u[ok], v[ok]
+
+
+def _walk_binary(origin, direction, inv_d, active, tables: BVHTables, rec):
+    """csrc/traverse.cuh::traverse: the binary tree, nearer child first."""
     n = origin.shape[0]
     dev = origin.device
     nb, nm = tables.node_bounds, tables.node_meta.long()
-    safe = torch.where(direction.abs() < 1e-12,
-                       torch.copysign(torch.full_like(direction, 1e-12), direction),
-                       direction)
-    inv_d = 1.0 / safe
-
-    best_t = torch.full((n,), FLT_MAX, dtype=torch.float32, device=dev)
-    best = torch.full((n,), -1, dtype=torch.long, device=dev)
-    bu = torch.zeros((n,), dtype=torch.float32, device=dev)
-    bv = torch.zeros((n,), dtype=torch.float32, device=dev)
+    best_t = rec[0]
     stack = torch.zeros((n, tables.stack_size), dtype=torch.long, device=dev)
     sp = torch.zeros((n,), dtype=torch.long, device=dev)
     node = torch.zeros((n,), dtype=torch.long, device=dev)
     live = torch.nonzero(active).flatten()
-
-    n_inner = torch.zeros((), dtype=torch.int64, device=dev)
-    n_tris = torch.zeros((), dtype=torch.int64, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    n_inner, n_tris, w_node, w_tri = zero.clone(), zero.clone(), zero.clone(), zero.clone()
+    num_warps = -(-n // 32)
     while live.numel():
         m = nm[node[live]]
         is_leaf = m[:, 1] > 0
         pop = is_leaf.clone()
-        if counts is not None:
-            n_inner += (~is_leaf).sum()
-            n_tris += m[is_leaf, 1].sum()
-
-        # Leaves: test slots first .. first+count-1 in order.
-        rays, first, count = live[is_leaf], m[is_leaf, 0], m[is_leaf, 1]
-        for j in range(int(count.max()) if rays.numel() else 0):
-            sel = j < count
-            r, s = rays[sel], first[sel] + j
-            ok, t, u, v = moller_trumbore(origin[r], direction[r], tables.tri[s], best_t[r])
-            r, s = r[ok], s[ok]
-            best_t[r], best[r], bu[r], bv[r] = t[ok], s, u[ok], v[ok]
+        n_inner += (~is_leaf).sum()
+        n_tris += m[is_leaf, 1].sum()
+        w_node += _warp_steps(live[~is_leaf], torch.ones_like(live[~is_leaf]), num_warps)
+        w_tri += _warp_steps(live[is_leaf], m[is_leaf, 1], num_warps)
+        _test_leaves(origin, direction, tables.tri, live[is_leaf], m[is_leaf, 0],
+                     m[is_leaf, 1], rec)
 
         # Inner nodes: descend into the nearer hit child, push the farther.
         inner = ~is_leaf
@@ -203,10 +214,138 @@ def intersect_plain(origin, direction, active, tables: BVHTables,
         done = torch.zeros_like(pop)
         done[pop] = ~has
         live = live[~done]
+    return {"inner": n_inner, "tri_tests": n_tris, "warp_node_steps": w_node,
+            "warp_tri_steps": w_tri}
 
+
+def _sort4(t, k, ref, cnt):
+    """csrc/traverse.cuh's 5-comparator network over the 4 children: by
+    entry distance, ties by child slot. Each argument is a list of 4 [L]
+    tensors; sorts them in place."""
+    for i, j in ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2)):
+        swap = (t[j] < t[i]) | ((t[j] == t[i]) & (k[j] < k[i]))
+        for a in (t, k, ref, cnt):
+            a[i], a[j] = torch.where(swap, a[j], a[i]), torch.where(swap, a[i], a[j])
+
+
+def _walk_wide(origin, direction, inv_d, active, tables: BVHTables, rec):
+    """csrc/traverse.cuh::traverse4: the 4-wide tree, one line a node;
+    descend into the nearest hit child, push the other hit children
+    far-to-near with their entry distance, skip a popped entry that is no
+    nearer than the best hit (culling on pop)."""
+    n = origin.shape[0]
+    dev = origin.device
+    wide = tables.wide
+    bits = wide.view(torch.int32)
+    best_t = rec[0]
+    size = tables.stack_size
+    st_ref = torch.zeros((n, size), dtype=torch.long, device=dev)
+    st_cnt = torch.zeros((n, size), dtype=torch.long, device=dev)
+    st_t = torch.zeros((n, size), dtype=torch.float32, device=dev)
+    sp = torch.zeros((n,), dtype=torch.long, device=dev)
+    ref = torch.zeros((n,), dtype=torch.long, device=dev)  # the root
+    cnt = torch.zeros((n,), dtype=torch.long, device=dev)
+    live = torch.nonzero(active).flatten()
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    n_wide, n_box, n_tris, n_culled = zero.clone(), zero.clone(), zero.clone(), zero.clone()
+    w_node, w_tri = zero.clone(), zero.clone()
+    num_warps = -(-n // 32)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    while live.numel():
+        c = cnt[live]
+        is_leaf = c > 0
+        pop = is_leaf.clone()
+        rays = live[is_leaf]
+        n_tris += c[is_leaf].sum()
+        w_node += _warp_steps(live[~is_leaf], torch.ones_like(live[~is_leaf]), num_warps)
+        w_tri += _warp_steps(rays, c[is_leaf], num_warps)
+        _test_leaves(origin, direction, tables.tri, rays, ~ref[rays], c[is_leaf], rec)
+
+        r = live[~is_leaf]
+        rows = ref[r]
+        line, lbits = wide[rows], bits[rows]
+        o, inv, bt = origin[r], inv_d[r], best_t[r][:, None]
+        ax = [((line[:, 8 * a:8 * a + 4] - o[:, a:a + 1]) * inv[:, a:a + 1],
+               (line[:, 8 * a + 4:8 * a + 8] - o[:, a:a + 1]) * inv[:, a:a + 1])
+              for a in range(3)]
+        mins = [torch.minimum(t0, t1) for t0, t1 in ax]
+        maxs = [torch.maximum(t0, t1) for t0, t1 in ax]
+        tmin = torch.maximum(torch.maximum(mins[0], mins[1]), mins[2])
+        tmax = torch.minimum(torch.minimum(maxs[0], maxs[1]), maxs[2])
+        child_cnt = lbits[:, 28:32].long()
+        hit = (tmax >= torch.clamp(tmin, min=tm.EPS)) & (tmin < bt) & (child_cnt >= 0)
+        n_wide += r.numel()
+        n_box += (child_cnt >= 0).sum()
+        t = list(torch.where(hit, tmin, inf).unbind(1))
+        k = list(torch.arange(4, device=dev).expand(r.numel(), 4).unbind(1))
+        cr = list(lbits[:, 24:28].long().unbind(1))
+        cc = list(child_cnt.unbind(1))
+        _sort4(t, k, cr, cc)
+        for j in (3, 2, 1):  # far-to-near, so the nearest pops first
+            q = t[j] != inf
+            rq = r[q]
+            pos = sp[rq]
+            st_ref[rq, pos], st_cnt[rq, pos], st_t[rq, pos] = cr[j][q], cc[j][q], t[j][q]
+            sp[rq] += 1
+        go = t[0] != inf
+        ref[r[go]], cnt[r[go]] = cr[0][go], cc[0][go]
+        pop[~is_leaf] = ~go
+
+        # Pop until an entry nearer than the best hit, or finish on an
+        # empty stack.
+        pending = live[pop]
+        done = []
+        while pending.numel():
+            has = sp[pending] > 0
+            done.append(pending[~has])
+            p = pending[has]
+            sp[p] -= 1
+            near = st_t[p, sp[p]] < best_t[p]
+            q = p[near]
+            ref[q], cnt[q] = st_ref[q, sp[q]], st_cnt[q, sp[q]]
+            n_culled += (~near).sum()
+            pending = p[~near]
+        if done:
+            fin = torch.zeros((n,), dtype=torch.bool, device=dev)
+            fin[torch.cat(done)] = True
+            live = live[~fin[live]]
+    return {"wide_inner": n_wide, "box_tests": n_box, "tri_tests": n_tris,
+            "culled_pops": n_culled, "warp_node_steps": w_node, "warp_tri_steps": w_tri}
+
+
+def intersect_plain(origin, direction, active, tables: BVHTables,
+                    counts: Optional[Dict[str, torch.Tensor]] = None) -> SurfaceHit:
+    """The kernel's traversal as vectorised PyTorch: every live ray holds a
+    current node and a stack; each step handles one node per ray, in the
+    kernel's order, until no ray has work left.
+
+    counts: if given, receives the work these rays needed, as 0-d tensors:
+    "tri_tests", and at width 2 "inner" node visits (two box tests each),
+    at width 4 "wide_inner" node visits, "box_tests" (their non-empty
+    children) and "culled_pops" (stack entries skipped on pop). Also the
+    kernel's work as warps of 32 consecutive rays issue it, one step of
+    this loop being one iteration of the kernel's: "warp_node_steps", the
+    warp-iterations with a ray at an inner node, and "warp_tri_steps", the
+    triangle-test iterations of warps with a ray at a leaf (each the most
+    triangles a ray of the warp tests there). Node visits over 32 x
+    warp_node_steps is the share of lanes doing useful box work, as tri_tests
+    over 32 x warp_tri_steps is of triangle work."""
+    n = origin.shape[0]
+    dev = origin.device
+    safe = torch.where(direction.abs() < 1e-12,
+                       torch.copysign(torch.full_like(direction, 1e-12), direction),
+                       direction)
+    inv_d = 1.0 / safe
+    best_t = torch.full((n,), FLT_MAX, dtype=torch.float32, device=dev)
+    best = torch.full((n,), -1, dtype=torch.long, device=dev)
+    bu = torch.zeros((n,), dtype=torch.float32, device=dev)
+    bv = torch.zeros((n,), dtype=torch.float32, device=dev)
+    rec = (best_t, best, bu, bv)
+    walk = _walk_wide if tables.width == 4 else _walk_binary
+    work = walk(origin, direction, inv_d, active, tables, rec)
     if counts is not None:
-        counts["inner"] = counts.get("inner", 0) + n_inner
-        counts["tri_tests"] = counts.get("tri_tests", 0) + n_tris
+        for key, val in work.items():
+            counts[key] = counts.get(key, 0) + val
     mask = best >= 0
     slot = best.clamp(min=0)
     meta = tables.tri_meta[slot].long()

@@ -5,10 +5,11 @@ cfg.spp samples per pixel: jittered camera rays, the bounce loop,
 accumulation. MRays/s counts one ray per live lane per bounce, the
 reference's accounting (win_raytracer.cpp:521-553).
 
-Each bounce runs K1 (ops/intersect.py) over the BVH tables, then on an
-untextured scene K2 (ops/shade.py), on a textured one K3 (ops/texfetch.py)
-and K4 (ops/shade.py::shade_textured), K1 then also interpolating the
-texture uv and, with normal maps, the tangent: the "two-stage" path. With
+Each bounce runs K1 (ops/intersect.py) over the BVH tables (4-wide, or
+binary with pallas_bvh_width=2), then on an untextured scene K2
+(ops/shade.py), on a textured one K3 (ops/texfetch.py) and K4
+(ops/shade.py::shade_textured), K1 then also interpolating the texture uv
+and, with normal maps, the tangent: the "two-stage" path. With
 use_pallas_bounce on an untextured scene, K5 (ops/bounce.py) runs the whole
 bounce instead: the "fused" path (`Renderer.path` says which was bound).
 With wave_compact_group > 0, K1 (or K5) runs inside accel/reorder.py's
@@ -171,7 +172,8 @@ class Renderer:
             return
         cfg = self.cfg
         self.tables = build_tables(scene, leaf_size=cfg.bvh_leaf_size,
-                                   max_depth=max(cfg.traversal_stack_depth - 4, 8))
+                                   max_depth=max(cfg.traversal_stack_depth - 4, 8),
+                                   width=cfg.pallas_bvh_width)
         textured = scene_has_textures(scene)
         self._mtab = (build_material_table_tex if textured
                       else build_material_table)(scene.materials)
