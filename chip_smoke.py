@@ -9,33 +9,37 @@ Phases, each fatal on failure:
 2. build: nvcc builds the five kernel sources of csrc/ for sm_90a, one
    process per source, all at once;
 3. kernel vs plain: K1 (intersect), K2 (shade), K3 (texel fetch), K4
-   (textured shade) and K5 (fused bounce) against their plain PyTorch
-   versions on the same CUDA tensors at the main path's wave shape
-   (2,088,960 lanes), K1 and K5 at both BVH widths (4, the default, and
-   2), K3 and K4 on both canned lanes and the real lanes of the textured
-   scene, K5 on the real lanes of grid64x28 and also against K1 then K2 on
-   the same lanes (all five outputs equal); then each one's time beside
-   its plain version's, its bound and, for K3, a `tex_data.index_select`
-   of the same texels as a yardstick; K1 and K5 timed at both widths in
-   turns;
+   (texel fetch + textured shade, in place) and K5 (fused bounce) against
+   their plain PyTorch versions on the same CUDA tensors at the main
+   path's wave shape (2,088,960 lanes), K1 and K5 at both BVH widths (4,
+   the default, and 2), K2, K4 and K5 at each counter hash ('fast',
+   'xorshift', 'lcg'), K3 and K4 on both canned lanes and the real lanes
+   of the textured scene, K5 on
+   the real lanes of grid64x28 and also against K1 then K2 on the same
+   lanes (all five outputs equal); then each one's time beside its plain
+   version's, its bound and, for K3, a `tex_data.index_select` of the
+   same texels as a yardstick; K1 and K5 timed at both widths in turns,
+   K4 also on the same lanes without texel gathers and with every lane
+   dead;
 4. main paths: Renderer.step_many at 1920x1080, 4 progressive frames of
    1 spp, 5 bounces, on the 4-wide BVH (pallas_bvh_width's default), on
    grid64x28 (100,748 triangles) compacted as bench.py's main path is
    (pick_compact_group: group 262,144, bounce 0 uncompacted; K1 + K2),
    uncompacted, and fused (K5, compacted), and on grid64x28-tex, the same
-   geometry with helmet-sized maps (K1 + K3 + K4), compacted and
-   uncompacted; and grid64x28 compacted and uncompacted on the binary
+   geometry with helmet-sized maps (K1 + K4; K3 is not launched there),
+   compacted and uncompacted; and grid64x28 compacted and uncompacted on the binary
    BVH, for the A/B of the widths; each path must launch exactly its
    kernels and no plain version, and each path's accumulator must equal
    the other paths' of its scene and width; each path is timed 5 times,
    in turn with the others; then where the device time of one more such
-   run goes (torch.profiler), with K1's time per bounce of frame 0, and
-   the live-lane fraction of each bounce of one frame with the compaction
-   round trip's time at that wave;
-5. physics: furnace.scn (untextured; also on the fused, compacted path)
-   and spheres.scn (HDR equirect sky, textured path) at 256x192 for 24
-   frames against the reference's own renders (tests/goldens/ref/*.npz),
-   linear block means;
+   run goes (torch.profiler), with each kernel's time per bounce of frame
+   0, and the live-lane fraction of each bounce of one frame with the
+   compaction round trip's time at that wave;
+5. physics: furnace.scn (untextured; also on the fused, compacted path,
+   and with accel 'none' and rng 'lcg') and spheres.scn (HDR equirect
+   sky, textured path; also with accel 'bvh' and rng 'xorshift') at
+   256x192 for 24 frames against the reference's own renders
+   (tests/goldens/ref/*.npz), linear block means;
 6. K6: each variant of the leaf-visit microbenchmark against its plain
    version, and its nanoseconds per iteration.
 
@@ -335,14 +339,18 @@ def main() -> int:
     mtab = k2.build_material_table(dscene.materials)
     lanes = compare.canned_lanes(mtab.shape[0], wave, seed=2, device=dev)
     c2 = {}
-    for rr in (True, False):
-        c2[rr] = compare.compare_shade(lanes, mtab, 3, 1, seed=SEED, russian_roulette=rr)
-        print(f"K2 vs plain, {c2[rr]['lanes']} lanes, default.scn materials, RR {rr}: "
-              f"decisions flipped {c2[rr]['flipped']:.6f} (<= 1e-4), max abs err "
-              f"{c2[rr]['max_abs_err']:.3g} (rtol 1e-5, atol 1e-6)")
+    for rng, rr in (("fast", True), ("fast", False), ("xorshift", True), ("lcg", True)):
+        c = compare.compare_shade(lanes, mtab, 3, 1, seed=SEED, russian_roulette=rr, rng=rng)
+        c2[(rng, rr)] = c
+        print(f"K2 vs plain, {c['lanes']} lanes, default.scn materials, rng {rng}, RR {rr}: "
+              f"decisions flipped {c['flipped']:.6f} (<= 1e-4), max abs err "
+              f"{c['max_abs_err']:.3g} (rtol 1e-5, atol 1e-6)")
 
     # K3 and K4 on grid64x28-tex: canned lanes (random materials, uv with
-    # repeats, 30% misses), and the real lanes of the K1 wave above.
+    # repeats, 30% misses), and the real lanes of the K1 wave above. K4
+    # fetches its own texels (K3's addresses) and updates its state in
+    # place: each side of a comparison and each timed launch gets its own
+    # copy of the lanes.
     mtab_t = k2.build_material_table_tex(tscene.materials)
     canned = compare.textured_lanes(mtab_t.shape[0], wave, seed=3, device=dev)
     hit = k1.intersect(to, td, ta, ttables)
@@ -357,13 +365,16 @@ def main() -> int:
               f"lanes differing {c3[kind]['sky_lanes_differ']} of {c3[kind]['sky_lanes']} "
               f"(<= 1e-4 of lanes), {c3[kind]['texels_fetched']} texels fetched, "
               f"{c3[kind]['texels_distinct']} distinct")
-        for rr in (True, False):
-            c = compare.compare_shade_textured(ln, c3[kind]["texels"], mtab_t, 3, 1,
-                                               seed=SEED, russian_roulette=rr)
-            c4[(kind, rr)] = c
-            print(f"K4 vs plain, {kind} lanes, RR {rr}: decisions flipped "
-                  f"{c['flipped']:.6f} (<= 1e-4), max abs err {c['max_abs_err']:.3g} "
-                  f"(rtol 1e-5, atol 1e-6)")
+    for kind, rng, rr in (("canned", "fast", True), ("canned", "fast", False),
+                          ("real", "fast", True), ("real", "fast", False),
+                          ("canned", "xorshift", True), ("canned", "lcg", True)):
+        c = compare.compare_shade_textured(canned if kind == "canned" else real, tscene, mtab_t,
+                                           3, 1, seed=SEED, russian_roulette=rr, rng=rng)
+        c4[(kind, rng, rr)] = c
+        print(f"K4 (fetch + textured bounce, in place) vs "
+              f"plain, {kind} lanes, rng {rng}, RR {rr}: decisions flipped "
+              f"{c['flipped']:.6f} (<= 1e-4), max abs err {c['max_abs_err']:.3g} "
+              f"(rtol 1e-5, atol 1e-6)")
 
     # K5 on the real lanes of the grid64x28 wave, with grid64x28's materials
     # and the canned lanes' throughput, radiance and pixel ids.
@@ -371,14 +382,16 @@ def main() -> int:
     glanes = compare.canned_lanes(mtab_g.shape[0], wave, seed=4, device=dev)
     blanes = dict(glanes, origin=o, direction=d, alive=a)
     c5 = {}
-    for tb in (tables, tables2):
-        for rr in (True, False):
-            c = compare.compare_bounce(blanes, tb, mtab_g, 3, 1, seed=SEED, russian_roulette=rr)
-            c5[(tb.width, rr)] = c
-            print(f"K5 vs plain, width {tb.width}, {c['lanes']} real lanes of grid64x28, RR "
-                  f"{rr}: decisions flipped {c['flipped']:.6f} (<= 1e-4), max abs err "
-                  f"{c['max_abs_err']:.3g} (rtol 1e-5, atol 1e-6); vs K1 then K2 on the "
-                  f"same lanes, outputs equal {c['equal_to_k1_k2']} (all must be)")
+    for tb, rng, rr in ((tables, "fast", True), (tables, "fast", False), (tables2, "fast", True),
+                        (tables2, "fast", False), (tables, "xorshift", True),
+                        (tables, "lcg", True)):
+        c = compare.compare_bounce(blanes, tb, mtab_g, 3, 1, seed=SEED, russian_roulette=rr,
+                                   rng=rng)
+        c5[(tb.width, rng, rr)] = c
+        print(f"K5 vs plain, width {tb.width}, {c['lanes']} real lanes of grid64x28, rng "
+              f"{rng}, RR {rr}: decisions flipped {c['flipped']:.6f} (<= 1e-4), max abs err "
+              f"{c['max_abs_err']:.3g} (rtol 1e-5, atol 1e-6); vs K1 then K2 on the "
+              f"same lanes, outputs equal {c['equal_to_k1_k2']} (all must be)")
 
     # K1 and K5 at both widths, in turns (2, 4, 4, 2): the A/B of the
     # redesign on one card; K1 also on each half of the wave (the camera
@@ -410,10 +423,21 @@ def main() -> int:
     t_p3 = compare.cuda_ms(lambda: k3.fetch_texels_plain(*fargs, *tex), 3)
     flat = c3["real"]["addresses"]
     t_l3 = compare.cuda_ms(lambda: tscene.tex_data.index_select(0, flat), 20)
-    sargs = [real[k] for k in compare.SHADE_TEX_ARGS]
-    texels = c3["real"]["texels"]
-    t_k4 = compare.cuda_ms(lambda: k2.shade_textured(*sargs, texels, mtab_t, 3, 1, **kw), 20)
-    t_p4 = compare.cuda_ms(lambda: k2.shade_textured_plain(*sargs, texels, mtab_t, 3, 1, **kw), 3)
+    t_k4 = compare.inplace_ms(lambda a: k2.shade_textured(*a, mtab_t, *tex, 3, 1, **kw),
+                              real, 20)
+    # Where K4's time goes on these lanes: the same lanes with no texture
+    # flag set (no gathers: the state traffic and the math alone), and
+    # with every lane dead (the launch, the staged tables, the alive flags).
+    mtab_flat = mtab_t.clone()
+    mtab_flat[:, k2.HAS_COL:k2.HAS_COL + 5] = 0.0
+    t4_parts = {
+        "no texel gathers": compare.inplace_ms(
+            lambda a: k2.shade_textured(*a, mtab_flat, *tex, 3, 1, **kw), real, 20),
+        "all lanes dead": compare.inplace_ms(
+            lambda a: k2.shade_textured(*a, mtab_t, *tex, 3, 1, **kw),
+            dict(real, alive=torch.zeros_like(ta)), 20)}
+    t_p4 = compare.inplace_ms(
+        lambda a: k2.shade_textured_plain(*a, mtab_t, *tex, 3, 1, **kw), real, 3)
     bkw = dict(tables=tables, mtab=mtab_g, **kw)
     t_p5 = compare.cuda_ms(lambda: k5.trace_bounce_plain(*bargs, 3, 1, **bkw), 1)
 
@@ -423,7 +447,7 @@ def main() -> int:
                         3, 1, **kw)
 
     t_k12 = compare.cuda_ms(two_stage, 10)
-    b3, b4, b5 = c3["real"], c4[("real", True)], c5[(4, True)]
+    b3, b4, b5 = c3["real"], c4[("real", "fast", True)], c5[(4, "fast", True)]
     print(f"time at the 1080p wave ({wave} lanes; K1 and K5 on half camera, half secondary "
           f"rays; K3/K4 on the real lanes of grid64x28-tex) {card}:")
     print(f"  K1 width 4 {t1w[4]:.3f} ms, width 2 {t1w[2]:.3f} ms (means of 2 turns each) vs "
@@ -432,13 +456,16 @@ def main() -> int:
           f"K1 uv+tangent on grid64x28-tex, width 4, {t_k1t:.3f} ms, bound "
           f"{c1t['bound_ms']:.4f} ms; K1 on each half of the wave ({wave // 2} lanes): "
           + ", ".join(f"{h} {t:.3f} ms" for h, t in t1h.items()))
-    print(f"  K2 {t_k2:.3f} ms vs plain {t_p2:.3f} ms, bound {c2[True]['bound_ms']:.4f} ms "
-          f"({c2[True]['bound_by']}: {c2[True]['bytes']:.4g} B)")
+    b2 = c2[("fast", True)]
+    print(f"  K2 {t_k2:.3f} ms vs plain {t_p2:.3f} ms, bound {b2['bound_ms']:.4f} ms "
+          f"({b2['bound_by']}: {b2['bytes']:.4g} B)")
     print(f"  K3 {t_k3:.3f} ms vs plain {t_p3:.3f} ms, index_select of the same "
           f"{flat.numel()} texels {t_l3:.3f} ms, bound {b3['bound_ms']:.4f} ms "
           f"({b3['bound_by']}: {b3['bytes']:.4g} B, {b3['ops']:.4g} ops)")
-    print(f"  K4 {t_k4:.3f} ms vs plain {t_p4:.3f} ms, bound {b4['bound_ms']:.4f} ms "
-          f"({b4['bound_by']}: {b4['bytes']:.4g} B)")
+    print(f"  K4 (fetch + textured bounce, in place) {t_k4:.3f} ms vs plain {t_p4:.3f} ms, "
+          f"bound {b4['bound_ms']:.4f} ms ({b4['bound_by']}: {b4['bytes']:.4g} B, "
+          f"{b4['ops']:.4g} ops); the same lanes with "
+          + ", ".join(f"{k} {t:.3f} ms" for k, t in t4_parts.items()))
     print(f"  K5 width 4 {t5w[4]:.3f} ms, width 2 {t5w[2]:.3f} ms vs plain {t_p5:.1f} ms, "
           f"bound {b5['bound_ms']:.4f} ms "
           f"({b5['bound_by']}: {b5['bytes']:.4g} B, {b5['ops']:.4g} ops; {b5['hit_lanes']} hit, "
@@ -450,8 +477,8 @@ def main() -> int:
     paths = (("grid64x28 compacted", scene, ccfg, ("K1", "K2")),
              ("grid64x28", scene, cfg, ("K1", "K2")),
              ("grid64x28 fused", scene, ccfg.replace(use_pallas_bounce=True), ("K5",)),
-             ("grid64x28-tex compacted", tscene, ccfg, ("K1", "K3", "K4")),
-             ("grid64x28-tex", tscene, cfg, ("K1", "K3", "K4")),
+             ("grid64x28-tex compacted", tscene, ccfg, ("K1", "K4")),
+             ("grid64x28-tex", tscene, cfg, ("K1", "K4")),
              ("grid64x28 compacted width 2", scene, ccfg.replace(pallas_bvh_width=2),
               ("K1", "K2")),
              ("grid64x28 width 2", scene, cfg.replace(pallas_bvh_width=2), ("K1", "K2")))
@@ -519,10 +546,12 @@ def main() -> int:
         line, seq = device_breakdown(
             lambda: rend.step_many(sc, init_state(pcfg, dev), FRAMES), counts)
         print(f"  {pname}: device time of {FRAMES} more frames {card}: {line}")
-        if "K1" in seq:  # frame 0's launches are bounces 0..max_bounces-1
-            k1_bounce[pname] = seq["K1"][:pcfg.max_bounces]
-            print(f"  {pname}: K1 ms per bounce of frame 0 {card}: "
-                  + ", ".join(f"{t:.3f}" for t in k1_bounce[pname]))
+        for kname in sorted(seq):  # frame 0's launches are bounces 0..max_bounces-1
+            per_bounce = seq[kname][:pcfg.max_bounces]
+            if kname == "K1":
+                k1_bounce[pname] = per_bounce
+            print(f"  {pname}: {kname} ms per bounce of frame 0 {card}: "
+                  + ", ".join(f"{t:.3f}" for t in per_bounce))
     for p2 in ("grid64x28 compacted width 2", "grid64x28 width 2"):
         a2, a4 = accum[p2], accum["grid64x28"]
         print(f"{p2} vs width 4: {int((a2 != a4).any(-1).sum())} of "
@@ -550,12 +579,16 @@ def main() -> int:
           f"{group}) {card}: rays down + hit record back {rt_ms['intersector_ms']:.3f} ms, "
           f"state down + next state back {rt_ms['bounce_ms']:.3f} ms")
 
-    # 5. physics against the reference's own renders
-    for gname, fused in (("furnace", False), ("spheres", False), ("furnace", True)):
+    # 5. physics against the reference's own renders; the last two gates on
+    # the other intersectors and counter hashes.
+    for gname, fused, extra in (("furnace", False, {}), ("spheres", False, {}),
+                                ("furnace", True, {}),
+                                ("spheres", False, dict(accel="bvh", rng="xorshift")),
+                                ("furnace", False, dict(accel="none", rng="lcg"))):
         gb = load_scene(os.path.join(REPO, "tests", "goldens", "scn", f"{gname}.scn"))
         if gb.fallbacks:
             raise RuntimeError(f"{gname}.scn substituted files: {gb.fallbacks}")
-        gcfg = RenderConfig(width=gb.width, height=gb.height, spp=1)
+        gcfg = RenderConfig(width=gb.width, height=gb.height, spp=1, **extra)
         if fused:
             gcfg = gcfg.replace(use_pallas_bounce=True,
                                 wave_compact_group=pick_compact_group(gb.width * gb.height))
@@ -567,7 +600,8 @@ def main() -> int:
         ours = parity.srgb_to_linear(ours / 255.99)[::-1]  # goldens are bottom row first
         ref = parity.load_golden(os.path.join(REPO, "tests", "goldens", "ref", f"{gname}.npz"))
         dmean, p95, dmax = parity.compare(ref, ours)
-        print(f"{gname} {gb.width}x{gb.height} ({gr.path}, group {gcfg.wave_compact_group}), "
+        print(f"{gname} {gb.width}x{gb.height} ({gr.path}, group {gcfg.wave_compact_group}, "
+              f"accel {gcfg.accel}, rng {gcfg.rng}), "
               f"24 frames vs tests/goldens/ref/{gname}.npz: mean diff {dmean:.5f} (<= 0.01), "
               f"block p95 {p95:.5f} (<= 0.02), block max {dmax:.5f} (<= 0.05); launches "
               + ", ".join(f"{k} {c.kernel}" for k, c in counts.items()))
@@ -615,16 +649,21 @@ def main() -> int:
               max(c1["max_abs_err"], c1b["max_abs_err"], c1t["max_abs_err"]), t_k1, t_p1, c1,
               None),
         entry("K2", "shade", "shade.cu", "tracy_tpu/ops/pallas_shade.py:72",
-              max(c["max_abs_err"] for c in c2.values()), t_k2, t_p2, c2[True], None),
+              max(c["max_abs_err"] for c in c2.values()), t_k2, t_p2, c2[("fast", True)], None),
         entry("K3", "texfetch", "texfetch.cu", "tracy_tpu/ops/pallas_texfetch.py:231",
               max(c["max_abs_err"] for c in c3.values()), t_k3, t_p3, b3, t_l3),
-        entry("K4", "shade_textured", "shade.cu", "tracy_tpu/ops/pallas_shade.py:355",
+        entry("K4", "shade_textured (texel fetch + textured bounce)", "shade.cu",
+              "tracy_tpu/ops/pallas_shade.py:355",
               max(c["max_abs_err"] for c in c4.values()), t_k4, t_p4, b4, None),
         entry("K5", "bounce", "bounce.cu", "tracy_tpu/ops/pallas_packet.py:2292",
               max(c["max_abs_err"] for c in c5.values()), t_k5, t_p5, b5, None),
         entry("K6", "micro (vres)", "micro.cu", "tools/tpu_micro.py:213",
               c6["vres"]["max_abs_err"], t6["vres"]["ms"], t_p6, b6, None),
     ]
+    kernels[2]["note"] = "inlined into K4 on the render paths (0 launches there)"
+    kernels[3]["fuses"] = "tracy_tpu/ops/pallas_texfetch.py:231"
+    kernels[3].update(no_gathers_ms=t4_parts["no texel gathers"],
+                      all_dead_ms=t4_parts["all lanes dead"])
     kernels[0]["textured_ms"] = t_k1t
     kernels[0]["textured_bound_ms"] = c1t["bound_ms"]
     kernels[0]["ms_per_bounce_frame0"] = k1_bounce

@@ -65,6 +65,36 @@ def test_vector_math_matches():
     assert (tir == 0).all(axis=-1).any()  # some lanes hit total internal reflection
 
 
+
+# The float32 functions the port's plain versions call on the CPU, each on
+# the inputs it gets there, against float64 numpy. 4096 lanes: torch splits
+# them into two tasks on two threads, as in the failure that
+# core/math.py::sqrt repairs (ROADMAP, hazards), which this guards against
+# coming back in another function.
+CPU_MATH = {
+    "sqrt (core/math.py)": (lambda r: r.uniform(0.0, 9.0, 4096), tm.sqrt, np.sqrt),
+    "sin (random_on_unit_sphere)": (lambda r: r.uniform(0.0, 2 * np.pi, 4096), torch.sin,
+                                    np.sin),
+    "cos (random_on_unit_sphere)": (lambda r: r.uniform(0.0, 2 * np.pi, 4096), torch.cos,
+                                    np.cos),
+    "asin (sky_uv)": (lambda r: r.uniform(-1.0, 1.0, 4096), torch.asin, np.arcsin),
+    "atan2 (sky_uv)": (lambda r: r.standard_normal((2, 4096)), lambda x: torch.atan2(*x),
+                       lambda x: np.arctan2(*x)),
+    "pow (srgb_from_linear)": (lambda r: r.uniform(1e-8, 1.0, 4096),
+                               lambda x: torch.pow(x, 1.0 / 2.4), lambda x: x ** (1.0 / 2.4)),
+}
+
+
+@pytest.mark.parametrize("name", list(CPU_MATH))
+def test_cpu_math_matches_float64(name):
+    """Within 4 ulp of the float64 result rounded to float32 (the contract
+    of test_vector_math_matches), on every lane."""
+    draw, fn, ref = CPU_MATH[name]
+    x = draw(np.random.default_rng(5)).astype(np.float32)
+    got = fn(torch.as_tensor(x)).numpy()
+    want = ref(x.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_max_ulp(got, want, maxulp=4)
+
 def test_generate_rays_and_pixel_samples_match():
     args = dict(eye=(-0.5, 1.2, 1.5), center=(0.0, 0.0, -1.0), up=(0.0, 1.0, 0.0),
                 fov_degrees=60.0, aspect_ratio=320 / 240)

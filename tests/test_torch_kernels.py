@@ -1,11 +1,12 @@
 """K1-K6 on the card against their plain PyTorch versions on the same CUDA
 tensors, with the contracts of tracy_tpu_torch/ops/compare.py (those of
 chip_smoke.py's kernel phase, at smaller sizes), K1 and K5 on the binary
-and the 4-wide BVH: K5 also against K1 then K2 on the same lanes (equal),
-compacted and fused renders against the uncompacted one (equal), each K6
-variant against its plain version (equal). Marked `cuda`: without an
-NVIDIA GPU these tests skip. On a GPU machine without jax, where
-tests/conftest.py cannot load, run them with
+and the 4-wide BVH, K2, K4 and K5 at each counter hash, K4 (texel fetch +
+textured bounce, in place) on a ragged last block: K5 also against K1
+then K2 on the same lanes (equal), compacted and fused renders against
+the uncompacted one (equal), each K6 variant against its plain version
+(equal). Marked `cuda`: without an NVIDIA GPU these tests skip. On a GPU
+machine without jax, where tests/conftest.py cannot load, run them with
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 """
@@ -50,22 +51,28 @@ def test_intersect_kernel_matches_plain(cuda, width):
     assert res["hit_fraction"] > 0.2
 
 
+@pytest.mark.parametrize("rng", ["fast", "xorshift", "lcg"])
 @pytest.mark.parametrize("rr", [True, False])
-def test_shade_kernel_matches_plain(cuda, rr):
+def test_shade_kernel_matches_plain(cuda, rr, rng):
     scene = load_scene(os.path.join(REPO, "data", "scenes", "default.scn")).build(device=cuda)
     mtab = k2.build_material_table(scene.materials)
     lanes = compare.canned_lanes(mtab.shape[0], 65536, seed=2, device=cuda)
-    compare.compare_shade(lanes, mtab, 3, 1, seed=0xABCDEF, russian_roulette=rr)
+    compare.compare_shade(lanes, mtab, 3, 1, seed=0xABCDEF, russian_roulette=rr, rng=rng)
 
 
-def test_renderer_runs_on_the_kernels(cuda):
+@pytest.mark.parametrize("setting", [{}, dict(accel="bvh", rng="xorshift"),
+                                     dict(accel="none", rng="lcg")],
+                         ids=["packet-fast", "bvh-xorshift", "none-lcg"])
+def test_renderer_runs_on_the_kernels(cuda, setting):
     scene = sphere_grid(64, 48, nsph=4, steps=12).build(device=cuda)
-    cfg = RenderConfig(width=64, height=48, spp=1)
+    cfg = RenderConfig(width=64, height=48, spp=1, **setting)
     r = Renderer(cfg)
     k1.COUNT.reset()
     k2.COUNT.reset()
     st, rays = r.step_many(scene, init_state(cfg, cuda), 2)
-    assert k1.COUNT.kernel == k2.COUNT.kernel == 2 * cfg.max_bounces
+    # accel 'none' intersects by brute force, without K1.
+    assert k1.COUNT.kernel == (0 if cfg.accel == "none" else 2 * cfg.max_bounces)
+    assert k2.COUNT.kernel == 2 * cfg.max_bounces
     assert k1.COUNT.plain == k2.COUNT.plain == 0
     assert rays >= 2 * 64 * 48
     assert np.isfinite(r.display(st)).all()
@@ -94,15 +101,35 @@ def textured_scene(device):
     return b.build(device=device)
 
 
+@pytest.mark.parametrize("rng", ["fast", "lcg"])
 @pytest.mark.parametrize("rr", [True, False])
-def test_texfetch_and_textured_shade_kernels_match_plain(cuda, rr):
+def test_texfetch_and_textured_shade_kernels_match_plain(cuda, rr, rng):
     scene = textured_scene(cuda)
     mtab = k2.build_material_table_tex(scene.materials)
-    lanes = compare.textured_lanes(mtab.shape[0], 65536, seed=3, device=cuda)
+    # 65,537 lanes: a ragged last block.
+    lanes = compare.textured_lanes(mtab.shape[0], 65537, seed=3, device=cuda)
     c3 = compare.compare_texfetch(lanes, scene)
     assert c3["hit_lanes"] > 0 and c3["sky_lanes"] > 0
-    compare.compare_shade_textured(lanes, c3["texels"], mtab, 3, 1, seed=0xABCDEF,
-                                   russian_roulette=rr)
+    compare.compare_shade_textured(lanes, scene, mtab, 3, 1, seed=0xABCDEF,
+                                   russian_roulette=rr, rng=rng)
+
+
+def test_textured_tables_beyond_shared_memory_are_refused(cuda):
+    """K3 and K4 stage the texture and material tables in shared memory;
+    tables that do not fit in 48 KB are refused before any launch."""
+    scene = textured_scene(cuda)
+    m = 2500  # K3: 2,500 x 20 bytes of tex_index > 48 KB (K4: x 84 bytes)
+    mtab = k2.build_material_table_tex(scene.materials)[:1].repeat(m, 1)
+    tex_index = scene.materials.tex_index[:1].repeat(m, 1)
+    lanes = compare.textured_lanes(m, 1024, seed=4, device=cuda)
+    tex = (scene.tex_data, scene.tex_table, tex_index)
+    with pytest.raises(ValueError, match="shared memory"):
+        k3.fetch_texels(*(lanes[k] for k in compare.TEXFETCH_ARGS), *tex)
+    before = k2.COUNT_TEX.kernel
+    with pytest.raises(ValueError, match="shared memory"):
+        k2.shade_textured(*compare.textured_args(lanes), mtab, *tex, 3, 1, seed=1,
+                          russian_roulette=True)
+    assert k2.COUNT_TEX.kernel == before
 
 
 def test_textured_renderer_runs_on_the_kernels(cuda):
@@ -112,16 +139,18 @@ def test_textured_renderer_runs_on_the_kernels(cuda):
     for c in (k1.COUNT, k2.COUNT, k2.COUNT_TEX, k3.COUNT):
         c.reset()
     st, rays = r.step_many(scene, init_state(cfg, cuda), 2)
-    assert k1.COUNT.kernel == k3.COUNT.kernel == k2.COUNT_TEX.kernel == 2 * cfg.max_bounces
-    assert k2.COUNT.kernel == 0
+    # K4 fetches its own texels: K3 is not launched on the render path.
+    assert k1.COUNT.kernel == k2.COUNT_TEX.kernel == 2 * cfg.max_bounces
+    assert k2.COUNT.kernel == k3.COUNT.kernel == 0
     assert k1.COUNT.plain == k3.COUNT.plain == k2.COUNT_TEX.plain == 0
     assert rays >= 2 * 32 * 24
     assert np.isfinite(r.display(st)).all()
 
 
+@pytest.mark.parametrize("rng", ["fast", "xorshift"])
 @pytest.mark.parametrize("width", [2, 4])
 @pytest.mark.parametrize("rr", [True, False])
-def test_bounce_kernel_matches_plain_and_two_stage(cuda, rr, width):
+def test_bounce_kernel_matches_plain_and_two_stage(cuda, rr, width, rng):
     scene = sphere_grid(64, 48, nsph=16, steps=16).build(device=cuda)
     tables = build_tables(scene, width=width)
     assert tables.width == width
@@ -130,7 +159,7 @@ def test_bounce_kernel_matches_plain_and_two_stage(cuda, rr, width):
     canned = compare.canned_lanes(mtab.shape[0], 65536, seed=2, device=cuda)
     lanes = dict(canned, origin=o, direction=d, alive=a & canned["alive"])
     res = compare.compare_bounce(lanes, tables, mtab, 3, 1, seed=0xABCDEF,
-                                 russian_roulette=rr)
+                                 russian_roulette=rr, rng=rng)
     assert all(res["equal_to_k1_k2"]) and res["hit_lanes"] > 0 and res["miss_lanes"] > 0
 
 

@@ -32,8 +32,8 @@ N = 2048
 
 @pytest.fixture(scope="module")
 def plain():
-    leaves = k6.make_leaves()
-    rays = k6.make_rays(N)
+    leaves = k6.make_leaves(device="cpu")
+    rays = k6.make_rays(N, device="cpu")
     return leaves, rays, {v: k6.micro(v, rays, leaves, iters=40) for v in k6.VARIANTS}
 
 
@@ -82,3 +82,15 @@ def test_variants_share_their_outputs(plain):
     assert torch.equal(out["vd"][0][:, 0],
                        torch.minimum(o, (t[:, 0] + t[:, 5] + t[:, 10])[None, :].add(
                            o[:, None]).amin(dim=1)))
+
+
+def test_inputs_default_to_the_card():
+    """make_leaves and make_rays put their tensors on the card unless the
+    caller asks for the CPU, as the port's other entry points do."""
+    if torch.cuda.is_available():
+        assert k6.make_rays(64).device.type == "cuda"
+        assert k6.make_leaves(num_leaves=2).tri.device.type == "cuda"
+    else:
+        for make in (lambda: k6.make_rays(64), lambda: k6.make_leaves(num_leaves=2)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()

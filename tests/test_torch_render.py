@@ -14,6 +14,10 @@ in linear radiance (the light is 15):
 * mean over the image: 1e-3;  p95 of |block diff|: 5e-3;  max: 0.05;
 * ray counts (one per live lane per bounce): within 0.1%.
 
+The other intersectors and counter hashes that tracy_tpu renders
+(accel 'bvh' and 'none', rng 'xorshift' and 'lcg') are held to the same
+contract in tests/test_torch_settings.py.
+
 On a textured sky a miss lane may also read a neighbouring texel where
 torch's atan2/asin and XLA's differ by an ulp; that is one more source of a
 parted path, held by the same limits.
@@ -57,7 +61,8 @@ def render_both(jscene, textured: bool):
     st, rays = r.step_many(from_jax_arrays(jscene, device="cpu"), init_state(cfg_t, "cpu"), 2)
     ran = [c.plain - b for c, b in zip(counts, before)]
     runs = 2 * cfg.max_bounces
-    assert ran == ([runs, 0, runs, runs] if textured else [runs, runs, 0, 0])
+    # K4 fetches its own texels: K3 is not called on the render path.
+    assert ran == ([runs, 0, 0, runs] if textured else [runs, runs, 0, 0])
     assert st.frame == 2
     return r, st, rays, jr, jst
 

@@ -10,11 +10,14 @@ tests/test_pallas_texfetch.py's textured fixture built in both packages:
   identical on hit lanes; a sky lane (a miss, addressed through torch's
   atan2/asin against XLA's) may land on another texel on at most 0.1% of
   the sky lanes;
-* K4's plain version against `shade_packets_textured(interpret=True)` with
-  K2's contract (tests/test_torch_shade.py): lanes whose alive flag or lobe
+* K4's plain version, which fetches its own texels (K3's plain fetch) and
+  shades in place, against `shade_packets_textured(interpret=True)`, the
+  same function end to end (texel fetch + textured bounce), with K2's
+  contract (tests/test_torch_shade.py): lanes whose alive flag or lobe
   differ at most 0.1%; every float of every other lane rtol 1e-5, atol 1e-6.
   (The TPU kernel normalises by multiplying with 1/sqrt, the port divides
-  by sqrt as tracy_tpu's XLA path does: an ulp apart.)
+  by sqrt as tracy_tpu's XLA path does: an ulp apart.) K4 updates the
+  state it is given in place, so the test hands it copies.
 """
 
 import jax
@@ -160,14 +163,15 @@ def test_k4_plain_matches_shade_packets_textured(scenes, rr):
         seed=SEED, russian_roulette=rr, interpret=True))()
     ref = [torch.tensor(np.asarray(x)) for x in ref]
 
-    texels = k3.fetch_texels(t["mat_id"], t["tex_uv"], t["direction"], t["hit_mask"],
-                             t["alive"], scene.tex_data, scene.tex_table,
-                             scene.materials.tex_index)
     mtab = k2.build_material_table_tex(scene.materials)
     np.testing.assert_array_equal(mtab.numpy().T[:15],
                                   np.asarray(jmtab)[:15, :scene.materials.num_materials])
-    before = k2.COUNT_TEX.plain
-    got = k2.shade_textured(*(t[k] for k in compare.SHADE_TEX_ARGS), texels, mtab, skey,
-                            bounce, seed=SEED, russian_roulette=rr)
-    assert k2.COUNT_TEX.plain == before + 1
+    args = compare.textured_args(t)
+    before = (k2.COUNT_TEX.plain, k3.COUNT.plain)
+    got = k2.shade_textured(*args, mtab, scene.tex_data, scene.tex_table,
+                            scene.materials.tex_index, skey, bounce, seed=SEED,
+                            russian_roulette=rr)
+    assert (k2.COUNT_TEX.plain, k3.COUNT.plain) == (before[0] + 1, before[1])
+    # In place: the returned state is the state it was given.
+    assert all(g is a for g, a in zip(got, args[:5]))
     compare_bounce(got, ref, decision_frac=0.001)

@@ -32,9 +32,29 @@ def cross(a, b):
     )
 
 
+def sqrt(x):
+    """The correctly rounded square root, on every device, as XLA's and the
+    card's (IEEE) sqrt are. On the CPU torch's float32 sqrt goes through
+    MKL's vector math library: 1 ulp off on about 0.6% of inputs, and seen
+    to return a thread's whole chunk 2.5e-5 to 1.2e-4 off now and then
+    (ROADMAP, hazards). There two Newton steps in float64, exact IEEE
+    operations, take any such result to the exact root before it is
+    rounded back to float32 (no float32 root lies within their error of a
+    rounding boundary)."""
+    s = torch.sqrt(x)
+    if x.device.type != "cpu" or x.dtype != torch.float32:
+        return s
+    ok = (s > 0.0) & torch.isfinite(s)
+    xd = x.double()
+    r = torch.where(ok, s, 1.0).double()
+    r = 0.5 * (r + xd / r)
+    r = 0.5 * (r + xd / r)
+    return torch.where(ok, r.float(), s)
+
+
 def normalize(v, eps: float = 1.0e-20):
     """v / |v| with the squared length clamped at `eps` (no 0/0 -> NaN)."""
-    return v / torch.sqrt(torch.clamp(dot(v, v), min=eps))
+    return v / sqrt(torch.clamp(dot(v, v), min=eps))
 
 
 def lerp(a, b, t):
@@ -51,7 +71,7 @@ def refract(incident, normal, eta):
     """GLM refract; the zero vector on total internal reflection."""
     cosi = dot(normal, incident)
     k = 1.0 - eta * eta * (1.0 - cosi * cosi)
-    refr = eta * incident - (eta * cosi + torch.sqrt(torch.clamp(k, min=0.0))) * normal
+    refr = eta * incident - (eta * cosi + sqrt(torch.clamp(k, min=0.0))) * normal
     return torch.where(k < 0.0, torch.zeros_like(refr), refr)
 
 

@@ -39,7 +39,7 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(
     const int4* __restrict__ tmeta,
     const float* __restrict__ vnormal, const float* __restrict__ mtab,
     int num_materials, uint32_t skey, uint32_t bounce, uint32_t seed,
-    int russian_roulette, float* __restrict__ o_out,
+    int russian_roulette, int rng, float* __restrict__ o_out,
     float* __restrict__ d_out, float* __restrict__ thr_out,
     float* __restrict__ rad_out, bool* __restrict__ alive_out) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
@@ -63,15 +63,15 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(
                       &best_t, &best, &bu, &bv);
     }
     if (best < 0) {
-      tracy::shade_miss<false>(rad, thr, mtab, nullptr);
+      tracy::shade_miss<false>(rad, thr, mtab, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
     } else {
       const int4 tm = tmeta[best];
       float nv[3];
       tracy::interp<3>(vnormal, tm, 1.0f - bu - bv, bu, bv, nv);
       alive = tracy::shade_hit<false>(
           o, d, thr, rad, best_t, nv, tm.w, static_cast<uint32_t>(pix_in[i]),
-          mtab, num_materials, skey, bounce, seed, russian_roulette, nullptr,
-          nullptr);
+          mtab, num_materials, skey, bounce, seed, russian_roulette, rng,
+          nullptr, nullptr);
     }
   }
   for (int c = 0; c < 3; ++c) {
@@ -89,15 +89,15 @@ void launch(const float* orig, const float* dir, const float* thr,
             const float* nb, const int* nm, const float* wide, const float* tri,
             const int* tmeta, const float* vnormal, const float* mtab,
             int num_materials, uint32_t sample_key, uint32_t bounce,
-            uint32_t seed, int russian_roulette, float* o_out, float* d_out,
-            float* thr_out, float* rad_out, bool* alive_out,
+            uint32_t seed, int russian_roulette, int rng, float* o_out,
+            float* d_out, float* thr_out, float* rad_out, bool* alive_out,
             cudaStream_t stream) {
   bounce_kernel<WIDE><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
       orig, dir, thr, rad, alive, pix, n, reinterpret_cast<const float4*>(nb),
       reinterpret_cast<const int4*>(nm), reinterpret_cast<const float4*>(wide),
       reinterpret_cast<const float4*>(tri),
       reinterpret_cast<const int4*>(tmeta), vnormal, mtab, num_materials,
-      sample_key, bounce, seed, russian_roulette, o_out, d_out, thr_out,
+      sample_key, bounce, seed, russian_roulette, rng, o_out, d_out, thr_out,
       rad_out, alive_out);
 }
 
@@ -106,7 +106,7 @@ void launch(const float* orig, const float* dir, const float* thr,
 // width 2 walks nb/nm (the binary tree), width 4 walks `wide` (the 4-wide
 // lines), which must then not be null: as tracy_intersect. vuv and vtan are
 // the tables' texture uv and tangent: K5 is untextured and refuses them
-// when they are not null.
+// when they are not null. rng: the counter hash (tracy::RNG_*).
 extern "C" int tracy_bounce(const float* orig, const float* dir,
                             const float* thr, const float* rad,
                             const bool* alive, const int* pix, int n,
@@ -116,7 +116,7 @@ extern "C" int tracy_bounce(const float* orig, const float* dir,
                             const float* vtan, const float* mtab,
                             int num_materials, uint32_t sample_key,
                             uint32_t bounce, uint32_t seed,
-                            int russian_roulette, float* o_out, float* d_out,
+                            int russian_roulette, int rng, float* o_out, float* d_out,
                             float* thr_out, float* rad_out, bool* alive_out,
                             void* stream) {
   if (vuv != nullptr || vtan != nullptr || (width != 2 && width != 4) ||
@@ -128,12 +128,12 @@ extern "C" int tracy_bounce(const float* orig, const float* dir,
     if (width == 4) {
       launch<true>(orig, dir, thr, rad, alive, pix, n, nb, nm, wide, tri,
                    tmeta, vnormal, mtab, num_materials, sample_key, bounce,
-                   seed, russian_roulette, o_out, d_out, thr_out, rad_out,
+                   seed, russian_roulette, rng, o_out, d_out, thr_out, rad_out,
                    alive_out, st);
     } else {
       launch<false>(orig, dir, thr, rad, alive, pix, n, nb, nm, wide, tri,
                     tmeta, vnormal, mtab, num_materials, sample_key, bounce,
-                    seed, russian_roulette, o_out, d_out, thr_out, rad_out,
+                    seed, russian_roulette, rng, o_out, d_out, thr_out, rad_out,
                     alive_out, st);
     }
   }

@@ -1,55 +1,61 @@
 // K2 and K4: one shading bounce of the wavefront, one thread per lane.
 //
-// K2 (untextured) replaces tracy_tpu/ops/pallas_shade.py::_kernel/
-// shade_planes (entered through shade_packets); K4 (textured) replaces
-// pallas_shade.py::_kernel_tex (entered through shade_packets_textured).
-// As shade_planes serves both TPU kernels, one device function serves both
-// here: shade_bounce<TEXTURED>, launched as shade_kernel (K2) and
-// shade_textured_kernel (K4). Its per-lane math is tracy::shade_miss and
-// tracy::shade_hit (shade_lane.cuh), which K5 (bounce.cu) shares. The
-// bounce is the material row lookup,
-// Material::Scatter
-// (reference material.h:210-268: diffuse, specular and refraction lobes,
-// Schlick, the specular-chance lerps, the TIR clamp), constant-sky emission
-// on misses, radiance += emission * throughput, throughput *= attenuation,
-// and Russian roulette with p = EPS + max(throughput) and a true-division
-// 1/p reweight. The counter RNG is tracy_tpu/core/rng.py's 'fast' PCG hash
-// of (seed, pixel, sample_key, bounce, draw) in uint32_t, bit for bit.
+// K2 (shade_kernel, untextured) replaces tracy_tpu/ops/pallas_shade.py::
+// _kernel/shade_planes (entered through shade_packets). K4
+// (shade_textured_kernel) replaces the whole of shade_packets_textured
+// (pallas_shade.py:389): the texel fetch of pallas_texfetch.py::
+// fetch_texels (_fetch_kernel) and the textured bounce of _kernel_tex, in
+// one launch, as that entry point is one jitted graph. Their per-lane math
+// is tracy::shade_miss and tracy::shade_hit (shade_lane.cuh), which K5
+// (bounce.cu) shares: the material row lookup, Material::Scatter (reference
+// material.h:210-268), the sky on misses, radiance += emission *
+// throughput, throughput *= attenuation, Russian roulette with p = EPS +
+// max(throughput) and a true-division 1/p reweight. The counter RNG is one
+// of tracy_tpu/core/rng.py's three hashes, chosen per launch. K4's texel
+// addresses are K3's (texfetch_lane.cuh), and it adds the texture overrides
+// and tangent-space normal mapping of apply_textures.
 //
-// K4 adds, per the slot flags of its material table (columns 10-14,
-// build_material_table_tex): texture overrides of basecolor, roughness,
-// metalness and emissive from the lane's texel row (ops/texfetch.py, K3),
-// tangent-space normal mapping with the raw interpolated tangent in the TBN
-// (pallas_shade.py:189-210, reference material.h:189-203), and the sky from
-// the texel row's emissive texels on miss lanes when the sky is textured
-// (pallas_shade.py:274-281). RNG bits and operation order are K2's.
+// What bounds them on an H100: memory; a few hundred flops a lane.
 //
-// What bounds it on an H100: it is a fused elementwise pass. Per lane K2
-// reads 74 bytes of state and hit record and writes 49; K4 also reads a
-// 48-byte texel row and a 12-byte tangent. Against a few hundred flops that
-// is bound by DRAM bandwidth; the material table is a few rows and stays
-// in L1. The design keeps every intermediate in registers and makes one
-// read and one write of each value (the texel row as three 16-byte loads).
-// It takes the operation order of the plain PyTorch versions (ops/shade.py),
-// with FMA contraction off at build time, so the two agree to rounding;
-// speed work (packed state, fusing K3's gather in) is later work.
+// K2 reads 74 bytes of state and hit record a lane and writes 49 into
+// fresh tensors (dead lanes copy their state through). Its redesign is
+// later work.
+//
+// K4 updates the state in place, so each lane moves only what its class
+// needs (the traffic ops/compare.py's bound counts): a dead lane reads its
+// alive flag and nothing else; a miss lane reads hit, throughput and
+// radiance (and its direction when the sky is textured) and writes
+// radiance and alive; a hit lane reads its hit record and state and writes
+// the state. The 48-byte texel row of the old K3 -> K4 pair never reaches
+// device memory: a lane gathers its own texels into registers. The block
+// stages the material table (M x 16 floats), tex_table (K x 4) and
+// tex_index (M x 5) in shared memory, so a lane's chain material -> slot
+// flags -> texture row -> texel has one dependent global gather, and it
+// issues every gather its material needs (up to five 16-byte __ldg loads)
+// before it reads its state, so the gathers are in flight while the state
+// arrives. A variant that brought the block's float3 state slices into
+// shared memory by 1-D bulk asynchronous copies (cp.async.bulk on an
+// mbarrier) while the gathers were in flight took the same time on the
+// 1080p wave (PERF.md), so plain coalesced loads it is.
+//
+// Operation order is that of the plain PyTorch versions (ops/shade.py), with
+// FMA contraction off at build time, so the two agree to rounding.
 
 #include "shade_lane.cuh"
+#include "texfetch_lane.cuh"
 
 namespace {
 
 constexpr int BLOCK = 256;
 
-template <bool TEXTURED>
-__device__ __forceinline__ void shade_bounce(
+__global__ void __launch_bounds__(BLOCK) shade_kernel(
     const float* __restrict__ orig, const float* __restrict__ dir,
     const float* __restrict__ thr_in, const float* __restrict__ rad_in,
     const bool* __restrict__ alive_in, const int* __restrict__ pix_in,
     const bool* __restrict__ hit_in, const float* __restrict__ t_in,
-    const float* __restrict__ nrm_in, const int* __restrict__ mat_in,
-    const float* __restrict__ tan_in, const float4* __restrict__ texels,
-    int n, const float* __restrict__ mtab, int num_materials, uint32_t skey,
-    uint32_t bounce, uint32_t seed, int russian_roulette,
+    const float* __restrict__ nrm_in, const int* __restrict__ mat_in, int n,
+    const float* __restrict__ mtab, int num_materials, uint32_t skey,
+    uint32_t bounce, uint32_t seed, int russian_roulette, int rng,
     float* __restrict__ o_out, float* __restrict__ d_out,
     float* __restrict__ thr_out, float* __restrict__ rad_out,
     bool* __restrict__ alive_out) {
@@ -63,17 +69,15 @@ __device__ __forceinline__ void shade_bounce(
     rad[c] = rad_in[3 * i + c];
   }
   bool alive = false;
-  const float4* tex_row = TEXTURED ? texels + 3 * i : nullptr;
   if (alive_in[i]) {
     if (!hit_in[i]) {
-      tracy::shade_miss<TEXTURED>(rad, thr, mtab, tex_row);
+      tracy::shade_miss<false>(rad, thr, mtab, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
     } else {
       const float nv[3] = {nrm_in[3 * i], nrm_in[3 * i + 1], nrm_in[3 * i + 2]};
-      alive = tracy::shade_hit<TEXTURED>(
+      alive = tracy::shade_hit<false>(
           o, d, thr, rad, t_in[i], nv, mat_in[i],
           static_cast<uint32_t>(pix_in[i]), mtab, num_materials, skey, bounce,
-          seed, russian_roulette, tex_row,
-          (TEXTURED && tan_in != nullptr) ? tan_in + 3 * i : nullptr);
+          seed, russian_roulette, rng, nullptr, nullptr);
     }
   }
   for (int c = 0; c < 3; ++c) {
@@ -85,31 +89,91 @@ __device__ __forceinline__ void shade_bounce(
   alive_out[i] = alive;
 }
 
-// K2 and K4 are two kernels of their own names, so that a profile tells
-// them apart; both are shade_bounce.
-#define SHADE_PARAMS                                                        \
-  const float *__restrict__ orig, const float *__restrict__ dir,            \
-      const float *__restrict__ thr_in, const float *__restrict__ rad_in,   \
-      const bool *__restrict__ alive_in, const int *__restrict__ pix_in,    \
-      const bool *__restrict__ hit_in, const float *__restrict__ t_in,      \
-      const float *__restrict__ nrm_in, const int *__restrict__ mat_in,     \
-      const float *__restrict__ tan_in, const float4 *__restrict__ texels,  \
-      int n, const float *__restrict__ mtab, int num_materials,             \
-      uint32_t skey, uint32_t bounce, uint32_t seed, int russian_roulette,  \
-      float *__restrict__ o_out, float *__restrict__ d_out,                 \
-      float *__restrict__ thr_out, float *__restrict__ rad_out,             \
-      bool *__restrict__ alive_out
-#define SHADE_ARGS                                                          \
-  orig, dir, thr_in, rad_in, alive_in, pix_in, hit_in, t_in, nrm_in,        \
-      mat_in, tan_in, texels, n, mtab, num_materials, skey, bounce, seed,   \
-      russian_roulette, o_out, d_out, thr_out, rad_out, alive_out
+__global__ void __launch_bounds__(BLOCK) shade_textured_kernel(
+    float* __restrict__ orig, float* __restrict__ dir, float* __restrict__ thr_io,
+    float* __restrict__ rad_io, bool* __restrict__ alive_io,
+    const int* __restrict__ pix_in, const bool* __restrict__ hit_in,
+    const float* __restrict__ t_in, const float* __restrict__ nrm_in,
+    const float* __restrict__ tan_in, const float* __restrict__ uv_in,
+    const int* __restrict__ mat_in, int n, const float* __restrict__ mtab,
+    int num_materials, const float4* __restrict__ tex_data,
+    const int4* __restrict__ tex_table, int num_textures,
+    const int* __restrict__ tex_index, uint32_t skey, uint32_t bounce,
+    uint32_t seed, int russian_roulette, int rng) {
+  // Shared: mtab [M, 16] f32, tex_table [K] int4, tex_index [M, 5] i32.
+  extern __shared__ float4 smem[];
+  float* s_mtab = reinterpret_cast<float*>(smem);
+  int4* s_table = reinterpret_cast<int4*>(smem + (tracy::MTAB_TEX_COLS / 4) * num_materials);
+  int* s_index = reinterpret_cast<int*>(s_table + num_textures);
 
-__global__ void __launch_bounds__(BLOCK) shade_kernel(SHADE_PARAMS) {
-  shade_bounce<false>(SHADE_ARGS);
-}
+  tracy::stage_words(reinterpret_cast<uint32_t*>(s_mtab),
+                     reinterpret_cast<const uint32_t*>(mtab),
+                     tracy::MTAB_TEX_COLS * num_materials);
+  tracy::stage_words(reinterpret_cast<uint32_t*>(s_table),
+                     reinterpret_cast<const uint32_t*>(tex_table), 4 * num_textures);
+  tracy::stage_words(reinterpret_cast<uint32_t*>(s_index),
+                     reinterpret_cast<const uint32_t*>(tex_index),
+                     tracy::NUM_TEX_SLOTS * num_materials);
+  __syncthreads();
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n || !alive_io[i]) return;
+  const tracy::TexTables tt{s_table, s_index, num_textures};
+  const bool hit = hit_in[i];
 
-__global__ void __launch_bounds__(BLOCK) shade_textured_kernel(SHADE_PARAMS) {
-  shade_bounce<true>(SHADE_ARGS);
+  // The gathers first: material, flags and uv, or the sky direction.
+  long long addr[tracy::NUM_TEX_SLOTS];
+#pragma unroll
+  for (int s = 0; s < tracy::NUM_TEX_SLOTS; ++s) addr[s] = -1;
+  int m = 0;
+  if (hit) {
+    m = mat_in[i];
+    m = (m < 0 || m >= num_materials) ? 0 : m;
+    const float* row = s_mtab + m * tracy::MTAB_TEX_COLS;
+    bool textured = false;
+#pragma unroll
+    for (int s = 0; s < tracy::NUM_TEX_SLOTS; ++s) textured |= row[tracy::HAS_BC + s] > 0.0f;
+    if (textured) {
+      const float u = uv_in != nullptr ? uv_in[2 * i] : 0.0f;
+      const float v = uv_in != nullptr ? uv_in[2 * i + 1] : 0.0f;
+      tracy::hit_addresses(tt, m, u, v, addr);
+    }
+  } else if (s_mtab[tracy::HAS_E] > 0.0f) {
+    addr[tracy::SLOT_EMISSIVE] = tracy::sky_address(tt, dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
+  }
+  float4 q[tracy::NUM_TEX_SLOTS];
+  tracy::gather_texels<tracy::NUM_TEX_SLOTS>(tex_data, addr, q);
+
+  // Then the state, while the gathers are in flight.
+  float thr[3], rad[3];
+  for (int c = 0; c < 3; ++c) {
+    thr[c] = thr_io[3 * i + c];
+    rad[c] = rad_io[3 * i + c];
+  }
+  bool alive = false;
+  if (!hit) {
+    tracy::shade_miss<true>(rad, thr, s_mtab, q[tracy::SLOT_EMISSIVE]);
+  } else {
+    float o[3], d[3], nv[3];
+    for (int c = 0; c < 3; ++c) {
+      o[c] = orig[3 * i + c];
+      d[c] = dir[3 * i + c];
+      nv[c] = nrm_in[3 * i + c];
+    }
+    const float* tan_lane = tan_in == nullptr ? nullptr : tan_in + 3 * i;
+    float tex[12];
+    tracy::texel_row(q, tex);
+    alive = tracy::shade_hit<true>(o, d, thr, rad, t_in[i], nv, m,
+                                   static_cast<uint32_t>(pix_in[i]), s_mtab,
+                                   num_materials, skey, bounce, seed,
+                                   russian_roulette, rng, tex, tan_lane);
+    for (int c = 0; c < 3; ++c) {
+      orig[3 * i + c] = o[c];
+      dir[3 * i + c] = d[c];
+      thr_io[3 * i + c] = thr[c];
+    }
+  }
+  for (int c = 0; c < 3; ++c) rad_io[3 * i + c] = rad[c];
+  alive_io[i] = alive;
 }
 
 }  // namespace
@@ -121,36 +185,39 @@ extern "C" int tracy_shade(const float* orig, const float* dir,
                            const float* normal, const int* mat, int n,
                            const float* mtab, int num_materials,
                            uint32_t sample_key, uint32_t bounce, uint32_t seed,
-                           int russian_roulette, float* o_out, float* d_out,
-                           float* thr_out, float* rad_out, bool* alive_out,
-                           void* stream) {
+                           int russian_roulette, int rng, float* o_out,
+                           float* d_out, float* thr_out, float* rad_out,
+                           bool* alive_out, void* stream) {
   if (n > 0) {
     shade_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-        orig, dir, thr, rad, alive, pix, hit, t, normal, mat, nullptr,
-        nullptr, n, mtab, num_materials, sample_key, bounce, seed,
-        russian_roulette, o_out, d_out, thr_out, rad_out, alive_out);
+        orig, dir, thr, rad, alive, pix, hit, t, normal, mat, n, mtab,
+        num_materials, sample_key, bounce, seed, russian_roulette, rng, o_out,
+        d_out, thr_out, rad_out, alive_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4. tangent may be null (no normal maps in the scene: read as zero);
-// texels is [n, 12] float32, 16-byte aligned; mtab is [M, 16].
+// K4, in place: orig, dir, thr, rad and alive are read and written.
+// tangent may be null (no normal maps: read as zero), uv too (no material
+// textured, the sky may be: read as zero); mtab is [M, 16]; tex_data
+// [P, 4] f32 is 16-byte aligned; smem is the tables' shared memory, which
+// the wrapper computes and bounds.
 extern "C" int tracy_shade_textured(
-    const float* orig, const float* dir, const float* thr, const float* rad,
-    const bool* alive, const int* pix, const bool* hit, const float* t,
-    const float* normal, const int* mat, const float* tangent,
-    const float* texels, int n, const float* mtab, int num_materials,
+    float* orig, float* dir, float* thr, float* rad, bool* alive,
+    const int* pix, const bool* hit, const float* t, const float* normal,
+    const float* tangent, const float* uv, const int* mat, int n,
+    const float* mtab, int num_materials, const float* tex_data,
+    const int* tex_table, int num_textures, const int* tex_index,
     uint32_t sample_key, uint32_t bounce, uint32_t seed, int russian_roulette,
-    float* o_out, float* d_out, float* thr_out, float* rad_out,
-    bool* alive_out, void* stream) {
+    int rng, int smem, void* stream) {
   if (n > 0) {
-    shade_textured_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0,
+    shade_textured_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, smem,
                             static_cast<cudaStream_t>(stream)>>>(
-        orig, dir, thr, rad, alive, pix, hit, t, normal, mat, tangent,
-        reinterpret_cast<const float4*>(texels), n, mtab, num_materials,
-        sample_key, bounce, seed, russian_roulette, o_out, d_out, thr_out,
-        rad_out, alive_out);
+        orig, dir, thr, rad, alive, pix, hit, t, normal, tangent, uv, mat, n,
+        mtab, num_materials, reinterpret_cast<const float4*>(tex_data),
+        reinterpret_cast<const int4*>(tex_table), num_textures, tex_index,
+        sample_key, bounce, seed, russian_roulette, rng);
   }
   return static_cast<int>(cudaGetLastError());
 }

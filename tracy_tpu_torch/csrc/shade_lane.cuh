@@ -3,21 +3,23 @@
 //
 // The lane's state and hit record come in registers. shade_miss is a live
 // lane that hit nothing: it gathers the sky (material slot 0's emissive, or
-// on a textured scene its equirect texels that K3 fetched) and ends.
-// shade_hit is a live lane that hit: the material row lookup,
-// Material::Scatter (reference material.h:210-268: diffuse, specular and
-// refraction lobes, Schlick, the specular-chance lerps, the TIR clamp),
-// radiance += emission * throughput, throughput *= attenuation, and Russian
-// roulette with p = EPS + max(throughput) and a true-division 1/p reweight.
-// The counter RNG is tracy_tpu/core/rng.py's 'fast' PCG hash of (seed,
-// pixel, sample_key, bounce, draw) in uint32_t, bit for bit.
+// on a textured scene its equirect texel, which K4 fetched). shade_hit is a
+// live lane that hit: the material row lookup, Material::Scatter (reference
+// material.h:210-268: diffuse, specular and refraction lobes, Schlick, the
+// specular-chance lerps, the TIR clamp), radiance += emission * throughput,
+// throughput *= attenuation, and Russian roulette with p = EPS +
+// max(throughput) and a true-division 1/p reweight. The counter RNG is one
+// of tracy_tpu/core/rng.py's hashes of (seed, pixel, sample_key, bounce,
+// draw) in uint32_t, bit for bit: 'fast' (PCG), 'xorshift' (xorshift32
+// twice) or 'lcg' (two LCG steps with xor-folds), chosen per launch.
 //
 // TEXTURED adds, per the slot flags of the material table (columns 10-14,
 // build_material_table_tex): texture overrides of basecolor, roughness,
-// metalness and emissive from the lane's texel row (ops/texfetch.py, K3),
-// and tangent-space normal mapping with the raw interpolated tangent in the
-// TBN (pallas_shade.py:189-210, reference material.h:189-203). The texel row
-// and the tangent are read only where the material needs them.
+// metalness and emissive from the lane's 12-float texel row (in registers;
+// texfetch_lane.cuh), and tangent-space normal mapping with the raw
+// interpolated tangent in the TBN (pallas_shade.py:189-210, reference
+// material.h:189-203). The tangent is read only where the material has a
+// normal map.
 //
 // Operation order is that of the plain PyTorch versions (ops/shade.py),
 // with FMA contraction off at build time, so they agree to rounding.
@@ -38,6 +40,8 @@ constexpr int HAS_BC = 10, HAS_N = 11, HAS_R = 12, HAS_M = 13, HAS_E = 14;
 constexpr int TX_BC = 0, TX_NM = 3, TX_ROUGH = 6, TX_METAL = 7, TX_EM = 8;
 constexpr uint32_t K_PIXEL = 0x9E3779B9u, K_FRAME = 0x85EBCA6Bu;
 constexpr uint32_t K_BOUNCE = 0xC2B2AE35u, K_DRAW = 0x27D4EB2Fu;
+// Counter hash kinds (core/rng.py KINDS order).
+constexpr int RNG_FAST = 0, RNG_XORSHIFT = 1, RNG_LCG = 2;
 
 __device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
   x = x * 747796405u + 2891336453u;
@@ -45,14 +49,33 @@ __device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
   return (x >> 22u) ^ x;
 }
 
+__device__ __forceinline__ uint32_t xorshift32(uint32_t x) {
+  x ^= x << 13u;
+  x ^= x >> 17u;
+  return x ^ (x << 5u);
+}
+
+// One LCG step (Numerical Recipes' constants), then a 16-bit xor-fold.
+__device__ __forceinline__ uint32_t lcg_fold(uint32_t x) {
+  x = x * 1664525u + 1013904223u;
+  return x ^ (x >> 16u);
+}
+
+// core/rng.py HASHES[kind]; the kind is uniform across a launch.
+__device__ __forceinline__ uint32_t counter_hash(uint32_t x, int kind) {
+  if (kind == RNG_XORSHIFT) return xorshift32(xorshift32(x));
+  if (kind == RNG_LCG) return lcg_fold(lcg_fold(x));
+  return pcg_hash(x);
+}
+
 // Uniform [0, 1) from the top 24 hashed bits (core/rng.py::uniform_fast).
 __device__ __forceinline__ float rand01(uint32_t seed, uint32_t pix,
                                         uint32_t skey, uint32_t bounce,
-                                        uint32_t draw) {
+                                        uint32_t draw, int kind) {
   uint32_t h = seed + pix * K_PIXEL;
-  h = pcg_hash(h + skey * K_FRAME);
-  h = pcg_hash(h + bounce * K_BOUNCE + draw * K_DRAW);
-  return static_cast<float>(pcg_hash(h) >> 8u) * (1.0f / 16777216.0f);
+  h = counter_hash(h + skey * K_FRAME, kind);
+  h = counter_hash(h + bounce * K_BOUNCE + draw * K_DRAW, kind);
+  return static_cast<float>(counter_hash(h, kind) >> 8u) * (1.0f / 16777216.0f);
 }
 
 __device__ __forceinline__ float schlick(float cosine, float ref_idx) {
@@ -63,48 +86,37 @@ __device__ __forceinline__ float schlick(float cosine, float ref_idx) {
   return r0 + (1.0f - r0) * (c * (c2 * c2));
 }
 
-// The lane's 12-float texel row (render/texture.py layout), three float4s.
-__device__ __forceinline__ void load_texels(const float4* __restrict__ row,
-                                            float* tex) {
-  for (int k = 0; k < 3; ++k) {
-    const float4 q = row[k];
-    tex[4 * k] = q.x;
-    tex[4 * k + 1] = q.y;
-    tex[4 * k + 2] = q.z;
-    tex[4 * k + 3] = q.w;
-  }
-}
-
-// A live lane that hit nothing: rad += sky * thr. tex_row is the lane's
-// texel row (TEXTURED only; read when the sky is textured).
+// A live lane that hit nothing: rad += sky * thr. sky_texel is the sky's
+// equirect texel in this lane's direction (TEXTURED only; used when the
+// sky is textured).
 template <bool TEXTURED>
 __device__ __forceinline__ void shade_miss(float* rad, const float* thr,
-                                           const float* __restrict__ mtab,
-                                           const float4* __restrict__ tex_row) {
+                                           const float* mtab,
+                                           float4 sky_texel) {
   float sky[3] = {mtab[6], mtab[7], mtab[8]};
   if (TEXTURED && mtab[HAS_E] > 0.0f) {
-    float tex[12];
-    load_texels(tex_row, tex);
-    for (int c = 0; c < 3; ++c) sky[c] = tex[TX_EM + c];
+    sky[0] = sky_texel.x;
+    sky[1] = sky_texel.y;
+    sky[2] = sky_texel.z;
   }
   for (int c = 0; c < 3; ++c) rad[c] = rad[c] + sky[c] * thr[c];
 }
 
 // A live lane that hit at distance t, with the winner's unnormalised
 // interpolated normal nrm and material m: updates o, d, thr, rad in place
-// to the next state and returns whether the path lives on. tex_row and
-// tan_lane are the lane's texel row and tangent (TEXTURED only; tan_lane
-// may be null, read as zero).
+// to the next state and returns whether the path lives on. tex and
+// tan_lane are the lane's 12-float texel row (registers) and tangent
+// (TEXTURED only; tan_lane may be null, read as zero). rng: RNG_*.
 template <bool TEXTURED>
 __device__ __forceinline__ bool shade_hit(
     float* o, float* d, float* thr, float* rad, float t, const float* nrm,
-    int m, uint32_t pix, const float* __restrict__ mtab, int num_materials,
+    int m, uint32_t pix, const float* mtab, int num_materials,
     uint32_t skey, uint32_t bounce, uint32_t seed, int russian_roulette,
-    const float4* __restrict__ tex_row, const float* __restrict__ tan_lane) {
+    int rng, const float* tex, const float* __restrict__ tan_lane) {
   constexpr int COLS = TEXTURED ? MTAB_TEX_COLS : MTAB_COLS;
-  const float r_z = rand01(seed, pix, skey, bounce, 0u);
-  const float r_phi = rand01(seed, pix, skey, bounce, 1u);
-  const float r_spec = rand01(seed, pix, skey, bounce, 2u);
+  const float r_z = rand01(seed, pix, skey, bounce, 0u, rng);
+  const float r_phi = rand01(seed, pix, skey, bounce, 1u, rng);
+  const float r_spec = rand01(seed, pix, skey, bounce, 2u, rng);
 
   m = (m < 0 || m >= num_materials) ? 0 : m;
   const float* row = mtab + m * COLS;
@@ -118,8 +130,6 @@ __device__ __forceinline__ bool shade_hit(
   if (TEXTURED) {
     // Texture overrides and normal mapping (render/material.py::
     // apply_textures, in its operation order).
-    float tex[12];
-    load_texels(tex_row, tex);
     if (row[HAS_BC] > 0.0f) {
       for (int c = 0; c < 3; ++c) bc[c] = tex[TX_BC + c];
     }
@@ -199,7 +209,7 @@ __device__ __forceinline__ bool shade_hit(
   bool alive = true;
   if (russian_roulette) {
     const float p = SHADE_EPS + fmaxf(thr[0], fmaxf(thr[1], thr[2]));
-    alive = rand01(seed, pix, skey, bounce, 3u) <= p;
+    alive = rand01(seed, pix, skey, bounce, 3u, rng) <= p;
     if (alive) {
       const float den = fmaxf(p, SHADE_EPS);
       for (int c = 0; c < 3; ++c) thr[c] = thr[c] / den;

@@ -6,71 +6,37 @@
 // page of a packet into VMEM and drains a loop over them, because XLA
 // gathers serialise and VMEM cannot hold the atlas. None of that binds a
 // GPU thread, which gathers freely: this kernel reads the flat atlas
-// tex_data [P, 4] directly, through tex_table [K, 4] (offset, width,
-// height, 0) and tex_index [M, 5]. Unlike the TPU pages, the five slots of
-// a material need not share one size: each slot reads its own texture,
-// which is what the JAX package's XLA path (sample_nearest) computes.
+// directly through the texture tables (texfetch_lane.cuh). Unlike the TPU
+// pages, the five slots of a material need not share one size: each slot
+// reads its own texture, which is what the JAX package's XLA path
+// (sample_nearest) computes.
 //
 // Per lane (mat_id, the interpolated texture uv, direction, hit, alive) it
 // writes one 12-float row (render/texture.py: basecolor rgb, normal rgb,
-// roughness, metalness, emissive rgb, pad) as three float4 stores:
-//   * a live hit lane: every slot its material has, at the nearest texel
-//     of its uv (sample_nearest's f32 math: repeat via frac, v flipped,
-//     clipped to the texture, truncated), others zero;
-//   * a live miss lane: the sky's (material 0's) emissive equirect texel at
-//     uv = (atan2(z, x) / f32(2 pi) + .5, asin(clip(y)) / f32(pi) + .5),
-//     if the sky is textured;
-//   * anything else: zeros (the TPU kernel's page = -1).
+// roughness, metalness, emissive rgb, pad): a live hit lane every slot its
+// material has, a live miss lane the textured sky's emissive texel, and
+// zeros elsewhere (the TPU kernel's page = -1).
 //
-// What bounds it on an H100: memory. Per lane it reads 26 bytes of lane
-// state, up to five 16-byte texels scattered over a 100-500 MB atlas, and
-// writes 48 bytes; the arithmetic is a few dozen flops. The texel reads
-// are the cost: neighbouring lanes of a 32x32 screen tile hit neighbouring
-// texels, so sectors are shared across a warp and L2 catches repeats. The
-// design reads each texel as one 16-byte vector through the read-only path
-// and writes the row with three 16-byte stores. Texture objects (hardware
-// addressing) and fusing this gather into K4 are later work.
+// On the render paths K4 (shade.cu::shade_textured_kernel) fetches the same
+// texels itself through the same header, and this kernel is not launched;
+// it is the port's counterpart of fetch_texels for callers that want the
+// rows.
+//
+// What bounds it on an H100: memory. Per lane it reads 2-26 bytes of lane
+// state and up to five 16-byte texels scattered over a 100-500 MB atlas,
+// and writes 48 bytes; the arithmetic is a few dozen flops. The design:
+// the block stages tex_table and tex_index in shared memory, so a lane's
+// chain material -> texture -> texel has one dependent global load; a lane
+// issues all of its texel gathers back to back through the read-only path;
+// the row leaves as three 16-byte streaming stores (__stcs: written once,
+// not read again by this kernel, so kept out of the way of the texels in
+// L2).
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "texfetch_lane.cuh"
 
 namespace {
 
 constexpr int BLOCK = 256;
-constexpr int NUM_SLOTS = 5;
-constexpr int TEX_EMISSIVE = 4;
-// First column and channel count of each slot (render/texture.py). The
-// slot loops are unrolled, so these fold to constants and the row stays in
-// registers.
-__device__ __forceinline__ int slot_col(int s) {
-  return s == 0 ? 0 : s == 1 ? 3 : s == 2 ? 6 : s == 3 ? 7 : 8;
-}
-__device__ __forceinline__ int slot_nch(int s) { return (s == 2 || s == 3) ? 1 : 3; }
-constexpr float TWO_PI_F32 = 6.2831854820251465f;  // float32(2 * pi)
-constexpr float PI_F32 = 3.1415927410125732f;      // float32(pi)
-
-// Nearest texel of texture tid at (u, v): render/texture.py::texel_index.
-__device__ __forceinline__ float4 sample_nearest(
-    const float4* __restrict__ tex_data, const int4* __restrict__ tex_table,
-    int tid, float u, float v) {
-  const int4 e = tex_table[tid];
-  const float wf = static_cast<float>(e.y);
-  const float hf = static_cast<float>(e.z);
-  const float fu = u - floorf(u);
-  const float fv = (1.0f - v) - floorf(1.0f - v);
-  const int ii = static_cast<int>(fminf(fmaxf(fu * wf, 0.0f), wf - 1.0f));
-  const int jj = static_cast<int>(fminf(fmaxf(fv * hf, 0.0f), hf - 1.0f));
-  return __ldg(tex_data + (static_cast<long long>(e.x) +
-                           static_cast<long long>(jj) * e.y + ii));
-}
-
-__device__ __forceinline__ void put(float* row, int slot, float4 t) {
-  const float c[3] = {t.x, t.y, t.z};
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    if (k < slot_nch(slot)) row[slot_col(slot) + k] = c[k];
-  }
-}
 
 __global__ void __launch_bounds__(BLOCK) texfetch_kernel(
     const int* __restrict__ mat_in, const float* __restrict__ uv_in,
@@ -79,45 +45,50 @@ __global__ void __launch_bounds__(BLOCK) texfetch_kernel(
     const float4* __restrict__ tex_data, const int4* __restrict__ tex_table,
     int num_textures, const int* __restrict__ tex_index, int num_materials,
     float4* __restrict__ out) {
+  extern __shared__ int4 smem[];  // tex_table [K], then tex_index [M, 5]
+  int* s_index = reinterpret_cast<int*>(smem + num_textures);
+  tracy::stage_words(reinterpret_cast<uint32_t*>(smem),
+                     reinterpret_cast<const uint32_t*>(tex_table), 4 * num_textures);
+  tracy::stage_words(reinterpret_cast<uint32_t*>(s_index),
+                     reinterpret_cast<const uint32_t*>(tex_index),
+                     tracy::NUM_TEX_SLOTS * num_materials);
+  __syncthreads();
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   if (i >= n) return;
-  float row[12];
+  const tracy::TexTables tt{smem, s_index, num_textures};
+
+  long long addr[tracy::NUM_TEX_SLOTS];
 #pragma unroll
-  for (int k = 0; k < 12; ++k) row[k] = 0.0f;
+  for (int s = 0; s < tracy::NUM_TEX_SLOTS; ++s) addr[s] = -1;
   if (alive_in[i]) {
     if (hit_in[i]) {
       int m = mat_in[i];
       m = (m < 0 || m >= num_materials) ? 0 : m;
       const float u = uv_in != nullptr ? uv_in[2 * i] : 0.0f;
       const float v = uv_in != nullptr ? uv_in[2 * i + 1] : 0.0f;
-#pragma unroll
-      for (int s = 0; s < NUM_SLOTS; ++s) {
-        const int tid = tex_index[NUM_SLOTS * m + s];
-        if (tid >= 0 && tid < num_textures) {
-          put(row, s, sample_nearest(tex_data, tex_table, tid, u, v));
-        }
-      }
+      tracy::hit_addresses(tt, m, u, v, addr);
     } else {
-      const int tid = tex_index[TEX_EMISSIVE];  // the sky: material 0
-      if (tid >= 0 && tid < num_textures) {
-        const float dx = dir[3 * i], dy = dir[3 * i + 1], dz = dir[3 * i + 2];
-        const float su = atan2f(dz, dx) / TWO_PI_F32 + 0.5f;
-        const float sv = asinf(fminf(fmaxf(dy, -1.0f), 1.0f)) / PI_F32 + 0.5f;
-        put(row, TEX_EMISSIVE, sample_nearest(tex_data, tex_table, tid, su, sv));
-      }
+      addr[tracy::SLOT_EMISSIVE] =
+          tracy::sky_address(tt, dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
     }
   }
+  float4 q[tracy::NUM_TEX_SLOTS];
+  tracy::gather_texels<tracy::NUM_TEX_SLOTS>(tex_data, addr, q);
+  float row[12];
+  tracy::texel_row(q, row);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    out[3 * i + k] = make_float4(row[4 * k], row[4 * k + 1], row[4 * k + 2],
-                                 row[4 * k + 3]);
+    __stcs(out + 3 * i + k,
+           make_float4(row[4 * k], row[4 * k + 1], row[4 * k + 2], row[4 * k + 3]));
   }
 }
 
 }  // namespace
 
 // uv may be null (no material but the sky is textured: uv reads as zero).
-// tex_data [P, 4] f32 and out [n, 12] f32 must be 16-byte aligned.
+// tex_data [P, 4] f32 and out [n, 12] f32 must be 16-byte aligned. The
+// tables take 16 K + 20 M bytes of shared memory, at most 48 KB (the
+// wrapper checks).
 extern "C" int tracy_texfetch(const int* mat, const float* uv,
                               const float* dir, const bool* hit,
                               const bool* alive, int n, const float* tex_data,
@@ -125,7 +96,8 @@ extern "C" int tracy_texfetch(const int* mat, const float* uv,
                               const int* tex_index, int num_materials,
                               float* out, void* stream) {
   if (n > 0) {
-    texfetch_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0,
+    const size_t smem = 16u * num_textures + 4u * tracy::NUM_TEX_SLOTS * num_materials;
+    texfetch_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, smem,
                       static_cast<cudaStream_t>(stream)>>>(
         mat, uv, dir, hit, alive, n, reinterpret_cast<const float4*>(tex_data),
         reinterpret_cast<const int4*>(tex_table), num_textures, tex_index,

@@ -19,21 +19,22 @@ from tracy_tpu_torch.core.rng import MASK32
 from tracy_tpu_torch.ops.build import LIBRARY
 from tracy_tpu_torch.ops.intersect import check_tables, intersect_plain
 from tracy_tpu_torch.ops.launch import LaunchCount, check, raise_on_error
-from tracy_tpu_torch.ops.shade import MTAB_COLS, shade_plain
+from tracy_tpu_torch.ops.shade import MTAB_COLS, rng_index, shade_plain
 
 COUNT = LaunchCount()
 
 
 def trace_bounce(origin, direction, throughput, radiance, alive, pixel_idx,
                  sample_key: int, bounce: int, *, tables: BVHTables, mtab, seed: int,
-                 russian_roulette: bool):
+                 russian_roulette: bool, rng: str = "fast"):
     """One bounce of every lane: returns the next (origin, direction,
     throughput, radiance, alive). Lanes that are not alive pass through.
 
     [N, 3] float32 origin, direction, throughput, radiance; [N] bool alive;
     [N] int32 pixel_idx; tables without texture uv or tangent (K5 is
     untextured), walked at their width; mtab from
-    ops/shade.py::build_material_table.
+    ops/shade.py::build_material_table; rng: the counter hash (core/rng.py
+    KINDS).
     """
     if tables.vertex_uv is not None or tables.vertex_tangent is not None:
         raise ValueError("trace_bounce: untextured scenes only (the tables carry "
@@ -42,7 +43,7 @@ def trace_bounce(origin, direction, throughput, radiance, alive, pixel_idx,
         COUNT.plain += 1
         return trace_bounce_plain(origin, direction, throughput, radiance, alive,
                                   pixel_idx, sample_key, bounce, tables=tables, mtab=mtab,
-                                  seed=seed, russian_roulette=russian_roulette)
+                                  seed=seed, russian_roulette=russian_roulette, rng=rng)
     n = origin.shape[0]
     dev = origin.device
     for name, x in (("origin", origin), ("direction", direction),
@@ -65,7 +66,7 @@ def trace_bounce(origin, direction, throughput, radiance, alive, pixel_idx,
         0 if tb.wide is None else tb.wide.data_ptr(), tb.width, tb.tri.data_ptr(),
         tb.tri_meta.data_ptr(), tb.vertex_normal.data_ptr(), 0, 0, mtab.data_ptr(),
         mtab.shape[0], sample_key & MASK32, bounce & MASK32, seed & MASK32,
-        int(bool(russian_roulette)), *(x.data_ptr() for x in out),
+        int(bool(russian_roulette)), rng_index(rng), *(x.data_ptr() for x in out),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("bounce", code)
     COUNT.kernel += 1
@@ -74,10 +75,10 @@ def trace_bounce(origin, direction, throughput, radiance, alive, pixel_idx,
 
 def trace_bounce_plain(origin, direction, throughput, radiance, alive, pixel_idx,
                        sample_key: int, bounce: int, *, tables: BVHTables, mtab,
-                       seed: int, russian_roulette: bool, counts=None):
+                       seed: int, russian_roulette: bool, rng: str = "fast", counts=None):
     """K5's bounce in PyTorch: intersect_plain (at the tables' width), then
     shade_plain. counts: as intersect_plain's (the traversal work)."""
     sh = intersect_plain(origin, direction, alive, tables, counts=counts)
     return shade_plain(origin, direction, throughput, radiance, alive, pixel_idx,
                        sh.hit.mask, sh.hit.t, sh.normal, sh.material, mtab, sample_key,
-                       bounce, seed=seed, russian_roulette=russian_roulette)
+                       bounce, seed=seed, russian_roulette=russian_roulette, rng=rng)

@@ -30,7 +30,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SOURCES = ("intersect.cu", "shade.cu", "texfetch.cu", "bounce.cu", "micro.cu")
-HEADERS = ("traverse.cuh", "shade_lane.cuh")
+HEADERS = ("traverse.cuh", "shade_lane.cuh", "texfetch_lane.cuh")
 ARCH = "sm_90a"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -41,10 +41,11 @@ _U = ctypes.c_uint32
 # C signatures (csrc/*.cu): every pointer and the stream as c_void_p.
 SIGNATURES = {
     "tracy_intersect": [_C, _C, _C, _I] + [_C] * 3 + [_I] + [_C] * 6 + [_C] * 8 + [_C],
-    "tracy_shade": [_C] * 10 + [_I, _C, _I, _U, _U, _U, _I] + [_C] * 5 + [_C],
-    "tracy_shade_textured": [_C] * 12 + [_I, _C, _I, _U, _U, _U, _I] + [_C] * 5 + [_C],
+    "tracy_shade": [_C] * 10 + [_I, _C, _I, _U, _U, _U, _I, _I] + [_C] * 5 + [_C],
+    "tracy_shade_textured": ([_C] * 12 + [_I, _C, _I, _C, _C, _I, _C, _U, _U, _U, _I, _I, _I]
+                             + [_C]),
     "tracy_texfetch": [_C] * 5 + [_I, _C, _C, _I, _C, _I, _C, _C],
-    "tracy_bounce": ([_C] * 6 + [_I] + [_C] * 3 + [_I] + [_C] * 6 + [_I, _U, _U, _U, _I]
+    "tracy_bounce": ([_C] * 6 + [_I] + [_C] * 3 + [_I] + [_C] * 6 + [_I, _U, _U, _U, _I, _I]
                      + [_C] * 5 + [_C]),
     "tracy_micro": [_I, _C, _I, _C, _C, _C, _I, _I, _I, _C, _C, _C],
 }

@@ -8,7 +8,8 @@ built without FMA contraction or fast math), so the contracts are tight:
 * K1: hit masks agree on >= 99.99% of rays; on rays both sides hit,
   |dt| <= 1e-5 * t + 1e-6.
 * K2 and K4: lanes whose alive flag or lobe differ <= 0.01%; every float
-  of every other lane within rtol 1e-5, atol 1e-6.
+  of every other lane within rtol 1e-5, atol 1e-6. K4 updates its state in
+  place, so each side gets its own copy.
 * K3: hit lanes' texels identical; sky lanes (misses, which address the
   equirect through atan2f/asinf against torch's CUDA atan2/asin) on another
   texel on at most 0.01% of lanes.
@@ -24,12 +25,14 @@ work needs once, by lane class (a dead lane needs its alive flag only, a
 miss lane no hit record, a hit lane no direction for its sky texel), each
 distinct atlas texel once however many lanes read it, and each output where
 the work changes it: a K3 row only for a lane that fetched a texel, K2/K4's
-state only for the lanes the bounce moves. K1's and K5's traversal work has
-one yardstick at both widths: the binary tree's inner-node visits and
-triangle tests, counted by the plain binary traversal of the same rays, and
-the bytes of the binary tables, so that a kernel does not earn a better
-share of its bound by walking another tree. The 4-wide tree's own counts
-are reported beside it.
+state only for the lanes the bounce moves. K4's bound is the textured
+bounce's work whatever the design: K2's bytes by lane class plus the
+tangents, and K3's texel work on the same lanes (textured_bounce_bound).
+K1's and K5's traversal work has one yardstick at both widths: the binary
+tree's inner-node visits and triangle tests, counted by the plain binary
+traversal of the same rays, and the bytes of the binary tables, so that a
+kernel does not earn a better share of its bound by walking another tree.
+The 4-wide tree's own counts are reported beside it.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from tracy_tpu_torch.ops import texfetch as k3
 from tracy_tpu_torch.render.intersect import Hit
 from tracy_tpu_torch.render.material import RAY_OFFSET
 from tracy_tpu_torch.render.texture import SLOT_COLUMNS
-from tracy_tpu_torch.scene.scene import SKY_MATERIAL_ID, TEX_EMISSIVE, TEX_NORMAL
+from tracy_tpu_torch.scene.scene import TEX_NORMAL
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -215,14 +218,15 @@ def decisions_flipped(got, ref) -> torch.Tensor:
 
 
 def compare_shade(lanes, mtab, sample_key: int, bounce: int, *, seed: int,
-                  russian_roulette: bool, decision_frac: float = 1e-4) -> Dict[str, float]:
+                  russian_roulette: bool, rng: str = "fast",
+                  decision_frac: float = 1e-4) -> Dict[str, float]:
     """K2 vs shade_plain on CUDA tensors; raises on a broken contract."""
     args = [lanes[k] for k in SHADE_ARGS]
-    kw = dict(seed=seed, russian_roulette=russian_roulette)
+    kw = dict(seed=seed, russian_roulette=russian_roulette, rng=rng)
     got = k2.shade(*args, mtab, sample_key, bounce, **kw)
     ref = k2.shade_plain(*args, mtab, sample_key, bounce, **kw)
     res = _bounce_agreement("K2", got, ref, decision_frac)
-    res.update(_bounce_bound(lanes, mtab, textured=False))
+    res.update(bound_ms(*_bounce_work(lanes, mtab, textured=False)))
     return res
 
 
@@ -242,8 +246,8 @@ TEXFETCH_ARGS = ("mat_id", "tex_uv", "direction", "hit_mask", "alive")
 
 def compare_texfetch(lanes, scene, sky_frac: float = 1e-4) -> Dict[str, object]:
     """K3 vs fetch_texels_plain on CUDA tensors; raises on a broken contract.
-    Also returns the kernel's texel rows ("texels", for K4's comparison) and
-    the atlas rows they read ("addresses", for the index_select yardstick)."""
+    Also returns the atlas rows the lanes read ("addresses", for the
+    index_select yardstick)."""
     args = [lanes[k] for k in TEXFETCH_ARGS]
     tex = (scene.tex_data, scene.tex_table, scene.materials.tex_index)
     got = k3.fetch_texels(*args, *tex)
@@ -259,64 +263,113 @@ def compare_texfetch(lanes, scene, sky_frac: float = 1e-4) -> Dict[str, object]:
     if (res["hit_lanes_differ"] or res["other_lanes_nonzero"]
             or res["sky_lanes_differ"] > sky_frac * max(res["lanes"], 1)):
         raise RuntimeError(f"K3 disagrees with its plain version: {res}")
-    # The bound. Inputs by lane class: every lane its alive flag, a live lane
-    # its hit flag, a hit lane its material and (where it fetches) its uv, a
-    # sky lane that fetches its direction; the two tables once; each distinct
-    # texel once (16 bytes); 11 floats (44 bytes) out for each lane that
-    # fetched. Ops:
-    # the address math of each fetch and the sky lanes' atan2 + asin.
+    work = texfetch_work(lanes, scene)
+    # The bound: the lane inputs by class (every lane its alive flag, a live
+    # lane its hit flag, a hit lane its material), the texel work, and 11
+    # floats (44 bytes) out for each lane that fetched.
+    moved = (res["lanes"] + int(lanes["alive"].sum()) + 4 * res["hit_lanes"] + work["bytes"]
+             + sum(SLOT_BYTES) * (work["hit_lanes_fetching"] + work["sky_lanes_fetching"]))
+    res.update(bound_ms(moved, work["ops"]))
+    res["texels_fetched"] = work["fetched"]
+    res["texels_distinct"] = work["distinct"]
+    res["addresses"] = work["addresses"]
+    return res
+
+
+def texfetch_work(lanes, scene) -> Dict[str, object]:
+    """The texel fetch's work on these lanes, as K3 and K4 both must do it:
+    the uv of each hit lane that fetches (8 bytes), the direction of each
+    sky lane that fetches (12), the two tables once, each distinct atlas
+    texel once (16); the address math of each fetch and the sky lanes'
+    atan2 + asin. Also the atlas rows read ("addresses")."""
+    args = [lanes[k] for k in TEXFETCH_ARGS]
     tex_index = scene.materials.tex_index
     flat = k3.texel_addresses(*args, scene.tex_table, tex_index)
-    fetched = int((flat >= 0).sum())
     fetching = (flat >= 0).any(dim=1)
-    n_hit_fetch = int((fetching & hit).sum())
-    n_sky = int((fetching & sky).sum())
+    live = lanes["alive"]
+    n_hit = int((fetching & live & lanes["hit_mask"]).sum())
+    n_sky = int((fetching & live & ~lanes["hit_mask"]).sum())
+    fetched = int((flat >= 0).sum())
     distinct = int(flat[flat >= 0].unique().numel())
-    moved = (res["lanes"] + int(lanes["alive"].sum()) + 4 * res["hit_lanes"]
-             + 8 * n_hit_fetch + 12 * n_sky + nbytes(scene.tex_table, tex_index)
-             + 16 * distinct + sum(SLOT_BYTES) * (n_hit_fetch + n_sky))
-    res.update(bound_ms(moved, OPS_TEXEL * fetched + OPS_SKY_UV * n_sky))
-    res["texels_fetched"] = fetched
-    res["texels_distinct"] = distinct
-    res["texels"] = got
-    res["addresses"] = flat[flat >= 0]
-    return res
+    return {"bytes": (8 * n_hit + 12 * n_sky + nbytes(scene.tex_table, tex_index)
+                      + 16 * distinct),
+            "ops": OPS_TEXEL * fetched + OPS_SKY_UV * n_sky,
+            "hit_lanes_fetching": n_hit, "sky_lanes_fetching": n_sky,
+            "fetched": fetched, "distinct": distinct, "addresses": flat[flat >= 0]}
 
 
-def compare_shade_textured(lanes, texels, mtab, sample_key: int, bounce: int, *,
-                           seed: int, russian_roulette: bool,
+def compare_shade_textured(lanes, scene, mtab, sample_key: int, bounce: int, *,
+                           seed: int, russian_roulette: bool, rng: str = "fast",
                            decision_frac: float = 1e-4) -> Dict[str, float]:
-    """K4 vs shade_textured_plain on CUDA tensors, both on the same texel
-    rows; raises on a broken contract."""
-    args = [lanes[k] for k in SHADE_TEX_ARGS]
-    kw = dict(seed=seed, russian_roulette=russian_roulette)
-    got = k2.shade_textured(*args, texels, mtab, sample_key, bounce, **kw)
-    ref = k2.shade_textured_plain(*args, texels, mtab, sample_key, bounce, **kw)
+    """K4 vs shade_textured_plain on CUDA tensors, each on its own copy of
+    the lanes' state (both update it in place); raises on a broken
+    contract. Also K4's bound on these lanes (textured_bounce_bound)."""
+    kw = dict(seed=seed, russian_roulette=russian_roulette, rng=rng)
+    tex = (scene.tex_data, scene.tex_table, scene.materials.tex_index)
+    got = k2.shade_textured(*textured_args(lanes), mtab, *tex, sample_key, bounce, **kw)
+    ref = k2.shade_textured_plain(*textured_args(lanes), mtab, *tex, sample_key, bounce,
+                                  **kw)
     res = _bounce_agreement("K4", got, ref, decision_frac)
-    res.update(_bounce_bound(lanes, mtab, textured=True))
+    res.update(textured_bounce_bound(lanes, scene, mtab))
     return res
+
+
+def textured_args(lanes):
+    """shade_textured's lane arguments, with fresh copies of the state it
+    updates in place."""
+    return [lanes[k].clone() if k in STATE else lanes[k] for k in SHADE_TEX_ARGS]
+
+
+def textured_bounce_bound(lanes, scene, mtab) -> Dict[str, object]:
+    """K4's bound on these lanes: the textured bounce's bytes by lane class
+    (_bounce_work) and the texel fetch's work (texfetch_work), each counted
+    from the lanes and the scene alone, so that no design of the kernel
+    changes it."""
+    moved, ops = _bounce_work(lanes, mtab, textured=True)
+    work = texfetch_work(lanes, scene)
+    return bound_ms(moved + work["bytes"], ops + work["ops"])
+
+
+def inplace_ms(fn, lanes, reps: int) -> float:
+    """CUDA-event milliseconds of fn(args) for an in-place kernel: each
+    launch gets its own fresh copy of the state (made before the timed
+    window), so that every launch sees the same lanes."""
+    copies = [textured_args(lanes) for _ in range(reps + 1)]
+    fn(copies[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for args in copies[1:]:
+        fn(args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 SHADE_TEX_ARGS = ("origin", "direction", "throughput", "radiance", "alive",
-                  "pixel_idx", "hit_mask", "t", "normal", "tangent", "mat_id")
-# Bytes a lane of the bounce reads and writes, by class (csrc/shade.cu). A
-# dead lane reads its alive flag and its state passes through. A miss lane
-# reads alive, hit_mask, throughput and radiance and writes radiance and
-# alive. A hit lane reads alive, hit_mask, pixel_idx, mat_id, origin,
-# direction, throughput, radiance, t and normal and writes the whole state.
+                  "pixel_idx", "hit_mask", "t", "normal", "tangent", "tex_uv", "mat_id")
+STATE = ("origin", "direction", "throughput", "radiance", "alive")
+# Bytes a lane of the bounce reads and writes, by class. A dead lane reads
+# its alive flag and nothing else. A miss lane reads alive, hit_mask,
+# throughput and radiance and writes radiance and alive. A hit lane reads
+# alive, hit_mask, pixel_idx, mat_id, origin, direction, throughput,
+# radiance, t and normal and writes the whole state.
 DEAD_LANE_BYTES = 1
 MISS_LANE_BYTES = 2 + 24 + 12 + 1
 HIT_LANE_BYTES = 2 + 4 + 4 + 48 + 4 + 12 + 48 + 1
-# K4 also reads, on a hit lane, the texel values of each slot its material
-# has (TEX_* order) and the tangent where it has a normal map; on a miss
-# lane, the sky's three emissive texel values when the sky is textured.
+# A K3 row's texel values of each slot (TEX_* order).
 SLOT_BYTES = tuple(4 * nch for _, nch in SLOT_COLUMNS)
+# A textured hit lane also reads its tangent where its material has a
+# normal map.
 TANGENT_BYTES = 12
 
 
-def _bounce_bound(lanes, mtab, *, textured: bool) -> Dict[str, object]:
-    """K2's or K4's bound on these lanes: the bytes by lane class above, the
-    material table once, and the shading math of each hit lane."""
+def _bounce_work(lanes, mtab, *, textured: bool):
+    """(bytes, ops) of K2's or K4's bounce on these lanes, without the
+    texel fetch: the bytes by lane class above, the material table once,
+    the tangent of each normal-mapped hit lane (textured), and the shading
+    math of each hit lane."""
     alive, hit_mask = lanes["alive"], lanes["hit_mask"]
     hit = alive & hit_mask
     n_hit, n_miss = int(hit.sum()), int((alive & ~hit_mask).sum())
@@ -325,14 +378,11 @@ def _bounce_bound(lanes, mtab, *, textured: bool) -> Dict[str, object]:
              + nbytes(mtab))
     ops = OPS_SHADE_LANE * n_hit
     if textured:
-        has = k2._material_rows(mtab, lanes["mat_id"][hit])[:, k2.HAS_COL:k2.HAS_COL + 5] > 0
-        with_slot = [int(has[:, s].sum()) for s in range(len(SLOT_BYTES))]
-        moved += sum(b * k for b, k in zip(SLOT_BYTES, with_slot))
-        moved += TANGENT_BYTES * with_slot[TEX_NORMAL]
-        if float(mtab[SKY_MATERIAL_ID, k2.HAS_COL + TEX_EMISSIVE]) > 0.0:
-            moved += SLOT_BYTES[TEX_EMISSIVE] * n_miss
-        ops += OPS_NORMAL_MAP * with_slot[TEX_NORMAL]
-    return bound_ms(moved, ops)
+        rows = k2._material_rows(mtab, lanes["mat_id"][hit])
+        n_mapped = int((rows[:, k2.HAS_COL + TEX_NORMAL] > 0).sum())
+        moved += TANGENT_BYTES * n_mapped
+        ops += OPS_NORMAL_MAP * n_mapped
+    return moved, ops
 
 
 def _bounce_agreement(kernel: str, got, ref, decision_frac: float) -> Dict[str, float]:
@@ -361,7 +411,8 @@ BOUNCE_HIT_LANE_BYTES = 1 + 24 + 24 + 4 + 48 + 1
 
 
 def compare_bounce(lanes, tables, mtab, sample_key: int, bounce: int, *, seed: int,
-                   russian_roulette: bool, decision_frac: float = 1e-4) -> Dict[str, object]:
+                   russian_roulette: bool, rng: str = "fast",
+                   decision_frac: float = 1e-4) -> Dict[str, object]:
     """K5 vs trace_bounce_plain on CUDA tensors (K2's contract), and K5 vs
     K1 then K2 launched on the same lanes (all five outputs equal), all at
     the tables' width; raises on a broken contract. Also K5's bound on
@@ -369,7 +420,7 @@ def compare_bounce(lanes, tables, mtab, sample_key: int, bounce: int, *, seed: i
     lane class above, the binary tables and the material table once, and
     the shading math of each hit lane."""
     args = [lanes[k] for k in BOUNCE_ARGS]
-    kw = dict(seed=seed, russian_roulette=russian_roulette)
+    kw = dict(seed=seed, russian_roulette=russian_roulette, rng=rng)
     got = k5.trace_bounce(*args, sample_key, bounce, tables=tables, mtab=mtab, **kw)
     counts = {}
     ref = k5.trace_bounce_plain(*args, sample_key, bounce, tables=tables, mtab=mtab,

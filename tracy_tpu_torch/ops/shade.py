@@ -5,10 +5,15 @@ calls. On CUDA tensors they launch the hand-written kernels of csrc/shade.cu;
 on CPU tensors, and only there, they run `shade_plain` and
 `shade_textured_plain`, the same bounce in PyTorch built from
 render/material.py. K2 replaces tracy_tpu/ops/pallas_shade.py::_kernel
-(entered through shade_packets), K4 replaces pallas_shade.py::_kernel_tex
-(entered through shade_packets_textured); both share shade_planes' math, as
-the two CUDA kernels share one device function. The RNG is the 'fast'
-counter hash.
+(entered through shade_packets). K4 replaces the whole of
+shade_packets_textured: the texel fetch (ops/texfetch.py, K3's addresses)
+and pallas_shade.py::_kernel_tex in one launch. Both draw from the counter
+hash `rng` names ('fast', 'xorshift' or 'lcg', core/rng.py).
+
+K2 returns fresh tensors. K4 updates the state in place (the hopper-kernels
+guide allows it where it saves memory traffic): a dead lane then moves only
+its alive flag, a miss lane only radiance and alive, and no lane copies its
+state through. Its plain version keeps the same contract.
 """
 
 from __future__ import annotations
@@ -16,11 +21,12 @@ from __future__ import annotations
 import torch
 
 from tracy_tpu_torch.core import math as tm
-from tracy_tpu_torch.core.rng import MASK32, RngSpec
+from tracy_tpu_torch.core.rng import KINDS, MASK32, RngSpec
 from tracy_tpu_torch.ops.build import LIBRARY
 from tracy_tpu_torch.ops.launch import LaunchCount, check, raise_on_error
+from tracy_tpu_torch.ops.texfetch import SMEM_LIMIT, check_texture_tables, fetch_texels_plain
 from tracy_tpu_torch.render.material import SurfaceParams, apply_textures, scatter
-from tracy_tpu_torch.render.texture import TEXEL_COLS, TX_EMR
+from tracy_tpu_torch.render.texture import TX_EMR
 from tracy_tpu_torch.scene.scene import NUM_TEX_SLOTS, SKY_MATERIAL_ID, TEX_EMISSIVE
 
 COUNT = LaunchCount()  # K2
@@ -54,65 +60,144 @@ def build_material_table_tex(materials) -> torch.Tensor:
 
 def shade(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
           t, normal, mat_id, mtab, sample_key: int, bounce: int, *, seed: int,
-          russian_roulette: bool):
+          russian_roulette: bool, rng: str = "fast"):
     """One bounce: returns the next (origin, direction, throughput,
-    radiance, alive). Lanes that are not alive pass through unchanged.
+    radiance, alive) as fresh tensors. Lanes that are not alive pass
+    through unchanged.
 
     [N, 3] float32: origin, direction, throughput, radiance, normal;
     [N] float32 t; [N] bool alive, hit_mask; [N] int32 pixel_idx, mat_id;
-    mtab from build_material_table.
+    mtab from build_material_table; rng: the counter hash (core/rng.py KINDS).
     """
     if origin.device.type == "cpu":
         COUNT.plain += 1
         return shade_plain(origin, direction, throughput, radiance, alive,
                            pixel_idx, hit_mask, t, normal, mat_id, mtab,
                            sample_key, bounce, seed=seed,
-                           russian_roulette=russian_roulette)
-    return _launch("shade", COUNT, origin, direction, throughput, radiance, alive,
-                   pixel_idx, hit_mask, t, normal, mat_id, mtab, MTAB_COLS, sample_key,
-                   bounce, seed, russian_roulette)
+                           russian_roulette=russian_roulette, rng=rng)
+    n = origin.shape[0]
+    _check_bounce(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
+                  t, normal, mat_id, mtab, MTAB_COLS)
+    out = tuple(torch.empty_like(x) for x in (origin, direction, throughput, radiance, alive))
+    code = LIBRARY.get().tracy_shade(
+        *(x.data_ptr() for x in (origin, direction, throughput, radiance, alive,
+                                 pixel_idx, hit_mask, t, normal, mat_id)),
+        n, mtab.data_ptr(), mtab.shape[0], sample_key & MASK32, bounce & MASK32,
+        seed & MASK32, int(bool(russian_roulette)), rng_index(rng),
+        *(x.data_ptr() for x in out), torch.cuda.current_stream(origin.device).cuda_stream)
+    raise_on_error("shade", code)
+    COUNT.kernel += 1
+    return out
 
 
 def shade_plain(origin, direction, throughput, radiance, alive, pixel_idx,
                 hit_mask, t, normal, mat_id, mtab, sample_key: int, bounce: int,
-                *, seed: int, russian_roulette: bool):
+                *, seed: int, russian_roulette: bool, rng: str = "fast"):
     """The kernel's bounce in PyTorch (tracy_tpu's integrator bounce_step)."""
     m = _material_rows(mtab, mat_id)
     return _bounce_plain(origin, direction, throughput, radiance, alive, pixel_idx,
                          hit_mask, t, _params(m, normal), mtab[SKY_MATERIAL_ID, 6:9],
-                         sample_key, bounce, seed, russian_roulette)
+                         sample_key, bounce, seed, russian_roulette, rng)
 
 
 def shade_textured(origin, direction, throughput, radiance, alive, pixel_idx,
-                   hit_mask, t, normal, tangent, mat_id, texels, mtab,
-                   sample_key: int, bounce: int, *, seed: int, russian_roulette: bool):
-    """One textured bounce (K4): shade's bounce after the texture overrides
-    and normal mapping of render/material.py::apply_textures; a miss lane
-    takes the sky from its texel row when the sky is textured.
+                   hit_mask, t, normal, tangent, tex_uv, mat_id, mtab, tex_data,
+                   tex_table, tex_index, sample_key: int, bounce: int, *, seed: int,
+                   russian_roulette: bool, rng: str = "fast"):
+    """One textured bounce (K4), IN PLACE: fetches each live lane's texels
+    from the atlas (a hit lane the slots of its material at tex_uv, a miss
+    lane the textured sky's), applies render/material.py::apply_textures'
+    overrides and normal mapping, and runs shade's bounce. origin,
+    direction, throughput, radiance and alive are updated in place and
+    returned; a lane that is not alive keeps its state, a miss lane changes
+    only radiance and alive. The caller must not need the old state.
 
     tangent: [N, 3] float32 interpolated, unnormalised, or None when no
-    material has a normal map (read as zero); texels: [N, TEXEL_COLS] rows
-    from ops/texfetch.py (K3); mtab from build_material_table_tex. The other
-    arguments are shade's.
+    material has a normal map (read as zero); tex_uv: [N, 2] float32, or
+    None when no material is textured (read as zero); mtab from
+    build_material_table_tex; tex_data [P, 4] float32, tex_table [K, 4] and
+    tex_index [M, 5] int32 (scene/scene.py), which the kernel stages in
+    shared memory. The other arguments are shade's.
     """
     if origin.device.type == "cpu":
         COUNT_TEX.plain += 1
         return shade_textured_plain(origin, direction, throughput, radiance, alive,
-                                    pixel_idx, hit_mask, t, normal, tangent, mat_id,
-                                    texels, mtab, sample_key, bounce, seed=seed,
-                                    russian_roulette=russian_roulette)
-    return _launch("shade_textured", COUNT_TEX, origin, direction, throughput, radiance,
-                   alive, pixel_idx, hit_mask, t, normal, mat_id, mtab, MTAB_TEX_COLS,
-                   sample_key, bounce, seed, russian_roulette, tangent=tangent,
-                   texels=texels)
+                                    pixel_idx, hit_mask, t, normal, tangent, tex_uv,
+                                    mat_id, mtab, tex_data, tex_table, tex_index,
+                                    sample_key, bounce, seed=seed,
+                                    russian_roulette=russian_roulette, rng=rng)
+    n = origin.shape[0]
+    dev = origin.device
+    _check_bounce(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
+                  t, normal, mat_id, mtab, MTAB_TEX_COLS)
+    if tangent is not None:
+        check("tangent", tangent, torch.float32, (n, 3), dev)
+    if tex_uv is not None:
+        check("tex_uv", tex_uv, torch.float32, (n, 2), dev)
+    check_texture_tables(tex_data, tex_table, tex_index, dev)
+    if tex_index.shape[0] != mtab.shape[0]:
+        raise ValueError(f"tex_index has {tex_index.shape[0]} materials, mtab "
+                         f"{mtab.shape[0]}")
+    state = (origin, direction, throughput, radiance, alive)
+    if len({x.data_ptr() for x in state}) < len(state):
+        raise ValueError("shade_textured updates the state in place: origin, "
+                         "direction, throughput, radiance and alive must not share memory")
+    # Shared memory: mtab, tex_table (16-byte rows), then tex_index.
+    smem = 4 * MTAB_TEX_COLS * mtab.shape[0] + 16 * tex_table.shape[0] + \
+        4 * NUM_TEX_SLOTS * tex_index.shape[0]
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"shade_textured: {mtab.shape[0]} materials and "
+                         f"{tex_table.shape[0]} textures need {smem} bytes of shared "
+                         f"memory, more than the kernel's {SMEM_LIMIT}")
+    code = LIBRARY.get().tracy_shade_textured(
+        *(x.data_ptr() for x in (origin, direction, throughput, radiance, alive,
+                                 pixel_idx, hit_mask, t, normal)),
+        0 if tangent is None else tangent.data_ptr(),
+        0 if tex_uv is None else tex_uv.data_ptr(), mat_id.data_ptr(), n,
+        mtab.data_ptr(), mtab.shape[0], tex_data.data_ptr(), tex_table.data_ptr(),
+        tex_table.shape[0], tex_index.data_ptr(), sample_key & MASK32,
+        bounce & MASK32, seed & MASK32, int(bool(russian_roulette)), rng_index(rng),
+        smem, torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error("shade_textured", code)
+    COUNT_TEX.kernel += 1
+    return state
 
 
-def _launch(kernel: str, count: LaunchCount, origin, direction, throughput, radiance,
-            alive, pixel_idx, hit_mask, t, normal, mat_id, mtab, mtab_cols: int,
-            sample_key: int, bounce: int, seed: int, russian_roulette: bool, *,
-            tangent=None, texels=None):
-    """Check the arguments of K2 (texels None) or K4, launch it through the
-    library's tracy_<kernel> entry point and count the launch."""
+def shade_textured_plain(origin, direction, throughput, radiance, alive, pixel_idx,
+                         hit_mask, t, normal, tangent, tex_uv, mat_id, mtab, tex_data,
+                         tex_table, tex_index, sample_key: int, bounce: int, *,
+                         seed: int, russian_roulette: bool, rng: str = "fast"):
+    """K4 in PyTorch, in place as the kernel: K3's plain fetch
+    (ops/texfetch.py::fetch_texels_plain), then tracy_tpu's textured
+    bounce_step on those texel rows."""
+    texels = fetch_texels_plain(mat_id, tex_uv, direction, hit_mask, alive, tex_data,
+                                tex_table, tex_index)
+    m = _material_rows(mtab, mat_id)
+    if tangent is None:
+        tangent = torch.zeros_like(normal)
+    has = m[:, HAS_COL:HAS_COL + NUM_TEX_SLOTS] > 0.0
+    params = apply_textures(_params(m, normal), texels, has, tangent)
+    sky = mtab[SKY_MATERIAL_ID, 6:9]
+    if bool(mtab[SKY_MATERIAL_ID, HAS_COL + TEX_EMISSIVE] > 0.0):
+        sky = texels[:, TX_EMR:TX_EMR + 3]
+    state = (origin, direction, throughput, radiance, alive)
+    nxt = _bounce_plain(*state, pixel_idx, hit_mask, t, params, sky, sample_key, bounce,
+                        seed, russian_roulette, rng)
+    for x, y in zip(state, nxt):
+        x.copy_(y)
+    return state
+
+
+def rng_index(rng: str) -> int:
+    """The kernels' id of a counter hash kind (csrc/shade_lane.cuh RNG_*)."""
+    if rng not in KINDS:
+        RngSpec(rng, 0)  # raises, with the reason for threefry
+    return KINDS.index(rng)
+
+
+def _check_bounce(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
+                  t, normal, mat_id, mtab, mtab_cols: int):
+    """Check the arguments K2 and K4 share."""
     n = origin.shape[0]
     dev = origin.device
     for name, x in (("origin", origin), ("direction", direction),
@@ -127,44 +212,6 @@ def _launch(kernel: str, count: LaunchCount, origin, direction, throughput, radi
     check("mtab", mtab, torch.float32, (mtab.shape[0], mtab_cols), dev)
     if mtab.shape[0] < 1:
         raise ValueError("mtab: needs at least the sky material")
-    textured = ()
-    if texels is not None:
-        if tangent is not None:
-            check("tangent", tangent, torch.float32, (n, 3), dev)
-        check("texels", texels, torch.float32, (n, TEXEL_COLS), dev)
-        if texels.data_ptr() % 16:
-            raise ValueError("texels: the kernel reads rows as 16-byte vectors; "
-                             "it must be 16-byte aligned")
-        textured = (0 if tangent is None else tangent.data_ptr(), texels.data_ptr())
-
-    out = tuple(torch.empty_like(x) for x in (origin, direction, throughput, radiance, alive))
-    code = getattr(LIBRARY.get(), f"tracy_{kernel}")(
-        *(x.data_ptr() for x in (origin, direction, throughput, radiance, alive,
-                                 pixel_idx, hit_mask, t, normal, mat_id)),
-        *textured, n, mtab.data_ptr(), mtab.shape[0], sample_key & MASK32,
-        bounce & MASK32, seed & MASK32, int(bool(russian_roulette)),
-        *(x.data_ptr() for x in out), torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(kernel, code)
-    count.kernel += 1
-    return out
-
-
-def shade_textured_plain(origin, direction, throughput, radiance, alive, pixel_idx,
-                         hit_mask, t, normal, tangent, mat_id, texels, mtab,
-                         sample_key: int, bounce: int, *, seed: int,
-                         russian_roulette: bool):
-    """K4's bounce in PyTorch: tracy_tpu's textured bounce_step."""
-    m = _material_rows(mtab, mat_id)
-    if tangent is None:
-        tangent = torch.zeros_like(normal)
-    has = m[:, HAS_COL:HAS_COL + NUM_TEX_SLOTS] > 0.0
-    params = apply_textures(_params(m, normal), texels, has, tangent)
-    sky = mtab[SKY_MATERIAL_ID, 6:9]
-    if bool(mtab[SKY_MATERIAL_ID, HAS_COL + TEX_EMISSIVE] > 0.0):
-        sky = texels[:, TX_EMR:TX_EMR + 3]
-    return _bounce_plain(origin, direction, throughput, radiance, alive, pixel_idx,
-                         hit_mask, t, params, sky, sample_key, bounce, seed,
-                         russian_roulette)
 
 
 def _material_rows(mtab, mat_id):
@@ -181,13 +228,13 @@ def _params(m, normal) -> SurfaceParams:
 
 def _bounce_plain(origin, direction, throughput, radiance, alive, pixel_idx,
                   hit_mask, t, params: SurfaceParams, sky, sample_key: int,
-                  bounce: int, seed: int, russian_roulette: bool):
+                  bounce: int, seed: int, russian_roulette: bool, rng: str):
     """Scatter, emission, throughput and Russian roulette of one bounce;
     sky: [3] or [N, 3], the radiance a miss lane gathers."""
-    rng = RngSpec("fast", seed)
+    spec = RngSpec(rng, seed)
 
     def rand(draw):
-        return rng.uniform(pixel_idx, sample_key, bounce, draw)
+        return spec.uniform(pixel_idx, sample_key, bounce, draw)
 
     point = origin + t[:, None] * direction
     res = scatter(direction, point, params, rand(DRAW_SPHERE_Z),

@@ -1,11 +1,13 @@
-"""K3: per-lane texel fetch for the textured shade stage.
+"""K3: per-lane texel fetch from the flat texture atlas.
 
-`fetch_texels` is the wrapper the integrator calls. On CUDA tensors it
-launches the hand-written kernel csrc/texfetch.cu; on CPU tensors, and only
-there, it runs `fetch_texels_plain`. The kernel replaces
-tracy_tpu/ops/pallas_texfetch.py::_fetch_kernel (entered through
-fetch_texels, addressed by lane_page_indices / _texel_ij), but reads the
-flat atlas directly instead of the TPU's texel pages.
+`fetch_texels` launches the hand-written kernel csrc/texfetch.cu on CUDA
+tensors; on CPU tensors, and only there, it runs `fetch_texels_plain`. The
+kernel replaces tracy_tpu/ops/pallas_texfetch.py::_fetch_kernel (entered
+through fetch_texels, addressed by lane_page_indices / _texel_ij), but
+reads the flat atlas directly instead of the TPU's texel pages. The render
+paths do not call it: K4 (ops/shade.py::shade_textured) fetches the same
+texels itself, through the same device functions (csrc/texfetch_lane.cuh),
+and its plain version calls `fetch_texels_plain`.
 
 Output: [N, TEXEL_COLS] float32 rows in render/texture.py's layout. A live
 hit lane gets every texture slot of its material at its uv; a live miss
@@ -28,6 +30,9 @@ from tracy_tpu_torch.render.texture import (
 from tracy_tpu_torch.scene.scene import NUM_TEX_SLOTS, SKY_MATERIAL_ID, TEX_EMISSIVE
 
 COUNT = LaunchCount()
+# Shared memory for the staged tables: the 48 KB a block gets without
+# opting in.
+SMEM_LIMIT = 48 * 1024
 
 
 def fetch_texels(mat_id, uv, direction, hit_mask, alive, tex_data, tex_table,
@@ -51,15 +56,12 @@ def fetch_texels(mat_id, uv, direction, hit_mask, alive, tex_data, tex_table,
     check("direction", direction, torch.float32, (n, 3), dev)
     check("hit_mask", hit_mask, torch.bool, (n,), dev)
     check("alive", alive, torch.bool, (n,), dev)
-    check("tex_data", tex_data, torch.float32, (tex_data.shape[0], 4), dev)
-    check("tex_table", tex_table, torch.int32, (tex_table.shape[0], 4), dev)
-    check("tex_index", tex_index, torch.int32, (tex_index.shape[0], NUM_TEX_SLOTS), dev)
-    for name, x in (("tex_data", tex_data), ("tex_table", tex_table)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name}: the kernel reads it in 16-byte vectors; "
-                             "it must be 16-byte aligned")
-    if tex_index.shape[0] < 1:
-        raise ValueError("tex_index: needs at least the sky material")
+    check_texture_tables(tex_data, tex_table, tex_index, dev)
+    smem = 16 * tex_table.shape[0] + 4 * NUM_TEX_SLOTS * tex_index.shape[0]
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"fetch_texels: {tex_index.shape[0]} materials and "
+                         f"{tex_table.shape[0]} textures need {smem} bytes of shared "
+                         f"memory, more than the kernel's {SMEM_LIMIT}")
 
     out = torch.empty((n, TEXEL_COLS), dtype=torch.float32, device=dev)
     lib = LIBRARY.get()
@@ -71,6 +73,21 @@ def fetch_texels(mat_id, uv, direction, hit_mask, alive, tex_data, tex_table,
     raise_on_error("texfetch", code)
     COUNT.kernel += 1
     return out
+
+
+def check_texture_tables(tex_data, tex_table, tex_index, device):
+    """Raise unless the atlas and its tables are what the kernels read:
+    tex_data [P, 4] float32 and tex_table [K, 4] int32, 16-byte aligned
+    (read as 16-byte vectors), tex_index [M, 5] int32 with M >= 1."""
+    check("tex_data", tex_data, torch.float32, (tex_data.shape[0], 4), device)
+    check("tex_table", tex_table, torch.int32, (tex_table.shape[0], 4), device)
+    check("tex_index", tex_index, torch.int32, (tex_index.shape[0], NUM_TEX_SLOTS), device)
+    for name, x in (("tex_data", tex_data), ("tex_table", tex_table)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernels read it in 16-byte vectors; "
+                             "it must be 16-byte aligned")
+    if tex_index.shape[0] < 1:
+        raise ValueError("tex_index: needs at least the sky material")
 
 
 def texel_addresses(mat_id, uv, direction, hit_mask, alive, tex_table,

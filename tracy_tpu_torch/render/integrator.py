@@ -4,10 +4,11 @@ Port of tracy_tpu/render/integrator.py (reference CpuTrace::Trace,
 cpu_trace.cpp:107-170). All rays advance together through a Python loop
 over bounces with masked lanes. Each bounce runs an intersector and then
 the shade stage: on an untextured scene K2 (ops/shade.py::shade), on a
-textured one K3 (ops/texfetch.py, the texels of each lane) and then K4
-(ops/shade.py::shade_textured). A fused bounce (ops/bounce.py, K5) may take
-the place of both stages. On CUDA tensors these launch the kernels; on CPU
-tensors, their plain versions.
+textured one K4 (ops/shade.py::shade_textured, which fetches each lane's
+texels itself and updates the state in place). A fused bounce
+(ops/bounce.py, K5) may take the place of both stages. On CUDA tensors
+these launch the kernels; on CPU tensors, their plain versions. The
+counter RNG is cfg.rng's hash ('fast', 'xorshift' or 'lcg').
 
 * radiance += emission * throughput on hit; throughput *= attenuation;
 * a miss adds the sky (material slot 0's emissive, or its equirect texture
@@ -31,7 +32,6 @@ from tracy_tpu_torch.ops.shade import (
     shade,
     shade_textured,
 )
-from tracy_tpu_torch.ops.texfetch import fetch_texels
 from tracy_tpu_torch.render.intersect import intersect_bruteforce
 from tracy_tpu_torch.render.material import scene_has_textures
 from tracy_tpu_torch.render.texture import sample_nearest, sky_uv
@@ -130,24 +130,27 @@ def trace_paths(scene: SceneArrays, origin, direction, pixel_idx, sample_key: in
     first_bounce_fn: what bounce 0 runs instead (the wave is all live
     there, so the Renderer gives the uncompacted function); the result is
     the same. Rays are counted before any routing, over the real lanes.
+    The textured shade stage updates the state in place, so on a textured
+    scene the state starts as copies of origin, direction and active0: the
+    caller's tensors are left as they were.
     Returns (radiance [N, 3], rays: a 0-d int64 tensor).
     """
-    if cfg.rng != "fast":
-        raise ValueError(f"rng={cfg.rng!r}: the shade stage draws from the "
-                         "'fast' counter hash only")
     n = origin.shape[0]
     dev = origin.device
     textured = scene_has_textures(scene)
     if mtab is None:
         mtab = (build_material_table_tex if textured else build_material_table)(scene.materials)
+    own = ((lambda x: x.clone(memory_format=torch.contiguous_format)) if textured
+           else torch.Tensor.contiguous)
     s = PathState(
-        origin=origin.contiguous(),
-        direction=direction.contiguous(),
+        origin=own(origin),
+        direction=own(direction),
         throughput=torch.ones((n, 3), dtype=origin.dtype, device=dev),
         radiance=torch.zeros((n, 3), dtype=origin.dtype, device=dev),
         alive=(torch.ones((n,), dtype=torch.bool, device=dev) if active0 is None
-               else active0.contiguous()),
+               else own(active0)),
     )
+    kw = dict(seed=cfg.seed, russian_roulette=cfg.russian_roulette, rng=cfg.rng)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     for bounce in range(cfg.max_bounces):
         rays = rays + s.alive.sum()
@@ -161,15 +164,10 @@ def trace_paths(scene: SceneArrays, origin, direction, pixel_idx, sample_key: in
         sh = fn(s.origin, s.direction, s.alive)
         hit = sh.hit
         if textured:
-            texels = fetch_texels(sh.material, sh.tex_uv, s.direction, hit.mask, s.alive,
-                                  scene.tex_data, scene.tex_table, scene.materials.tex_index)
-            s = PathState(*shade_textured(
-                s.origin, s.direction, s.throughput, s.radiance, s.alive, pixel_idx,
-                hit.mask, hit.t, sh.normal, sh.tangent, sh.material, texels, mtab,
-                sample_key, bounce, seed=cfg.seed, russian_roulette=cfg.russian_roulette))
+            shade_textured(*s, pixel_idx, hit.mask, hit.t, sh.normal, sh.tangent,
+                           sh.tex_uv, sh.material, mtab, scene.tex_data, scene.tex_table,
+                           scene.materials.tex_index, sample_key, bounce, **kw)
         else:
-            s = PathState(*shade(s.origin, s.direction, s.throughput, s.radiance,
-                                 s.alive, pixel_idx, hit.mask, hit.t, sh.normal,
-                                 sh.material, mtab, sample_key, bounce, seed=cfg.seed,
-                                 russian_roulette=cfg.russian_roulette))
+            s = PathState(*shade(*s, pixel_idx, hit.mask, hit.t, sh.normal, sh.material,
+                                 mtab, sample_key, bounce, **kw))
     return s.radiance, rays

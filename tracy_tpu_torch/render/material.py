@@ -72,7 +72,7 @@ def random_on_unit_sphere(r1, r2):
     """material.h:144-157: r1 -> z, r2 -> phi."""
     z = 2.0 * r1 - 1.0
     phi = 2.0 * tm.PI * r2
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    r = tm.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
@@ -140,7 +140,7 @@ def scatter(ray_dir, hit_point, params: SurfaceParams, u_sphere_z, u_sphere_phi,
     # BTDF (material.h:236-249)
     inside = v_dot_n > EPS
     ior = params.ior
-    cos_in = torch.sqrt(torch.clamp(1.0 - (ior * ior) * (1.0 - v_dot_n * v_dot_n), min=0.0))
+    cos_in = tm.sqrt(torch.clamp(1.0 - (ior * ior) * (1.0 - v_dot_n * v_dot_n), min=0.0))
     cosine = torch.where(inside, cos_in, -v_dot_n)
     eta = torch.where(inside, ior, 1.0 / torch.clamp(ior, min=1e-8))
     transmitted = tm.lerp(tm.refract(ray_dir, normal, eta[:, None]), scattered, roughness)

@@ -5,21 +5,24 @@ cfg.spp samples per pixel: jittered camera rays, the bounce loop,
 accumulation. MRays/s counts one ray per live lane per bounce, the
 reference's accounting (win_raytracer.cpp:521-553).
 
-Each bounce runs K1 (ops/intersect.py) over the BVH tables (4-wide, or
-binary with pallas_bvh_width=2), then on an untextured scene K2
-(ops/shade.py), on a textured one K3 (ops/texfetch.py) and K4
-(ops/shade.py::shade_textured), K1 then also interpolating the texture uv
-and, with normal maps, the tangent: the "two-stage" path. With
-use_pallas_bounce on an untextured scene, K5 (ops/bounce.py) runs the whole
-bounce instead: the "fused" path (`Renderer.path` says which was bound).
-With wave_compact_group > 0, K1 (or K5) runs inside accel/reorder.py's
-compaction, and K3/K4 on the routed-back lanes, as tracy_tpu binds them
-(tracy_tpu/render/renderer.py:488-512, :619-689); with
-wave_compact_skip_first, bounce 0 runs uncompacted. RenderConfig's accel
-must be 'packet'. The image is folded
-into 32x32-pixel tiles, so that neighbouring rays of a wave are neighbours
-on screen. On CUDA tensors the stages launch their kernels; on CPU tensors,
-their plain versions.
+Each bounce runs an intersector, then on an untextured scene K2
+(ops/shade.py), on a textured one K4 (ops/shade.py::shade_textured, which
+fetches the texels itself), the intersector then also interpolating the
+texture uv and, with normal maps, the tangent: the "two-stage" path. The
+intersector follows cfg.accel as tracy_tpu's does (tracy_tpu/render/
+renderer.py:468-482): 'packet' is K1 (ops/intersect.py) over the BVH
+tables (4-wide, or binary with pallas_bvh_width=2), 'bvh' K1 over the
+binary tables (tracy_tpu's 'bvh' walks a binary tree), 'none' the
+brute-force intersector (render/integrator.py; XLA code in tracy_tpu, no
+kernel). With use_pallas_bounce on an untextured scene and accel 'packet',
+K5 (ops/bounce.py) runs the whole bounce instead: the "fused" path
+(`Renderer.path` says which was bound). With wave_compact_group > 0 and
+accel 'packet', K1 (or K5) runs inside accel/reorder.py's compaction, and
+K4 on the routed-back lanes, as tracy_tpu binds them (tracy_tpu/render/
+renderer.py:488-512, :619-689); with wave_compact_skip_first, bounce 0 runs
+uncompacted. The image is folded into 32x32-pixel tiles, so that
+neighbouring rays of a wave are neighbours on screen. On CUDA tensors the
+stages launch their kernels; on CPU tensors, their plain versions.
 """
 
 from __future__ import annotations
@@ -40,7 +43,11 @@ from tracy_tpu_torch.ops.bounce import trace_bounce
 from tracy_tpu_torch.ops.intersect import intersect
 from tracy_tpu_torch.ops.shade import build_material_table, build_material_table_tex
 from tracy_tpu_torch.render import film
-from tracy_tpu_torch.render.integrator import JITTER_BOUNCE, trace_paths
+from tracy_tpu_torch.render.integrator import (
+    JITTER_BOUNCE,
+    make_bruteforce_intersector,
+    trace_paths,
+)
 from tracy_tpu_torch.render.material import scene_has_textures
 from tracy_tpu_torch.scene.scene import SceneArrays
 
@@ -149,13 +156,12 @@ class Renderer:
     """
 
     def __init__(self, cfg: RenderConfig):
-        if cfg.accel != "packet":
-            raise NotImplementedError(f"accel={cfg.accel!r}: the port runs 'packet' (K1)")
+        if cfg.accel == "tlas":
+            raise NotImplementedError("accel='tlas': the two-level BVH is not ported yet "
+                                      "(ROADMAP queue 1)")
         if cfg.aov != "beauty":
             raise NotImplementedError(f"aov={cfg.aov!r}: the port renders beauty only")
-        if cfg.rng != "fast":
-            raise ValueError(f"rng={cfg.rng!r}: the shade stage draws from the "
-                             "'fast' counter hash only")
+        RngSpec(cfg.rng, cfg.seed)  # refuses threefry (jax.random) with its reason
         self.cfg = cfg
         self.tables: Optional[BVHTables] = None
         self.path: Optional[str] = None  # "two-stage" or "fused", once prepared
@@ -171,23 +177,30 @@ class Renderer:
         if self._intersect is not None:
             return
         cfg = self.cfg
-        self.tables = build_tables(scene, leaf_size=cfg.bvh_leaf_size,
-                                   max_depth=max(cfg.traversal_stack_depth - 4, 8),
-                                   width=cfg.pallas_bvh_width)
+        packet = cfg.accel == "packet"
+        if cfg.accel == "none":
+            isect = make_bruteforce_intersector(scene)
+        else:
+            self.tables = build_tables(scene, leaf_size=cfg.bvh_leaf_size,
+                                       max_depth=max(cfg.traversal_stack_depth - 4, 8),
+                                       width=cfg.pallas_bvh_width if packet else 2)
+            isect = functools.partial(intersect, tables=self.tables)
         textured = scene_has_textures(scene)
         self._mtab = (build_material_table_tex if textured
                       else build_material_table)(scene.materials)
-        group = cfg.wave_compact_group
+        # Compaction wraps the packet intersector only (tracy_tpu's
+        # renderer.py:492-494): 'bvh' and 'none' trace every lane.
+        group = cfg.wave_compact_group if packet else 0
         peel = group > 0 and cfg.wave_compact_skip_first
-        isect = functools.partial(intersect, tables=self.tables)
         self._intersect = compact_intersector(isect, group) if group else isect
         self._paths = {"first_intersect_fn": isect} if peel else {}
         self.path = "two-stage"
-        if cfg.use_pallas_bounce and not textured:
+        if cfg.use_pallas_bounce and packet and not textured:
             # The fused bounce is untextured only: a textured scene keeps the
             # two-stage path, as in tracy_tpu (renderer.py:635-640).
             bounce = functools.partial(trace_bounce, tables=self.tables, mtab=self._mtab,
-                                       seed=cfg.seed, russian_roulette=cfg.russian_roulette)
+                                       seed=cfg.seed, russian_roulette=cfg.russian_roulette,
+                                       rng=cfg.rng)
             self._paths = {"bounce_fn": compact_bounce(bounce, group) if group else bounce}
             if peel:
                 self._paths["first_bounce_fn"] = bounce

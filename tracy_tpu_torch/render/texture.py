@@ -10,10 +10,10 @@ the same texel. One ulp of uv can move a texel index at a cell edge.
 (tracy_tpu/render/integrator.py::sky_emission, cpu_trace.cpp:149).
 
 TEXEL_COLS is the row that the texel fetch (ops/texfetch.py, K3) writes
-per lane and the textured shade stage (ops/shade.py, K4) reads: the five
-material slots at full resolution, the TPU kernel's page rows
-(tracy_tpu/ops/pallas_texfetch.py TX_*), plus one column of padding so a
-row is three 16-byte vectors.
+per lane, which the textured shade stage (ops/shade.py, K4) keeps in
+registers and its plain version reads: the five material slots at full
+resolution, the TPU kernel's page rows (tracy_tpu/ops/pallas_texfetch.py
+TX_*), plus one column of padding so a row is three 16-byte vectors.
 """
 
 from __future__ import annotations

@@ -32,6 +32,7 @@ from tracy_tpu_torch.ops.compare import OPS_TRI_TEST, bound_ms, nbytes
 from tracy_tpu_torch.ops.intersect import moller_trumbore
 from tracy_tpu_torch.ops.launch import LaunchCount, check, raise_on_error
 from tracy_tpu_torch.render.intersect import FLT_MAX
+from tracy_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 COUNT = LaunchCount()
 VARIANTS = ("v0", "vd", "vmt", "vacc", "vred", "vres")
@@ -58,7 +59,7 @@ class Leaves(NamedTuple):
         return t[:, 0:3], t[:, 0:3] + t[:, 4:7], t[:, 0:3] + t[:, 8:11]
 
 
-def make_leaves(seed: int = SEED, device="cpu", num_leaves: int = NUM_LEAVES,
+def make_leaves(seed: int = SEED, device=DEFAULT_DEVICE, num_leaves: int = NUM_LEAVES,
                 leaf_size: int = LEAF_SIZE) -> Leaves:
     """Well-shaped random triangles in the box [-1, 1]^3, as a mesh has
     them: vertices about 120 degrees apart on a circle of radius 0.2-0.4 in
@@ -87,10 +88,11 @@ def make_leaves(seed: int = SEED, device="cpu", num_leaves: int = NUM_LEAVES,
     face = unit(np.cross(e1, e2).astype(np.float64))
     nrm = unit(np.repeat(face, 3, axis=0) + 0.3 * rng.standard_normal((3 * t, 3)))
     nrm = nrm.astype(np.float32)
-    return Leaves(*(torch.as_tensor(x, device=device) for x in (tri, meta, nrm)))
+    dev = resolve_device(device)
+    return Leaves(*(torch.as_tensor(x, device=dev) for x in (tri, meta, nrm)))
 
 
-def make_rays(n: int = RAYS, seed: int = SEED, device="cpu") -> torch.Tensor:
+def make_rays(n: int = RAYS, seed: int = SEED, device=DEFAULT_DEVICE) -> torch.Tensor:
     """[n, 6] float32 (origin, unit direction): from a sphere of radius 4
     towards random points of the box [-1, 1]^3."""
     rng = np.random.default_rng(seed + 1)
@@ -98,7 +100,8 @@ def make_rays(n: int = RAYS, seed: int = SEED, device="cpu") -> torch.Tensor:
     o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
     d = rng.uniform(-1.0, 1.0, (n, 3)) - o
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    return torch.as_tensor(np.concatenate([o, d], axis=1).astype(np.float32), device=device)
+    return torch.as_tensor(np.concatenate([o, d], axis=1).astype(np.float32),
+                           device=resolve_device(device))
 
 
 def micro(variant: str, rays, leaves: Leaves, iters: int = ITERS):
