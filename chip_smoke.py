@@ -8,38 +8,40 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit;
 2. build: nvcc builds the five kernel sources of csrc/ for sm_90a, one
    process per source, all at once;
-3. kernel vs plain: K1 (intersect), K2 (shade), K3 (texel fetch), K4
-   (texel fetch + textured shade, in place) and K5 (fused bounce) against
-   their plain PyTorch versions on the same CUDA tensors at the main
-   path's wave shape (2,088,960 lanes), K1 and K5 at both BVH widths (4,
-   the default, and 2), K2, K4 and K5 at each counter hash ('fast',
-   'xorshift', 'lcg'), K3 and K4 on both canned lanes and the real lanes
-   of the textured scene, K5 on
-   the real lanes of grid64x28 and also against K1 then K2 on the same
-   lanes (all five outputs equal); then each one's time beside its plain
-   version's, its bound and, for K3, a `tex_data.index_select` of the
-   same texels as a yardstick; K1 and K5 timed at both widths in turns,
-   K4 also on the same lanes without texel gathers and with every lane
-   dead;
+3. kernel vs plain: K1 (intersect), K2 (shade, in place), K3 (texel
+   fetch), K4 (texel fetch + textured shade, in place) and K5 (fused
+   bounce) against their plain PyTorch versions on the same CUDA tensors
+   at the main path's wave shape (2,088,960 lanes), K1 and K5 at each BVH
+   width (4, the default, 8 and 2), K2 (bit for bit, dead lanes untouched,
+   miss lanes changing only radiance and alive) at each counter hash
+   ('fast', 'xorshift', 'lcg') with Russian roulette on and off, K4 and K5
+   at each hash, K3 and K4 on both canned lanes and the real lanes of the
+   textured scene, K5 on the real lanes of grid64x28 and also against K1
+   then K2 on a copy of the same lanes (all five outputs equal); then each
+   one's time beside its plain version's, its bound and, for K3, a
+   `tex_data.index_select` of the same texels as a yardstick; K1 and K5
+   timed at the three widths in turns, K2 on the canned wave and on the
+   real lanes of each bounce of a grid64x28 frame, K4 also on the same
+   lanes without texel gathers and with every lane dead;
 4. main paths: Renderer.step_many at 1920x1080, 4 progressive frames of
    1 spp, 5 bounces, on the 4-wide BVH (pallas_bvh_width's default), on
    grid64x28 (100,748 triangles) compacted as bench.py's main path is
    (pick_compact_group: group 262,144, bounce 0 uncompacted; K1 + K2),
    uncompacted, and fused (K5, compacted), and on grid64x28-tex, the same
    geometry with helmet-sized maps (K1 + K4; K3 is not launched there),
-   compacted and uncompacted; and grid64x28 compacted and uncompacted on the binary
-   BVH, for the A/B of the widths; each path must launch exactly its
-   kernels and no plain version, and each path's accumulator must equal
-   the other paths' of its scene and width; each path is timed 5 times,
-   in turn with the others; then where the device time of one more such
-   run goes (torch.profiler), with each kernel's time per bounce of frame
-   0, and the live-lane fraction of each bounce of one frame with the
-   compaction round trip's time at that wave;
+   compacted and uncompacted; grid64x28 compacted on the 8-wide BVH, and
+   compacted and uncompacted on the binary BVH, for the A/B of the widths;
+   each path must launch exactly its kernels and no plain version, and
+   each path's accumulator must equal the other paths' of its scene and
+   width; each path is timed 5 times, in turn with the others; then where
+   the device time of one more such run goes (torch.profiler), with each
+   kernel's time per bounce of frame 0, and the live-lane fraction of each
+   bounce of one frame with the compaction round trip's time at that wave;
 5. physics: furnace.scn (untextured; also on the fused, compacted path,
-   and with accel 'none' and rng 'lcg') and spheres.scn (HDR equirect
-   sky, textured path; also with accel 'bvh' and rng 'xorshift') at
-   256x192 for 24 frames against the reference's own renders
-   (tests/goldens/ref/*.npz), linear block means;
+   with accel 'none' and rng 'lcg', and on the 8-wide BVH) and spheres.scn
+   (HDR equirect sky, textured path; also with accel 'bvh' and rng
+   'xorshift') at 256x192 for 24 frames against the reference's own
+   renders (tests/goldens/ref/*.npz), linear block means;
 6. K6: each variant of the leaf-visit microbenchmark against its plain
    version, and its nanoseconds per iteration.
 
@@ -208,7 +210,8 @@ def live_lanes(scene, cfg, tables, frame: int = 0):
     seen = []
 
     def record(o, d, a):
-        seen.append((o, d, a))
+        # Copies: the shade stage updates these tensors in place.
+        seen.append((o.clone(), d.clone(), a.clone()))
         return k1.intersect(o, d, a, tables)
 
     sample_radiance_rows(scene, cfg.replace(wave_compact_group=0), frame, record)
@@ -220,7 +223,7 @@ def live_lanes(scene, cfg, tables, frame: int = 0):
         rows.append({"live": int(a.sum()), "lanes": n,
                      "warps_live": int(a.view(-1, 32).any(1).sum()), "warps": n // 32,
                      "warps_live_compacted": int(((per_block + 31) // 32).sum())})
-    return rows, seen[1]
+    return rows, seen
 
 
 def main() -> int:
@@ -276,10 +279,17 @@ def main() -> int:
     r.prepare(scene)
     tables = r.tables
     tables2 = tables.binary()  # the same tree walked binary, for the A/B
+    r8 = Renderer(cfg.replace(pallas_bvh_width=8))
+    r8.prepare(scene)
+    tables8 = r8.tables
     print(f"scene grid64x28: {scene.num_triangles} triangles, {tables.node_meta.shape[0]} "
           f"binary BVH nodes, depth {tables.max_depth}; {tables.wide.shape[0]} 4-wide nodes, "
-          f"depth4 {tables.depth4}, stack {tables.stack_size} entries; host build "
+          f"depth4 {tables.depth4}, stack {tables.stack_size} entries; "
+          f"{tables8.wide.shape[0]} 8-wide nodes, depth8 {tables8.depth4}, stack "
+          f"{tables8.stack_size} entries (kernel {tables8.stack_max}); host build of both "
           f"{time.perf_counter() - t0:.1f} s")
+    if tables8.width != 8 or not torch.equal(tables8.node_meta, tables.node_meta):
+        raise RuntimeError("the 8-wide tables should collapse the same binary tree")
     if scene.num_triangles != 100_748:
         raise RuntimeError(f"grid64x28 should hold 100,748 triangles, got {scene.num_triangles}")
     if cfg.pallas_bvh_width != 4 or tables.width != 4:
@@ -315,8 +325,9 @@ def main() -> int:
     wave = (HEIGHT + (-HEIGHT) % th) * WIDTH
     o, d, a = compare.intersect_rays(scene, tables, wave, seed=1)
     c1 = compare.compare_intersect(o, d, a, tables)
+    c1e = compare.compare_intersect(o, d, a, tables8)
     c1b = compare.compare_intersect(o, d, a, tables2)
-    for c in (c1, c1b):
+    for c in (c1, c1e, c1b):
         print(f"K1 vs plain, grid64x28, width {c['width']}, {c['rays']} rays (half secondary): "
               f"mask agreement {c['mask_agree']:.6f} (>= 0.9999), max |dt| "
               f"{c['max_abs_err']:.3g} (<= 1e-5 t + 1e-6), normal max err "
@@ -325,9 +336,13 @@ def main() -> int:
     print(f"  bound's yardstick (binary traversal of these rays): {c1['inner_visits']} inner-node "
           f"visits, {c1['tri_tests']} triangle tests; the 4-wide tree's own work: "
           f"{c1['wide_inner_visits']} node visits, {c1['wide_box_tests']} box tests, "
-          f"{c1['wide_tri_tests']} triangle tests, {c1['wide_culled_pops']} pops culled; lanes "
-          f"busy in a warp's node / triangle iterations (as the plain traversal steps warps of "
-          f"32): width 4 {c1['wide_simt']['node']:.3f} / {c1['wide_simt']['tri']:.3f}, width 2 "
+          f"{c1['wide_tri_tests']} triangle tests, {c1['wide_culled_pops']} pops culled; the "
+          f"8-wide tree's: {c1e['wide_inner_visits']} node visits, {c1e['wide_box_tests']} box "
+          f"tests, {c1e['wide_tri_tests']} triangle tests, {c1e['wide_culled_pops']} pops "
+          f"culled; lanes busy in a warp's node / triangle iterations (as the plain traversal "
+          f"steps warps of 32): width 4 {c1['wide_simt']['node']:.3f} / "
+          f"{c1['wide_simt']['tri']:.3f}, width 8 {c1e['wide_simt']['node']:.3f} / "
+          f"{c1e['wide_simt']['tri']:.3f}, width 2 "
           f"{c1['binary_simt']['node']:.3f} / {c1['binary_simt']['tri']:.3f}")
     to, td, ta = compare.intersect_rays(tscene, ttables, wave, seed=1)
     c1t = compare.compare_intersect(to, td, ta, ttables)
@@ -339,12 +354,19 @@ def main() -> int:
     mtab = k2.build_material_table(dscene.materials)
     lanes = compare.canned_lanes(mtab.shape[0], wave, seed=2, device=dev)
     c2 = {}
-    for rng, rr in (("fast", True), ("fast", False), ("xorshift", True), ("lcg", True)):
-        c = compare.compare_shade(lanes, mtab, 3, 1, seed=SEED, russian_roulette=rr, rng=rng)
-        c2[(rng, rr)] = c
-        print(f"K2 vs plain, {c['lanes']} lanes, default.scn materials, rng {rng}, RR {rr}: "
-              f"decisions flipped {c['flipped']:.6f} (<= 1e-4), max abs err "
-              f"{c['max_abs_err']:.3g} (rtol 1e-5, atol 1e-6)")
+    for rng in ("fast", "xorshift", "lcg"):
+        for rr in (True, False):
+            c = compare.compare_shade(lanes, mtab, 3, 1, seed=SEED, russian_roulette=rr,
+                                      rng=rng)
+            c2[(rng, rr)] = c
+            print(f"K2 (in place) vs plain, each on its own copy, {c['lanes']} lanes, "
+                  f"default.scn materials, rng {rng}, RR {rr}: bit for bit {c['bit_equal']} "
+                  f"(must be), decisions flipped {c['flipped']:.6f}, max abs err "
+                  f"{c['max_abs_err']:.3g}; dead lanes changed {c['dead_lanes_changed']}, "
+                  f"miss lanes' origin/direction/throughput changed {c['miss_lanes_changed']} "
+                  f"(both must be 0)")
+            if not c["bit_equal"]:
+                raise RuntimeError(f"K2 differs from its plain version: {c}")
 
     # K3 and K4 on grid64x28-tex: canned lanes (random materials, uv with
     # repeats, 30% misses), and the real lanes of the K1 wave above. K4
@@ -383,24 +405,25 @@ def main() -> int:
     blanes = dict(glanes, origin=o, direction=d, alive=a)
     c5 = {}
     for tb, rng, rr in ((tables, "fast", True), (tables, "fast", False), (tables2, "fast", True),
-                        (tables2, "fast", False), (tables, "xorshift", True),
+                        (tables2, "fast", False), (tables8, "fast", True),
+                        (tables8, "fast", False), (tables, "xorshift", True),
                         (tables, "lcg", True)):
         c = compare.compare_bounce(blanes, tb, mtab_g, 3, 1, seed=SEED, russian_roulette=rr,
                                    rng=rng)
         c5[(tb.width, rng, rr)] = c
         print(f"K5 vs plain, width {tb.width}, {c['lanes']} real lanes of grid64x28, rng "
               f"{rng}, RR {rr}: decisions flipped {c['flipped']:.6f} (<= 1e-4), max abs err "
-              f"{c['max_abs_err']:.3g} (rtol 1e-5, atol 1e-6); vs K1 then K2 on the "
-              f"same lanes, outputs equal {c['equal_to_k1_k2']} (all must be)")
+              f"{c['max_abs_err']:.3g} (rtol 1e-5, atol 1e-6); vs K1 then K2 on a copy of "
+              f"the same lanes, outputs equal {c['equal_to_k1_k2']} (all must be)")
 
-    # K1 and K5 at both widths, in turns (2, 4, 4, 2): the A/B of the
-    # redesign on one card; K1 also on each half of the wave (the camera
-    # rays at random pixels, the secondary rays).
-    t1w, t5w, t1h = {2: [], 4: []}, {2: [], 4: []}, {}
+    # K1 and K5 at the three widths, in turns (2, 4, 8, 8, 4, 2): the A/B
+    # of the widths on one card; K1 also on each half of the wave (the
+    # camera rays at random pixels, the secondary rays).
+    t1w, t5w, t1h = {2: [], 4: [], 8: []}, {2: [], 4: [], 8: []}, {}
     bargs = [blanes[k] for k in compare.BOUNCE_ARGS]
     kw = dict(seed=SEED, russian_roulette=True)
     half = {"camera": slice(0, wave // 2), "secondary": slice(wave // 2, wave)}
-    for tb in (tables2, tables, tables, tables2):
+    for tb in (tables2, tables, tables8, tables8, tables, tables2):
         t1w[tb.width].append(compare.cuda_ms(lambda: k1.intersect(o, d, a, tb), 10))
         t5w[tb.width].append(compare.cuda_ms(
             lambda: k5.trace_bounce(*bargs, 3, 1, tables=tb, mtab=mtab_g, **kw), 10))
@@ -414,9 +437,10 @@ def main() -> int:
     t_k1, t_k5 = t1w[4], t5w[4]
     t_p1 = compare.cuda_ms(lambda: k1.intersect_plain(o, d, a, tables), 1)
     t_k1t = compare.cuda_ms(lambda: k1.intersect(to, td, ta, ttables), 10)
-    args = [lanes[k] for k in compare.SHADE_ARGS]
-    t_k2 = compare.cuda_ms(lambda: k2.shade(*args, mtab, 3, 1, **kw), 20)
-    t_p2 = compare.cuda_ms(lambda: k2.shade_plain(*args, mtab, 3, 1, **kw), 3)
+    t_k2 = compare.inplace_ms(lambda a: k2.shade(*a, mtab, 3, 1, **kw), lanes, 20,
+                              compare.SHADE_ARGS)
+    t_p2 = compare.inplace_ms(lambda a: k2.shade_plain(*a, mtab, 3, 1, **kw), lanes, 3,
+                              compare.SHADE_ARGS)
     fargs = [real[k] for k in compare.TEXFETCH_ARGS]
     tex = (tscene.tex_data, tscene.tex_table, tscene.materials.tex_index)
     t_k3 = compare.cuda_ms(lambda: k3.fetch_texels(*fargs, *tex), 20)
@@ -441,24 +465,25 @@ def main() -> int:
     bkw = dict(tables=tables, mtab=mtab_g, **kw)
     t_p5 = compare.cuda_ms(lambda: k5.trace_bounce_plain(*bargs, 3, 1, **bkw), 1)
 
-    def two_stage():
-        sh = k1.intersect(o, d, a, tables)
-        return k2.shade(*bargs[:6], sh.hit.mask, sh.hit.t, sh.normal, sh.material, mtab_g,
-                        3, 1, **kw)
+    def two_stage(state):
+        sh = k1.intersect(state[0], state[1], state[4], tables)
+        return k2.shade(*state[:5], state[5], sh.hit.mask, sh.hit.t, sh.normal, sh.material,
+                        mtab_g, 3, 1, **kw)
 
-    t_k12 = compare.cuda_ms(two_stage, 10)
+    t_k12 = compare.inplace_ms(two_stage, blanes, 10, compare.BOUNCE_ARGS)
     b3, b4, b5 = c3["real"], c4[("real", "fast", True)], c5[(4, "fast", True)]
     print(f"time at the 1080p wave ({wave} lanes; K1 and K5 on half camera, half secondary "
           f"rays; K3/K4 on the real lanes of grid64x28-tex) {card}:")
-    print(f"  K1 width 4 {t1w[4]:.3f} ms, width 2 {t1w[2]:.3f} ms (means of 2 turns each) vs "
+    print(f"  K1 width 4 {t1w[4]:.3f} ms, width 8 {t1w[8]:.3f} ms, width 2 {t1w[2]:.3f} ms "
+          f"(means of 2 turns each) vs "
           f"plain {t_p1:.1f} ms, bound {c1['bound_ms']:.4f} ms ({c1['bound_by']}: "
-          f"{c1['bytes']:.4g} B, {c1['ops']:.4g} ops, the binary yardstick at both widths); "
+          f"{c1['bytes']:.4g} B, {c1['ops']:.4g} ops, the binary yardstick at every width); "
           f"K1 uv+tangent on grid64x28-tex, width 4, {t_k1t:.3f} ms, bound "
           f"{c1t['bound_ms']:.4f} ms; K1 on each half of the wave ({wave // 2} lanes): "
           + ", ".join(f"{h} {t:.3f} ms" for h, t in t1h.items()))
     b2 = c2[("fast", True)]
-    print(f"  K2 {t_k2:.3f} ms vs plain {t_p2:.3f} ms, bound {b2['bound_ms']:.4f} ms "
-          f"({b2['bound_by']}: {b2['bytes']:.4g} B)")
+    print(f"  K2 (in place, canned lanes: 90% alive, 70% hit) {t_k2:.3f} ms vs plain "
+          f"{t_p2:.3f} ms, bound {b2['bound_ms']:.4f} ms ({b2['bound_by']}: {b2['bytes']:.4g} B)")
     print(f"  K3 {t_k3:.3f} ms vs plain {t_p3:.3f} ms, index_select of the same "
           f"{flat.numel()} texels {t_l3:.3f} ms, bound {b3['bound_ms']:.4f} ms "
           f"({b3['bound_by']}: {b3['bytes']:.4g} B, {b3['ops']:.4g} ops)")
@@ -466,11 +491,12 @@ def main() -> int:
           f"bound {b4['bound_ms']:.4f} ms ({b4['bound_by']}: {b4['bytes']:.4g} B, "
           f"{b4['ops']:.4g} ops); the same lanes with "
           + ", ".join(f"{k} {t:.3f} ms" for k, t in t4_parts.items()))
-    print(f"  K5 width 4 {t5w[4]:.3f} ms, width 2 {t5w[2]:.3f} ms vs plain {t_p5:.1f} ms, "
+    print(f"  K5 width 4 {t5w[4]:.3f} ms, width 8 {t5w[8]:.3f} ms, width 2 {t5w[2]:.3f} ms vs "
+          f"plain {t_p5:.1f} ms, "
           f"bound {b5['bound_ms']:.4f} ms "
           f"({b5['bound_by']}: {b5['bytes']:.4g} B, {b5['ops']:.4g} ops; {b5['hit_lanes']} hit, "
-          f"{b5['miss_lanes']} miss, {b5['dead_lanes']} dead lanes); K1 then K2 on the same "
-          f"lanes, width 4, {t_k12:.3f} ms")
+          f"{b5['miss_lanes']} miss, {b5['dead_lanes']} dead lanes); K1 then K2 (in place, "
+          f"on copies) on the same lanes, width 4, {t_k12:.3f} ms")
 
     # 4. main paths
     ccfg = cfg.replace(wave_compact_group=group)
@@ -479,6 +505,8 @@ def main() -> int:
              ("grid64x28 fused", scene, ccfg.replace(use_pallas_bounce=True), ("K5",)),
              ("grid64x28-tex compacted", tscene, ccfg, ("K1", "K4")),
              ("grid64x28-tex", tscene, cfg, ("K1", "K4")),
+             ("grid64x28 compacted width 8", scene, ccfg.replace(pallas_bvh_width=8),
+              ("K1", "K2")),
              ("grid64x28 compacted width 2", scene, ccfg.replace(pallas_bvh_width=2),
               ("K1", "K2")),
              ("grid64x28 width 2", scene, cfg.replace(pallas_bvh_width=2), ("K1", "K2")))
@@ -540,7 +568,7 @@ def main() -> int:
         print(f"main path {pname}: MRays/s over {REPEATS} runs of {FRAMES} frames, taken in "
               f"turn with the other paths {card}: median {r_[len(r_) // 2]:.2f}, min "
               f"{r_[0]:.2f}, max {r_[-1]:.2f}")
-    k1_bounce = {}
+    by_bounce = {"K1": {}, "K2": {}}
     for pname, sc, pcfg, _ in paths:
         rend = rends[pname]
         line, seq = device_breakdown(
@@ -548,11 +576,12 @@ def main() -> int:
         print(f"  {pname}: device time of {FRAMES} more frames {card}: {line}")
         for kname in sorted(seq):  # frame 0's launches are bounces 0..max_bounces-1
             per_bounce = seq[kname][:pcfg.max_bounces]
-            if kname == "K1":
-                k1_bounce[pname] = per_bounce
+            if kname in ("K1", "K2"):
+                by_bounce[kname][pname] = per_bounce
             print(f"  {pname}: {kname} ms per bounce of frame 0 {card}: "
                   + ", ".join(f"{t:.3f}" for t in per_bounce))
-    for p2 in ("grid64x28 compacted width 2", "grid64x28 width 2"):
+    for p2 in ("grid64x28 compacted width 8", "grid64x28 compacted width 2",
+               "grid64x28 width 2"):
         a2, a4 = accum[p2], accum["grid64x28"]
         print(f"{p2} vs width 4: {int((a2 != a4).any(-1).sum())} of "
               f"{a4.shape[0] * a4.shape[1]} pixels differ, max |difference| "
@@ -565,7 +594,8 @@ def main() -> int:
         if not all(same.values()):
             raise RuntimeError(f"accumulators differ from {ref}'s: {same}")
 
-    rows, (lo, ld, la) = live_lanes(scene, ccfg, tables)
+    rows, seen = live_lanes(scene, ccfg, tables)
+    lo, ld, la = seen[1]
     print(f"live lanes per bounce of frame 0, grid64x28, {rows[0]['lanes']} lanes in "
           f"{rows[0]['warps']} warps of 32 (warps holding a live lane: as traced uncompacted / "
           f"after compaction in groups of {group}):")
@@ -578,13 +608,28 @@ def main() -> int:
     print(f"compaction round trip at the {la.numel()}-lane wave (bounce 1's live lanes, group "
           f"{group}) {card}: rays down + hit record back {rt_ms['intersector_ms']:.3f} ms, "
           f"state down + next state back {rt_ms['bounce_ms']:.3f} ms")
+    # K2 on the real lanes of each bounce of that frame: its rays, alive
+    # flags and K1's hit record, with the canned throughput, radiance and
+    # pixel ids; every launch on its own copy of the state.
+    t2b, b2b = [], []
+    for b, (bo, bd, ba) in enumerate(seen):
+        sh = k1.intersect(bo, bd, ba, tables)
+        bl = dict(glanes, origin=bo, direction=bd, alive=ba, hit_mask=sh.hit.mask, t=sh.hit.t,
+                  normal=sh.normal, mat_id=sh.material)
+        t2b.append(compare.inplace_ms(lambda x, b=b: k2.shade(*x, mtab_g, 0, b, **kw), bl, 20,
+                                      compare.SHADE_ARGS))
+        b2b.append(compare.bound_ms(*compare._bounce_work(bl, mtab_g, textured=False)))
+    print(f"K2 (in place) on the real lanes of bounces 0-{len(seen) - 1} of frame 0, grid64x28, "
+          f"uncompacted {card}: "
+          + ", ".join(f"{t:.4f} ms (bound {b['bound_ms']:.4f})" for t, b in zip(t2b, b2b)))
 
     # 5. physics against the reference's own renders; the last two gates on
     # the other intersectors and counter hashes.
     for gname, fused, extra in (("furnace", False, {}), ("spheres", False, {}),
                                 ("furnace", True, {}),
                                 ("spheres", False, dict(accel="bvh", rng="xorshift")),
-                                ("furnace", False, dict(accel="none", rng="lcg"))):
+                                ("furnace", False, dict(accel="none", rng="lcg")),
+                                ("furnace", False, dict(pallas_bvh_width=8))):
         gb = load_scene(os.path.join(REPO, "tests", "goldens", "scn", f"{gname}.scn"))
         if gb.fallbacks:
             raise RuntimeError(f"{gname}.scn substituted files: {gb.fallbacks}")
@@ -601,7 +646,8 @@ def main() -> int:
         ref = parity.load_golden(os.path.join(REPO, "tests", "goldens", "ref", f"{gname}.npz"))
         dmean, p95, dmax = parity.compare(ref, ours)
         print(f"{gname} {gb.width}x{gb.height} ({gr.path}, group {gcfg.wave_compact_group}, "
-              f"accel {gcfg.accel}, rng {gcfg.rng}), "
+              f"accel {gcfg.accel}, rng {gcfg.rng}, BVH width "
+              f"{gr.tables.width if gr.tables is not None else '-'}), "
               f"24 frames vs tests/goldens/ref/{gname}.npz: mean diff {dmean:.5f} (<= 0.01), "
               f"block p95 {p95:.5f} (<= 0.02), block max {dmax:.5f} (<= 0.05); launches "
               + ", ".join(f"{k} {c.kernel}" for k, c in counts.items()))
@@ -611,6 +657,8 @@ def main() -> int:
             raise RuntimeError(f"{gname}: a plain version ran on the card")
         if fused and (k5.COUNT.kernel != 24 * gcfg.max_bounces or k1.COUNT.kernel):
             raise RuntimeError(f"{gname}: the fused path did not run on K5 alone")
+        if gcfg.pallas_bvh_width == 8 and gr.tables.width != 8:
+            raise RuntimeError(f"{gname}: the tables have width {gr.tables.width}, not 8")
 
     # 6. K6, the leaf-visit microbenchmark, through its own entry point's
     # measurement (tools/micro.py: time each variant at 270,336 rays x 2000
@@ -646,8 +694,8 @@ def main() -> int:
 
     kernels = [
         entry("K1", "intersect", "intersect.cu", "tracy_tpu/ops/pallas_packet.py:519",
-              max(c1["max_abs_err"], c1b["max_abs_err"], c1t["max_abs_err"]), t_k1, t_p1, c1,
-              None),
+              max(c1["max_abs_err"], c1e["max_abs_err"], c1b["max_abs_err"],
+                  c1t["max_abs_err"]), t_k1, t_p1, c1, None),
         entry("K2", "shade", "shade.cu", "tracy_tpu/ops/pallas_shade.py:72",
               max(c["max_abs_err"] for c in c2.values()), t_k2, t_p2, c2[("fast", True)], None),
         entry("K3", "texfetch", "texfetch.cu", "tracy_tpu/ops/pallas_texfetch.py:231",
@@ -666,14 +714,22 @@ def main() -> int:
                       all_dead_ms=t4_parts["all lanes dead"])
     kernels[0]["textured_ms"] = t_k1t
     kernels[0]["textured_bound_ms"] = c1t["bound_ms"]
-    kernels[0]["ms_per_bounce_frame0"] = k1_bounce
+    kernels[0]["ms_per_bounce_frame0"] = by_bounce["K1"]
     kernels[0]["half_wave_ms"] = t1h
-    for kern, tw, c in ((kernels[0], t1w, c1), (kernels[4], t5w, b5)):
-        kern.update(width4_ms=tw[4], width2_ms=tw[2], binary_inner_visits=c["inner_visits"],
+    b5e = c5[(8, "fast", True)]
+    for kern, tw, c, c8 in ((kernels[0], t1w, c1, c1e), (kernels[4], t5w, b5, b5e)):
+        kern.update(width4_ms=tw[4], width8_ms=tw[8], width2_ms=tw[2],
+                    width8_bound_ms=c8["bound_ms"],
+                    binary_inner_visits=c["inner_visits"],
                     binary_tri_tests=c["tri_tests"], wide_inner_visits=c["wide_inner_visits"],
                     wide_box_tests=c["wide_box_tests"], wide_tri_tests=c["wide_tri_tests"],
                     wide_culled_pops=c["wide_culled_pops"], wide_simt=c["wide_simt"],
+                    wide8_inner_visits=c8["wide_inner_visits"],
+                    wide8_box_tests=c8["wide_box_tests"], wide8_tri_tests=c8["wide_tri_tests"],
+                    wide8_culled_pops=c8["wide_culled_pops"], wide8_simt=c8["wide_simt"],
                     binary_simt=c["binary_simt"])
+    kernels[1].update(ms_per_bounce_frame0=by_bounce["K2"], real_lanes_ms_per_bounce_frame0=t2b,
+                      real_lanes_bound_ms_per_bounce_frame0=[b["bound_ms"] for b in b2b])
     kernels[4]["k1_then_k2_ms"] = t_k12
     kernels[5]["ns_per_iter"] = {v: t6[v]["ns_per_iter"] for v in k6.VARIANTS}
     print(json.dumps({"kernels": kernels}))

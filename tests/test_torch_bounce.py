@@ -10,9 +10,10 @@ on the CPU.
   directions by more than 1e-3), on cornell.scn: 4,096 lanes, half camera rays and half secondary
   rays, about 70% alive; Russian roulette on and off; and once more with
   both sides wrapped in compact_bounce(group=1024). These three walk the
-  binary BVH on both sides; one more case walks the 4-wide BVH on both
-  sides (the port's traverse4 order against tracy_tpu's body4,
-  build_tables(width=4), as tests/test_pallas_packet.py:434-446 runs it). The contract is
+  binary BVH on both sides; two more cases walk the 4-wide and the 8-wide
+  BVH on both sides (the port's traverse_wide order against tracy_tpu's
+  body4, build_tables(width=4 or 8), as tests/test_pallas_packet.py:434-446
+  runs it). The contract is
   test_torch_shade.py's, for the same reasons (an ulp of torch CPU vs XLA
   CPU can flip a discrete decision; the two BVHs may also break an equal-t
   tie differently): lanes whose alive flag or lobe differ at most 0.1%,
@@ -87,7 +88,8 @@ def cornell():
 
 @pytest.mark.parametrize("rr,group,width", [
     pytest.param(True, 0, 2, id="True-0"), pytest.param(False, 0, 2, id="False-0"),
-    pytest.param(True, 1024, 2, id="True-1024"), pytest.param(True, 0, 4, id="True-0-width4")])
+    pytest.param(True, 1024, 2, id="True-1024"), pytest.param(True, 0, 4, id="True-0-width4"),
+    pytest.param(True, 0, 8, id="True-0-width8")])
 def test_bounce_plain_matches_pallas_trace_bounce(cornell, rr, group, width):
     scene = from_jax_arrays(cornell, device="cpu")
     tables = build_tables(scene, width=width)

@@ -13,7 +13,17 @@ torch CPU and XLA CPU may round a sum differently in the last ulp. So:
   two triangles may pick either one.)
 
 The port's own brute-force oracle is held to the same contract.
+
+Across BVH widths the plain walks must find exactly the same nearest t on
+every ray (the same float32 tests, another visiting order); which of two
+equal-t triangles wins may differ ("near-first order decides ties"). The
+wide walks order a node's children with the sorting networks of
+csrc/traverse.cuh, which must sort and must be the header's comparators.
 """
+
+import itertools
+import os
+import re
 
 import numpy as np
 import pytest
@@ -82,10 +92,11 @@ def check_against_oracle(jscene, origin, direction, active, hit, normal, mat):
 @pytest.mark.parametrize("name", ["cornell", "testtree", "grid"])
 @pytest.mark.parametrize("route,width", [pytest.param("k1_plain", 2, id="k1_plain"),
                                          pytest.param("k1_plain", 4, id="k1_plain-width4"),
+                                         pytest.param("k1_plain", 8, id="k1_plain-width8"),
                                          pytest.param("bruteforce", None, id="bruteforce")])
 def test_intersect_matches_jax_oracle(name, route, width):
-    """K1's plain version at both BVH widths (testtree's root is a leaf, so
-    its width-4 tables are the binary ones), and the port's brute force."""
+    """K1's plain version at every BVH width (testtree's root is a leaf, so
+    its wide tables are the binary ones), and the port's brute force."""
     jb, _ = builders(name)
     jscene = jb.build()
     scene = from_jax_arrays(jscene, device="cpu")
@@ -103,7 +114,7 @@ def test_intersect_matches_jax_oracle(name, route, width):
     check_against_oracle(jscene, origin, direction, active, hit, normal, mat)
 
 
-@pytest.mark.parametrize("width", [2, 4])
+@pytest.mark.parametrize("width", [2, 4, 8])
 def test_plain_counts_warp_steps(width):
     """intersect_plain's warp counts: 32 copies of one ray keep every lane
     of the warp busy (share 1), one live ray per warp keeps one lane in 32
@@ -114,7 +125,7 @@ def test_plain_counts_warp_steps(width):
     scene = from_jax_arrays(jb.build(), device="cpu")
     tables = build_tables(scene, width=width)
     origin, direction = (torch.as_tensor(x) for x in make_rays(scene, 64, seed=7))
-    nodes = "wide_inner" if width == 4 else "inner"
+    nodes = "wide_inner" if width > 2 else "inner"
     per_ray = []
     for layout in ("copies", "alone"):
         if layout == "copies":  # ray j repeated in lanes 32j .. 32j+31
@@ -131,3 +142,49 @@ def test_plain_counts_warp_steps(width):
         per_ray.append((int(counts[nodes]) // int(a.sum() // 64), int(counts["tri_tests"])
                         // int(a.sum() // 64)))
     assert per_ray[0] == per_ray[1]
+
+
+@pytest.mark.parametrize("name", ["cornell", "random", "grid"])
+def test_widths_find_the_same_nearest_t(name):
+    """The plain walks at widths 8, 4 and 2 give the same hit mask and the
+    same nearest t, bit for bit, on every ray; only an equal-t tie may pick
+    another triangle. The wide walks do less node work than the binary one."""
+    _, tb = builders(name)
+    scene = tb.build(device="cpu")
+    origin, direction = make_rays(scene, 2048, seed=8)
+    o, d = torch.as_tensor(origin), torch.as_tensor(direction)
+    a = torch.as_tensor(np.random.default_rng(9).uniform(size=len(o)) < 0.9)
+    hits, visits = {}, {}
+    for width in (2, 4, 8):
+        tables = build_tables(scene, leaf_size=4, max_depth=32, width=width)
+        assert tables.width == width
+        counts = {}
+        hits[width] = k1.intersect_plain(o, d, a, tables, counts=counts)
+        visits[width] = int(counts["wide_inner" if width > 2 else "inner"])
+    ref = hits[2].hit
+    assert int(ref.mask.sum()) > len(o) // 4
+    for width in (4, 8):
+        got = hits[width].hit
+        assert torch.equal(got.mask, ref.mask) and torch.equal(got.t, ref.t)
+        tie = got.tri != ref.tri
+        assert int(tie.sum()) <= len(o) // 100
+    assert visits[8] < visits[4] < visits[2]
+
+
+def test_sorting_networks_sort_and_match_the_kernel():
+    """Each wide width's network sorts every 0-1 input (so every input),
+    and it is the comparator list of csrc/traverse.cuh sort_children<W>."""
+    header = open(os.path.join(os.path.dirname(k1.__file__), "..", "csrc",
+                               "traverse.cuh")).read()
+    for w, net in k1.NETWORKS.items():
+        assert len(net) == {4: 5, 8: 19}[w]
+        for bits in itertools.product((0, 1), repeat=w):
+            x = list(bits)
+            for i, j in net:
+                if x[j] < x[i]:
+                    x[i], x[j] = x[j], x[i]
+            assert x == sorted(x)
+        body = header.split(f"sort_children<{w}>(Child* c, int* k) {{", 1)[1].split("}", 1)[0]
+        pairs = tuple((int(i), int(j)) for i, j in
+                      re.findall(r"order\(c\[(\d)\], k\[\d\], c\[(\d)\], k\[\d\]\)", body))
+        assert pairs == net

@@ -1,9 +1,10 @@
 """K1-K6 on the card against their plain PyTorch versions on the same CUDA
 tensors, with the contracts of tracy_tpu_torch/ops/compare.py (those of
-chip_smoke.py's kernel phase, at smaller sizes), K1 and K5 on the binary
-and the 4-wide BVH, K2, K4 and K5 at each counter hash, K4 (texel fetch +
-textured bounce, in place) on a ragged last block: K5 also against K1
-then K2 on the same lanes (equal), compacted and fused renders against
+chip_smoke.py's kernel phase, at smaller sizes), K1 and K5 on the binary,
+the 4-wide and the 8-wide BVH, K2, K4 and K5 at each counter hash, K2 (in
+place) equal to its plain version bit for bit with dead lanes untouched,
+K4 (texel fetch + textured bounce, in place) on a ragged last block: K5
+also against K1 then K2 on the same lanes (equal), compacted and fused renders against
 the uncompacted one (equal), each K6 variant against its plain version
 (equal). Marked `cuda`: without an NVIDIA GPU these tests skip. On a GPU
 machine without jax, where tests/conftest.py cannot load, run them with
@@ -41,7 +42,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("width", [2, 4])
+@pytest.mark.parametrize("width", [2, 4, 8])
 def test_intersect_kernel_matches_plain(cuda, width):
     scene = sphere_grid(64, 48, nsph=16, steps=16).build(device=cuda)
     tables = build_tables(scene, width=width)
@@ -60,9 +61,34 @@ def test_shade_kernel_matches_plain(cuda, rr, rng):
     compare.compare_shade(lanes, mtab, 3, 1, seed=0xABCDEF, russian_roulette=rr, rng=rng)
 
 
+@pytest.mark.parametrize("rng", ["fast", "xorshift", "lcg"])
+@pytest.mark.parametrize("rr", [True, False])
+def test_shade_kernel_updates_in_place(cuda, rr, rng):
+    """K2 on a ragged wave: the caller's tensors come back updated, equal
+    to the plain version's bit for bit; dead lanes keep every bit, miss
+    lanes all but radiance and alive."""
+    scene = load_scene(os.path.join(REPO, "data", "scenes", "default.scn")).build(device=cuda)
+    mtab = k2.build_material_table(scene.materials)
+    lanes = compare.canned_lanes(mtab.shape[0], 65537, seed=5, device=cuda)
+    kw = dict(seed=0xABCDEF, russian_roulette=rr, rng=rng)
+    args = compare.state_args(lanes, compare.SHADE_ARGS)
+    k2.COUNT.reset()
+    got = k2.shade(*args, mtab, 3, 1, **kw)
+    assert k2.COUNT.kernel == 1 and all(g is a for g, a in zip(got, args))
+    ref = k2.shade_plain(*compare.state_args(lanes, compare.SHADE_ARGS), mtab, 3, 1, **kw)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    old = [lanes[k] for k in compare.STATE]
+    dead, miss = ~old[4], old[4] & ~lanes["hit_mask"]
+    for g, o in zip(got, old):
+        assert torch.equal(g[dead], o[dead])
+    for g, o in zip(got[:3], old[:3]):
+        assert torch.equal(g[miss], o[miss])
+
+
 @pytest.mark.parametrize("setting", [{}, dict(accel="bvh", rng="xorshift"),
-                                     dict(accel="none", rng="lcg")],
-                         ids=["packet-fast", "bvh-xorshift", "none-lcg"])
+                                     dict(accel="none", rng="lcg"),
+                                     dict(pallas_bvh_width=8)],
+                         ids=["packet-fast", "bvh-xorshift", "none-lcg", "packet-width8"])
 def test_renderer_runs_on_the_kernels(cuda, setting):
     scene = sphere_grid(64, 48, nsph=4, steps=12).build(device=cuda)
     cfg = RenderConfig(width=64, height=48, spp=1, **setting)
@@ -148,7 +174,7 @@ def test_textured_renderer_runs_on_the_kernels(cuda):
 
 
 @pytest.mark.parametrize("rng", ["fast", "xorshift"])
-@pytest.mark.parametrize("width", [2, 4])
+@pytest.mark.parametrize("width", [2, 4, 8])
 @pytest.mark.parametrize("rr", [True, False])
 def test_bounce_kernel_matches_plain_and_two_stage(cuda, rr, width, rng):
     scene = sphere_grid(64, 48, nsph=16, steps=16).build(device=cuda)

@@ -20,7 +20,8 @@ from tracy_tpu.accel.bvh_build import build_bvh as j_build_bvh
 from tracy_tpu.scene import scn_parser as jscn
 from tracy_tpu_torch.accel.bvh_build import build_bvh, build_bvh_auto
 from tracy_tpu.ops.pallas_packet import _collapse4 as j_collapse4
-from tracy_tpu_torch.accel.tables import (BIG, KERNEL_STACK4_MAX, build_tables, collapse4,
+from tracy_tpu_torch.accel.tables import (BIG, KERNEL_STACK4_MAX, KERNEL_STACK8_MAX,
+                                          KERNEL_STACK_MAX, build_tables, collapse4,
                                           wide_lines)
 from tracy_tpu_torch.ops.intersect import check_tables
 from tracy_tpu_torch.scene import scn_parser as tscn
@@ -170,31 +171,41 @@ def test_textured_tags_load_or_list_fallbacks(tmp_path):
         assert np.isfinite(b.build(device="cpu").tex_data.numpy()).all()
 
 
-@pytest.mark.parametrize("name", ["cornell", "random", "grid"])
-def test_collapse4_equals_jax(name):
-    """The port's collapse4 gives tracy_tpu's _collapse4(width=4) arrays on
-    the same binary tree, bit for bit."""
+@pytest.mark.parametrize("name,width", [
+    pytest.param(n, w, id=n if w == 4 else f"{n}-width8")
+    for w in (4, 8) for n in ("cornell", "random", "grid")])
+def test_collapse4_equals_jax(name, width):
+    """The port's collapse4 gives tracy_tpu's _collapse4 arrays at widths 4
+    and 8 on the same binary tree, bit for bit."""
     _, tb = builders(name)
     s = tb.build(device="cpu")
     lo, hi = _tri_bounds(s.vertex_pos.numpy(), s.indices.numpy())
     host = build_bvh_auto(lo, hi, 4, 60)
-    got, ref = collapse4(host.node_bounds, host.node_meta), j_collapse4(
-        host.node_bounds, host.node_meta, 4)
+    got, ref = collapse4(host.node_bounds, host.node_meta, width), j_collapse4(
+        host.node_bounds, host.node_meta, width)
+    assert got[0].shape[1] == 6 * width and got[1].shape[1] == 2 * width
     np.testing.assert_array_equal(got[0], ref[0])
     np.testing.assert_array_equal(got[1], ref[1])
     assert got[2] == ref[2] > 1
+    if width == 8:  # some 8-wide node has fewer than 8 children
+        assert (got[1][:, 1::2] == -1).any()
 
 
-@pytest.mark.parametrize("name,leaf,depth", [("random", 8, 60), ("grid", 4, 6)])
-def test_wide_tables_reach_every_triangle(name, leaf, depth):
-    """The 4-wide lines reach every triangle exactly once, every child box
+@pytest.mark.parametrize("name,leaf,depth,width", [
+    pytest.param("random", 8, 60, 4, id="random-8-60"),
+    pytest.param("grid", 4, 6, 4, id="grid-4-6"),
+    pytest.param("random", 8, 60, 8, id="random-8-60-width8"),
+    pytest.param("grid", 4, 6, 8, id="grid-4-6-width8")])
+def test_wide_tables_reach_every_triangle(name, leaf, depth, width):
+    """The wide rows reach every triangle exactly once, every child box
     contains its subtree's triangles, empty slots are never-hit boxes with
-    count -1, the lines are the binary tree's boxes and leaves, and the
-    stack bound is (W - 1) * depth4 + 1 within the kernel's stack."""
+    count -1, the rows are the binary tree's boxes and leaves, and the
+    stack bound is (W - 1) * depthW + 1 within the kernel's stack."""
     _, tb = builders(name)
     s = tb.build(device="cpu")
-    tab = build_tables(s, leaf_size=leaf, max_depth=depth, width=4)
-    assert tab.width == 4 and tab.wide.shape[1] == 32
+    tab = build_tables(s, leaf_size=leaf, max_depth=depth, width=width)
+    w = width
+    assert tab.width == w and tab.wide.shape[1] == 8 * w
     line = tab.wide.numpy()
     bits = line.view(np.int32)
     pos, idx = s.vertex_pos.numpy(), s.indices.numpy()
@@ -207,9 +218,9 @@ def test_wide_tables_reach_every_triangle(name, leaf, depth):
         nonlocal deepest
         deepest = max(deepest, depth4)
         tris = []
-        for k in range(4):
-            ref, count = bits[row, 24 + k], bits[row, 28 + k]
-            box_lo, box_hi = line[row, k:24:8], line[row, 4 + k:24:8]
+        for k in range(w):
+            ref, count = bits[row, 6 * w + k], bits[row, 7 * w + k]
+            box_lo, box_hi = line[row, k:6 * w:2 * w], line[row, w + k:6 * w:2 * w]
             if count < 0:
                 assert (box_lo == BIG).all() and (box_hi == -BIG).all()
                 continue
@@ -225,8 +236,21 @@ def test_wide_tables_reach_every_triangle(name, leaf, depth):
 
     walk(0, 1)
     assert (seen == 1).all()
-    assert deepest == tab.depth4 <= (tab.max_depth - 1) // 2 + 1
-    assert tab.stack_size == 3 * tab.depth4 + 1 <= KERNEL_STACK4_MAX
+    levels = 2 if w == 4 else 3  # binary levels between a wide node and its inner children
+    assert deepest == tab.depth4 <= (tab.max_depth - 1) // levels + 1
+    assert tab.stack_size == (w - 1) * tab.depth4 + 1 <= tab.stack_max
+
+
+def chain_tree(depth):
+    """A binary chain `depth` levels deep: inner node i (row 2i, depth i)
+    has a leaf left child (row 2i+1) and inner node i+1 right; the last
+    right child is a leaf at depth `depth`. Returns (bounds, meta)."""
+    meta = np.zeros((2 * depth + 1, 3), np.int32)
+    for i in range(depth):
+        meta[2 * i] = (2 * i + 1, 0, 2 * i + 2)
+        meta[2 * i + 1] = (i, 1, -1)
+    meta[2 * depth] = (depth, 1, -1)
+    return np.tile(np.array([0, 0, 0, 1, 1, 1], np.float32), (len(meta), 1)), meta
 
 
 def test_wide_stack_bound_at_the_depth_cap():
@@ -234,15 +258,7 @@ def test_wide_stack_bound_at_the_depth_cap():
     stack allows (63) collapses to depth4 30 and 32: stacks of 91 and 97
     entries, which the kernel's stack holds; one more level is refused."""
     for depth, want4 in ((60, 30), (63, 32)):
-        # inner node i (row 2i, depth i) has a leaf left child (row 2i+1)
-        # and inner node i+1 right; the last right child is a leaf at depth
-        # `depth`.
-        meta = np.zeros((2 * depth + 1, 3), np.int32)
-        for i in range(depth):
-            meta[2 * i] = (2 * i + 1, 0, 2 * i + 2)
-            meta[2 * i + 1] = (i, 1, -1)
-        meta[2 * depth] = (depth, 1, -1)
-        nb = np.tile(np.array([0, 0, 0, 1, 1, 1], np.float32), (len(meta), 1))
+        nb, meta = chain_tree(depth)
         b4, m4, depth4 = collapse4(nb, meta)
         assert depth4 == want4 == j_collapse4(nb, meta, 4)[2]
         assert 3 * depth4 + 1 <= KERNEL_STACK4_MAX
@@ -254,6 +270,29 @@ def test_wide_stack_bound_at_the_depth_cap():
         check_tables(tab, torch.device("cpu"))
 
 
+def test_wide8_stack_bound_at_the_depth_cap():
+    """At width 8 each wide level covers three binary levels, so a chain as
+    deep as the BVH build's cap (60) and as the binary stack allows (63)
+    collapses to depth8 20 and 21: stacks of 141 and 148 entries, which the
+    kernel's stack holds exactly; one more level is refused with a
+    message, never walked with a cut stack."""
+    assert KERNEL_STACK_MAX - 1 == 63
+    for depth, want8 in ((60, 20), (63, 21)):
+        nb, meta = chain_tree(depth)
+        b8, m8, depth8 = collapse4(nb, meta, 8)
+        assert depth8 == want8 == j_collapse4(nb, meta, 8)[2]
+        assert 7 * depth8 + 1 <= KERNEL_STACK8_MAX
+        rows = wide_lines(b8, m8, meta)
+        assert rows.shape == (len(b8), 64)
+        assert (rows.view(np.int32)[:, 56:64] >= -1).all()
+    assert KERNEL_STACK8_MAX == 7 * 21 + 1
+    tab = build_tables(builders("cornell")[1].build(device="cpu"), width=8)
+    assert tab.width == 8 and tab.stack_size <= tab.stack_max == KERNEL_STACK8_MAX
+    tab.depth4 = (KERNEL_STACK8_MAX - 1) // 7 + 1
+    with pytest.raises(ValueError, match="148"):
+        check_tables(tab, torch.device("cpu"))
+
+
 def test_root_leaf_gives_binary_tables():
     """When the root is a leaf there is nothing to collapse: the tables are
     the binary ones and say so (width 2), as tracy_tpu's build_tables
@@ -262,9 +301,10 @@ def test_root_leaf_gives_binary_tables():
 
     _, tb = builders("testtree")
     s = tb.build(device="cpu")
-    tab = build_tables(s, leaf_size=8, width=4)
-    assert tab.node_meta[0, 1] > 0
-    assert tab.width == 2 and tab.wide is None and tab.depth4 == 0
+    for width in (8, 4):
+        tab = build_tables(s, leaf_size=8, width=width)
+        assert tab.node_meta[0, 1] > 0
+        assert tab.width == 2 and tab.wide is None and tab.depth4 == 0
     assert collapse4(tab.node_bounds.numpy(), tab.node_meta.numpy()) is None
     assert j_collapse4(tab.node_bounds.numpy(), tab.node_meta.numpy(), 4) is None
     o = torch.zeros((1, 3))

@@ -20,8 +20,11 @@ XLA path is the reference for the other kinds).
   Renderer(accel='bvh', use_pallas=False) at the same rng, under
   tests/test_torch_render.py's contract (mean 1e-3, p95 5e-3, max 0.05 in
   linear radiance; rays within 0.1%);
-* the textured shade stage (K4) updates its state in place: trace_paths
-  works on copies, so the caller's rays and mask are left as they were.
+* the shade stages (K2 and K4) update their state in place: trace_paths
+  works on copies, so the caller's rays and mask are left as they were;
+* a render at pallas_bvh_width=8 (K1's plain version on the 8-wide tree)
+  against tracy_tpu's Renderer at pallas_bvh_width=8 (its XLA path on the
+  CPU), under the same block-mean contract.
 """
 
 import os
@@ -125,10 +128,14 @@ def test_bounce_plain_rng_kinds_equal_k1_then_k2(cornell, kind):
     got = k5.trace_bounce(o, d, thr, rad, a, pix, 3, 1, tables=tables, mtab=mtab, rng=kind,
                           **kw)
     sh = k1.intersect_plain(o, d, a, tables)
-    want = k2.shade(o, d, thr, rad, a, pix, sh.hit.mask, sh.hit.t, sh.normal, sh.material,
+
+    def state():  # K2 updates the state in place: each call gets a copy
+        return (x.clone() for x in (o, d, thr, rad, a))
+
+    want = k2.shade(*state(), pix, sh.hit.mask, sh.hit.t, sh.normal, sh.material,
                     mtab, 3, 1, rng=kind, **kw)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    fast = k2.shade(o, d, thr, rad, a, pix, sh.hit.mask, sh.hit.t, sh.normal, sh.material,
+    fast = k2.shade(*state(), pix, sh.hit.mask, sh.hit.t, sh.normal, sh.material,
                     mtab, 3, 1, **kw)
     assert not torch.equal(fast[1], got[1])
 
@@ -186,3 +193,48 @@ def test_textured_trace_paths_leaves_the_callers_tensors(cornell):
     assert int(rays) > 512 and (radiance > 0).any()
     for x, y in zip((o, d, active), keep):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("group", [0, 1024])
+def test_trace_paths_leaves_the_callers_tensors(cornell, group):
+    """The untextured shade stage (K2) updates the state in place too, with
+    and without compaction: the caller's rays and mask stay as they were,
+    and the radiance equals a run on copies of them."""
+    from tracy_tpu_torch.accel.reorder import compact_intersector
+
+    _, scene = cornell
+    cfg = RenderConfig(width=32, height=32, spp=1, max_bounces=3)
+    tables = build_tables(scene, width=4)
+    origin, direction = make_rays(scene, 1024, seed=27)
+    o, d = torch.as_tensor(origin), torch.as_tensor(direction)
+    active = torch.as_tensor(np.random.default_rng(28).uniform(size=1024) < 0.9)
+    pix = torch.arange(1024, dtype=torch.int32)
+    keep = [x.clone() for x in (o, d, active, pix)]
+
+    def isect(o_, d_, a_):
+        return k1.intersect(o_, d_, a_, tables)
+
+    fn = compact_intersector(isect, group) if group else isect
+    before = k2.COUNT.plain
+    radiance, rays = trace_paths(scene, o, d, pix, 1, cfg, fn, active0=active)
+    assert k2.COUNT.plain == before + cfg.max_bounces
+    assert int(rays) > 1024 and (radiance > 0).any()
+    for x, y in zip((o, d, active, pix), keep):
+        assert torch.equal(x, y)
+    again, _ = trace_paths(scene, *(x.clone() for x in (o, d)), pix, 1, cfg, fn,
+                           active0=active.clone())
+    assert torch.equal(again, radiance)
+
+
+def test_width8_render_matches_jax(cornell):
+    js, scene = cornell
+    cfg = RenderConfig(width=32, height=32, spp=1, pallas_bvh_width=8)
+    r = Renderer(cfg)
+    before = k1.COUNT.plain
+    st, rays = r.step_many(scene, init_state(cfg, "cpu"), 2)
+    assert r.tables.width == 8 and r.tables.wide.shape[1] == 64
+    assert k1.COUNT.plain == before + 2 * cfg.max_bounces
+    jcfg = JConfig(width=32, height=32, spp=1, accel="packet", pallas_bvh_width=8)
+    jr = JRenderer(jcfg)
+    jst, _ = jr.step_many(js, j_init_state(jcfg), 2)
+    assert_images_agree(st.accum.numpy(), rays, np.asarray(jst.accum), jr.total_rays)

@@ -10,6 +10,13 @@ ulp can flip one now and then:
 
 * lanes whose `alive` or lobe differ: at most 0.1%;
 * every float of every other lane: rtol 1e-5, atol 1e-6.
+
+K2 updates its state in place, and so does its plain version: a dead lane
+keeps every bit of its state, a miss lane changes only radiance and alive,
+and the state after the call equals, bit for bit, the next state the
+bounce computes into fresh tensors (ops/shade.py::_bounce_plain, what K2
+returned before it worked in place), at each counter hash, Russian
+roulette on and off.
 """
 
 import os
@@ -49,7 +56,7 @@ def test_shade_plain_matches_shade_packets(rr):
     num_m = int(np.asarray(jscene.materials.albedo).shape[0])
     assert (np.asarray(jscene.materials.translucent) > 0).any()  # glass present
     t = canned_lanes(num_m, 2048, seed=7, device="cpu")
-    lanes = {k: v.numpy() for k, v in t.items()}
+    lanes = {k: v.numpy().copy() for k, v in t.items()}  # K2 updates t in place
     skey, bounce = 5, 2
 
     j = {k: jnp.asarray(v) for k, v in lanes.items()}
@@ -78,6 +85,34 @@ def test_shade_plain_matches_shade_packets(rr):
     assert not got[4][~lanes["alive"] | ~lanes["hit_mask"]].any()
     if not rr:
         np.testing.assert_array_equal(got[4], lanes["alive"] & lanes["hit_mask"])
+
+
+@pytest.mark.parametrize("rng", ["fast", "xorshift", "lcg"])
+@pytest.mark.parametrize("rr", [True, False])
+def test_shade_updates_the_state_in_place(rr, rng):
+    mtab = k2.build_material_table(from_jax_arrays(
+        j_load_scene(os.path.join(REPO, "data", "scenes", "default.scn")).build(),
+        device="cpu").materials)
+    t = canned_lanes(mtab.shape[0], 2048, seed=9, device="cpu")
+    state = [t[k] for k in ("origin", "direction", "throughput", "radiance", "alive")]
+    old = [x.clone() for x in state]
+    hit_rec = (t["pixel_idx"], t["hit_mask"], t["t"], t["normal"], t["mat_id"])
+    kw = dict(seed=SEED, russian_roulette=rr, rng=rng)
+    fresh = k2._bounce_plain(*old, t["pixel_idx"], t["hit_mask"], t["t"],
+                             k2._params(k2._material_rows(mtab, t["mat_id"]), t["normal"]),
+                             mtab[0, 6:9], 5, 2, SEED, rr, rng)
+    got = k2.shade(*state, *hit_rec, mtab, 5, 2, **kw)
+    assert all(g is x for g, x in zip(got, state))  # the caller's tensors, updated
+    for g, f in zip(got, fresh):
+        assert torch.equal(g, f)
+    dead = ~old[4]
+    miss = old[4] & ~t["hit_mask"]
+    assert dead.sum() > 100 and miss.sum() > 100
+    for g, o in zip(got, old):
+        assert torch.equal(g[dead], o[dead])
+    for g, o in zip(got[:3], old[:3]):  # origin, direction, throughput
+        assert torch.equal(g[miss], o[miss])
+    assert not (got[3][miss] == old[3][miss]).all() and not got[4][miss].any()
 
 
 def test_material_table_lookup_matches():

@@ -140,23 +140,24 @@ def test_render_config_defaults_match():
 
 
 def test_bvh_width_is_validated_and_bound():
-    """pallas_bvh_width defaults to tracy_tpu's 4, takes 2, refuses 8 (not
-    ported: the error points at ROADMAP.md) and anything else, and the
-    Renderer builds its tables at that width."""
+    """pallas_bvh_width defaults to tracy_tpu's 4, takes 2 and 8, as
+    tracy_tpu does, refuses anything else, and the Renderer builds its
+    tables at that width."""
     from tracy_tpu_torch.config import RenderConfig
     from tracy_tpu_torch.render.renderer import Renderer
 
     assert RenderConfig().pallas_bvh_width == 4
-    with pytest.raises(ValueError, match="ROADMAP"):
-        RenderConfig(pallas_bvh_width=8)
-    with pytest.raises(ValueError, match="2 or 4"):
-        RenderConfig(pallas_bvh_width=3)
+    for bad in (3, 16):
+        with pytest.raises(ValueError, match="2, 4 or 8"):
+            RenderConfig(pallas_bvh_width=bad)
     scene = tscn.load_scene(os.path.join(REPO, "tests", "goldens", "scn",
                                          "cornell.scn")).build(device="cpu")
-    for width in (2, 4):
+    for width in (2, 4, 8):
         r = Renderer(RenderConfig(width=32, height=32, pallas_bvh_width=width))
         r.prepare(scene)
         assert r.tables.width == width and (r.tables.wide is None) == (width == 2)
+        if width > 2:
+            assert r.tables.wide.shape[1] == 8 * width
 
 
 def test_default_device_is_the_card():

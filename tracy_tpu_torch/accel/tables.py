@@ -4,8 +4,8 @@ The port's counterpart of tracy_tpu/accel/packet.py::pack_bvh and
 ops/pallas_packet.py::build_tables. The TPU tables realign leaves into
 128-slot chunks and pack Woop rows for one DMA per leaf visit; a GPU thread
 traverses its own ray and gathers freely, so the port keeps the builder's
-binary tree as it is, and at width 4 (RenderConfig.pallas_bvh_width, as
-tracy_tpu's) adds a 4-wide tree collapsed from it:
+binary tree as it is, and at width 4 or 8 (RenderConfig.pallas_bvh_width,
+as tracy_tpu's) adds a wide tree collapsed from it:
 
   node_bounds [Nn, 8] f32   (min xyz, 0, max xyz, 0): two float4 loads
   node_meta   [Nn, 4] i32   leaf: (first_slot, count, -1, 0)
@@ -17,28 +17,33 @@ tracy_tpu's) adds a 4-wide tree collapsed from it:
   vertex_uv     [V, 2] f32  texture uv, or None: only when some non-sky
                             material is textured (pallas_packet.py:448)
   vertex_tangent [V, 3] f32 tangent, or None: only with uv and a normal map
-  wide [N4, 32] f32         width 4 only: one 128-byte line per 4-wide node,
-                            read by the kernel as 8 float4s:
-                              0-23  child boxes by axis: lo.x[4] hi.x[4]
-                                    lo.y[4] hi.y[4] lo.z[4] hi.z[4]
-                              24-27 child references (int bits): an inner
-                                    child's wide row, or ~first_slot of a
-                                    leaf child
-                              28-31 child triangle counts (int bits): > 0
-                                    leaf, 0 inner, -1 empty slot (its box
-                                    is never-hit, lo = +BIG, hi = -BIG, but
-                                    the min/max slab test hits inverted
-                                    boxes, so the count masks it)
+  wide [NW, 8W] f32         width 4 or 8: one node per row, W children,
+                            read by the kernel as 2W float4s (width 4: one
+                            128-byte line, 8 float4s; width 8: two
+                            lines, 16 float4s):
+                              0-6W-1  child boxes by axis: lo.x[W] hi.x[W]
+                                      lo.y[W] hi.y[W] lo.z[W] hi.z[W]
+                              6W-7W-1 child references (int bits): an
+                                      inner child's wide row, or
+                                      ~first_slot of a leaf child
+                              7W-8W-1 child triangle counts (int bits):
+                                      > 0 leaf, 0 inner, -1 empty slot
+                                      (its box is never-hit, lo = +BIG,
+                                      hi = -BIG, but the min/max slab test
+                                      hits inverted boxes, so the count
+                                      masks it)
 
-The 4-wide tree is tracy_tpu's _collapse4 (ops/pallas_packet.py:232): each
-binary child of a kept inner node stays if it is a leaf, otherwise its two
-children take its place. Its leaves are the binary leaves, so the slot
-tables serve both widths. A leaf holds any number of triangles (the
-builder's depth cap can leave more than leaf_size), so no triangle is ever
-dropped. The binary traversal's stack holds at most one entry per tree
-level (max_depth + 1); the 4-wide one at most three per wide level,
-(W - 1) * depth4 + 1. Both are sized from the real depth, and the kernel
-refuses a tree deeper than its fixed stack.
+The wide tree is tracy_tpu's _collapse4 (ops/pallas_packet.py:232): each
+kept inner node's child list starts as its two binary children, and each
+round of the collapse (one at width 4, two at width 8) replaces every inner
+child by its two children, leaves staying. A wide node may thus have fewer
+than W children; its empty slots are the masked ones above. Its leaves are
+the binary leaves, so the slot tables serve every width. A leaf holds any
+number of triangles (the BVH build's depth cap can leave more than
+leaf_size), so no triangle is ever dropped. The binary traversal's stack
+holds at most one entry per tree level (max_depth + 1); the W-wide one at
+most W - 1 per wide level, (W - 1) * depthW + 1. Both are sized from the
+real depth, and the kernel refuses a tree deeper than its fixed stack.
 """
 
 from __future__ import annotations
@@ -54,13 +59,17 @@ from tracy_tpu_torch.render.material import scene_has_textures
 from tracy_tpu_torch.scene.scene import TEX_NORMAL
 
 # Entries of the kernel's per-thread stacks (csrc/traverse.cuh STACK_MAX,
-# STACK4_MAX). Wide inner nodes sit at even binary depths, so a binary tree
-# of depth D has depth4 <= (D - 1) // 2 + 1: the binary stack's limit,
-# D = 63, gives depth4 32 and 97 entries (the builder's default cap, 60,
-# gives 91).
+# STACK4_MAX, STACK8_MAX). The binary stack holds max_depth + 1 <= 64
+# entries, so a table's binary depth D is at most 63. A wide node's inner
+# children sit two binary levels below it at width 4 and three at width 8
+# (one and two rounds of the collapse, each expanding every inner child),
+# so depthW <= (D - 1) // r + 1 with r = 2 or 3: D = 63 gives depth4 32
+# and 97 entries (the default depth cap of the BVH build, 60, gives 91),
+# and depth8 21 and 7 * 21 + 1 = 148 entries (D = 60: 141).
 KERNEL_STACK_MAX = 64
 KERNEL_STACK4_MAX = 97
-WIDTHS = (2, 4)
+KERNEL_STACK8_MAX = 148
+WIDTHS = (2, 4, 8)
 BIG = np.float32(3.4028235e38)  # tracy_tpu/ops/pallas_packet.py BIG
 
 
@@ -75,23 +84,23 @@ class BVHTables:
     max_depth: int  # deepest node (root = 0)
     vertex_uv: Optional[torch.Tensor] = None
     vertex_tangent: Optional[torch.Tensor] = None
-    width: int = 2  # the tree K1 and K5 walk: 2 (binary) or 4 (`wide`)
-    wide: Optional[torch.Tensor] = None  # [N4, 32], width 4 only
-    depth4: int = 0  # deepest chain of 4-wide inner nodes (root = 1)
+    width: int = 2  # the tree K1 and K5 walk: 2 (binary), 4 or 8 (`wide`)
+    wide: Optional[torch.Tensor] = None  # [NW, 8 * width], widths 4 and 8
+    depth4: int = 0  # deepest chain of wide inner nodes (root = 1), any width
 
     @property
     def stack_size(self) -> int:
         """Entries the near-first traversal can hold: at width 2 one pushed
         far child per level above the deepest node, plus one spare; at
-        width 4 up to three pushed children per wide level, plus one."""
-        if self.width == 4:
-            return 3 * self.depth4 + 1
+        width W > 2 up to W - 1 pushed children per wide level, plus one."""
+        if self.width > 2:
+            return (self.width - 1) * self.depth4 + 1
         return self.max_depth + 1
 
     @property
     def stack_max(self) -> int:
         """Entries of the kernel's fixed stack at this width."""
-        return KERNEL_STACK4_MAX if self.width == 4 else KERNEL_STACK_MAX
+        return {2: KERNEL_STACK_MAX, 4: KERNEL_STACK4_MAX, 8: KERNEL_STACK8_MAX}[self.width]
 
     def binary(self) -> "BVHTables":
         """The same tables walked as the binary tree (width 2)."""
@@ -116,39 +125,42 @@ def attribute_flags(scene):
     return has_uv, has_uv and bool((tex_idx[:, TEX_NORMAL] >= 0).any())
 
 
-def collapse4(nb: np.ndarray, meta: np.ndarray):
+def collapse4(nb: np.ndarray, meta: np.ndarray, width: int = 4):
     """The binary BVH (node bounds [N, >=6] min xyz max xyz; meta [N, >=3]
-    leaf (first, count > 0, .), inner (left, 0, right)) collapsed to width
-    4, as tracy_tpu/ops/pallas_packet.py::_collapse4(width=4) does it.
+    leaf (first, count > 0, .), inner (left, 0, right)) collapsed to
+    `width` (4 or 8), as tracy_tpu/ops/pallas_packet.py::_collapse4 does it.
 
-    Each kept binary inner node becomes a 4-wide node whose child slots
-    are, in order, each binary child if it is a leaf, otherwise that
-    child's two children; the wide nodes are numbered in the order a
-    depth-first walk (last pushed first) discovers them. Returns
-    (bounds [N4, 24] f32: per slot lo xyz hi xyz; meta [N4, 8] i32: per
-    slot (value, tag), tag 1 a leaf child (value its binary node), 0 an
-    inner child (value its wide row), -1 an empty slot (never-hit box,
-    value 0); depth4, the deepest chain of wide inner nodes, root = 1),
-    or None when the root is a leaf (nothing to collapse)."""
+    Each kept binary inner node becomes a wide node whose child slots are
+    its two binary children after log2(width) - 1 rounds, each of which
+    replaces every inner child by its two children (leaves stay); the wide
+    nodes are numbered in the order a depth-first walk (last pushed first)
+    discovers them. Returns (bounds [NW, 6 * width] f32: per slot lo xyz hi
+    xyz; meta [NW, 2 * width] i32: per slot (value, tag), tag 1 a leaf
+    child (value its binary node), 0 an inner child (value its wide row),
+    -1 an empty slot (never-hit box, value 0); depthW, the deepest chain of
+    wide inner nodes, root = 1), or None when the root is a leaf (nothing
+    to collapse)."""
     if meta[0, 1] > 0:
         return None
 
     def is_leaf(c):
         return meta[c, 1] > 0
 
-    rows_b = [np.zeros(24, np.float32)]
-    rows_m = [np.zeros(8, np.int32)]
+    rows_b = [np.zeros(6 * width, np.float32)]
+    rows_m = [np.zeros(2 * width, np.int32)]
     idmap = {0: 0}
     depth = {0: 1}
-    depth4 = 1
+    depth_w = 1
     stack = [0]
     while stack:
         n = stack.pop()
-        kids = [g for c in (int(meta[n, 0]), int(meta[n, 2]))
-                for g in ([c] if is_leaf(c) else [int(meta[c, 0]), int(meta[c, 2])])]
-        brow = np.empty(24, np.float32)
-        mrow = np.empty(8, np.int32)
-        for k in range(4):
+        kids = [int(meta[n, 0]), int(meta[n, 2])]
+        for _ in range(width.bit_length() - 2):
+            kids = [g for c in kids
+                    for g in ([c] if is_leaf(c) else [int(meta[c, 0]), int(meta[c, 2])])]
+        brow = np.empty(6 * width, np.float32)
+        mrow = np.empty(2 * width, np.int32)
+        for k in range(width):
             if k < len(kids):
                 b = kids[k]
                 brow[6 * k:6 * k + 6] = nb[b, 0:6]
@@ -160,7 +172,7 @@ def collapse4(nb: np.ndarray, meta: np.ndarray):
                         rows_b.append(None)
                         rows_m.append(None)
                         depth[b] = depth[n] + 1
-                        depth4 = max(depth4, depth[b])
+                        depth_w = max(depth_w, depth[b])
                         stack.append(b)
                     mrow[2 * k], mrow[2 * k + 1] = idmap[b], 0
             else:
@@ -169,32 +181,32 @@ def collapse4(nb: np.ndarray, meta: np.ndarray):
                 mrow[2 * k], mrow[2 * k + 1] = 0, -1
         rows_b[idmap[n]] = brow
         rows_m[idmap[n]] = mrow
-    return np.stack(rows_b), np.stack(rows_m), depth4
+    return np.stack(rows_b), np.stack(rows_m), depth_w
 
 
-def wide_lines(bounds4: np.ndarray, meta4: np.ndarray, meta: np.ndarray) -> np.ndarray:
-    """collapse4's tables as the kernel's [N4, 32] lines (module docstring):
+def wide_lines(bounds_w: np.ndarray, meta_w: np.ndarray, meta: np.ndarray) -> np.ndarray:
+    """collapse4's tables as the kernel's [NW, 8W] rows (module docstring):
     boxes by axis, then references and triangle counts as int bits."""
-    n4 = bounds4.shape[0]
-    box = bounds4.reshape(n4, 4, 6)  # [node, slot, lo xyz hi xyz]
-    val, tag = meta4[:, 0::2], meta4[:, 1::2]
+    nw, width = bounds_w.shape[0], meta_w.shape[1] // 2
+    box = bounds_w.reshape(nw, width, 6)  # [node, slot, lo xyz hi xyz]
+    val, tag = meta_w[:, 0::2], meta_w[:, 1::2]
     leaf = tag == 1
     first, count = meta[val, 0], meta[val, 1]
     ref = np.where(leaf, ~first, np.where(tag == 0, val, 0)).astype(np.int32)
     cnt = np.where(leaf, count, np.where(tag == 0, 0, -1)).astype(np.int32)
-    out = np.empty((n4, 32), np.float32)
+    out = np.empty((nw, 8 * width), np.float32)
     for a in range(3):  # x, y, z
-        out[:, 8 * a:8 * a + 4] = box[:, :, a]
-        out[:, 8 * a + 4:8 * a + 8] = box[:, :, 3 + a]
-    out[:, 24:28] = ref.view(np.float32)
-    out[:, 28:32] = cnt.view(np.float32)
+        out[:, 2 * a * width:(2 * a + 1) * width] = box[:, :, a]
+        out[:, (2 * a + 1) * width:(2 * a + 2) * width] = box[:, :, 3 + a]
+    out[:, 6 * width:7 * width] = ref.view(np.float32)
+    out[:, 7 * width:8 * width] = cnt.view(np.float32)
     return out
 
 
 def build_tables(scene, leaf_size: int = 8, max_depth: int = 60, width: int = 4) -> BVHTables:
     """Build the BVH on the host and upload the tables to scene's device.
 
-    width 4 (RenderConfig.pallas_bvh_width's default) adds the 4-wide
+    width 4 (RenderConfig.pallas_bvh_width's default) or 8 adds the wide
     tree; when the root is a leaf there is nothing to collapse, and the
     tables are the binary ones (width 2), as in tracy_tpu
     (pallas_packet.py:497-500)."""
@@ -233,12 +245,12 @@ def build_tables(scene, leaf_size: int = 8, max_depth: int = 60, width: int = 4)
 
     dev = scene.device
     wide, depth4 = None, 0
-    four = collapse4(host.node_bounds, host.node_meta) if width == 4 else None
-    if four is None:
+    tree = collapse4(host.node_bounds, host.node_meta, width) if width > 2 else None
+    if tree is None:
         width = 2
     else:
-        wide = torch.as_tensor(wide_lines(four[0], four[1], host.node_meta), device=dev)
-        depth4 = four[2]
+        wide = torch.as_tensor(wide_lines(tree[0], tree[1], host.node_meta), device=dev)
+        depth4 = tree[2]
     has_uv, with_tangent = attribute_flags(scene)
     return BVHTables(
         node_bounds=torch.as_tensor(nb, device=dev),

@@ -71,16 +71,13 @@ class RenderConfig:
     wave_compact_group: int = 0
     wave_compact_skip_first: bool = True  # bounce 0 (all live) uncompacted
     use_pallas_bounce: bool = False  # fused bounce K5 on untextured scenes
-    # The BVH K1 and K5 walk: 4-wide (accel/tables.py's collapsed tree) or
-    # binary (2). tracy_tpu's 8 is not ported yet (ROADMAP.md, queue 2 #1).
+    # The BVH K1 and K5 walk: 4- or 8-wide (accel/tables.py's collapsed
+    # trees) or binary (2), as tracy_tpu's (config.py:346-347).
     pallas_bvh_width: int = 4
 
     def __post_init__(self):
-        if self.pallas_bvh_width == 8:
-            raise ValueError("pallas_bvh_width=8: the 8-wide BVH is not ported yet "
-                             "(ROADMAP.md, queue 2 #1); use 4 or 2")
-        if self.pallas_bvh_width not in (2, 4):
-            raise ValueError(f"pallas_bvh_width must be 2 or 4, got {self.pallas_bvh_width}")
+        if self.pallas_bvh_width not in (2, 4, 8):
+            raise ValueError(f"pallas_bvh_width must be 2, 4 or 8, got {self.pallas_bvh_width}")
         if self.tonemap not in TONEMAPS:
             raise ValueError(f"unknown tonemap {self.tonemap!r}; pick one of {TONEMAPS}")
         if self.aov not in AOVS:

@@ -3,8 +3,8 @@
 // Replaces tracy_tpu/ops/pallas_packet.py::pallas_trace_bounce (its
 // `_kernel` run with `shade=`): the TPU's fused bounce megakernel, K1 and K2
 // in one kernel so that the hit record never goes to memory. Here a live
-// lane runs K1's traversal (tracy::traverse4 on the 4-wide tree, the
-// default, or tracy::traverse on the binary one; traverse.cuh), interpolates
+// lane runs K1's traversal (tracy::traverse_bvh<W>: the 4-wide tree, the
+// default, the 8-wide or the binary one; traverse.cuh), interpolates
 // the winner's normal and reads its material, and runs K2's bounce
 // (tracy::shade_miss / tracy::shade_hit, shade_lane.cuh), all in registers.
 // It writes only the next state (origin, direction, throughput, radiance,
@@ -29,7 +29,7 @@ namespace {
 
 constexpr int BLOCK = 128;
 
-template <bool WIDE>
+template <int W>
 __global__ void __launch_bounds__(BLOCK) bounce_kernel(
     const float* __restrict__ orig, const float* __restrict__ dir,
     const float* __restrict__ thr_in, const float* __restrict__ rad_in,
@@ -55,13 +55,8 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(
   if (alive_in[i]) {
     float best_t = FLT_MAX, bu = 0.0f, bv = 0.0f;
     int best = -1;
-    if constexpr (WIDE) {
-      tracy::traverse4(wide, tri, o[0], o[1], o[2], d[0], d[1], d[2], &best_t,
-                       &best, &bu, &bv);
-    } else {
-      tracy::traverse(nb, nm, tri, o[0], o[1], o[2], d[0], d[1], d[2],
-                      &best_t, &best, &bu, &bv);
-    }
+    tracy::traverse_bvh<W>(nb, nm, wide, tri, o[0], o[1], o[2], d[0], d[1],
+                           d[2], &best_t, &best, &bu, &bv);
     if (best < 0) {
       tracy::shade_miss<false>(rad, thr, mtab, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
     } else {
@@ -83,7 +78,7 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(
   alive_out[i] = alive;
 }
 
-template <bool WIDE>
+template <int W>
 void launch(const float* orig, const float* dir, const float* thr,
             const float* rad, const bool* alive, const int* pix, int n,
             const float* nb, const int* nm, const float* wide, const float* tri,
@@ -92,7 +87,7 @@ void launch(const float* orig, const float* dir, const float* thr,
             uint32_t seed, int russian_roulette, int rng, float* o_out,
             float* d_out, float* thr_out, float* rad_out, bool* alive_out,
             cudaStream_t stream) {
-  bounce_kernel<WIDE><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
+  bounce_kernel<W><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
       orig, dir, thr, rad, alive, pix, n, reinterpret_cast<const float4*>(nb),
       reinterpret_cast<const int4*>(nm), reinterpret_cast<const float4*>(wide),
       reinterpret_cast<const float4*>(tri),
@@ -103,10 +98,10 @@ void launch(const float* orig, const float* dir, const float* thr,
 
 }  // namespace
 
-// width 2 walks nb/nm (the binary tree), width 4 walks `wide` (the 4-wide
-// lines), which must then not be null: as tracy_intersect. vuv and vtan are
-// the tables' texture uv and tangent: K5 is untextured and refuses them
-// when they are not null. rng: the counter hash (tracy::RNG_*).
+// width 2 walks nb/nm (the binary tree), width 4 or 8 walks `wide` (the
+// wide rows), which must then not be null: as tracy_intersect. vuv and
+// vtan are the tables' texture uv and tangent: K5 is untextured and refuses
+// them when they are not null. rng: the counter hash (tracy::RNG_*).
 extern "C" int tracy_bounce(const float* orig, const float* dir,
                             const float* thr, const float* rad,
                             const bool* alive, const int* pix, int n,
@@ -119,22 +114,28 @@ extern "C" int tracy_bounce(const float* orig, const float* dir,
                             int russian_roulette, int rng, float* o_out, float* d_out,
                             float* thr_out, float* rad_out, bool* alive_out,
                             void* stream) {
-  if (vuv != nullptr || vtan != nullptr || (width != 2 && width != 4) ||
-      (width == 4 && wide == nullptr)) {
+  if (vuv != nullptr || vtan != nullptr ||
+      (width != 2 && width != 4 && width != 8) ||
+      (width != 2 && wide == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (width == 4) {
-      launch<true>(orig, dir, thr, rad, alive, pix, n, nb, nm, wide, tri,
-                   tmeta, vnormal, mtab, num_materials, sample_key, bounce,
-                   seed, russian_roulette, rng, o_out, d_out, thr_out, rad_out,
-                   alive_out, st);
+    if (width == 8) {
+      launch<8>(orig, dir, thr, rad, alive, pix, n, nb, nm, wide, tri, tmeta,
+                vnormal, mtab, num_materials, sample_key, bounce, seed,
+                russian_roulette, rng, o_out, d_out, thr_out, rad_out,
+                alive_out, st);
+    } else if (width == 4) {
+      launch<4>(orig, dir, thr, rad, alive, pix, n, nb, nm, wide, tri, tmeta,
+                vnormal, mtab, num_materials, sample_key, bounce, seed,
+                russian_roulette, rng, o_out, d_out, thr_out, rad_out,
+                alive_out, st);
     } else {
-      launch<false>(orig, dir, thr, rad, alive, pix, n, nb, nm, wide, tri,
-                    tmeta, vnormal, mtab, num_materials, sample_key, bounce,
-                    seed, russian_roulette, rng, o_out, d_out, thr_out, rad_out,
-                    alive_out, st);
+      launch<2>(orig, dir, thr, rad, alive, pix, n, nb, nm, wide, tri, tmeta,
+                vnormal, mtab, num_materials, sample_key, bounce, seed,
+                russian_roulette, rng, o_out, d_out, thr_out, rad_out,
+                alive_out, st);
     }
   }
   return static_cast<int>(cudaGetLastError());

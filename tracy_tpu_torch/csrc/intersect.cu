@@ -9,19 +9,22 @@
 // child first, and runs the exact backface-culled Möller–Trumbore test of
 // tracy_tpu/render/intersect.py:61-72 on every triangle of a leaf. As in
 // tracy_tpu (pallas_bvh_width), the tree is binary (width 2,
-// tracy::traverse) or 4-wide (width 4, the default, tracy::traverse4).
+// tracy::traverse), 4-wide (width 4, the default) or 8-wide (width 8), the
+// wide ones walked by tracy::traverse_wide<W>.
 //
 // What bounds it on an H100: the traversal is a chain of dependent loads
 // whose addresses diverge across a warp on secondary rays, so it is bound
 // by load latency and divergence, not by arithmetic or DRAM bandwidth. The
 // node and triangle tables of a scene of about 100K triangles take a few
 // MB and stay in the 50 MB L2. The binary walk pays two dependent steps a
-// level (the node's meta, then its children's boxes). The 4-wide walk
-// pays one: a node is one 128-byte line holding its 4 children's boxes,
+// level (the node's meta, then its children's boxes). The wide walks pay
+// one: a 4-wide node is one 128-byte line holding its 4 children's boxes,
 // references and counts, loaded as 8 float4s at once, over about half as
-// many levels; it visits the nearest child first and skips a popped entry
-// that the best hit since its push has left behind. Node compression and
-// ray reordering are later work.
+// many levels; an 8-wide node is two lines (16 float4s, still one
+// dependent step) over about a third as many levels, at the cost of 8 slab
+// tests and a 19-comparator sort a node. Both visit the nearest child
+// first and skip a popped entry that the best hit since its push has left
+// behind. Node compression and ray reordering are later work.
 //
 // Dead rays (active == false) do no work and return a miss. Outputs per
 // ray: t (FLT_MAX on a miss), barycentric u/v, the hit mask, the winner's
@@ -41,7 +44,7 @@ namespace {
 using tracy::interp;
 constexpr int BLOCK = 128;
 
-template <bool UV, bool TANGENT, bool WIDE>
+template <bool UV, bool TANGENT, int W>
 __global__ void __launch_bounds__(BLOCK) intersect_kernel(
     const float* __restrict__ orig, const float* __restrict__ dir,
     const bool* __restrict__ active, int n, const float4* __restrict__ nb,
@@ -59,15 +62,9 @@ __global__ void __launch_bounds__(BLOCK) intersect_kernel(
   float best_t = FLT_MAX, bu = 0.0f, bv = 0.0f;
   int best = -1;
   if (active[i]) {
-    if constexpr (WIDE) {
-      tracy::traverse4(wide, tri, orig[3 * i], orig[3 * i + 1],
-                       orig[3 * i + 2], dir[3 * i], dir[3 * i + 1],
-                       dir[3 * i + 2], &best_t, &best, &bu, &bv);
-    } else {
-      tracy::traverse(nb, nm, tri, orig[3 * i], orig[3 * i + 1],
-                      orig[3 * i + 2], dir[3 * i], dir[3 * i + 1],
-                      dir[3 * i + 2], &best_t, &best, &bu, &bv);
-    }
+    tracy::traverse_bvh<W>(nb, nm, wide, tri, orig[3 * i], orig[3 * i + 1],
+                           orig[3 * i + 2], dir[3 * i], dir[3 * i + 1],
+                           dir[3 * i + 2], &best_t, &best, &bu, &bv);
   }
   t_out[i] = best_t;
   mask_out[i] = best >= 0;
@@ -90,14 +87,14 @@ __global__ void __launch_bounds__(BLOCK) intersect_kernel(
   uv_out[2 * i + 1] = bv;
 }
 
-template <bool UV, bool TANGENT, bool WIDE>
+template <bool UV, bool TANGENT, int W>
 void launch(const float* orig, const float* dir, const bool* active, int n,
             const float* nb, const int* nm, const float* wide, const float* tri,
             const int* tmeta, const int* tri_id, const float* vnormal,
             const float* vuv, const float* vtan, float* t_out, float* uv_out,
             bool* mask_out, float* n_out, int* mat_out, int* tri_out,
             float* texuv_out, float* tan_out, cudaStream_t stream) {
-  intersect_kernel<UV, TANGENT, WIDE>
+  intersect_kernel<UV, TANGENT, W>
       <<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
           orig, dir, active, n, reinterpret_cast<const float4*>(nb),
           reinterpret_cast<const int4*>(nm),
@@ -108,7 +105,7 @@ void launch(const float* orig, const float* dir, const bool* active, int n,
           tan_out);
 }
 
-template <bool WIDE>
+template <int W>
 void launch_width(const float* orig, const float* dir, const bool* active,
                   int n, const float* nb, const int* nm, const float* wide,
                   const float* tri, const int* tmeta, const int* tri_id,
@@ -117,17 +114,17 @@ void launch_width(const float* orig, const float* dir, const bool* active,
                   int* mat_out, int* tri_out, float* texuv_out, float* tan_out,
                   cudaStream_t st) {
   if (vtan != nullptr) {
-    launch<true, true, WIDE>(orig, dir, active, n, nb, nm, wide, tri, tmeta,
+    launch<true, true, W>(orig, dir, active, n, nb, nm, wide, tri, tmeta,
                              tri_id, vnormal, vuv, vtan, t_out, uv_out,
                              mask_out, n_out, mat_out, tri_out, texuv_out,
                              tan_out, st);
   } else if (vuv != nullptr) {
-    launch<true, false, WIDE>(orig, dir, active, n, nb, nm, wide, tri, tmeta,
+    launch<true, false, W>(orig, dir, active, n, nb, nm, wide, tri, tmeta,
                               tri_id, vnormal, vuv, vtan, t_out, uv_out,
                               mask_out, n_out, mat_out, tri_out, texuv_out,
                               tan_out, st);
   } else {
-    launch<false, false, WIDE>(orig, dir, active, n, nb, nm, wide, tri, tmeta,
+    launch<false, false, W>(orig, dir, active, n, nb, nm, wide, tri, tmeta,
                                tri_id, vnormal, vuv, vtan, t_out, uv_out,
                                mask_out, n_out, mat_out, tri_out, texuv_out,
                                tan_out, st);
@@ -136,10 +133,10 @@ void launch_width(const float* orig, const float* dir, const bool* active,
 
 }  // namespace
 
-// width 2 walks nb/nm (the binary tree), width 4 walks `wide` (the 4-wide
-// lines), which must then not be null. vuv/texuv_out and vtan/tan_out are
-// null when the scene needs no texture uv or tangent; a tangent without uv
-// is refused.
+// width 2 walks nb/nm (the binary tree), width 4 or 8 walks `wide` (the
+// wide rows), which must then not be null. vuv/texuv_out and vtan/tan_out
+// are null when the scene needs no texture uv or tangent; a tangent without
+// uv is refused.
 extern "C" int tracy_intersect(const float* orig, const float* dir,
                                const bool* active, int n, const float* nb,
                                const int* nm, const float* wide, int width,
@@ -152,18 +149,23 @@ extern "C" int tracy_intersect(const float* orig, const float* dir,
                                void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((vtan != nullptr && vuv == nullptr) || (width != 2 && width != 4) ||
-      (width == 4 && wide == nullptr)) {
+  if ((vtan != nullptr && vuv == nullptr) ||
+      (width != 2 && width != 4 && width != 8) ||
+      (width != 2 && wide == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (width == 4) {
-    launch_width<true>(orig, dir, active, n, nb, nm, wide, tri, tmeta, tri_id,
-                       vnormal, vuv, vtan, t_out, uv_out, mask_out, n_out,
-                       mat_out, tri_out, texuv_out, tan_out, st);
+  if (width == 8) {
+    launch_width<8>(orig, dir, active, n, nb, nm, wide, tri, tmeta, tri_id,
+                    vnormal, vuv, vtan, t_out, uv_out, mask_out, n_out,
+                    mat_out, tri_out, texuv_out, tan_out, st);
+  } else if (width == 4) {
+    launch_width<4>(orig, dir, active, n, nb, nm, wide, tri, tmeta, tri_id,
+                    vnormal, vuv, vtan, t_out, uv_out, mask_out, n_out,
+                    mat_out, tri_out, texuv_out, tan_out, st);
   } else {
-    launch_width<false>(orig, dir, active, n, nb, nm, wide, tri, tmeta, tri_id,
-                        vnormal, vuv, vtan, t_out, uv_out, mask_out, n_out,
-                        mat_out, tri_out, texuv_out, tan_out, st);
+    launch_width<2>(orig, dir, active, n, nb, nm, wide, tri, tmeta, tri_id,
+                    vnormal, vuv, vtan, t_out, uv_out, mask_out, n_out,
+                    mat_out, tri_out, texuv_out, tan_out, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

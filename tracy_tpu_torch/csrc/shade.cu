@@ -17,19 +17,30 @@
 //
 // What bounds them on an H100: memory; a few hundred flops a lane.
 //
-// K2 reads 74 bytes of state and hit record a lane and writes 49 into
-// fresh tensors (dead lanes copy their state through). Its redesign is
-// later work.
-//
-// K4 updates the state in place, so each lane moves only what its class
+// Both update the state in place, so each lane moves only what its class
 // needs (the traffic ops/compare.py's bound counts): a dead lane reads its
 // alive flag and nothing else; a miss lane reads hit, throughput and
-// radiance (and its direction when the sky is textured) and writes
+// radiance (and, in K4, its direction when the sky is textured) and writes
 // radiance and alive; a hit lane reads its hit record and state and writes
-// the state. The 48-byte texel row of the old K3 -> K4 pair never reaches
-// device memory: a lane gathers its own texels into registers. The block
-// stages the material table (M x 16 floats), tex_table (K x 4) and
-// tex_index (M x 5) in shared memory, so a lane's chain material -> slot
+// the state. Each block stages the material table in shared memory
+// (tracy::stage_words), so the per-lane material gather never leaves the
+// SM.
+//
+// K2 (M x 10 floats of material table in shared memory) moves 1 byte for a
+// dead lane, 39 for a miss lane and 123 for a hit lane. Once a live lane
+// knows its class it issues every load that class needs before any math:
+// throughput and radiance, which both classes read, outside the class
+// branch, and a hit lane's hit record and the rest of its state right
+// after, so they are all in flight together; radiance and alive are
+// written outside the branch too. On an H100 80GB HBM3 at 700 W this
+// order took 0.097 ms on the 1080p canned wave where loading inside each
+// class's branch took 0.113 (PERF.md).
+//
+// K4 fetches its texels itself: the 48-byte texel row of the old K3 -> K4
+// pair never reaches device memory, as a lane gathers its own texels into
+// registers. The block stages the material table (M x 16 floats),
+// tex_table (K x 4) and tex_index (M x 5) in shared memory, so a lane's
+// chain material -> slot
 // flags -> texture row -> texel has one dependent global gather, and it
 // issues every gather its material needs (up to five 16-byte __ldg loads)
 // before it reads its state, so the gathers are in flight while the state
@@ -49,44 +60,59 @@ namespace {
 constexpr int BLOCK = 256;
 
 __global__ void __launch_bounds__(BLOCK) shade_kernel(
-    const float* __restrict__ orig, const float* __restrict__ dir,
-    const float* __restrict__ thr_in, const float* __restrict__ rad_in,
-    const bool* __restrict__ alive_in, const int* __restrict__ pix_in,
-    const bool* __restrict__ hit_in, const float* __restrict__ t_in,
-    const float* __restrict__ nrm_in, const int* __restrict__ mat_in, int n,
-    const float* __restrict__ mtab, int num_materials, uint32_t skey,
-    uint32_t bounce, uint32_t seed, int russian_roulette, int rng,
-    float* __restrict__ o_out, float* __restrict__ d_out,
-    float* __restrict__ thr_out, float* __restrict__ rad_out,
-    bool* __restrict__ alive_out) {
+    float* __restrict__ orig, float* __restrict__ dir, float* __restrict__ thr_io,
+    float* __restrict__ rad_io, bool* __restrict__ alive_io,
+    const int* __restrict__ pix_in, const bool* __restrict__ hit_in,
+    const float* __restrict__ t_in, const float* __restrict__ nrm_in,
+    const int* __restrict__ mat_in, int n, const float* __restrict__ mtab,
+    int num_materials, uint32_t skey, uint32_t bounce, uint32_t seed,
+    int russian_roulette, int rng) {
+  // Shared: mtab [M, 10] f32.
+  extern __shared__ float4 smem[];
+  float* s_mtab = reinterpret_cast<float*>(smem);
+  tracy::stage_words(reinterpret_cast<uint32_t*>(s_mtab),
+                     reinterpret_cast<const uint32_t*>(mtab),
+                     tracy::MTAB_COLS * num_materials);
+  __syncthreads();
   const int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n) return;
-  float o[3], d[3], thr[3], rad[3];
+  if (i >= n || !alive_io[i]) return;
+  // Every load the lane's class needs, before any math: both classes read
+  // throughput and radiance, a hit lane also its hit record and the rest
+  // of its state.
+  const bool hit = hit_in[i];
+  float thr[3], rad[3], o[3], d[3], nv[3];
+  float t = 0.0f;
+  int m = 0;
+  uint32_t pix = 0u;
   for (int c = 0; c < 3; ++c) {
-    o[c] = orig[3 * i + c];
-    d[c] = dir[3 * i + c];
-    thr[c] = thr_in[3 * i + c];
-    rad[c] = rad_in[3 * i + c];
+    thr[c] = thr_io[3 * i + c];
+    rad[c] = rad_io[3 * i + c];
+  }
+  if (hit) {
+    for (int c = 0; c < 3; ++c) {
+      o[c] = orig[3 * i + c];
+      d[c] = dir[3 * i + c];
+      nv[c] = nrm_in[3 * i + c];
+    }
+    t = t_in[i];
+    m = mat_in[i];
+    pix = static_cast<uint32_t>(pix_in[i]);
   }
   bool alive = false;
-  if (alive_in[i]) {
-    if (!hit_in[i]) {
-      tracy::shade_miss<false>(rad, thr, mtab, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
-    } else {
-      const float nv[3] = {nrm_in[3 * i], nrm_in[3 * i + 1], nrm_in[3 * i + 2]};
-      alive = tracy::shade_hit<false>(
-          o, d, thr, rad, t_in[i], nv, mat_in[i],
-          static_cast<uint32_t>(pix_in[i]), mtab, num_materials, skey, bounce,
-          seed, russian_roulette, rng, nullptr, nullptr);
+  if (hit) {
+    alive = tracy::shade_hit<false>(o, d, thr, rad, t, nv, m, pix, s_mtab,
+                                    num_materials, skey, bounce, seed,
+                                    russian_roulette, rng, nullptr, nullptr);
+    for (int c = 0; c < 3; ++c) {
+      orig[3 * i + c] = o[c];
+      dir[3 * i + c] = d[c];
+      thr_io[3 * i + c] = thr[c];
     }
+  } else {
+    tracy::shade_miss<false>(rad, thr, s_mtab, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
   }
-  for (int c = 0; c < 3; ++c) {
-    o_out[3 * i + c] = o[c];
-    d_out[3 * i + c] = d[c];
-    thr_out[3 * i + c] = thr[c];
-    rad_out[3 * i + c] = rad[c];
-  }
-  alive_out[i] = alive;
+  for (int c = 0; c < 3; ++c) rad_io[3 * i + c] = rad[c];
+  alive_io[i] = alive;
 }
 
 __global__ void __launch_bounds__(BLOCK) shade_textured_kernel(
@@ -178,22 +204,20 @@ __global__ void __launch_bounds__(BLOCK) shade_textured_kernel(
 
 }  // namespace
 
-extern "C" int tracy_shade(const float* orig, const float* dir,
-                           const float* thr, const float* rad,
-                           const bool* alive, const int* pix,
-                           const bool* hit, const float* t,
-                           const float* normal, const int* mat, int n,
-                           const float* mtab, int num_materials,
+// K2, in place: orig, dir, thr, rad and alive are read and written. mtab is
+// [M, 10]; smem is its shared memory, which the wrapper computes and bounds.
+extern "C" int tracy_shade(float* orig, float* dir, float* thr, float* rad,
+                           bool* alive, const int* pix, const bool* hit,
+                           const float* t, const float* normal, const int* mat,
+                           int n, const float* mtab, int num_materials,
                            uint32_t sample_key, uint32_t bounce, uint32_t seed,
-                           int russian_roulette, int rng, float* o_out,
-                           float* d_out, float* thr_out, float* rad_out,
-                           bool* alive_out, void* stream) {
+                           int russian_roulette, int rng, int smem,
+                           void* stream) {
   if (n > 0) {
-    shade_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0,
+    shade_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, smem,
                    static_cast<cudaStream_t>(stream)>>>(
         orig, dir, thr, rad, alive, pix, hit, t, normal, mat, n, mtab,
-        num_materials, sample_key, bounce, seed, russian_roulette, rng, o_out,
-        d_out, thr_out, rad_out, alive_out);
+        num_materials, sample_key, bounce, seed, russian_roulette, rng);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,8 +6,9 @@
 // in local memory, nearest child first, and runs the exact backface-culled
 // Möller–Trumbore test of tracy_tpu/render/intersect.py:61-72 on every
 // triangle of a leaf. `traverse` walks the binary tree (width 2),
-// `traverse4` the 4-wide one (width 4, tracy_tpu's default
-// pallas_bvh_width). Every attribute of the winner is w*a0 + u*a1 + v*a2
+// `traverse_wide<W>` the 4-wide one (W = 4, tracy_tpu's default
+// pallas_bvh_width) or the 8-wide one (W = 8), and `traverse_bvh<W>`
+// picks between them at compile time. Every attribute of the winner is w*a0 + u*a1 + v*a2
 // with w = 1-u-v, in tracy_tpu/render/integrator.py's order: one ulp of uv
 // can move a texel index at a cell edge.
 
@@ -21,7 +22,8 @@
 namespace tracy {
 
 constexpr int STACK_MAX = 64;    // accel/tables.py KERNEL_STACK_MAX
-constexpr int STACK4_MAX = 97;  // accel/tables.py KERNEL_STACK4_MAX
+constexpr int STACK4_MAX = 97;   // accel/tables.py KERNEL_STACK4_MAX
+constexpr int STACK8_MAX = 148;  // accel/tables.py KERNEL_STACK8_MAX
 constexpr float TRAVERSE_EPS = 1.0e-8f;
 
 // Sign-preserving clamp of tiny direction components before the reciprocal:
@@ -126,7 +128,7 @@ __device__ __forceinline__ void traverse(
   }
 }
 
-// One child of a 4-wide node, as the traversal carries it: its reference
+// One child of a wide node, as the traversal carries it: its reference
 // (wide row, or ~first slot of a leaf), its triangle count (> 0 leaf, 0
 // inner) and its entry distance.
 struct Child {
@@ -148,23 +150,65 @@ __device__ __forceinline__ void order(Child& a, int& ka, Child& b, int& kb) {
   }
 }
 
-// The 4-wide tree of accel/tables.py (`wide`, one 128-byte line a node).
-// Each level is one dependent step: the node's 8 float4s load at once
-// (lo.x hi.x lo.y hi.y lo.z hi.z of its 4 children, references, counts),
-// then 4 slab tests (slab_box's operations, so box decisions are the
-// binary kernel's), a 5-comparator sorting network by entry distance
-// (ties by child slot), a descent into the nearest hit child, and a push
-// of the others far-to-near as (reference, count, t_enter). A leaf child is
-// tested when it is reached, with the binary kernel's triangle loop. A
-// popped entry whose t_enter is no nearer than the best hit found since it
-// was pushed is skipped (culling on pop). The wrapper refuses trees whose
-// stack bound (3 * depth4 + 1) exceeds STACK4_MAX. Results as traverse's.
-__device__ __forceinline__ void traverse4(
+// Sorts a wide node's W children by (entry distance, slot) with a sorting
+// network (ops/intersect.py NETWORKS holds the same comparators). The keys
+// are distinct, so any sorting network gives this order.
+template <int W>
+__device__ __forceinline__ void sort_children(Child* c, int* k);
+
+template <>
+__device__ __forceinline__ void sort_children<4>(Child* c, int* k) {
+  order(c[0], k[0], c[1], k[1]);
+  order(c[2], k[2], c[3], k[3]);
+  order(c[0], k[0], c[2], k[2]);
+  order(c[1], k[1], c[3], k[3]);
+  order(c[1], k[1], c[2], k[2]);
+}
+
+// The optimal 19-comparator network for 8 keys (depth 6).
+template <>
+__device__ __forceinline__ void sort_children<8>(Child* c, int* k) {
+  order(c[0], k[0], c[2], k[2]);
+  order(c[1], k[1], c[3], k[3]);
+  order(c[4], k[4], c[6], k[6]);
+  order(c[5], k[5], c[7], k[7]);
+  order(c[0], k[0], c[4], k[4]);
+  order(c[1], k[1], c[5], k[5]);
+  order(c[2], k[2], c[6], k[6]);
+  order(c[3], k[3], c[7], k[7]);
+  order(c[0], k[0], c[1], k[1]);
+  order(c[2], k[2], c[3], k[3]);
+  order(c[4], k[4], c[5], k[5]);
+  order(c[6], k[6], c[7], k[7]);
+  order(c[2], k[2], c[4], k[4]);
+  order(c[3], k[3], c[5], k[5]);
+  order(c[1], k[1], c[4], k[4]);
+  order(c[3], k[3], c[6], k[6]);
+  order(c[1], k[1], c[2], k[2]);
+  order(c[3], k[3], c[4], k[4]);
+  order(c[5], k[5], c[6], k[6]);
+}
+
+// The W-wide tree of accel/tables.py (`wide`, one row of 2W float4s a
+// node: one 128-byte line at W = 4, two at W = 8). Each level is one
+// dependent step: the node's 2W float4s load at once (lo.x hi.x lo.y hi.y
+// lo.z hi.z of its W children, references, counts), then W slab tests
+// (slab_box's operations, so box decisions are the binary kernel's), a
+// sorting network by entry distance (ties by child slot), a descent into
+// the nearest hit child, and a push of the others far-to-near as
+// (reference, count, t_enter). A leaf child is tested when it is reached,
+// with the binary kernel's triangle loop. A popped entry whose t_enter is
+// no nearer than the best hit found since it was pushed is skipped
+// (culling on pop). The wrapper refuses trees whose stack bound
+// ((W - 1) * depthW + 1) exceeds the stack. Results as traverse's.
+template <int W>
+__device__ __forceinline__ void traverse_wide(
     const float4* __restrict__ wide, const float4* __restrict__ tri, float ox,
     float oy, float oz, float dx, float dy, float dz, float* best_t, int* best,
     float* bu, float* bv) {
+  static_assert(W == 4 || W == 8, "wide nodes have 4 or 8 children");
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-  Child stack[STACK4_MAX];
+  Child stack[W == 4 ? STACK4_MAX : STACK8_MAX];
   int sp = 0;
   int ref = 0, count = 0;  // the root, a wide inner node
   while (true) {
@@ -173,40 +217,44 @@ __device__ __forceinline__ void traverse4(
       for (int s = first; s < first + count; ++s) {
         test_triangle(tri, s, ox, oy, oz, dx, dy, dz, best_t, best, bu, bv);
       }
-    } else {  // inner: one line
-      const float4* line = wide + 8 * ref;
-      const float4 lx = __ldg(line), hx = __ldg(line + 1);
-      const float4 ly = __ldg(line + 2), hy = __ldg(line + 3);
-      const float4 lz = __ldg(line + 4), hz = __ldg(line + 5);
-      const int4 rf = __ldg(reinterpret_cast<const int4*>(line + 6));
-      const int4 ct = __ldg(reinterpret_cast<const int4*>(line + 7));
+    } else {  // inner: one row of 2W float4s
+      const float4* line = wide + 2 * W * ref;
+      float f[8 * W];
+#pragma unroll
+      for (int q = 0; q < 2 * W; ++q) {
+        const float4 v = __ldg(line + q);
+        f[4 * q] = v.x;
+        f[4 * q + 1] = v.y;
+        f[4 * q + 2] = v.z;
+        f[4 * q + 3] = v.w;
+      }
       const float bt = *best_t;
-      Child c0{rf.x, ct.x, 0.0f}, c1{rf.y, ct.y, 0.0f};
-      Child c2{rf.z, ct.z, 0.0f}, c3{rf.w, ct.w, 0.0f};
-      // An empty slot (count -1) has an inverted box, which the min/max
-      // slab test would hit: its count masks it.
-      if (!(slab_box(lx.x, ly.x, lz.x, hx.x, hy.x, hz.x, ox, oy, oz, ix, iy,
-                     iz, bt, &c0.t) && ct.x >= 0)) c0.t = CUDART_INF_F;
-      if (!(slab_box(lx.y, ly.y, lz.y, hx.y, hy.y, hz.y, ox, oy, oz, ix, iy,
-                     iz, bt, &c1.t) && ct.y >= 0)) c1.t = CUDART_INF_F;
-      if (!(slab_box(lx.z, ly.z, lz.z, hx.z, hy.z, hz.z, ox, oy, oz, ix, iy,
-                     iz, bt, &c2.t) && ct.z >= 0)) c2.t = CUDART_INF_F;
-      if (!(slab_box(lx.w, ly.w, lz.w, hx.w, hy.w, hz.w, ox, oy, oz, ix, iy,
-                     iz, bt, &c3.t) && ct.w >= 0)) c3.t = CUDART_INF_F;
-      int k0 = 0, k1 = 1, k2 = 2, k3 = 3;
-      order(c0, k0, c1, k1);
-      order(c2, k2, c3, k3);
-      order(c0, k0, c2, k2);
-      order(c1, k1, c3, k3);
-      order(c1, k1, c2, k2);
+      Child c[W];
+      int k[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        const int cnt = __float_as_int(f[7 * W + j]);
+        c[j] = Child{__float_as_int(f[6 * W + j]), cnt, 0.0f};
+        k[j] = j;
+        // An empty slot (count -1) has an inverted box, which the min/max
+        // slab test would hit: its count masks it.
+        if (!(slab_box(f[j], f[2 * W + j], f[4 * W + j], f[W + j],
+                       f[3 * W + j], f[5 * W + j], ox, oy, oz, ix, iy, iz, bt,
+                       &c[j].t) &&
+              cnt >= 0)) {
+          c[j].t = CUDART_INF_F;
+        }
+      }
+      sort_children<W>(c, k);
       // A hit child's entry distance is finite (|1/d| <= 1e12), so the hit
       // children come first.
-      if (c0.t != CUDART_INF_F) {
-        if (c3.t != CUDART_INF_F) stack[sp++] = c3;
-        if (c2.t != CUDART_INF_F) stack[sp++] = c2;
-        if (c1.t != CUDART_INF_F) stack[sp++] = c1;
-        ref = c0.ref;
-        count = c0.count;
+      if (c[0].t != CUDART_INF_F) {
+#pragma unroll
+        for (int j = W - 1; j >= 1; --j) {
+          if (c[j].t != CUDART_INF_F) stack[sp++] = c[j];
+        }
+        ref = c[0].ref;
+        count = c[0].count;
         continue;
       }
     }
@@ -221,6 +269,20 @@ __device__ __forceinline__ void traverse4(
       }
     }
     if (!found) break;
+  }
+}
+
+// The tree of width W (2, 4 or 8): K1's and K5's traversal.
+template <int W>
+__device__ __forceinline__ void traverse_bvh(
+    const float4* __restrict__ nb, const int4* __restrict__ nm,
+    const float4* __restrict__ wide, const float4* __restrict__ tri, float ox,
+    float oy, float oz, float dx, float dy, float dz, float* best_t, int* best,
+    float* bu, float* bv) {
+  if constexpr (W == 2) {
+    traverse(nb, nm, tri, ox, oy, oz, dx, dy, dz, best_t, best, bu, bv);
+  } else {
+    traverse_wide<W>(wide, tri, ox, oy, oz, dx, dy, dz, best_t, best, bu, bv);
   }
 }
 

@@ -77,8 +77,10 @@ def trace_bounce_plain(origin, direction, throughput, radiance, alive, pixel_idx
                        sample_key: int, bounce: int, *, tables: BVHTables, mtab,
                        seed: int, russian_roulette: bool, rng: str = "fast", counts=None):
     """K5's bounce in PyTorch: intersect_plain (at the tables' width), then
-    shade_plain. counts: as intersect_plain's (the traversal work)."""
+    shade_plain on a copy of the state (K5 returns the next state in fresh
+    tensors). counts: as intersect_plain's (the traversal work)."""
     sh = intersect_plain(origin, direction, alive, tables, counts=counts)
-    return shade_plain(origin, direction, throughput, radiance, alive, pixel_idx,
-                       sh.hit.mask, sh.hit.t, sh.normal, sh.material, mtab, sample_key,
-                       bounce, seed=seed, russian_roulette=russian_roulette, rng=rng)
+    state = (x.clone() for x in (origin, direction, throughput, radiance, alive))
+    return shade_plain(*state, pixel_idx, sh.hit.mask, sh.hit.t, sh.normal, sh.material,
+                       mtab, sample_key, bounce, seed=seed,
+                       russian_roulette=russian_roulette, rng=rng)

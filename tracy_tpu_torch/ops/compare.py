@@ -8,8 +8,8 @@ built without FMA contraction or fast math), so the contracts are tight:
 * K1: hit masks agree on >= 99.99% of rays; on rays both sides hit,
   |dt| <= 1e-5 * t + 1e-6.
 * K2 and K4: lanes whose alive flag or lobe differ <= 0.01%; every float
-  of every other lane within rtol 1e-5, atol 1e-6. K4 updates its state in
-  place, so each side gets its own copy.
+  of every other lane within rtol 1e-5, atol 1e-6. Both update their state
+  in place, so each side gets its own copy.
 * K3: hit lanes' texels identical; sky lanes (misses, which address the
   equirect through atan2f/asinf against torch's CUDA atan2/asin) on another
   texel on at most 0.01% of lanes.
@@ -28,11 +28,11 @@ the work changes it: a K3 row only for a lane that fetched a texel, K2/K4's
 state only for the lanes the bounce moves. K4's bound is the textured
 bounce's work whatever the design: K2's bytes by lane class plus the
 tangents, and K3's texel work on the same lanes (textured_bounce_bound).
-K1's and K5's traversal work has one yardstick at both widths: the binary
+K1's and K5's traversal work has one yardstick at every width: the binary
 tree's inner-node visits and triangle tests, counted by the plain binary
 traversal of the same rays, and the bytes of the binary tables, so that a
 kernel does not earn a better share of its bound by walking another tree.
-The 4-wide tree's own counts are reported beside it.
+The wide trees' own counts are reported beside it.
 """
 
 from __future__ import annotations
@@ -161,9 +161,10 @@ def traversal_work(origin, direction, active, tables, counts) -> Dict[str, objec
     """The yardstick of K1's and K5's traversal (module docstring): the
     binary traversal's inner visits and triangle tests on these rays (from
     `counts` when the tables are binary, else from one more plain binary
-    run), their operations, and at width 4 the wide tree's own counts."""
+    run), their operations, and at widths 4 and 8 the wide tree's own
+    counts."""
     res = {"width": tables.width}
-    if tables.width == 4:
+    if tables.width > 2:
         res.update(wide_inner_visits=int(counts["wide_inner"]),
                    wide_box_tests=int(counts["box_tests"]),
                    wide_tri_tests=int(counts["tri_tests"]),
@@ -220,14 +221,37 @@ def decisions_flipped(got, ref) -> torch.Tensor:
 def compare_shade(lanes, mtab, sample_key: int, bounce: int, *, seed: int,
                   russian_roulette: bool, rng: str = "fast",
                   decision_frac: float = 1e-4) -> Dict[str, float]:
-    """K2 vs shade_plain on CUDA tensors; raises on a broken contract."""
-    args = [lanes[k] for k in SHADE_ARGS]
+    """K2 vs shade_plain on CUDA tensors, each on its own copy of the lanes'
+    state (both update it in place); raises on a broken contract."""
     kw = dict(seed=seed, russian_roulette=russian_roulette, rng=rng)
-    got = k2.shade(*args, mtab, sample_key, bounce, **kw)
-    ref = k2.shade_plain(*args, mtab, sample_key, bounce, **kw)
+    got = k2.shade(*state_args(lanes, SHADE_ARGS), mtab, sample_key, bounce, **kw)
+    ref = k2.shade_plain(*state_args(lanes, SHADE_ARGS), mtab, sample_key, bounce, **kw)
     res = _bounce_agreement("K2", got, ref, decision_frac)
+    res.update(in_place_kept(lanes, got))
+    if res["dead_lanes_changed"] or res["miss_lanes_changed"]:
+        raise RuntimeError(f"K2 wrote state its lane class does not change: {res}")
+    res["bit_equal"] = all(bool(torch.equal(g, r)) for g, r in zip(got, ref))
     res.update(bound_ms(*_bounce_work(lanes, mtab, textured=False)))
     return res
+
+
+def in_place_kept(lanes, got) -> Dict[str, int]:
+    """What an in-place bounce must leave as it was: every bit of a dead
+    lane's state, and a miss lane's origin, direction and throughput.
+    Returns the counts of lanes that broke it."""
+    old = [lanes[k] for k in STATE]
+    dead = ~old[4]
+    miss = old[4] & ~lanes["hit_mask"]
+
+    def changed(tensors, lane):
+        bad = torch.zeros_like(lane)
+        for g, o in zip(got, tensors):
+            diff = g != o
+            bad |= diff.view(diff.shape[0], -1).any(dim=1)
+        return int((bad & lane).sum())
+
+    return {"dead_lanes_changed": changed(old, dead),
+            "miss_lanes_changed": changed(old[:3], miss)}
 
 
 def textured_lanes(num_materials: int, n: int, seed: int, device) -> Dict[str, torch.Tensor]:
@@ -314,10 +338,15 @@ def compare_shade_textured(lanes, scene, mtab, sample_key: int, bounce: int, *,
     return res
 
 
+def state_args(lanes, names):
+    """The lane arguments `names`, with fresh copies of the state (STATE),
+    which K2 and K4 update in place."""
+    return [lanes[k].clone() if k in STATE else lanes[k] for k in names]
+
+
 def textured_args(lanes):
-    """shade_textured's lane arguments, with fresh copies of the state it
-    updates in place."""
-    return [lanes[k].clone() if k in STATE else lanes[k] for k in SHADE_TEX_ARGS]
+    """shade_textured's lane arguments, with fresh copies of the state."""
+    return state_args(lanes, SHADE_TEX_ARGS)
 
 
 def textured_bounce_bound(lanes, scene, mtab) -> Dict[str, object]:
@@ -330,11 +359,12 @@ def textured_bounce_bound(lanes, scene, mtab) -> Dict[str, object]:
     return bound_ms(moved + work["bytes"], ops + work["ops"])
 
 
-def inplace_ms(fn, lanes, reps: int) -> float:
-    """CUDA-event milliseconds of fn(args) for an in-place kernel: each
-    launch gets its own fresh copy of the state (made before the timed
-    window), so that every launch sees the same lanes."""
-    copies = [textured_args(lanes) for _ in range(reps + 1)]
+def inplace_ms(fn, lanes, reps: int, names=None) -> float:
+    """CUDA-event milliseconds of fn(args) for an in-place kernel, args the
+    lane arguments `names` (shade_textured's by default): each launch gets
+    its own fresh copy of the state (made before the timed window), so that
+    every launch sees the same lanes."""
+    copies = [state_args(lanes, names or SHADE_TEX_ARGS) for _ in range(reps + 1)]
     fn(copies[0])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -414,9 +444,9 @@ def compare_bounce(lanes, tables, mtab, sample_key: int, bounce: int, *, seed: i
                    russian_roulette: bool, rng: str = "fast",
                    decision_frac: float = 1e-4) -> Dict[str, object]:
     """K5 vs trace_bounce_plain on CUDA tensors (K2's contract), and K5 vs
-    K1 then K2 launched on the same lanes (all five outputs equal), all at
-    the tables' width; raises on a broken contract. Also K5's bound on
-    these lanes: K1's yardstick operations (traversal_work), the bytes by
+    K1 then K2 launched on a copy of the same lanes (all five outputs
+    equal), all at the tables' width; raises on a broken contract. Also
+    K5's bound on these lanes: K1's yardstick operations (traversal_work), the bytes by
     lane class above, the binary tables and the material table once, and
     the shading math of each hit lane."""
     args = [lanes[k] for k in BOUNCE_ARGS]
@@ -428,8 +458,8 @@ def compare_bounce(lanes, tables, mtab, sample_key: int, bounce: int, *, seed: i
     res = _bounce_agreement("K5", got, ref, decision_frac)
     o, d, thr, rad, alive, pix = args
     sh = k1.intersect(o, d, alive, tables)
-    two = k2.shade(o, d, thr, rad, alive, pix, sh.hit.mask, sh.hit.t, sh.normal,
-                   sh.material, mtab, sample_key, bounce, **kw)
+    two = k2.shade(*(x.clone() for x in (o, d, thr, rad, alive)), pix, sh.hit.mask,
+                   sh.hit.t, sh.normal, sh.material, mtab, sample_key, bounce, **kw)
     res["equal_to_k1_k2"] = [bool(torch.equal(g, r)) for g, r in zip(got, two)]
     if not all(res["equal_to_k1_k2"]):
         raise RuntimeError(f"K5 differs from K1 then K2 on the same lanes: {res}")

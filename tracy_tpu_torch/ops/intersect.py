@@ -3,8 +3,8 @@
 `intersect` is the wrapper the renderer calls. On CUDA tensors it launches
 the hand-written kernel csrc/intersect.cu; on CPU tensors, and only there,
 it runs `intersect_plain`, the same traversal as vectorised PyTorch over the
-same tables, at the same width (the binary tree, or the 4-wide one in the
-kernel's visiting order). The kernel replaces
+same tables, at the same width (the binary tree, or the 4- or 8-wide one in
+the kernel's visiting order). The kernel replaces
 tracy_tpu/ops/pallas_packet.py::_kernel (entered through pallas_intersect).
 """
 
@@ -21,6 +21,13 @@ from tracy_tpu_torch.ops.launch import LaunchCount, check, raise_on_error
 from tracy_tpu_torch.render.intersect import FLT_MAX, Hit
 
 COUNT = LaunchCount()
+# The sorting networks that order a wide node's children (csrc/traverse.cuh
+# sort_children<W>): 5 comparators for 4 keys, the optimal 19 for 8.
+NETWORKS = {
+    4: ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2)),
+    8: ((0, 2), (1, 3), (4, 6), (5, 7), (0, 4), (1, 5), (2, 6), (3, 7), (0, 1), (2, 3),
+        (4, 5), (6, 7), (2, 4), (3, 5), (1, 4), (3, 6), (1, 2), (3, 4), (5, 6)),
+}
 
 
 class SurfaceHit(NamedTuple):
@@ -37,8 +44,9 @@ class SurfaceHit(NamedTuple):
 
 def check_tables(tables: BVHTables, dev: torch.device):
     """Raise unless the BVH tables are what the traversal (K1, K5) reads:
-    contiguous, on `dev`, 16-byte aligned where read as vectors, the 4-wide
-    lines 128-byte aligned, and no deeper than the kernel's stack."""
+    contiguous, on `dev`, 16-byte aligned where read as vectors, the wide
+    rows 128-byte aligned, and no deeper than the kernel's stack (a deeper
+    tree is refused, never cut)."""
     if tables.width not in WIDTHS:
         raise ValueError(f"BVH width {tables.width}: the kernels walk widths {WIDTHS}")
     if tables.stack_size > tables.stack_max:
@@ -64,12 +72,13 @@ def check_tables(tables: BVHTables, dev: torch.device):
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel reads it in 16-byte vectors; "
                              "it must be 16-byte aligned")
-    if tables.width == 4:
+    w = tables.width
+    if w > 2:
         if tables.wide is None:
-            raise ValueError("width 4 needs the 4-wide node lines (tables.wide)")
-        check("wide", tables.wide, torch.float32, (tables.wide.shape[0], 32), dev)
+            raise ValueError(f"width {w} needs the wide node rows (tables.wide)")
+        check("wide", tables.wide, torch.float32, (tables.wide.shape[0], 8 * w), dev)
         if tables.wide.data_ptr() % 128:
-            raise ValueError("wide: the kernel reads one 128-byte line a node; "
+            raise ValueError(f"wide: the kernel reads {w // 4} 128-byte line(s) a node; "
                              "it must be 128-byte aligned")
 
 
@@ -218,23 +227,24 @@ def _walk_binary(origin, direction, inv_d, active, tables: BVHTables, rec):
             "warp_tri_steps": w_tri}
 
 
-def _sort4(t, k, ref, cnt):
-    """csrc/traverse.cuh's 5-comparator network over the 4 children: by
-    entry distance, ties by child slot. Each argument is a list of 4 [L]
+def _sort(t, k, ref, cnt):
+    """csrc/traverse.cuh's sorting network over a wide node's W children: by
+    entry distance, ties by child slot. Each argument is a list of W [L]
     tensors; sorts them in place."""
-    for i, j in ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2)):
+    for i, j in NETWORKS[len(t)]:
         swap = (t[j] < t[i]) | ((t[j] == t[i]) & (k[j] < k[i]))
         for a in (t, k, ref, cnt):
             a[i], a[j] = torch.where(swap, a[j], a[i]), torch.where(swap, a[i], a[j])
 
 
 def _walk_wide(origin, direction, inv_d, active, tables: BVHTables, rec):
-    """csrc/traverse.cuh::traverse4: the 4-wide tree, one line a node;
-    descend into the nearest hit child, push the other hit children
-    far-to-near with their entry distance, skip a popped entry that is no
-    nearer than the best hit (culling on pop)."""
+    """csrc/traverse.cuh::traverse_wide: the W-wide tree (W = 4 or 8), one
+    row a node; descend into the nearest hit child, push the other hit
+    children far-to-near with their entry distance, skip a popped entry
+    that is no nearer than the best hit (culling on pop)."""
     n = origin.shape[0]
     dev = origin.device
+    w = tables.width
     wide = tables.wide
     bits = wide.view(torch.int32)
     best_t = rec[0]
@@ -265,23 +275,23 @@ def _walk_wide(origin, direction, inv_d, active, tables: BVHTables, rec):
         rows = ref[r]
         line, lbits = wide[rows], bits[rows]
         o, inv, bt = origin[r], inv_d[r], best_t[r][:, None]
-        ax = [((line[:, 8 * a:8 * a + 4] - o[:, a:a + 1]) * inv[:, a:a + 1],
-               (line[:, 8 * a + 4:8 * a + 8] - o[:, a:a + 1]) * inv[:, a:a + 1])
+        ax = [((line[:, 2 * a * w:(2 * a + 1) * w] - o[:, a:a + 1]) * inv[:, a:a + 1],
+               (line[:, (2 * a + 1) * w:(2 * a + 2) * w] - o[:, a:a + 1]) * inv[:, a:a + 1])
               for a in range(3)]
         mins = [torch.minimum(t0, t1) for t0, t1 in ax]
         maxs = [torch.maximum(t0, t1) for t0, t1 in ax]
         tmin = torch.maximum(torch.maximum(mins[0], mins[1]), mins[2])
         tmax = torch.minimum(torch.minimum(maxs[0], maxs[1]), maxs[2])
-        child_cnt = lbits[:, 28:32].long()
+        child_cnt = lbits[:, 7 * w:8 * w].long()
         hit = (tmax >= torch.clamp(tmin, min=tm.EPS)) & (tmin < bt) & (child_cnt >= 0)
         n_wide += r.numel()
         n_box += (child_cnt >= 0).sum()
         t = list(torch.where(hit, tmin, inf).unbind(1))
-        k = list(torch.arange(4, device=dev).expand(r.numel(), 4).unbind(1))
-        cr = list(lbits[:, 24:28].long().unbind(1))
+        k = list(torch.arange(w, device=dev).expand(r.numel(), w).unbind(1))
+        cr = list(lbits[:, 6 * w:7 * w].long().unbind(1))
         cc = list(child_cnt.unbind(1))
-        _sort4(t, k, cr, cc)
-        for j in (3, 2, 1):  # far-to-near, so the nearest pops first
+        _sort(t, k, cr, cc)
+        for j in range(w - 1, 0, -1):  # far-to-near, so the nearest pops first
             q = t[j] != inf
             rq = r[q]
             pos = sp[rq]
@@ -321,8 +331,8 @@ def intersect_plain(origin, direction, active, tables: BVHTables,
 
     counts: if given, receives the work these rays needed, as 0-d tensors:
     "tri_tests", and at width 2 "inner" node visits (two box tests each),
-    at width 4 "wide_inner" node visits, "box_tests" (their non-empty
-    children) and "culled_pops" (stack entries skipped on pop). Also the
+    at widths 4 and 8 "wide_inner" node visits, "box_tests" (their
+    non-empty children) and "culled_pops" (stack entries skipped on pop). Also the
     kernel's work as warps of 32 consecutive rays issue it, one step of
     this loop being one iteration of the kernel's: "warp_node_steps", the
     warp-iterations with a ray at an inner node, and "warp_tri_steps", the
@@ -341,7 +351,7 @@ def intersect_plain(origin, direction, active, tables: BVHTables,
     bu = torch.zeros((n,), dtype=torch.float32, device=dev)
     bv = torch.zeros((n,), dtype=torch.float32, device=dev)
     rec = (best_t, best, bu, bv)
-    walk = _walk_wide if tables.width == 4 else _walk_binary
+    walk = _walk_wide if tables.width > 2 else _walk_binary
     work = walk(origin, direction, inv_d, active, tables, rec)
     if counts is not None:
         for key, val in work.items():

@@ -10,10 +10,11 @@ shade_packets_textured: the texel fetch (ops/texfetch.py, K3's addresses)
 and pallas_shade.py::_kernel_tex in one launch. Both draw from the counter
 hash `rng` names ('fast', 'xorshift' or 'lcg', core/rng.py).
 
-K2 returns fresh tensors. K4 updates the state in place (the hopper-kernels
-guide allows it where it saves memory traffic): a dead lane then moves only
-its alive flag, a miss lane only radiance and alive, and no lane copies its
-state through. Its plain version keeps the same contract.
+Both update the state in place, as it saves memory traffic: a dead lane
+moves only its alive flag, a miss lane only radiance and alive, and no
+lane copies its state through. Their plain versions keep the same
+contract. The caller must not need the old state (render/integrator.py's
+trace_paths works on its own copies).
 """
 
 from __future__ import annotations
@@ -61,13 +62,15 @@ def build_material_table_tex(materials) -> torch.Tensor:
 def shade(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
           t, normal, mat_id, mtab, sample_key: int, bounce: int, *, seed: int,
           russian_roulette: bool, rng: str = "fast"):
-    """One bounce: returns the next (origin, direction, throughput,
-    radiance, alive) as fresh tensors. Lanes that are not alive pass
-    through unchanged.
+    """One untextured bounce (K2), IN PLACE: origin, direction, throughput,
+    radiance and alive are updated to the next state and returned. A lane
+    that is not alive keeps its state; a miss lane changes only radiance
+    and alive.
 
     [N, 3] float32: origin, direction, throughput, radiance, normal;
     [N] float32 t; [N] bool alive, hit_mask; [N] int32 pixel_idx, mat_id;
-    mtab from build_material_table; rng: the counter hash (core/rng.py KINDS).
+    mtab from build_material_table, which the kernel stages in shared
+    memory; rng: the counter hash (core/rng.py KINDS).
     """
     if origin.device.type == "cpu":
         COUNT.plain += 1
@@ -78,26 +81,33 @@ def shade(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
     n = origin.shape[0]
     _check_bounce(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
                   t, normal, mat_id, mtab, MTAB_COLS)
-    out = tuple(torch.empty_like(x) for x in (origin, direction, throughput, radiance, alive))
+    state = _check_state(origin, direction, throughput, radiance, alive, "shade")
+    smem = 4 * MTAB_COLS * mtab.shape[0]
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"shade: {mtab.shape[0]} materials need {smem} bytes of shared "
+                         f"memory, more than the kernel's {SMEM_LIMIT}")
     code = LIBRARY.get().tracy_shade(
         *(x.data_ptr() for x in (origin, direction, throughput, radiance, alive,
                                  pixel_idx, hit_mask, t, normal, mat_id)),
         n, mtab.data_ptr(), mtab.shape[0], sample_key & MASK32, bounce & MASK32,
-        seed & MASK32, int(bool(russian_roulette)), rng_index(rng),
-        *(x.data_ptr() for x in out), torch.cuda.current_stream(origin.device).cuda_stream)
+        seed & MASK32, int(bool(russian_roulette)), rng_index(rng), smem,
+        torch.cuda.current_stream(origin.device).cuda_stream)
     raise_on_error("shade", code)
     COUNT.kernel += 1
-    return out
+    return state
 
 
 def shade_plain(origin, direction, throughput, radiance, alive, pixel_idx,
                 hit_mask, t, normal, mat_id, mtab, sample_key: int, bounce: int,
                 *, seed: int, russian_roulette: bool, rng: str = "fast"):
-    """The kernel's bounce in PyTorch (tracy_tpu's integrator bounce_step)."""
+    """The kernel's bounce in PyTorch (tracy_tpu's integrator bounce_step),
+    in place as the kernel."""
     m = _material_rows(mtab, mat_id)
-    return _bounce_plain(origin, direction, throughput, radiance, alive, pixel_idx,
-                         hit_mask, t, _params(m, normal), mtab[SKY_MATERIAL_ID, 6:9],
-                         sample_key, bounce, seed, russian_roulette, rng)
+    state = (origin, direction, throughput, radiance, alive)
+    nxt = _bounce_plain(*state, pixel_idx, hit_mask, t, _params(m, normal),
+                        mtab[SKY_MATERIAL_ID, 6:9], sample_key, bounce, seed,
+                        russian_roulette, rng)
+    return _store(state, nxt, hit_mask)
 
 
 def shade_textured(origin, direction, throughput, radiance, alive, pixel_idx,
@@ -138,10 +148,7 @@ def shade_textured(origin, direction, throughput, radiance, alive, pixel_idx,
     if tex_index.shape[0] != mtab.shape[0]:
         raise ValueError(f"tex_index has {tex_index.shape[0]} materials, mtab "
                          f"{mtab.shape[0]}")
-    state = (origin, direction, throughput, radiance, alive)
-    if len({x.data_ptr() for x in state}) < len(state):
-        raise ValueError("shade_textured updates the state in place: origin, "
-                         "direction, throughput, radiance and alive must not share memory")
+    state = _check_state(origin, direction, throughput, radiance, alive, "shade_textured")
     # Shared memory: mtab, tex_table (16-byte rows), then tex_index.
     smem = 4 * MTAB_TEX_COLS * mtab.shape[0] + 16 * tex_table.shape[0] + \
         4 * NUM_TEX_SLOTS * tex_index.shape[0]
@@ -183,9 +190,7 @@ def shade_textured_plain(origin, direction, throughput, radiance, alive, pixel_i
     state = (origin, direction, throughput, radiance, alive)
     nxt = _bounce_plain(*state, pixel_idx, hit_mask, t, params, sky, sample_key, bounce,
                         seed, russian_roulette, rng)
-    for x, y in zip(state, nxt):
-        x.copy_(y)
-    return state
+    return _store(state, nxt, hit_mask)
 
 
 def rng_index(rng: str) -> int:
@@ -212,6 +217,29 @@ def _check_bounce(origin, direction, throughput, radiance, alive, pixel_idx, hit
     check("mtab", mtab, torch.float32, (mtab.shape[0], mtab_cols), dev)
     if mtab.shape[0] < 1:
         raise ValueError("mtab: needs at least the sky material")
+
+
+def _check_state(origin, direction, throughput, radiance, alive, kernel: str):
+    """The state K2 and K4 update in place, refused if two of its tensors
+    share memory."""
+    state = (origin, direction, throughput, radiance, alive)
+    if len({x.data_ptr() for x in state}) < len(state):
+        raise ValueError(f"{kernel} updates the state in place: origin, direction, "
+                         "throughput, radiance and alive must not share memory")
+    return state
+
+
+def _store(state, nxt, hit_mask):
+    """Write a bounce's next state into `state` as the kernels do: a hit
+    lane its whole state, a miss lane radiance and alive, a dead lane
+    nothing. Returns `state`."""
+    origin, direction, throughput, radiance, alive = state
+    hit = (alive & hit_mask)[:, None]
+    for x, y in zip((origin, direction, throughput), nxt[:3]):
+        x.copy_(torch.where(hit, y, x))
+    radiance.copy_(torch.where(alive[:, None], nxt[3], radiance))
+    alive.copy_(nxt[4])
+    return state
 
 
 def _material_rows(mtab, mat_id):

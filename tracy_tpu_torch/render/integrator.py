@@ -3,9 +3,9 @@
 Port of tracy_tpu/render/integrator.py (reference CpuTrace::Trace,
 cpu_trace.cpp:107-170). All rays advance together through a Python loop
 over bounces with masked lanes. Each bounce runs an intersector and then
-the shade stage: on an untextured scene K2 (ops/shade.py::shade), on a
-textured one K4 (ops/shade.py::shade_textured, which fetches each lane's
-texels itself and updates the state in place). A fused bounce
+the shade stage, which updates the state in place: on an untextured scene
+K2 (ops/shade.py::shade), on a textured one K4 (ops/shade.py::
+shade_textured, which fetches each lane's texels itself). A fused bounce
 (ops/bounce.py, K5) may take the place of both stages. On CUDA tensors
 these launch the kernels; on CPU tensors, their plain versions. The
 counter RNG is cfg.rng's hash ('fast', 'xorshift' or 'lcg').
@@ -130,9 +130,9 @@ def trace_paths(scene: SceneArrays, origin, direction, pixel_idx, sample_key: in
     first_bounce_fn: what bounce 0 runs instead (the wave is all live
     there, so the Renderer gives the uncompacted function); the result is
     the same. Rays are counted before any routing, over the real lanes.
-    The textured shade stage updates the state in place, so on a textured
-    scene the state starts as copies of origin, direction and active0: the
-    caller's tensors are left as they were.
+    The shade stage updates the state in place, so the state starts as
+    copies of origin, direction and active0: the caller's tensors are left
+    as they were.
     Returns (radiance [N, 3], rays: a 0-d int64 tensor).
     """
     n = origin.shape[0]
@@ -140,8 +140,10 @@ def trace_paths(scene: SceneArrays, origin, direction, pixel_idx, sample_key: in
     textured = scene_has_textures(scene)
     if mtab is None:
         mtab = (build_material_table_tex if textured else build_material_table)(scene.materials)
-    own = ((lambda x: x.clone(memory_format=torch.contiguous_format)) if textured
-           else torch.Tensor.contiguous)
+
+    def own(x):
+        return x.clone(memory_format=torch.contiguous_format)
+
     s = PathState(
         origin=own(origin),
         direction=own(direction),
@@ -168,6 +170,6 @@ def trace_paths(scene: SceneArrays, origin, direction, pixel_idx, sample_key: in
                            sh.tex_uv, sh.material, mtab, scene.tex_data, scene.tex_table,
                            scene.materials.tex_index, sample_key, bounce, **kw)
         else:
-            s = PathState(*shade(*s, pixel_idx, hit.mask, hit.t, sh.normal, sh.material,
-                                 mtab, sample_key, bounce, **kw))
+            shade(*s, pixel_idx, hit.mask, hit.t, sh.normal, sh.material, mtab,
+                  sample_key, bounce, **kw)
     return s.radiance, rays

@@ -11,8 +11,8 @@ fetches the texels itself), the intersector then also interpolating the
 texture uv and, with normal maps, the tangent: the "two-stage" path. The
 intersector follows cfg.accel as tracy_tpu's does (tracy_tpu/render/
 renderer.py:468-482): 'packet' is K1 (ops/intersect.py) over the BVH
-tables (4-wide, or binary with pallas_bvh_width=2), 'bvh' K1 over the
-binary tables (tracy_tpu's 'bvh' walks a binary tree), 'none' the
+tables (4-wide, or 8-wide or binary with pallas_bvh_width=8 or 2), 'bvh'
+K1 over the binary tables (tracy_tpu's 'bvh' walks a binary tree), 'none' the
 brute-force intersector (render/integrator.py; XLA code in tracy_tpu, no
 kernel). With use_pallas_bounce on an untextured scene and accel 'packet',
 K5 (ops/bounce.py) runs the whole bounce instead: the "fused" path
