@@ -43,7 +43,30 @@ Phases, each fatal on failure:
    'xorshift') at 256x192 for 24 frames against the reference's own
    renders (tests/goldens/ref/*.npz), linear block means;
 6. K6: each variant of the leaf-visit microbenchmark against its plain
-   version, and its nanoseconds per iteration.
+   version, and its nanoseconds per iteration;
+7. AOVs: each of the six first-hit AOVs at 1920x1080 on grid64x28
+   (compacted config) and grid64x28-tex, 4 frames timed 5 times: K1 once
+   a frame, K3 once a frame on the textured scene, nothing else; frame 0
+   equal to the same AOV through the plain versions on the card, bit for
+   bit; MRays/s at num_rows * W rays a frame;
+8. bands: the compacted 1080p beauty frame as 4 bands of 270 rows equals
+   the full frame bit for bit; two 1-spp halves of an spp=2 frame average
+   to it within 1e-6;
+9. gradients: furnace.scn at 64x48 with K1 in the forward: the albedo
+   gradient and the depth AOV's vertex gradient (GeometryDiffIntersector)
+   against central differences and against the port's CPU gradient;
+10. training: tools/tpu_grad_bench.py's configuration (640x480, 1 spp, 5
+   bounces, RR on, accel packet, pick_compact_group) on grid64x28: 20
+   Adam steps (RR off) move the grey spheres' halved albedo toward the
+   truth and lower the loss;
+   the "materials" and "geometry" steps timed (median of 5), with primary
+   MRays/s and peak memory, then where one more step's device time goes
+   (torch.profiler); K1 5 launches a step (zero-gradient wrapper,
+   compacted, bounce 0 peeled), the differentiable bounce 5 times, no
+   other kernel;
+11. one "materials + texture" step on grid64x28-tex at 640x480 with the
+   436 MB atlas trainable: time, peak memory, a finite texel gradient,
+   nonzero on the grey spheres' maps.
 
 Prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
@@ -224,6 +247,342 @@ def live_lanes(scene, cfg, tables, frame: int = 0):
                      "warps_live": int(a.view(-1, 32).any(1).sum()), "warps": n // 32,
                      "warps_live_compacted": int(((per_block + 31) // 32).sum())})
     return rows, seen
+
+
+AOVS = ("basecolor", "normals", "metalness", "roughness", "emissive", "depth")
+TRAIN_W, TRAIN_H = 640, 480  # tools/tpu_grad_bench.py's training frame
+
+
+def reset(counts):
+    for c in counts.values():
+        c.reset()
+
+
+def check_training(label, counts, steps, bounces, textured):
+    """The counters after `steps` training steps since they were reset:
+    K1 `bounces` launches a step and the differentiable bounce `bounces`
+    calls a step; no other kernel, and no plain version but K3's on a
+    textured scene, where each differentiable bounce gathers its texels
+    with K3's plain version (K3 has no backward). Returns the kernel
+    launches."""
+    from tracy_tpu_torch.ops import shade as k2
+
+    got = {k: c.kernel for k, c in counts.items()}
+    plain = {k: c.plain for k, c in counts.items()}
+    want = {k: 0 for k in counts}
+    want_plain = dict(want)
+    want["K1"] = steps * bounces
+    if textured:
+        want_plain["K3"] = steps * bounces
+    if got != want or plain != want_plain or k2.COUNT_DIFF.plain != steps * bounces:
+        raise RuntimeError(f"{label}: launches {got} (want {want}), plain {plain} (want "
+                           f"{want_plain}), differentiable bounce {k2.COUNT_DIFF.plain} "
+                           f"(want {steps * bounces})")
+    return got
+
+
+def aov_phase(named_scenes, ccfg, counts, dev, card):
+    """Every AOV of each scene at ccfg (1080p, compacted: the AOV runs
+    bounce 0, uncompacted): 1 warm-up frame, then REPEATS timed runs of
+    FRAMES frames; each must launch K1 once a frame, K3 once a frame on a
+    textured scene, nothing else, and no plain version. Frame 0's image
+    must equal, bit for bit, the same AOV through the plain versions on the
+    card (intersect_plain, fetch_texels_plain). Returns {path: launches}."""
+    from tracy_tpu_torch.ops import intersect as k1
+    from tracy_tpu_torch.ops import texfetch as k3
+    from tracy_tpu_torch.render.material import scene_has_textures
+    from tracy_tpu_torch.render.renderer import Renderer, init_state, sample_radiance_rows
+
+    launches = {}
+    for sname, sc in named_scenes:
+        textured = scene_has_textures(sc)
+        for aov in AOVS:
+            acfg = ccfg.replace(aov=aov, tonemap="none")
+            rend = Renderer(acfg)
+            first, _ = rend.step_many(sc, init_state(acfg, dev), 1)
+            if rend.path != "aov":
+                raise RuntimeError(f"AOV {aov} on {sname}: the renderer bound {rend.path}")
+            ref, ref_rays = sample_radiance_rows(
+                sc, acfg, 0, lambda o, d, a: k1.intersect_plain(o, d, a, rend.tables),
+                fetch_fn=k3.fetch_texels_plain)
+            if not torch.equal(first.accum, ref) or int(ref_rays) != WIDTH * HEIGHT:
+                raise RuntimeError(f"AOV {aov} on {sname}: the kernels' frame differs from the "
+                                   f"plain versions' by up to "
+                                   f"{float((first.accum - ref).abs().max()):.3g}")
+            rates = []
+            for rep in range(REPEATS):
+                rend.reset(dev)
+                reset(counts)
+                st, nrays = rend.step_many(sc, init_state(acfg, dev), FRAMES)
+                rates.append(rend.mrays_per_sec)
+                want = {k: 0 for k in counts}
+                want["K1"] = FRAMES
+                want["K3"] = FRAMES if textured else 0
+                got = {k: c.kernel for k, c in counts.items()}
+                if got != want or any(c.plain for c in counts.values()):
+                    raise RuntimeError(f"AOV {aov} on {sname}: launches {got}, want {want}, "
+                                       f"plain {[c.plain for c in counts.values()]}")
+                if nrays != FRAMES * WIDTH * HEIGHT or not torch.isfinite(st.accum).all():
+                    raise RuntimeError(f"AOV {aov} on {sname}: {nrays} rays or non-finite")
+            launches[f"aov {aov} {sname}"] = got
+            r_ = sorted(rates)
+            miss = float((ref[..., 0] == 0).float().mean()) if aov == "depth" else None
+            print(f"AOV {aov} {sname} 1920x1080 ({FRAMES} frames, {WIDTH * HEIGHT} rays a "
+                  f"frame) {card}: MRays/s median {r_[len(r_) // 2]:.2f}, min {r_[0]:.2f}, "
+                  f"max {r_[-1]:.2f} over {REPEATS} runs; launches a run "
+                  + ", ".join(f"{k} {v}" for k, v in got.items() if v)
+                  + f"; frame 0 equal to the plain versions' bit for bit; image mean "
+                  f"{float(first.accum.mean()):.4f}"
+                  + (f", miss fraction {miss:.4f}" if miss is not None else ""))
+    return launches
+
+
+def band_phase(scene, rend, cfg):
+    """The compacted 1080p beauty frame as 4 bands of 270 rows equals the
+    full frame bit for bit; two spp_count=1 halves of an spp=2 frame
+    average to the full frame within 1e-6."""
+    from tracy_tpu_torch.render.renderer import pick_tile, sample_radiance_rows
+
+    paths = dict(shade_fn=rend._shade, **rend._paths)
+    rows = HEIGHT // 4
+    full, rays = sample_radiance_rows(scene, cfg, 0, rend._intersect, **paths)
+    bands = [sample_radiance_rows(scene, cfg, 0, rend._intersect, row_offset=o, num_rows=rows,
+                                  **paths) for o in range(0, HEIGHT, rows)]
+    same = torch.equal(torch.cat([b for b, _ in bands]), full)
+    band_rays = sum(int(r) for _, r in bands)
+    cfg2 = cfg.replace(spp=2)
+    full2, _ = sample_radiance_rows(scene, cfg2, 0, rend._intersect, **paths)
+    halves = [sample_radiance_rows(scene, cfg2, 0, rend._intersect, spp_offset=s, spp_count=1,
+                                   total_spp=2, **paths)[0] for s in (0, 1)]
+    err = float(((halves[0] + halves[1]) / 2 - full2).abs().max())
+    print(f"bands: 4 x {rows} rows (tile {pick_tile(rows, WIDTH)}, full frame "
+          f"{pick_tile(HEIGHT, WIDTH)}) equal to the compacted 1080p frame bit for bit: {same}; "
+          f"rays {band_rays} vs {int(rays)}; two 1-spp halves of an spp=2 frame vs the full "
+          f"frame: max |difference| {err:.3g} (<= 1e-6)")
+    if not same or band_rays != int(rays) or err > 1e-6:
+        raise RuntimeError("bands or sample halves differ from the full frame")
+
+
+def gradient_phase(dev, card):
+    """furnace.scn at 64x48, accel 'packet' with K1 in the forward: the
+    albedo gradient and the depth AOV's vertex gradient (through
+    GeometryDiffIntersector) against central differences (h 1e-3, rtol
+    2e-2), and both against the port's CPU gradient on the same inputs
+    (relative 1e-4 of the largest entry). Returns {path: launches}."""
+    from tracy_tpu_torch import RenderConfig
+    from tracy_tpu_torch.diff import extract_params, make_training_intersector, render_loss
+    from tracy_tpu_torch.ops import intersect as k1
+    from tracy_tpu_torch.scene import load_scene
+
+    gb = load_scene(os.path.join(REPO, "tests", "goldens", "scn", "furnace.scn"))
+    gb.width, gb.height = 64, 48
+    out, launches = {}, {}
+    for kind, kw, geom, leaf, axis in (
+            ("albedo", dict(spp=2, max_bounces=3, russian_roulette=False), False, "albedo", None),
+            ("vertex (depth AOV)", dict(aov="depth"), True, "vertex_pos", 1)):
+        cfg = RenderConfig(width=64, height=48, tonemap="none", accel="packet", **kw)
+        grads = {}
+        for where in ("cpu", dev):
+            sc = gb.build(device=where)
+            isect = make_training_intersector(sc, cfg, needs_geometry_grads=geom)
+            params = extract_params(sc)
+            target = torch.full((48, 64, 3), 0.5 if leaf == "albedo" else 0.0, device=sc.device)
+
+            def f(x):
+                return render_loss(params._replace(**{leaf: x}), sc, target, cfg, 0, isect)
+
+            x = getattr(params, leaf).clone().requires_grad_(True)
+            k1.COUNT.reset()
+            f(x).backward()
+            if where == dev:
+                launches[f"gradients {kind}"] = {"K1": k1.COUNT.kernel}
+                if k1.COUNT.kernel == 0 or k1.COUNT.plain:
+                    raise RuntimeError(f"gradient {kind}: K1 {k1.COUNT.kernel}, plain "
+                                       f"{k1.COUNT.plain} on the card")
+            grads[str(where)] = x.grad.cpu()
+            if where == dev:
+                h = 1e-3
+                e = torch.zeros_like(x)
+                if axis is None:
+                    e[1, 0] = 1.0
+                    g = float(x.grad[1, 0])
+                else:
+                    e[:, axis] = 1.0
+                    g = float(x.grad[:, axis].sum())
+                base = getattr(params, leaf)
+                with torch.no_grad():
+                    fd = float((f(base + h * e) - f(base - h * e)) / (2 * h))
+        cpu, gpu = grads["cpu"], grads[str(dev)]
+        rel = float((gpu - cpu).abs().max() / cpu.abs().max())
+        print(f"gradient {kind}, furnace.scn 64x48, K1 forward {card}: autograd {g:.6g}, "
+              f"central difference {fd:.6g} (rtol 2e-2), vs the CPU gradient: max |difference| "
+              f"{rel:.3g} of the largest entry (<= 1e-4)")
+        if not (abs(g - fd) <= 2e-2 * abs(fd)) or g == 0.0 or not (rel <= 1e-4):
+            raise RuntimeError(f"gradient {kind} failed")
+        out[kind] = (g, fd, rel)
+    return launches
+
+
+def training_phase(grid, counts, dev, card):
+    """tools/tpu_grad_bench.py's training configuration on grid64x28 at
+    640x480 (1 spp, 5 bounces, RR on, tonemap none, accel packet, BVH
+    width 4, pick_compact_group(640*480)): 20 Adam steps (lr 1e-2) from the
+    grey spheres' albedo halved, albedo only trained, must lower the loss
+    and move that albedo toward the truth; then the "materials" and the
+    "geometry" steps (every leaf trained) timed, 1 warm-up and the median
+    of 5. Each step launches K1 5 times and runs the differentiable bounce 5
+    times, with no other kernel and no plain version; the counters are
+    reset once before each loop of steps and checked after every step.
+    Returns {path: launches} (the counters' sums) and the timings.
+
+    The 20 steps run with Russian roulette off, as tracy_tpu's own
+    recovery test does (tests/test_gradients.py:139): with it on, a
+    survivor's throughput is divided by the detached p = max(throughput),
+    which brings a grey throughput back to 1 whatever the albedo's level,
+    so the frame's values do not depend on a grey albedo and its gradient
+    is 0 (only the lanes' fates would change, which nothing
+    differentiates)."""
+    import dataclasses
+
+    from tracy_tpu_torch import RenderConfig
+    from tracy_tpu_torch.accel.reorder import pick_compact_group
+    from tracy_tpu_torch.diff import (
+        TrainableParams, extract_params, make_train_step, make_training_intersector)
+    from tracy_tpu_torch.ops import shade as k2
+    from tracy_tpu_torch.render.renderer import sample_radiance
+
+    grid.width, grid.height = TRAIN_W, TRAIN_H
+    scene = grid.build(device=dev)
+    cfg = RenderConfig(width=TRAIN_W, height=TRAIN_H, spp=1, max_bounces=5, tonemap="none",
+                       accel="packet", russian_roulette=True, pallas_bvh_width=4,
+                       wave_compact_group=pick_compact_group(TRAIN_W * TRAIN_H))
+    fwd = make_training_intersector(scene, cfg, needs_geometry_grads=False)
+    fit = cfg.replace(russian_roulette=False)
+    with torch.no_grad():
+        target, _ = sample_radiance(scene, cfg, 0, fwd, first_intersect_fn=fwd.first)
+        fit_target, _ = sample_radiance(scene, fit, 0, fwd, first_intersect_fn=fwd.first)
+    grey = 1  # default_scene's grey sphere material, also every third grid sphere's
+    truth = scene.materials.albedo[grey].clone()
+    start = scene.materials.albedo.clone()
+    start[grey] *= 0.5
+    half = dataclasses.replace(scene, materials=dataclasses.replace(scene.materials,
+                                                                    albedo=start))
+    mask = TrainableParams(*(False,) * 8)._replace(albedo=True)
+    step, params, opt = make_train_step(half, fit, intersect_fn=fwd, trainable_mask=mask)
+
+    losses = []
+    reset(counts)
+    k2.COUNT_DIFF.reset()
+    for i in range(20):
+        params, opt, loss = step(params, opt, fit_target, 0)
+        losses.append(float(loss))
+        got = check_training(f"training step {i}", counts, i + 1, cfg.max_bounces, False)
+    launches = {"training albedo (20 steps)": got}
+    moved = float((params.albedo[grey].detach() - truth).abs().max())
+    print(f"training grid64x28 {TRAIN_W}x{TRAIN_H} (RR off, group {cfg.wave_compact_group}, K1 5 "
+          f"launches and the differentiable bounce 5 times a step, checked each step): loss "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g} over 20 Adam steps; grey albedo "
+          f"{start[grey].tolist()} -> {params.albedo[grey].detach().tolist()} (truth "
+          f"{truth.tolist()}, max |error| {float((start[grey] - truth).abs().max()):.4f} -> "
+          f"{moved:.4f})")
+    if not (losses[-1] < losses[0]) or not moved < float((start[grey] - truth).abs().max()):
+        raise RuntimeError("training did not lower the loss and move the albedo toward the truth")
+
+    timings = {}
+    for label, geom in (("materials", False), ("geometry", True)):
+        isect = make_training_intersector(scene, cfg, needs_geometry_grads=geom)
+        step, params, opt = make_train_step(scene, cfg, intersect_fn=isect)
+        times = []
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset(counts)
+        k2.COUNT_DIFF.reset()
+        for i in range(6):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, target, 0)
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            got = check_training(f"{label} step {i}", counts, i + 1, cfg.max_bounces, False)
+        launches[f"training {label} (6 steps)"] = got
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        holder = [params, opt]
+
+        def one_step():
+            holder[0], holder[1], _ = step(holder[0], holder[1], target, 0)
+
+        breakdown, _ = device_breakdown(one_step, counts)
+        t_ = sorted(times[1:])
+        med = t_[len(t_) // 2]
+        timings[label] = {"ms": med, "min_ms": t_[0], "max_ms": t_[-1], "warm_ms": times[0],
+                          "primary_mrays_s": TRAIN_W * TRAIN_H / 1e6 / (med / 1e3),
+                          "peak_gb": peak, "held_before_gb": held, "loss": float(loss)}
+        timings[label]["device_breakdown"] = breakdown
+        print(f"training step {label} grid64x28 {TRAIN_W}x{TRAIN_H} {card}: median "
+              f"{med:.3f} ms of 5 (min {t_[0]:.3f}, max {t_[-1]:.3f}; warm-up {times[0]:.3f}), "
+              f"{timings[label]['primary_mrays_s']:.3f} primary MRays/s, peak device memory "
+              f"{peak:.3f} GB ({peak - held:.3f} GB above the {held:.3f} GB held before), loss "
+              f"{float(loss):.6g}")
+        print(f"  training step {label}: device time of one more step {card}: {breakdown}")
+    return launches, timings
+
+
+def textured_step_phase(grid, counts, dev, card):
+    """One "materials + texture" step on grid64x28-tex at 640x480 with
+    tex_data trainable (every leaf but the vertices): its time and peak
+    memory (the first step, and a second); the texel gradient must be
+    finite, and nonzero on the grey spheres' maps. The counters are reset
+    once and checked after each step: K1 5 launches a step, and K3's plain
+    gather 5 times a step inside the differentiable bounce. Returns {path:
+    launches} (the counters' sums) and the timings."""
+    from tracy_tpu_torch import RenderConfig
+    from tracy_tpu_torch.accel.reorder import pick_compact_group
+    from tracy_tpu_torch.diff import (
+        TrainableParams, make_train_step, make_training_intersector)
+    from tracy_tpu_torch.ops import shade as k2
+
+    grid.width, grid.height = TRAIN_W, TRAIN_H
+    scene = grid.build(device=dev)
+    cfg = RenderConfig(width=TRAIN_W, height=TRAIN_H, spp=1, max_bounces=5, tonemap="none",
+                       accel="packet", russian_roulette=True, pallas_bvh_width=4,
+                       wave_compact_group=pick_compact_group(TRAIN_W * TRAIN_H))
+    isect = make_training_intersector(scene, cfg, needs_geometry_grads=False)
+    target = torch.full((TRAIN_H, TRAIN_W, 3), 0.5, device=dev)
+    mask = TrainableParams(*(True,) * 8)._replace(vertex_pos=False)
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    step, params, opt = make_train_step(scene, cfg, intersect_fn=isect, trainable_mask=mask)
+    times = []
+    reset(counts)
+    k2.COUNT_DIFF.reset()
+    for i in range(2):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, target, 0)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = check_training(f"textured step {i}", counts, i + 1, cfg.max_bounces, True)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    g = params.tex_data.grad
+    maps = [scene.tex_table[t].tolist() for t in scene.materials.tex_index[1].tolist() if t >= 0]
+    texels = sum(w * h for _, w, h, _ in maps)  # the grey spheres' five maps
+    nonzero = sum(int((g[o:o + w * h] != 0).any(-1).sum()) for o, w, h, _ in maps)
+    finite = bool(torch.isfinite(g).all())
+    print(f"textured step grid64x28-tex {TRAIN_W}x{TRAIN_H}, atlas "
+          f"{scene.tex_data.numel() * 4 / 1e6:.1f} MB trainable {card}: first step "
+          f"{times[0]:.3f} ms, second {times[1]:.3f} ms, peak device memory {peak:.3f} GB "
+          f"({peak - held:.3f} GB above the {held:.3f} GB held before); "
+          f"launches over the 2 steps {got}, K3's plain gather {counts['K3'].plain} (in the "
+          f"differentiable bounce, checked each step); texel gradient finite {finite}, nonzero "
+          f"on {nonzero} of the grey spheres' {texels} texels; loss {float(loss):.6g}")
+    if not finite or nonzero == 0:
+        raise RuntimeError("the textured step's texel gradient is not finite, or zero")
+    return ({"training textured (2 steps)": got},
+            {"first_ms": times[0], "second_ms": times[1], "peak_gb": peak,
+             "k3_plain_gathers": counts["K3"].plain,
+             "held_before_gb": held})
 
 
 def main() -> int:
@@ -683,6 +1042,17 @@ def main() -> int:
     launches["tools.micro"] = {k: 0 for k in counts}
     launches["tools.micro"]["K6"] = k6_launches
 
+    # 7. AOVs, 8. bands, 9. gradients, 10. training, 11. one textured step.
+    launches.update(aov_phase((("grid64x28", scene), ("grid64x28-tex", tscene)), ccfg, counts,
+                              dev, card))
+    band_phase(scene, rends["grid64x28 compacted"], ccfg)
+    launches.update(gradient_phase(dev, card))
+    more, train_ms = training_phase(builder, counts, dev, card)
+    launches.update(more)
+    more, tex_ms = textured_step_phase(tbuilder, counts, dev, card)
+    launches.update(more)
+    print("training: " + json.dumps({"device": smi, **train_ms, "textured": tex_ms}))
+
     def entry(kname, label, source, replaces, err, ms, plain_ms, bound, library_ms):
         return {"name": f"{kname} {label}", "route": "cuda",
                 "source": f"tracy_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -708,7 +1078,10 @@ def main() -> int:
         entry("K6", "micro (vres)", "micro.cu", "tools/tpu_micro.py:213",
               c6["vres"]["max_abs_err"], t6["vres"]["ms"], t_p6, b6, None),
     ]
-    kernels[2]["note"] = "inlined into K4 on the render paths (0 launches there)"
+    kernels[2]["note"] = ("launched on the textured AOV path, once a frame; inlined into K4 "
+                          "on the beauty paths (0 launches there); the textured training "
+                          "step gathers with its plain version inside the differentiable "
+                          "bounce, once a bounce (K3 has no backward)")
     kernels[3]["fuses"] = "tracy_tpu/ops/pallas_texfetch.py:231"
     kernels[3].update(no_gathers_ms=t4_parts["no texel gathers"],
                       all_dead_ms=t4_parts["all lanes dead"])

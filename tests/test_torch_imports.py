@@ -2,9 +2,10 @@
 machine has none). A fresh interpreter with `sys.modules['jax'] = None`
 (so any `import jax` raises) imports every module of the port, renders
 furnace.scn at 32x24 for one frame and the textured spheres.scn (HDR sky)
-at 16x12 for one frame on CPU, and reports which tracy_tpu modules got
-loaded: none may be, since the port keeps its own copies of what it needs
-(config, utils.native, utils.log).
+at 16x12 for one frame on CPU, takes one training step on furnace.scn
+through tracy_tpu_torch.diff (a depth AOV too), and reports which
+tracy_tpu modules got loaded: none may be, since the port keeps its own
+copies of what it needs (config, utils.native, utils.log).
 """
 
 import json
@@ -38,7 +39,16 @@ sb = load_scene(os.path.join(REPO, "tests", "goldens", "scn", "spheres.scn"))
 sb.width, sb.height = 16, 12
 scfg = RenderConfig(width=16, height=12, spp=1)
 sst, _ = Renderer(scfg).step(sb.build(device="cpu"), init_state(scfg, "cpu"))
+from tracy_tpu_torch import diff
+tcfg = RenderConfig(width=32, height=24, spp=1, max_bounces=3, tonemap="none")
+step, params, opt = diff.make_train_step(
+    scene, tcfg, intersect_fn=diff.make_training_intersector(scene, tcfg, False))
+params, opt, loss = step(params, opt, torch.zeros((24, 32, 3)), 0)
+dcfg = tcfg.replace(aov="depth")
+dst, _ = Renderer(dcfg).step(scene, init_state(dcfg, "cpu"))
 print(json.dumps({
+    "loss": float(loss), "albedo_moved": bool((params.albedo != scene.materials.albedo).any()),
+    "depth_max": float(dst.accum.max()),
     "shape": list(img.shape), "finite": bool(np.isfinite(img).all()),
     "corner": float(st.accum[0, 0, 0]), "rays": rays,
     "spheres_finite": bool(np.isfinite(sst.accum.numpy()).all()),
@@ -59,4 +69,5 @@ def test_port_imports_and_renders_without_jax():
     assert res["corner"] == 1.0  # the white sky, seen directly
     assert res["rays"] >= 32 * 24
     assert res["spheres_finite"] and res["spheres_fallbacks"] == []
+    assert res["loss"] > 0 and res["albedo_moved"] and res["depth_max"] > 0
     assert res["tracy_tpu"] == [], res["tracy_tpu"]

@@ -40,16 +40,37 @@ def sqrt(x):
     (ROADMAP, hazards). There two Newton steps in float64, exact IEEE
     operations, take any such result to the exact root before it is
     rounded back to float32 (no float32 root lies within their error of a
-    rounding boundary)."""
+    rounding boundary).
+
+    Under autograd the CPU route's gradient is the Newton steps', with
+    their seed detached: 0.5 / sqrt(x) to float32 rounding. Where the root
+    is 0 (x = 0, as a clamp in front gives), not finite or NaN, the
+    gradient is 0, not torch.sqrt's 0 * inf = NaN: those lanes run the
+    steps on 1.0, and their value, torch's, is detached."""
     s = torch.sqrt(x)
     if x.device.type != "cpu" or x.dtype != torch.float32:
         return s
     ok = (s > 0.0) & torch.isfinite(s)
-    xd = x.double()
-    r = torch.where(ok, s, 1.0).double()
+    one = torch.ones((), dtype=x.dtype)
+    xd = torch.where(ok, x, one).double()
+    r = torch.where(ok, s, one).detach().double()
     r = 0.5 * (r + xd / r)
     r = 0.5 * (r + xd / r)
-    return torch.where(ok, r.float(), s)
+    return torch.where(ok, r.float(), s.detach())
+
+
+def gather_rows(table, idx):
+    """table[idx] along the first axis, through
+    torch.nn.functional.embedding: the values of indexing, but under
+    autograd the backward sums each row's gradients by sorted segments.
+    Indexing's backward (index_put_ with accumulate) adds a row's
+    duplicates one after another on CUDA, and a table of a few rows read
+    by every lane (the material table, or texel 0 where a lane reads
+    none) took 245 ms of a 290 ms training step on the H100
+    (chip_smoke.py's profile, PERF.md)."""
+    if table.dim() == 1:
+        return torch.nn.functional.embedding(idx, table[:, None])[..., 0]
+    return torch.nn.functional.embedding(idx, table)
 
 
 def normalize(v, eps: float = 1.0e-20):

@@ -128,6 +128,27 @@ def intersect(origin, direction, active, tables: BVHTables) -> SurfaceHit:
     return SurfaceHit(Hit(t=t, tri=tri, uv=uv, mask=mask), normal, mat, tex_uv, tangent)
 
 
+def nondiff_intersector(intersect_fn):
+    """An intersector whose outputs carry no gradient, as tracy_tpu's
+    zero-VJP wrapper (pallas_packet.py:2428-2464) makes the Pallas kernel's.
+
+    The rays are detached and the call runs under torch.no_grad(), so
+    neither K1 nor its plain version records a graph: every output, the
+    float t, uv, normal, tex_uv and tangent as well as the integer mask,
+    tri and material, comes out with requires_grad False, and the rays
+    receive a zero gradient. Material, emissive and texture gradients do
+    not need one: they flow through the material ids and texture uv
+    selecting rows and texels downstream. Vertex gradients do, and come
+    from diff/gradients.py::GeometryDiffIntersector, which recomputes the
+    winner's t, uv and normal in torch."""
+
+    def wrapped(origin, direction, active):
+        with torch.no_grad():
+            return intersect_fn(origin.detach(), direction.detach(), active)
+
+    return wrapped
+
+
 def _slab(o, inv_d, bounds, best_t):
     """Reference RayAABB (collision.h:119-131) per ray: (hit, t_enter)."""
     lo = (bounds[:, 0:3] - o) * inv_d

@@ -15,6 +15,13 @@ moves only its alive flag, a miss lane only radiance and alive, and no
 lane copies its state through. Their plain versions keep the same
 contract. The caller must not need the old state (render/integrator.py's
 trace_paths works on its own copies).
+
+`shade_diff` is the same bounce, untextured or textured, out of place:
+it returns new tensors and writes none, so autograd can differentiate
+through it (an in-place write into a tensor that the graph saved raises,
+or breaks the graph). It is what tracy_tpu's XLA shading is to its
+training path, chosen by diff/gradients.py::render_loss and by nothing
+else; it is not a stand-in for K2 or K4, which have no backward.
 """
 
 from __future__ import annotations
@@ -25,13 +32,16 @@ from tracy_tpu_torch.core import math as tm
 from tracy_tpu_torch.core.rng import KINDS, MASK32, RngSpec
 from tracy_tpu_torch.ops.build import LIBRARY
 from tracy_tpu_torch.ops.launch import LaunchCount, check, raise_on_error
-from tracy_tpu_torch.ops.texfetch import SMEM_LIMIT, check_texture_tables, fetch_texels_plain
+from tracy_tpu_torch.ops.texfetch import (
+    COUNT as TEX_COUNT, SMEM_LIMIT, check_texture_tables, fetch_texels_plain)
 from tracy_tpu_torch.render.material import SurfaceParams, apply_textures, scatter
 from tracy_tpu_torch.render.texture import TX_EMR
 from tracy_tpu_torch.scene.scene import NUM_TEX_SLOTS, SKY_MATERIAL_ID, TEX_EMISSIVE
 
 COUNT = LaunchCount()  # K2
 COUNT_TEX = LaunchCount()  # K4
+# Calls of the differentiable bounce, counted as `plain`: it has no kernel.
+COUNT_DIFF = LaunchCount()
 # RNG draw ids within a bounce (tracy_tpu/render/integrator.py).
 DRAW_SPHERE_Z, DRAW_SPHERE_PHI, DRAW_SPECULAR, DRAW_ROULETTE = range(4)
 MTAB_COLS = 10  # albedo rgb, roughness, metalness, ior, emissive rgb, translucent
@@ -102,11 +112,9 @@ def shade_plain(origin, direction, throughput, radiance, alive, pixel_idx,
                 *, seed: int, russian_roulette: bool, rng: str = "fast"):
     """The kernel's bounce in PyTorch (tracy_tpu's integrator bounce_step),
     in place as the kernel."""
-    m = _material_rows(mtab, mat_id)
     state = (origin, direction, throughput, radiance, alive)
-    nxt = _bounce_plain(*state, pixel_idx, hit_mask, t, _params(m, normal),
-                        mtab[SKY_MATERIAL_ID, 6:9], sample_key, bounce, seed,
-                        russian_roulette, rng)
+    nxt = _next_state(*state, pixel_idx, hit_mask, t, normal, None, None, mat_id, mtab,
+                      None, sample_key, bounce, seed, russian_roulette, rng)
     return _store(state, nxt, hit_mask)
 
 
@@ -177,20 +185,34 @@ def shade_textured_plain(origin, direction, throughput, radiance, alive, pixel_i
     """K4 in PyTorch, in place as the kernel: K3's plain fetch
     (ops/texfetch.py::fetch_texels_plain), then tracy_tpu's textured
     bounce_step on those texel rows."""
-    texels = fetch_texels_plain(mat_id, tex_uv, direction, hit_mask, alive, tex_data,
-                                tex_table, tex_index)
-    m = _material_rows(mtab, mat_id)
-    if tangent is None:
-        tangent = torch.zeros_like(normal)
-    has = m[:, HAS_COL:HAS_COL + NUM_TEX_SLOTS] > 0.0
-    params = apply_textures(_params(m, normal), texels, has, tangent)
-    sky = mtab[SKY_MATERIAL_ID, 6:9]
-    if bool(mtab[SKY_MATERIAL_ID, HAS_COL + TEX_EMISSIVE] > 0.0):
-        sky = texels[:, TX_EMR:TX_EMR + 3]
     state = (origin, direction, throughput, radiance, alive)
-    nxt = _bounce_plain(*state, pixel_idx, hit_mask, t, params, sky, sample_key, bounce,
-                        seed, russian_roulette, rng)
+    nxt = _next_state(*state, pixel_idx, hit_mask, t, normal, tangent, tex_uv, mat_id, mtab,
+                      (tex_data, tex_table, tex_index), sample_key, bounce, seed,
+                      russian_roulette, rng)
     return _store(state, nxt, hit_mask)
+
+
+def shade_diff(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask, t,
+               normal, tangent, tex_uv, mat_id, mtab, tex, sample_key: int, bounce: int, *,
+               seed: int, russian_roulette: bool, rng: str = "fast"):
+    """One bounce, OUT OF PLACE and differentiable: returns the next
+    (origin, direction, throughput, radiance, alive) as new tensors, equal
+    to what shade_plain (tex None) or shade_textured_plain (tex =
+    (tex_data, tex_table, tex_index), mtab from build_material_table_tex)
+    leave in their state. Gradients reach mtab (so the material table
+    must be built from the trained parameters at every call), the atlas's
+    texels, and t, normal and tangent; the Russian-roulette decision and
+    its 1/p weight are detached, as in tracy_tpu (integrator.py:216-224).
+    Arguments as shade_textured's; runs on any device, in PyTorch. A
+    textured bounce gathers its texels with K3's plain version (K3 has no
+    backward), counted in K3's plain count.
+    """
+    COUNT_DIFF.plain += 1
+    if tex is not None:
+        TEX_COUNT.plain += 1
+    return _next_state(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
+                       t, normal, tangent, tex_uv, mat_id, mtab, tex, sample_key, bounce,
+                       seed, russian_roulette, rng)
 
 
 def rng_index(rng: str) -> int:
@@ -245,13 +267,34 @@ def _store(state, nxt, hit_mask):
 def _material_rows(mtab, mat_id):
     """mtab's row per lane; ids out of range read row 0, as in the kernels."""
     mat = mat_id.long()
-    return mtab[torch.where((mat >= 0) & (mat < mtab.shape[0]), mat, 0)]
+    return tm.gather_rows(mtab, torch.where((mat >= 0) & (mat < mtab.shape[0]), mat, 0))
 
 
 def _params(m, normal) -> SurfaceParams:
     return SurfaceParams(basecolor=m[:, 0:3], roughness=m[:, 3], metalness=m[:, 4],
                          ior=m[:, 5], emissive=m[:, 6:9], translucent=m[:, 9],
                          normal=normal)
+
+
+def _next_state(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask, t,
+                normal, tangent, tex_uv, mat_id, mtab, tex, sample_key: int, bounce: int,
+                seed: int, russian_roulette: bool, rng: str):
+    """The next state of one bounce, out of place: the untextured bounce
+    when tex is None, else K4's (K3's plain fetch, the textured overrides
+    and the textured sky)."""
+    m = _material_rows(mtab, mat_id)
+    params = _params(m, normal)
+    sky = mtab[SKY_MATERIAL_ID, 6:9]
+    if tex is not None:
+        texels = fetch_texels_plain(mat_id, tex_uv, direction, hit_mask, alive, *tex)
+        if tangent is None:
+            tangent = torch.zeros_like(normal)
+        has = m[:, HAS_COL:HAS_COL + NUM_TEX_SLOTS] > 0.0
+        params = apply_textures(params, texels, has, tangent)
+        if bool(mtab[SKY_MATERIAL_ID, HAS_COL + TEX_EMISSIVE] > 0.0):
+            sky = texels[:, TX_EMR:TX_EMR + 3]
+    return _bounce_plain(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
+                         t, params, sky, sample_key, bounce, seed, russian_roulette, rng)
 
 
 def _bounce_plain(origin, direction, throughput, radiance, alive, pixel_idx,
@@ -278,7 +321,7 @@ def _bounce_plain(origin, direction, throughput, radiance, alive, pixel_idx,
 
     alive2 = hit
     if russian_roulette:
-        p = tm.EPS + throughput.amax(dim=-1)
+        p = (tm.EPS + throughput.amax(dim=-1)).detach()
         keep = alive2 & (rand(DRAW_ROULETTE) <= p)
         throughput = torch.where(keep[:, None],
                                  throughput / torch.clamp(p[:, None], min=tm.EPS),

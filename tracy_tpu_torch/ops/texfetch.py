@@ -4,10 +4,12 @@
 tensors; on CPU tensors, and only there, it runs `fetch_texels_plain`. The
 kernel replaces tracy_tpu/ops/pallas_texfetch.py::_fetch_kernel (entered
 through fetch_texels, addressed by lane_page_indices / _texel_ij), but
-reads the flat atlas directly instead of the TPU's texel pages. The render
-paths do not call it: K4 (ops/shade.py::shade_textured) fetches the same
-texels itself, through the same device functions (csrc/texfetch_lane.cuh),
-and its plain version calls `fetch_texels_plain`.
+reads the flat atlas directly instead of the TPU's texel pages. The
+textured AOVs call it, once a frame (render/material.py::
+gather_surface_params). The beauty paths do not: K4
+(ops/shade.py::shade_textured) fetches the same texels itself, through
+the same device functions (csrc/texfetch_lane.cuh), and its plain version
+and the differentiable bounce call `fetch_texels_plain`.
 
 Output: [N, TEXEL_COLS] float32 rows in render/texture.py's layout. A live
 hit lane gets every texture slot of its material at its uv; a live miss
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from tracy_tpu_torch.core.math import gather_rows
 from tracy_tpu_torch.ops.build import LIBRARY
 from tracy_tpu_torch.ops.launch import LaunchCount, check, raise_on_error
 from tracy_tpu_torch.render.texture import (
@@ -125,6 +128,6 @@ def fetch_texels_plain(mat_id, uv, direction, hit_mask, alive, tex_data, tex_tab
                       device=tex_data.device)
     zero = torch.zeros((), dtype=tex_data.dtype, device=tex_data.device)
     for s, (c0, nch) in enumerate(SLOT_COLUMNS):
-        rgba = tex_data[flat[:, s].clamp(min=0)]
+        rgba = gather_rows(tex_data, flat[:, s].clamp(min=0))
         out[:, c0:c0 + nch] = torch.where(flat[:, s, None] >= 0, rgba[:, :nch], zero)
     return out

@@ -14,7 +14,12 @@ material.h:164-203), branch-free over all lanes:
 * the new origin is offset by RAY_OFFSET along the new direction;
 * a textured slot overrides its parameter; a normal map perturbs the
   shading normal through the interpolated, unnormalised tangent (a
-  reference quirk kept by the JAX package).
+  reference quirk kept by the JAX package);
+* gather_surface_params reads a lane's parameters (the first-hit AOVs,
+  render/integrator.py::trace_aov): on CUDA tensors its texel rows come
+  from K3 (ops/texfetch.py), unless the caller passes another fetch:
+  diff/gradients.py::render_loss passes the plain gather, which carries
+  the gradient to the texels.
 
 On total internal reflection the Snell cosine is clamped to 0, so the ray
 reflects (the JAX package's deliberate, NaN-free divergence from the
@@ -29,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from tracy_tpu_torch.core import math as tm
+from tracy_tpu_torch.ops.texfetch import fetch_texels
 from tracy_tpu_torch.render.texture import SLOT_COLUMNS
 from tracy_tpu_torch.scene.scene import (
     TEX_BASECOLOR,
@@ -81,8 +87,8 @@ def material_table_lookup(materials, mat_id):
     emissive, translucent). A gather: cheap on a GPU, exact everywhere."""
     i = mat_id.long()
     m = materials
-    return (m.albedo[i], m.roughness[i], m.metalness[i], m.ior[i],
-            m.emissive[i], m.translucent[i])
+    return tuple(tm.gather_rows(x, i) for x in (m.albedo, m.roughness, m.metalness, m.ior,
+                                                m.emissive, m.translucent))
 
 
 def scene_has_textures(scene) -> bool:
@@ -125,6 +131,40 @@ def apply_textures(params: SurfaceParams, texels, has, tangent) -> SurfaceParams
         translucent=params.translucent,
         normal=torch.where(has[:, TEX_NORMAL, None], mapped, n),
     )
+
+
+def gather_surface_params(scene, mat_id, uv, shading_normal, tangent, direction, hit_mask,
+                          fetch_fn=None) -> SurfaceParams:
+    """Surface parameters of [N] lanes (tracy_tpu's gather_surface_params,
+    material.h:164-203), nearest texel filtering only.
+
+    mat_id [N] int32; uv [N, 2] interpolated texture uv, or None when the
+    intersector carries none (no material but the sky is textured);
+    shading_normal [N, 3]; tangent [N, 3] interpolated, unnormalised, or
+    None (read as zero); direction [N, 3] and hit_mask [N] bool, which say
+    which lanes read their material's texels (only hit lanes do: a miss
+    lane's parameters are never read). fetch_fn: the texel fetch,
+    (mat_id, uv, direction, hit_mask, alive, tex_data, tex_table,
+    tex_index) -> [N, TEXEL_COLS]. None picks K3's wrapper (the kernel on
+    CUDA tensors, its plain version on CPU ones). K3 has no backward, so
+    the differentiable route (diff/gradients.py::render_loss) passes the
+    plain gather, which is differentiable in the texel values.
+    """
+    m = scene.materials
+    albedo, rough, metal, ior, emis, transl = material_table_lookup(m, mat_id)
+    params = SurfaceParams(basecolor=albedo, roughness=rough, metalness=metal, ior=ior,
+                           emissive=emis, translucent=transl, normal=shading_normal)
+    if not scene_has_textures(scene):
+        return params
+    if fetch_fn is None:
+        fetch_fn = fetch_texels
+    texels = fetch_fn(mat_id, uv, direction, hit_mask, hit_mask, scene.tex_data,
+                      scene.tex_table, m.tex_index)
+    mat = mat_id.long()
+    has = m.tex_index[torch.where((mat >= 0) & (mat < m.tex_index.shape[0]), mat, 0)] >= 0
+    if tangent is None:
+        tangent = torch.zeros_like(shading_normal)
+    return apply_textures(params, texels, has, tangent)
 
 
 def scatter(ray_dir, hit_point, params: SurfaceParams, u_sphere_z, u_sphere_phi,

@@ -23,6 +23,14 @@ renderer.py:488-512, :619-689); with wave_compact_skip_first, bounce 0 runs
 uncompacted. The image is folded into 32x32-pixel tiles, so that
 neighbouring rays of a wave are neighbours on screen. On CUDA tensors the
 stages launch their kernels; on CPU tensors, their plain versions.
+
+With cfg.aov other than "beauty" a frame is the first-hit AOV
+(render/integrator.py::trace_aov): the intersector alone, K1 once a
+sample, then the surface parameters (K3 once a sample on a textured
+scene); nothing shades. `sample_radiance_rows` renders a band of rows and
+samples (row_offset, num_rows, spp_offset, spp_count, total_spp), keyed
+by the global pixel and sample ids, so that bands and sample splits give
+the whole frame's values.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ from tracy_tpu_torch.config import RenderConfig
 from tracy_tpu_torch.accel.reorder import compact_bounce, compact_intersector
 from tracy_tpu_torch.accel.tables import BVHTables, build_tables
 from tracy_tpu_torch.core.camera import pixel_samples_rows
-from tracy_tpu_torch.core.rng import RngSpec
+from tracy_tpu_torch.core.rng import MASK32, RngSpec
 from tracy_tpu_torch.ops.bounce import trace_bounce
 from tracy_tpu_torch.ops.intersect import intersect
 from tracy_tpu_torch.ops.shade import build_material_table, build_material_table_tex
@@ -46,6 +54,8 @@ from tracy_tpu_torch.render import film
 from tracy_tpu_torch.render.integrator import (
     JITTER_BOUNCE,
     make_bruteforce_intersector,
+    make_shade_fn,
+    trace_aov,
     trace_paths,
 )
 from tracy_tpu_torch.render.material import scene_has_textures
@@ -86,24 +96,45 @@ def pick_tile(num_rows: int, w: int) -> Tuple[int, int]:
 
 
 def sample_radiance_rows(scene: SceneArrays, cfg: RenderConfig, frame: int,
-                         intersect_fn, mtab=None, **paths) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cfg.spp jittered samples of every pixel.
+                         intersect_fn=None, shade_fn=None, bounce_fn=None,
+                         first_intersect_fn=None, first_bounce_fn=None, fetch_fn=None,
+                         row_offset: int = 0, num_rows: Optional[int] = None,
+                         spp_offset: int = 0, spp_count: Optional[int] = None,
+                         total_spp: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """spp_count jittered samples over a band of rows of the image
+    (tracy_tpu/render/renderer.py:72-209).
 
-    Returns (mean radiance [H, W, 3], rays: a 0-d int64 tensor). RNG streams
-    are keyed by the global pixel index and the global sample id. Row counts
-    that are not a multiple of the tile height (1080 % 32 = 24) are padded
-    with dead rows, which trace nothing and are not counted. paths:
-    trace_paths' bounce_fn, first_intersect_fn and first_bounce_fn.
+    Returns (mean radiance [num_rows, W, 3], rays: a 0-d int64 tensor).
+    Rows row_offset .. row_offset + num_rows - 1 (default: all), samples
+    spp_offset .. spp_offset + spp_count - 1 (default: cfg.spp) of a frame
+    of total_spp samples (default: cfg.spp). RNG streams are keyed by the
+    global pixel index and the global sample id frame * total_spp + s, so
+    any split into bands renders the same values. The band is folded into
+    tiles by its own row count (pick_tile); rows that do not fill a tile
+    (1080 % 32 = 24) are padded with dead rows, which trace nothing and
+    are not counted. intersect_fn None: the brute-force intersector, built
+    here from `scene` (differentiable in its vertices). shade_fn,
+    bounce_fn, first_intersect_fn, first_bounce_fn: trace_paths'. With
+    cfg.aov set, trace_aov runs instead (first_intersect_fn, else
+    intersect_fn; fetch_fn its texel fetch) and each sample counts
+    num_rows * W rays, as tracy_tpu counts them.
     """
     h, w = cfg.height, cfg.width
+    num_rows = h if num_rows is None else num_rows
+    spp_count = cfg.spp if spp_count is None else spp_count
+    total_spp = cfg.spp if total_spp is None else total_spp
+    if intersect_fn is None:
+        intersect_fn = make_bruteforce_intersector(scene)
     dev = scene.device
     rng = RngSpec(cfg.rng, cfg.seed)
-    tile_h, tile_w = pick_tile(h, w)
-    rows_r = h + ((-h) % tile_h if tile_h else 0)
-    rows = torch.arange(rows_r, dtype=torch.int32, device=dev)
+    tile_h, tile_w = pick_tile(num_rows, w)
+    rows_r = num_rows + ((-num_rows) % tile_h if tile_h else 0)
+    local = torch.arange(rows_r, dtype=torch.int32, device=dev)
+    rows = row_offset + local  # global rows
     cols = torch.arange(w, dtype=torch.int32, device=dev)
     pixel_idx = rows[:, None] * w + cols[None, :]
-    live = (rows < h)[:, None].expand(rows_r, w)
+    live = (local < num_rows)[:, None].expand(rows_r, w)
 
     def fold(x):  # [R, W, ...] -> [R*W, ...], tile-major when tiled
         extra = x.shape[2:]
@@ -119,28 +150,45 @@ def sample_radiance_rows(scene: SceneArrays, cfg: RenderConfig, frame: int,
             x = x.transpose(1, 2)
         return x.reshape((rows_r, w) + extra)
 
-    acc = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+    active0 = fold(live).contiguous() if rows_r > num_rows else None
+    lanes = fold(pixel_idx).contiguous()
+    acc = torch.zeros((num_rows, w, 3), dtype=torch.float32, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
-    for s in range(cfg.spp):
-        sample_key = (frame * cfg.spp + s) & 0xFFFFFFFF
+    for s in range(spp_offset, spp_offset + spp_count):
+        sample_key = (frame * total_spp + s) & MASK32
         ju = rng.uniform(pixel_idx, sample_key, JITTER_BOUNCE, 0)
         jv = rng.uniform(pixel_idx, sample_key, JITTER_BOUNCE, 1)
         ss, tt = pixel_samples_rows(w, h, rows, ju, jv)
         origin, direction = scene.camera.generate_rays(ss, tt)
-        radiance, r = trace_paths(
-            scene, fold(origin), fold(direction), fold(pixel_idx).contiguous(),
-            sample_key, cfg, intersect_fn,
-            active0=fold(live).contiguous() if rows_r > h else None, mtab=mtab, **paths)
-        acc = acc + unfold(radiance)[:h]
+        if cfg.aov != "beauty":
+            # trace_paths copies the rays it updates; trace_aov hands them to K1 as they are.
+            radiance = trace_aov(scene, fold(origin).contiguous(),
+                                 fold(direction).contiguous(), cfg,
+                                 first_intersect_fn or intersect_fn, active0, fetch_fn)
+            r = torch.full((), num_rows * w, dtype=torch.int64, device=dev)
+        else:
+            radiance, r = trace_paths(
+                scene, fold(origin), fold(direction), lanes, sample_key, cfg,
+                intersect_fn, active0=active0, shade_fn=shade_fn, bounce_fn=bounce_fn,
+                first_intersect_fn=first_intersect_fn, first_bounce_fn=first_bounce_fn)
+        acc = acc + unfold(radiance)[:num_rows]
         rays = rays + r
-    return (acc if cfg.spp == 1 else acc / cfg.spp), rays
+    if spp_count > 1:  # a tensor divisor: see core/camera.py::pixel_samples_rows
+        acc = acc / torch.full((), spp_count, dtype=acc.dtype, device=dev)
+    return acc, rays
+
+
+def sample_radiance(scene: SceneArrays, cfg: RenderConfig, frame: int, intersect_fn=None,
+                    **paths) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame of cfg.spp samples over the whole image: (mean radiance
+    [H, W, 3], rays). paths: sample_radiance_rows' stage functions."""
+    return sample_radiance_rows(scene, cfg, frame, intersect_fn, **paths)
 
 
 def render_step(scene: SceneArrays, state: RenderState, cfg: RenderConfig,
-                intersect_fn, mtab=None, **paths) -> Tuple[RenderState, torch.Tensor]:
+                intersect_fn, **paths) -> Tuple[RenderState, torch.Tensor]:
     """One progressive frame: sample, accumulate, bump the frame counter."""
-    radiance, rays = sample_radiance_rows(scene, cfg, state.frame, intersect_fn, mtab,
-                                          **paths)
+    radiance, rays = sample_radiance(scene, cfg, state.frame, intersect_fn, **paths)
     accum = film.accumulate(state.accum, radiance, state.frame) if cfg.accumulate else radiance
     return RenderState(accum=accum, frame=state.frame + 1), rays
 
@@ -159,21 +207,24 @@ class Renderer:
         if cfg.accel == "tlas":
             raise NotImplementedError("accel='tlas': the two-level BVH is not ported yet "
                                       "(ROADMAP queue 1)")
-        if cfg.aov != "beauty":
-            raise NotImplementedError(f"aov={cfg.aov!r}: the port renders beauty only")
         RngSpec(cfg.rng, cfg.seed)  # refuses threefry (jax.random) with its reason
         self.cfg = cfg
         self.tables: Optional[BVHTables] = None
-        self.path: Optional[str] = None  # "two-stage" or "fused", once prepared
+        self.path: Optional[str] = None  # "two-stage", "fused" or "aov", once prepared
         self._intersect = None
         self._paths = {}
+        self._shade = None
         self._mtab = None
         self.total_rays = 0
         self.total_seconds = 0.0
 
     def prepare(self, scene: SceneArrays):
         """Build the BVH tables (host side) and the material table, and bind
-        the bounce path, once per renderer; step and step_many call it."""
+        the bounce path, once per renderer; step and step_many call it.
+        With an AOV set, the intersector alone is bound (no material table),
+        as tracy_tpu binds
+        its shade and bounce stages for beauty only (renderer.py:549, :627);
+        `path` is then "aov"."""
         if self._intersect is not None:
             return
         cfg = self.cfg
@@ -185,15 +236,19 @@ class Renderer:
                                        max_depth=max(cfg.traversal_stack_depth - 4, 8),
                                        width=cfg.pallas_bvh_width if packet else 2)
             isect = functools.partial(intersect, tables=self.tables)
-        textured = scene_has_textures(scene)
-        self._mtab = (build_material_table_tex if textured
-                      else build_material_table)(scene.materials)
         # Compaction wraps the packet intersector only (tracy_tpu's
         # renderer.py:492-494): 'bvh' and 'none' trace every lane.
         group = cfg.wave_compact_group if packet else 0
         peel = group > 0 and cfg.wave_compact_skip_first
         self._intersect = compact_intersector(isect, group) if group else isect
         self._paths = {"first_intersect_fn": isect} if peel else {}
+        if cfg.aov != "beauty":
+            self.path = "aov"
+            return
+        textured = scene_has_textures(scene)
+        self._mtab = (build_material_table_tex if textured
+                      else build_material_table)(scene.materials)
+        self._shade = make_shade_fn(scene, cfg, self._mtab)
         self.path = "two-stage"
         if cfg.use_pallas_bounce and packet and not textured:
             # The fused bounce is untextured only: a textured scene keeps the
@@ -220,8 +275,8 @@ class Renderer:
         t0 = time.perf_counter()
         rays = torch.zeros((), dtype=torch.int64, device=scene.device)
         for _ in range(num_steps):
-            state, r = render_step(scene, state, self.cfg, self._intersect, self._mtab,
-                                   **self._paths)
+            state, r = render_step(scene, state, self.cfg, self._intersect,
+                                   shade_fn=self._shade, **self._paths)
             rays = rays + r
         if scene.device.type == "cuda":
             torch.cuda.synchronize(scene.device)
@@ -229,6 +284,20 @@ class Renderer:
         self.total_seconds += time.perf_counter() - t0
         self.total_rays += rays
         return state, rays
+
+    def render_progressive(self, scene: SceneArrays, frames: int,
+                           state: Optional[RenderState] = None,
+                           steps_per_dispatch: int = 4) -> RenderState:
+        """`frames` progressive frames from `state` (None: a fresh one on
+        the scene's device), step_many'd `steps_per_dispatch` at a time
+        (tracy_tpu's renderer.py:751-766); returns the final state."""
+        state = init_state(self.cfg, scene.device) if state is None else state
+        done = 0
+        while done < frames:
+            k = min(steps_per_dispatch, frames - done)
+            state, _ = self.step_many(scene, state, k)
+            done += k
+        return state
 
     def display(self, state: RenderState) -> np.ndarray:
         return film.tonemap(state.accum, self.cfg).cpu().numpy()

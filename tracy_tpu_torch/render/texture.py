@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tracy_tpu_torch.core.math import gather_rows
+
 # Texel row columns (tracy_tpu/ops/pallas_texfetch.py TX_* order).
 TX_BCR, TX_BCG, TX_BCB = 0, 1, 2
 TX_NMR, TX_NMG, TX_NMB = 3, 4, 5
@@ -56,7 +58,7 @@ def texel_index(tex_table, tex_id, uv) -> torch.Tensor:
 
 def sample_nearest(tex_data, tex_table, tex_id, uv) -> torch.Tensor:
     """RGBA [N, 4] of texture tex_id [N] at uv [N, 2]."""
-    return tex_data[texel_index(tex_table, tex_id, uv)]
+    return gather_rows(tex_data, texel_index(tex_table, tex_id, uv))
 
 
 def sky_uv(direction) -> torch.Tensor:
