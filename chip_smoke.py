@@ -66,7 +66,23 @@ Phases, each fatal on failure:
    other kernel;
 11. one "materials + texture" step on grid64x28-tex at 640x480 with the
    436 MB atlas trainable: time, peak memory, a finite texel gradient,
-   nonzero on the grey spheres' maps.
+   nonzero on the grey spheres' maps;
+12. accel 'tlas' on grid64x28 at 1080p, compacted as the CLI binds it: host
+   seconds of build_two_level, of update_object after one sphere moves
+   (equal to a fresh build) and of a full build_tables; K1 on the stitched
+   tables against its plain version on frame 0's camera rays, bit for
+   bit; 5 runs of 4 frames in turn with the packet compacted path (K1 and
+   K2 only, no plain version), the two accumulators held by the
+   block-mean contract; furnace.scn at accel 'tlas' joins phase 5's gates;
+13. the raster preview, plain and shaded, at 640x480 and 1080p on
+   grid64x28 and grid64x28-tex: ms of each, coverage equal to K1's hit
+   mask through the pixel centres on >= 99% of pixels;
+14. the entry points as subprocesses (exit 0, outputs that decode):
+   render_cli on spheres.scn at 1080p with -accel tlas and on the default
+   scene at 640x480, -kernel raster and raster-gl, a -checkpoint run of 8
+   frames resumed to 16 (equal bit for bit to an uninterrupted 16-frame
+   run), the viewer's headless burst and optimize_cli's albedo self-test
+   (the loss must fall); each run's MRays/s line is logged.
 
 Prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
@@ -585,6 +601,244 @@ def textured_step_phase(grid, counts, dev, card):
              "held_before_gb": held})
 
 
+def tlas_phase(scene, ccfg, packet_rend, counts, dev, card):
+    """accel 'tlas' on grid64x28 at 1080p, compacted as the CLI binds it:
+    host seconds of build_two_level, of update_object after one grid sphere
+    moves and of a full single-level build_tables; K1 on the stitched
+    tables against its plain version on frame 0's camera rays, bit for bit;
+    then REPEATS runs of FRAMES frames, in turn with the packet compacted
+    path, each launching K1 and K2 max_bounces * FRAMES times and no plain
+    version; the tlas accumulator against the packet one by the block-mean
+    contract (mean 1e-3, p95 5e-3, max 0.05 in linear radiance). Returns
+    {path: launches} and the timings."""
+    from tracy_tpu_torch.accel.tables import build_tables, tree_depth
+    from tracy_tpu_torch.accel.tlas import build_two_level, transform_object, update_object
+    from tracy_tpu_torch.core import math as tm
+    from tracy_tpu_torch.ops import intersect as k1
+    from tracy_tpu_torch.render.renderer import Renderer, init_state, sample_radiance_rows
+    from tracy_tpu_torch.utils.parity import block_means
+
+    tcfg = ccfg.replace(accel="tlas")
+    leaf, cap = tcfg.bvh_leaf_size, max(tcfg.traversal_stack_depth - 8, 8)
+    t0 = time.perf_counter()
+    two = build_two_level(scene, leaf_size=leaf, max_depth=cap)
+    t_two = time.perf_counter() - t0
+    obj = 3  # the first grid sphere (objects 0-2: default_scene's spheres and floor)
+    moved = transform_object(scene, obj, tm.translate((0.0, 0.25, 0.0)))
+    t0 = time.perf_counter()
+    update_object(two, moved, obj)
+    t_upd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_tables(scene, leaf_size=leaf, max_depth=max(tcfg.traversal_stack_depth - 4, 8),
+                 width=tcfg.pallas_bvh_width)
+    t_full = time.perf_counter() - t0
+    fresh = build_two_level(moved, leaf_size=leaf, max_depth=cap)
+    same = all(np.array_equal(getattr(two.stitched, k), getattr(fresh.stitched, k))
+               for k in ("node_bounds", "node_meta", "tri_order"))
+    counts_ok = two.rebuild_counts == {i: 2 if i == obj else 1 for i in two.blas}
+    if not same or not counts_ok:
+        raise RuntimeError(f"update_object differs from a fresh build ({same}) or rebuilt "
+                           f"other objects ({two.rebuild_counts})")
+
+    rend = Renderer(tcfg)
+    t0 = time.perf_counter()
+    rend.prepare(scene)
+    t_prep = time.perf_counter() - t0
+    tb = rend.tables
+    st = rend.two_level.stitched
+    print(f"tlas grid64x28: {len(rend.two_level.blas)} objects, stitched tree "
+          f"{st.num_nodes} nodes, depth bound {st.max_depth}, real depth "
+          f"{tree_depth(st.node_meta)} (tables {tb.max_depth}), width {tb.width}, depth4 "
+          f"{tb.depth4}, stack {tb.stack_size} of {tb.stack_max}; host {card}: "
+          f"build_two_level {t_two:.3f} s, update_object of object {obj} ({moved.object_tri_ranges[obj][1]} "
+          f"triangles) {t_upd:.3f} s, full build_tables {t_full:.3f} s, the renderer's "
+          f"prepare (two-level build and tables) {t_prep:.3f} s; update equal to a fresh "
+          f"build array for array, rebuild counts {sorted(set(two.rebuild_counts.values()))}")
+    if rend.path != "two-stage" or tb.width != tcfg.pallas_bvh_width:
+        raise RuntimeError(f"tlas: path {rend.path}, width {tb.width}")
+
+    seen = []
+
+    def record(o, d, a):
+        seen.append((o.clone(), d.clone(), a.clone()))
+        return k1.intersect(o, d, a, tb)
+
+    sample_radiance_rows(scene, tcfg.replace(wave_compact_group=0, max_bounces=1), 0, record)
+    o, d, a = seen[0]
+    got, ref = k1.intersect(o, d, a, tb), k1.intersect_plain(o, d, a, tb)
+    fields = lambda sh: list(sh.hit) + [sh.normal, sh.material]  # noqa: E731
+    bit = all(torch.equal(x, y) for x, y in zip(fields(got), fields(ref)))
+    print(f"K1 vs plain on the stitched tables, frame 0's {a.numel()} camera rays "
+          f"({int(a.sum())} live): every output equal bit for bit {bit}; hit fraction "
+          f"{float(got.hit.mask.float().mean()):.4f}")
+    if not bit:
+        raise RuntimeError("K1 on the stitched tables differs from its plain version")
+
+    rend.step_many(scene, init_state(tcfg, dev), 1)  # warm-up frame
+    rates = {"tlas": [], "packet": []}
+    accum = {}
+    for rep in range(REPEATS):
+        for name, r_, c_ in (("tlas", rend, tcfg), ("packet", packet_rend, ccfg)):
+            r_.reset(dev)
+            reset(counts)
+            state, nrays = r_.step_many(scene, init_state(c_, dev), FRAMES)
+            got = {k: c.kernel for k, c in counts.items()}
+            want = {k: c_.max_bounces * FRAMES if k in ("K1", "K2") else 0 for k in counts}
+            if got != want or any(c.plain for c in counts.values()):
+                raise RuntimeError(f"{name}: launches {got}, want {want}, plain "
+                                   f"{[c.plain for c in counts.values()]}")
+            rates[name].append(r_.mrays_per_sec)
+            if rep == 0:
+                accum[name] = state.accum
+                if name == "tlas":
+                    launches = got
+                    print(f"main path grid64x28 tlas compacted (two-stage, group "
+                          f"{tcfg.wave_compact_group}, BVH width {tb.width}): {FRAMES} frames, "
+                          f"{nrays} rays; launches " + ", ".join(f"{k} {v}" for k, v in got.items())
+                          + "; plain 0")
+    for name in rates:
+        r_ = sorted(rates[name])
+        print(f"grid64x28 {name} compacted: MRays/s over {REPEATS} runs of {FRAMES} frames, in "
+              f"turn {card}: median {r_[len(r_) // 2]:.2f}, min {r_[0]:.2f}, max {r_[-1]:.2f}")
+    got_, ref_ = accum["tlas"].cpu().numpy(), accum["packet"].cpu().numpy()
+    dblk = np.abs(block_means(got_) - block_means(ref_))
+    dmean, p95, dmax = abs(float(got_.mean() - ref_.mean())), float(np.percentile(dblk, 95)), \
+        float(dblk.max())
+    differ = int((accum["tlas"] != accum["packet"]).any(-1).sum())
+    print(f"tlas vs packet accumulators: {differ} of {WIDTH * HEIGHT} pixels differ; |mean| "
+          f"{dmean:.3g} (<= 1e-3), block p95 {p95:.3g} (<= 5e-3), block max {dmax:.3g} (<= 0.05)")
+    if dmean > 1e-3 or p95 > 5e-3 or dmax > 0.05:
+        raise RuntimeError("tlas render outside the block-mean contract")
+    med = {n: sorted(v)[len(v) // 2] for n, v in rates.items()}
+    return {"tlas grid64x28 compacted": launches}, {
+        "build_two_level_s": t_two, "update_object_s": t_upd, "build_tables_s": t_full,
+        "mrays_s_tlas": med["tlas"], "mrays_s_packet": med["packet"]}
+
+
+def raster_phase(named, dev, card):
+    """render_raster plain and shaded at 640x480 and 1920x1080 on each of
+    `named` ((name, builder, scene at 1080p, its BVH tables)): the ms of
+    each (a warm-up, then the median of 3), finite images of the right
+    shape, and raster coverage (the depth view > 0) equal on >= 99% of
+    pixels to the hit mask of K1 on rays through the pixel centres (the
+    check of tests/test_raster.py:51). Returns the timings."""
+    import dataclasses
+
+    from tracy_tpu_torch import RenderConfig
+    from tracy_tpu_torch.core.camera import Camera, pixel_samples_rows
+    from tracy_tpu_torch.ops import intersect as k1
+    from tracy_tpu_torch.raster import render_raster
+
+    out = {}
+    for name, builder, sc1080, tables in named:
+        for w, h in ((640, 480), (WIDTH, HEIGHT)):
+            cam = Camera.setup(aspect_ratio=w / h, device=dev, **builder.camera_params)
+            sc = dataclasses.replace(sc1080, camera=cam, width=w, height=h)
+            cfg = RenderConfig(width=w, height=h, tonemap="srgb")
+            for shaded in (False, True):
+                render_raster(sc, cfg, shaded=shaded)
+                times = []
+                for _ in range(3):
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    img = render_raster(sc, cfg, shaded=shaded)
+                    torch.cuda.synchronize(dev)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                if img.shape != (h, w, 3) or not bool(torch.isfinite(img).all()):
+                    raise RuntimeError(f"raster {name} {w}x{h}: shape {tuple(img.shape)} "
+                                       "or non-finite")
+                out[f"{name} {w}x{h} {'shaded' if shaded else 'plain'}"] = sorted(times)[1]
+            depth = render_raster(sc, cfg.replace(aov="depth"))[..., 0] > 0
+            rows = torch.arange(h, dtype=torch.int32, device=dev)
+            half = torch.full((h, w), 0.5, device=dev)
+            s, t = pixel_samples_rows(w, h, rows, half, half)
+            o, dirs = cam.generate_rays(s.reshape(-1), t.reshape(-1))
+            hit = k1.intersect(o.contiguous(), dirs.contiguous(),
+                               torch.ones((w * h,), dtype=torch.bool, device=dev), tables)
+            agree = float((hit.hit.mask.view(h, w) == depth).float().mean())
+            print(f"raster {name} {w}x{h} {card}: plain "
+                  f"{out[f'{name} {w}x{h} plain']:.3f} ms, shaded "
+                  f"{out[f'{name} {w}x{h} shaded']:.3f} ms (median of 3); coverage equal "
+                  f"to K1's pixel-centre hit mask on {agree:.5f} of pixels (>= 0.99)")
+            if agree < 0.99:
+                raise RuntimeError(f"raster {name} {w}x{h}: coverage agreement {agree}")
+    return out
+
+
+def entry_phase(card):
+    """The port's entry points as a user runs them, each a subprocess with
+    exit code 0 and an output that decodes: render_cli on spheres.scn at
+    1080p with -accel tlas and on the default scene at 640x480, -kernel
+    raster and raster-gl, -checkpoint (8 frames, then a resume to 16,
+    whose accumulator must equal an uninterrupted 16-frame run's bit for
+    bit), the viewer's headless burst and the optimiser's albedo self-test,
+    whose loss must fall. Outputs go to build/smoke/ in the checkout."""
+    from tracy_tpu_torch.utils.image_io import decode_png
+
+    out_dir = os.path.join(REPO, "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    spheres = os.path.join(REPO, "tests", "goldens", "scn", "spheres.scn")
+    result = {}
+
+    def run(label, module, args, shape=None):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", f"tracy_tpu_torch.apps.{module}"] + args,
+                           cwd=out_dir, env=env, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        lines = [ln for ln in p.stderr.splitlines() if "MRays/s" in ln or "raster frame" in ln
+                 or "resumed" in ln or "loss" in ln or "selftest" in ln]
+        print(f"entry {label}: exit {p.returncode} in {secs:.1f} s {card}"
+              + "".join(f"\n    {ln}" for ln in lines[-3:]))
+        if p.returncode != 0:
+            raise RuntimeError(f"entry {label} exited {p.returncode}: {p.stderr[-2000:]}")
+        if shape is not None:
+            outp = os.path.join(out_dir, args[args.index("-out") + 1])
+            with open(outp, "rb") as f:
+                img = decode_png(f.read())
+            if img.shape != shape or img.std() == 0:
+                raise RuntimeError(f"entry {label}: output {img.shape}, std {img.std()}")
+        result[label] = {"seconds": secs, "log": lines}
+        return p.stderr
+
+    run("render_cli spheres.scn 1920x1080 tlas", "render_cli",
+        ["-scene", spheres, "-width", "1920", "-height", "1080", "-frames", "4", "-accel",
+         "tlas", "-out", "spheres_tlas.png"], (1080, 1920, 3))
+    run("render_cli default 640x480", "render_cli",
+        ["-frames", "16", "-out", "default.png"], (480, 640, 3))
+    for kernel in ("raster", "raster-gl"):
+        run(f"render_cli -kernel {kernel}", "render_cli",
+            ["-kernel", kernel, "-out", f"{kernel}.png"], (480, 640, 3))
+    ck_a, ck_b = (os.path.join(out_dir, n) for n in ("resume.npz", "straight.npz"))
+    for f in (ck_a, ck_b):
+        if os.path.exists(f):
+            os.remove(f)
+    ck = ["-checkpoint-every", "8"]
+    run("render_cli -checkpoint 8 frames", "render_cli",
+        ["-frames", "8", "-checkpoint", ck_a, "-out", "ck8.png"] + ck)
+    log = run("render_cli -checkpoint resume to 16", "render_cli",
+              ["-frames", "16", "-checkpoint", ck_a, "-out", "ck16.png"] + ck)
+    run("render_cli -checkpoint 16 frames straight", "render_cli",
+        ["-frames", "16", "-checkpoint", ck_b, "-out", "straight16.png"] + ck)
+    with np.load(ck_a) as a, np.load(ck_b) as b:
+        same = bool(np.array_equal(a["accum"], b["accum"])) and int(a["frame"]) == int(
+            b["frame"]) == 16
+    print(f"checkpoint: resumed at frame 8 ({'resumed' in log}), 16 frames equal to an "
+          f"uninterrupted 16-frame run bit for bit: {same}")
+    if not same or "resumed" not in log:
+        raise RuntimeError("the checkpoint resume differs from the uninterrupted run")
+    run("viewer -frames 4", "viewer", ["-frames", "4", "-out", "viewer.png"], (480, 640, 3))
+    log = run("optimize_cli -selftest albedo", "optimize_cli",
+              ["-selftest", "albedo", "-steps", "40", "-out", "recovered.png"], (72, 96, 3))
+    losses = [float(m) for m in re.findall(r"step \d+: loss ([0-9.eE+-]+)", log)]
+    print(f"optimize_cli: loss {losses[0]:.6g} -> {losses[-1]:.6g} over 40 Adam steps")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError("the optimiser's loss did not fall")
+    result["checkpoint_bit_equal"] = same
+    result["optimize_losses"] = [losses[0], losses[-1]]
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -988,7 +1242,8 @@ def main() -> int:
                                 ("furnace", True, {}),
                                 ("spheres", False, dict(accel="bvh", rng="xorshift")),
                                 ("furnace", False, dict(accel="none", rng="lcg")),
-                                ("furnace", False, dict(pallas_bvh_width=8))):
+                                ("furnace", False, dict(pallas_bvh_width=8)),
+                                ("furnace", False, dict(accel="tlas"))):
         gb = load_scene(os.path.join(REPO, "tests", "goldens", "scn", f"{gname}.scn"))
         if gb.fallbacks:
             raise RuntimeError(f"{gname}.scn substituted files: {gb.fallbacks}")
@@ -1052,6 +1307,15 @@ def main() -> int:
     more, tex_ms = textured_step_phase(tbuilder, counts, dev, card)
     launches.update(more)
     print("training: " + json.dumps({"device": smi, **train_ms, "textured": tex_ms}))
+
+    # 12. accel 'tlas', 13. the raster preview, 14. the entry points.
+    more, tlas_s = tlas_phase(scene, ccfg, rends["grid64x28 compacted"], counts, dev, card)
+    launches.update(more)
+    raster_ms = raster_phase((("grid64x28", builder, scene, tables),
+                              ("grid64x28-tex", tbuilder, tscene, ttables)), dev, card)
+    entries = entry_phase(card)
+    print("slice 9: " + json.dumps({"device": smi, "tlas": tlas_s, "raster_ms": raster_ms,
+                                    "entries": entries}))
 
     def entry(kname, label, source, replaces, err, ms, plain_ms, bound, library_ms):
         return {"name": f"{kname} {label}", "route": "cuda",

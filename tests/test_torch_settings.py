@@ -163,11 +163,16 @@ def test_render_settings_match_jax(cornell, jax_renders, setting):
 
 def test_settings_are_bound_as_tracy_tpu_binds_them(cornell):
     _, scene = cornell
-    with pytest.raises(NotImplementedError, match="tlas"):
-        Renderer(RenderConfig(width=32, height=32, accel="tlas"))
     with pytest.raises(ValueError, match="threefry"):
         Renderer(RenderConfig(width=32, height=32, rng="threefry"))
-    # Compaction and the fused bounce wrap the packet intersector only.
+    # 'tlas' is K1 on the stitched tables (tests/test_torch_tlas.py):
+    # compaction wraps it, bounce 0 peeled; the fused bounce does not.
+    r = Renderer(RenderConfig(width=32, height=32, accel="tlas", wave_compact_group=1024,
+                              use_pallas_bounce=True))
+    r.prepare(scene)
+    assert r.path == "two-stage" and list(r._paths) == ["first_intersect_fn"]
+    assert "compact" in r._intersect.__qualname__ and r.two_level is not None
+    # Compaction and the fused bounce wrap neither 'bvh' nor 'none'.
     for accel in ("bvh", "none"):
         r = Renderer(RenderConfig(width=32, height=32, accel=accel, wave_compact_group=1024,
                                   use_pallas_bounce=True))

@@ -54,7 +54,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tracy_tpu_torch.accel.bvh_build import build_bvh_auto
+from tracy_tpu_torch.accel.bvh_build import HostBVH, build_bvh_auto
 from tracy_tpu_torch.render.material import scene_has_textures
 from tracy_tpu_torch.scene.scene import TEX_NORMAL
 
@@ -203,6 +203,33 @@ def wide_lines(bounds_w: np.ndarray, meta_w: np.ndarray, meta: np.ndarray) -> np
     return out
 
 
+def tree_depth(meta: np.ndarray) -> int:
+    """The deepest node of a binary tree (root = 0, depth 0), found by
+    walking it from the root over node_meta rows (first, count, right):
+    the real depth, which a stitched two-level tree's recorded max_depth
+    only bounds (accel/tlas.py)."""
+    deepest = 0
+    stack = [(0, 0)]
+    while stack:
+        n, dep = stack.pop()
+        deepest = max(deepest, dep)
+        if meta[n, 1] == 0:
+            stack.append((int(meta[n, 0]), dep + 1))
+            stack.append((int(meta[n, 2]), dep + 1))
+    return deepest
+
+
+def host_bvh(scene, leaf_size: int = 8, max_depth: int = 60) -> HostBVH:
+    """The single-level binned-SAH BVH over the scene's triangles, built on
+    the host."""
+    pos = scene.vertex_pos.detach().cpu().numpy().astype(np.float32)
+    idx = scene.indices.cpu().numpy().astype(np.int64)
+    v0, v1, v2 = pos[idx[:, 0]], pos[idx[:, 1]], pos[idx[:, 2]]
+    return build_bvh_auto(np.minimum(np.minimum(v0, v1), v2),
+                          np.maximum(np.maximum(v0, v1), v2),
+                          leaf_size, max_depth)
+
+
 def build_tables(scene, leaf_size: int = 8, max_depth: int = 60, width: int = 4) -> BVHTables:
     """Build the BVH on the host and upload the tables to scene's device.
 
@@ -212,18 +239,29 @@ def build_tables(scene, leaf_size: int = 8, max_depth: int = 60, width: int = 4)
     (pallas_packet.py:497-500)."""
     if width not in WIDTHS:
         raise ValueError(f"BVH width {width}: the port walks widths {WIDTHS}")
+    return tables_from_host(scene, host_bvh(scene, leaf_size, max_depth), width)
+
+
+def tables_from_host(scene, host: HostBVH, width: int = 4) -> BVHTables:
+    """The kernel's tables for a host BVH over the scene's triangles: a
+    single-level build (build_tables) or a stitched two-level tree
+    (accel/tlas.py), which feed the same binary tables and wide rows.
+
+    The depth (and so the traversal stack) is the tree's real depth, found
+    by walking it: a stitched tree's recorded max_depth is only a bound. A
+    tree deeper than the kernel's stack is refused with its depth, never
+    cut."""
+    if width not in WIDTHS:
+        raise ValueError(f"BVH width {width}: the port walks widths {WIDTHS}")
     pos = scene.vertex_pos.detach().cpu().numpy().astype(np.float32)
     idx = scene.indices.cpu().numpy().astype(np.int64)
-    v0, v1, v2 = pos[idx[:, 0]], pos[idx[:, 1]], pos[idx[:, 2]]
-    host = build_bvh_auto(np.minimum(np.minimum(v0, v1), v2),
-                          np.maximum(np.maximum(v0, v1), v2),
-                          leaf_size, max_depth)
     order = host.tri_order.astype(np.int64)
     if not np.array_equal(np.sort(order), np.arange(len(idx))):
         raise RuntimeError("BVH slot order is not a permutation of the triangles")
-    if host.max_depth + 1 > KERNEL_STACK_MAX:
-        raise ValueError(f"BVH depth {host.max_depth} needs a traversal stack of "
-                         f"{host.max_depth + 1} > {KERNEL_STACK_MAX} entries")
+    depth = tree_depth(host.node_meta)
+    if depth + 1 > KERNEL_STACK_MAX:
+        raise ValueError(f"BVH depth {depth} needs a traversal stack of "
+                         f"{depth + 1} > {KERNEL_STACK_MAX} entries")
 
     nn = host.num_nodes
     nb = np.zeros((nn, 8), np.float32)
@@ -259,7 +297,7 @@ def build_tables(scene, leaf_size: int = 8, max_depth: int = 60, width: int = 4)
         tri_meta=torch.as_tensor(tmeta, device=dev),
         tri_id=torch.as_tensor(order.astype(np.int32), device=dev),
         vertex_normal=scene.vertex_normal.contiguous(),
-        max_depth=int(host.max_depth),
+        max_depth=depth,
         vertex_uv=scene.vertex_uv.contiguous() if has_uv else None,
         vertex_tangent=scene.vertex_tangent.contiguous() if with_tangent else None,
         width=width,

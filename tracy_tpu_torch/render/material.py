@@ -35,7 +35,7 @@ import torch
 
 from tracy_tpu_torch.core import math as tm
 from tracy_tpu_torch.ops.texfetch import fetch_texels
-from tracy_tpu_torch.render.texture import SLOT_COLUMNS
+from tracy_tpu_torch.render.texture import SLOT_COLUMNS, fetch_texels_bilinear
 from tracy_tpu_torch.scene.scene import (
     TEX_BASECOLOR,
     TEX_EMISSIVE,
@@ -134,9 +134,9 @@ def apply_textures(params: SurfaceParams, texels, has, tangent) -> SurfaceParams
 
 
 def gather_surface_params(scene, mat_id, uv, shading_normal, tangent, direction, hit_mask,
-                          fetch_fn=None) -> SurfaceParams:
+                          fetch_fn=None, tex_filter: str = "nearest") -> SurfaceParams:
     """Surface parameters of [N] lanes (tracy_tpu's gather_surface_params,
-    material.h:164-203), nearest texel filtering only.
+    material.h:164-203).
 
     mat_id [N] int32; uv [N, 2] interpolated texture uv, or None when the
     intersector carries none (no material but the sky is textured);
@@ -149,14 +149,22 @@ def gather_surface_params(scene, mat_id, uv, shading_normal, tangent, direction,
     CUDA tensors, its plain version on CPU ones). K3 has no backward, so
     the differentiable route (diff/gradients.py::render_loss) passes the
     plain gather, which is differentiable in the texel values.
+    tex_filter: "nearest" (the path tracers, Texture::GetPixel) or
+    "bilinear" (the raster preview's GL_LINEAR; its rows come from
+    render/texture.py::fetch_texels_bilinear, plain torch, and fetch_fn is
+    not read).
     """
+    if tex_filter not in ("nearest", "bilinear"):
+        raise ValueError(f"tex_filter {tex_filter!r}: 'nearest' or 'bilinear'")
     m = scene.materials
     albedo, rough, metal, ior, emis, transl = material_table_lookup(m, mat_id)
     params = SurfaceParams(basecolor=albedo, roughness=rough, metalness=metal, ior=ior,
                            emissive=emis, translucent=transl, normal=shading_normal)
     if not scene_has_textures(scene):
         return params
-    if fetch_fn is None:
+    if tex_filter == "bilinear":
+        fetch_fn = fetch_texels_bilinear
+    elif fetch_fn is None:
         fetch_fn = fetch_texels
     texels = fetch_fn(mat_id, uv, direction, hit_mask, hit_mask, scene.tex_data,
                       scene.tex_table, m.tex_index)

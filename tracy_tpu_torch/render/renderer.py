@@ -12,12 +12,14 @@ texture uv and, with normal maps, the tangent: the "two-stage" path. The
 intersector follows cfg.accel as tracy_tpu's does (tracy_tpu/render/
 renderer.py:468-482): 'packet' is K1 (ops/intersect.py) over the BVH
 tables (4-wide, or 8-wide or binary with pallas_bvh_width=8 or 2), 'bvh'
-K1 over the binary tables (tracy_tpu's 'bvh' walks a binary tree), 'none' the
-brute-force intersector (render/integrator.py; XLA code in tracy_tpu, no
-kernel). With use_pallas_bounce on an untextured scene and accel 'packet',
-K5 (ops/bounce.py) runs the whole bounce instead: the "fused" path
+K1 over the binary tables (tracy_tpu's 'bvh' walks a binary tree), 'tlas'
+K1 over the tables of the stitched two-level tree (accel/tlas.py, at
+pallas_bvh_width, as on 'packet'), 'none' the brute-force intersector
+(render/integrator.py; XLA code in tracy_tpu, no kernel). With
+use_pallas_bounce on an untextured scene and accel 'packet', K5
+(ops/bounce.py) runs the whole bounce instead: the "fused" path
 (`Renderer.path` says which was bound). With wave_compact_group > 0 and
-accel 'packet', K1 (or K5) runs inside accel/reorder.py's compaction, and
+accel 'packet' or 'tlas', K1 (or K5) runs inside accel/reorder.py's compaction, and
 K4 on the routed-back lanes, as tracy_tpu binds them (tracy_tpu/render/
 renderer.py:488-512, :619-689); with wave_compact_skip_first, bounce 0 runs
 uncompacted. The image is folded into 32x32-pixel tiles, so that
@@ -36,7 +38,6 @@ the whole frame's values.
 from __future__ import annotations
 
 import functools
-import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -44,7 +45,8 @@ import torch
 
 from tracy_tpu_torch.config import RenderConfig
 from tracy_tpu_torch.accel.reorder import compact_bounce, compact_intersector
-from tracy_tpu_torch.accel.tables import BVHTables, build_tables
+from tracy_tpu_torch.accel.tables import BVHTables, build_tables, tables_from_host
+from tracy_tpu_torch.accel.tlas import TwoLevelBVH, build_two_level
 from tracy_tpu_torch.core.camera import pixel_samples_rows
 from tracy_tpu_torch.core.rng import MASK32, RngSpec
 from tracy_tpu_torch.ops.bounce import trace_bounce
@@ -60,6 +62,7 @@ from tracy_tpu_torch.render.integrator import (
 )
 from tracy_tpu_torch.render.material import scene_has_textures
 from tracy_tpu_torch.scene.scene import SceneArrays
+from tracy_tpu_torch.utils.timer import Timer
 
 
 class RenderState(NamedTuple):
@@ -204,19 +207,17 @@ class Renderer:
     """
 
     def __init__(self, cfg: RenderConfig):
-        if cfg.accel == "tlas":
-            raise NotImplementedError("accel='tlas': the two-level BVH is not ported yet "
-                                      "(ROADMAP queue 1)")
         RngSpec(cfg.rng, cfg.seed)  # refuses threefry (jax.random) with its reason
         self.cfg = cfg
         self.tables: Optional[BVHTables] = None
+        self.two_level: Optional[TwoLevelBVH] = None  # accel 'tlas', once prepared
         self.path: Optional[str] = None  # "two-stage", "fused" or "aov", once prepared
         self._intersect = None
         self._paths = {}
         self._shade = None
         self._mtab = None
         self.total_rays = 0
-        self.total_seconds = 0.0
+        self.timer = Timer()  # host seconds of step_many, device sync included
 
     def prepare(self, scene: SceneArrays):
         """Build the BVH tables (host side) and the material table, and bind
@@ -231,14 +232,25 @@ class Renderer:
         packet = cfg.accel == "packet"
         if cfg.accel == "none":
             isect = make_bruteforce_intersector(scene)
+        elif cfg.accel == "tlas":
+            # tracy_tpu builds the stitched tree at packet_leaf_size (64) for
+            # its XLA packet intersector (renderer.py:300-336); the port's K1
+            # walks it, so it is built at the leaf size K1's tables use on
+            # 'packet'. Renders agree up to ties between equal-t triangles.
+            self.two_level = build_two_level(scene, leaf_size=cfg.bvh_leaf_size,
+                                             max_depth=max(cfg.traversal_stack_depth - 8, 8))
+            self.tables = tables_from_host(scene, self.two_level.stitched,
+                                           width=cfg.pallas_bvh_width)
+            isect = functools.partial(intersect, tables=self.tables)
         else:
             self.tables = build_tables(scene, leaf_size=cfg.bvh_leaf_size,
                                        max_depth=max(cfg.traversal_stack_depth - 4, 8),
                                        width=cfg.pallas_bvh_width if packet else 2)
             isect = functools.partial(intersect, tables=self.tables)
-        # Compaction wraps the packet intersector only (tracy_tpu's
-        # renderer.py:492-494): 'bvh' and 'none' trace every lane.
-        group = cfg.wave_compact_group if packet else 0
+        # Compaction wraps the packet and tlas intersectors only (tracy_tpu's
+        # renderer.py:492-494): 'bvh' and 'none' trace every lane. The fused
+        # bounce K5 binds on 'packet' alone (tracy_tpu's :626-628).
+        group = cfg.wave_compact_group if cfg.accel in ("packet", "tlas") else 0
         peel = group > 0 and cfg.wave_compact_skip_first
         self._intersect = compact_intersector(isect, group) if group else isect
         self._paths = {"first_intersect_fn": isect} if peel else {}
@@ -263,7 +275,7 @@ class Renderer:
 
     def reset(self, device) -> RenderState:
         self.total_rays = 0
-        self.total_seconds = 0.0
+        self.timer.reset()
         return init_state(self.cfg, device)
 
     def step(self, scene: SceneArrays, state: RenderState):
@@ -272,7 +284,7 @@ class Renderer:
     def step_many(self, scene: SceneArrays, state: RenderState, num_steps: int):
         """num_steps progressive frames; waits for the device at the end."""
         self.prepare(scene)
-        t0 = time.perf_counter()
+        self.timer.begin()
         rays = torch.zeros((), dtype=torch.int64, device=scene.device)
         for _ in range(num_steps):
             state, r = render_step(scene, state, self.cfg, self._intersect,
@@ -281,7 +293,7 @@ class Renderer:
         if scene.device.type == "cuda":
             torch.cuda.synchronize(scene.device)
         rays = int(rays)
-        self.total_seconds += time.perf_counter() - t0
+        self.timer.end()
         self.total_rays += rays
         return state, rays
 
@@ -307,5 +319,5 @@ class Renderer:
 
     @property
     def mrays_per_sec(self) -> float:
-        t = self.total_seconds
+        t = self.timer.total
         return (self.total_rays / 1e6) / t if t > 0 else 0.0

@@ -89,10 +89,19 @@ class SceneArrays:
     width: int = 640
     height: int = 480
     name: str = ""
+    # Per-object contiguous ranges into the global soup, ((start, count),
+    # ...) over triangles and vertices: the object structure the two-level
+    # BVH (accel/tlas.py) builds on, as tracy_tpu's SceneArrays carries it.
+    object_tri_ranges: tuple = ()
+    object_vert_ranges: tuple = ()
 
     @property
     def num_triangles(self) -> int:
         return self.indices.shape[0]
+
+    @property
+    def num_vertices(self) -> int:
+        return self.vertex_pos.shape[0]
 
     @property
     def device(self) -> torch.device:
@@ -129,6 +138,10 @@ class SceneBuilder:
     def set_camera(self, eye, center, up, fov_degrees: float):
         self.camera_params = dict(eye=eye, center=center, up=up, fov_degrees=fov_degrees)
         return self
+
+    @property
+    def num_objects(self) -> int:
+        return len(self.meshes)
 
     @property
     def num_triangles(self) -> int:
@@ -197,9 +210,10 @@ class SceneBuilder:
         """Flatten into tensors on `device` (float32 / int32): the card by
         default; raises if there is none. Pass device="cpu" for the CPU."""
         device = resolve_device(device)
+        tri_ranges, vert_ranges = [], []
         if self.meshes:
             pos, nrm, uv, tan, idx, mat = [], [], [], [], [], []
-            voffset = 0
+            voffset = toffset = 0
             for m in self.meshes:
                 if m.tangents is None:
                     m.compute_tangents()
@@ -210,7 +224,10 @@ class SceneBuilder:
                 idx.append(m.indices.astype(np.int64) + voffset)
                 mid = m.material_id if m.material_id >= 0 else 0
                 mat.append(np.full((m.num_triangles,), mid, dtype=np.int32))
+                tri_ranges.append((toffset, m.num_triangles))
+                vert_ranges.append((voffset, m.num_vertices))
                 voffset += m.num_vertices
+                toffset += m.num_triangles
             pos, nrm, uv, tan = (np.concatenate(a) for a in (pos, nrm, uv, tan))
             idx = np.concatenate(idx).astype(np.int32)
             mat = np.concatenate(mat)
@@ -237,17 +254,18 @@ class SceneBuilder:
         )
         arrays["tex_data"], arrays["tex_table"] = self.atlas.pack()
         log("scene '%s': %d objects, %d tris, %d verts, %d materials, %d textures"
-            % (self.name, len(self.meshes), len(idx), len(pos), len(mats),
+            % (self.name, self.num_objects, len(idx), len(pos), len(mats),
                len(self.atlas)))
         camera = Camera.setup(
             aspect_ratio=float(self.width) / float(max(self.height, 1)),
             device=device, **self.camera_params)
         return _scene_from_arrays(arrays, camera, self.width, self.height,
-                                  self.name, device)
+                                  self.name, device, tuple(tri_ranges), tuple(vert_ranges))
 
 
 def _scene_from_arrays(a: dict, camera: Camera, width: int, height: int,
-                       name: str, device) -> SceneArrays:
+                       name: str, device, tri_ranges: tuple = (),
+                       vert_ranges: tuple = ()) -> SceneArrays:
     def f32(x):
         return torch.tensor(np.asarray(x, np.float32), device=device)
 
@@ -276,6 +294,8 @@ def _scene_from_arrays(a: dict, camera: Camera, width: int, height: int,
         width=width,
         height=height,
         name=name,
+        object_tri_ranges=tri_ranges,
+        object_vert_ranges=vert_ranges,
     )
 
 
@@ -303,4 +323,8 @@ def from_jax_arrays(src, device=DEFAULT_DEVICE) -> SceneArrays:
 
     camera = Camera(eye=f32(cam.eye), inv_view_projection=f32(cam.inv_view_projection),
                     view=f32(cam.view), projection=f32(cam.projection))
-    return _scene_from_arrays(a, camera, src.width, src.height, src.name, device)
+    def ranges(r):
+        return tuple((int(start), int(count)) for start, count in r)
+
+    return _scene_from_arrays(a, camera, src.width, src.height, src.name, device,
+                              ranges(src.object_tri_ranges), ranges(src.object_vert_ranges))

@@ -1,0 +1,88 @@
+"""Checkpoint and resume for progressive renders and inverse-rendering runs,
+on one device.
+
+Port of tracy_tpu/utils/checkpoint.py. The render state (the accumulated
+radiance and the frame counter) is an npz file with tracy_tpu's keys,
+`accum` and `frame`, so a checkpoint written by either package loads in
+the other; the counter-based RNG is keyed by the frame index, so a resumed
+render continues the same sample stream and ends bit for bit where an
+uninterrupted one does. The training state holds the parameters, Adam's
+moments and step counts and the step: without the moments a resumed Adam
+run would part from the uninterrupted one. The `mesh=` argument of the
+JAX package's loader (a sharded accumulator) waits for the multi-device
+slice.
+
+Files are written through an open handle, so the name is exactly `path`
+(np.savez given a name adds `.npz` to one without it).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tracy_tpu_torch.render.renderer import RenderState
+from tracy_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
+
+def _savez(path: str, **arrays):
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def save_render_state(path: str, state: RenderState):
+    _savez(path, accum=state.accum.detach().cpu().numpy(),
+           frame=np.asarray(int(state.frame), np.int32))
+
+
+def load_render_state(path: str, device=DEFAULT_DEVICE) -> RenderState:
+    """The render state in `path` (written by either package), its
+    accumulator on `device` (the card by default)."""
+    with np.load(path) as data:
+        accum = torch.tensor(np.asarray(data["accum"], np.float32),
+                             device=resolve_device(device))
+        return RenderState(accum=accum, frame=int(data["frame"]))
+
+
+def save_params(path: str, params):
+    """Save a TrainableParams (or any NamedTuple of tensors) as npz."""
+    _savez(path, **{k: v.detach().cpu().numpy() for k, v in params._asdict().items()})
+
+
+def load_params(path: str, cls, device=DEFAULT_DEVICE):
+    """A `cls` NamedTuple of the tensors in `path`, on `device`."""
+    dev = resolve_device(device)
+    with np.load(path) as data:
+        return cls(**{k: torch.tensor(data[k], device=dev) for k in data.files})
+
+
+def save_train_state(path: str, params, optimizer, step: int):
+    """Parameters, the optimizer's per-parameter state (Adam: step count,
+    first and second moments, keyed by the parameter's place in the
+    optimizer) and the training step."""
+    blobs = {f"p_{k}": v.detach().cpu().numpy() for k, v in params._asdict().items()}
+    for i, st in optimizer.state_dict()["state"].items():
+        for key, v in st.items():
+            blobs[f"o_{i}_{key}"] = torch.as_tensor(v).detach().cpu().numpy()
+    blobs["step"] = np.asarray(step, np.int64)
+    _savez(path, **blobs)
+
+
+def load_train_state(path: str, params, optimizer):
+    """Restore a training state into the live `params` (copied in place, so
+    the optimizer's references stay valid) and `optimizer` (an optimizer of
+    the same kind over them, as make_train_step returns it). Returns
+    (params, optimizer, step)."""
+    with np.load(path) as data:
+        with torch.no_grad():
+            for k, v in params._asdict().items():
+                v.copy_(torch.as_tensor(data[f"p_{k}"]))
+        sd = optimizer.state_dict()
+        state = {}
+        for name in data.files:
+            if name.startswith("o_"):
+                i, key = name[2:].split("_", 1)
+                state.setdefault(int(i), {})[key] = torch.tensor(data[name])
+        sd["state"] = state
+        optimizer.load_state_dict(sd)
+        return params, optimizer, int(data["step"])
