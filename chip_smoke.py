@@ -82,7 +82,20 @@ Phases, each fatal on failure:
    scene at 640x480, -kernel raster and raster-gl, a -checkpoint run of 8
    frames resumed to 16 (equal bit for bit to an uninterrupted 16-frame
    run), the viewer's headless burst and optimize_cli's albedo self-test
-   (the loss must fall); each run's MRays/s line is logged.
+   (the loss must fall); each run's MRays/s line is logged;
+15. the mesh (tracy_tpu_torch/parallel) at 1080p on grid64x28, compacted:
+   in-process meshes on this card, 1x1 and 4x1 at spp 1 equal to
+   Renderer.step_many bit for bit (rays too), 2x2 at spp 2 within atol
+   3e-6, rtol 1e-5 of the single-device frames, each launching K1 and K2
+   alone; 4x1 timed against the single-device path, 5 runs each in turn;
+   grid64x28-tex at 2x1 (K1 and K4) equal bit for bit; a 4x1 checkpoint
+   resumed under 2x1 equal to the uninterrupted run; this script as two
+   gloo ranks on this card (`--mesh-worker`): host rows disjoint and
+   covering, 2 frames equal to one process bit for bit, one sharded
+   640x480 "materials" step with gradients within 1e-4 of the largest
+   entry of one process's; render_cli -mesh 2x2 -spp 2 on spheres.scn at
+   1080p, and a -mesh 4x1 checkpoint resumed under -mesh 2x1 equal to
+   phase 14's uninterrupted run.
 
 Prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
@@ -460,8 +473,6 @@ def training_phase(grid, counts, dev, card):
     differentiates)."""
     import dataclasses
 
-    from tracy_tpu_torch import RenderConfig
-    from tracy_tpu_torch.accel.reorder import pick_compact_group
     from tracy_tpu_torch.diff import (
         TrainableParams, extract_params, make_train_step, make_training_intersector)
     from tracy_tpu_torch.ops import shade as k2
@@ -469,9 +480,7 @@ def training_phase(grid, counts, dev, card):
 
     grid.width, grid.height = TRAIN_W, TRAIN_H
     scene = grid.build(device=dev)
-    cfg = RenderConfig(width=TRAIN_W, height=TRAIN_H, spp=1, max_bounces=5, tonemap="none",
-                       accel="packet", russian_roulette=True, pallas_bvh_width=4,
-                       wave_compact_group=pick_compact_group(TRAIN_W * TRAIN_H))
+    cfg = train_config()
     fwd = make_training_intersector(scene, cfg, needs_geometry_grads=False)
     fit = cfg.replace(russian_roulette=False)
     with torch.no_grad():
@@ -552,17 +561,13 @@ def textured_step_phase(grid, counts, dev, card):
     once and checked after each step: K1 5 launches a step, and K3's plain
     gather 5 times a step inside the differentiable bounce. Returns {path:
     launches} (the counters' sums) and the timings."""
-    from tracy_tpu_torch import RenderConfig
-    from tracy_tpu_torch.accel.reorder import pick_compact_group
     from tracy_tpu_torch.diff import (
         TrainableParams, make_train_step, make_training_intersector)
     from tracy_tpu_torch.ops import shade as k2
 
     grid.width, grid.height = TRAIN_W, TRAIN_H
     scene = grid.build(device=dev)
-    cfg = RenderConfig(width=TRAIN_W, height=TRAIN_H, spp=1, max_bounces=5, tonemap="none",
-                       accel="packet", russian_roulette=True, pallas_bvh_width=4,
-                       wave_compact_group=pick_compact_group(TRAIN_W * TRAIN_H))
+    cfg = train_config()
     isect = make_training_intersector(scene, cfg, needs_geometry_grads=False)
     target = torch.full((TRAIN_H, TRAIN_W, 3), 0.5, device=dev)
     mask = TrainableParams(*(True,) * 8)._replace(vertex_pos=False)
@@ -765,6 +770,39 @@ def raster_phase(named, dev, card):
     return out
 
 
+SMOKE_DIR = os.path.join(REPO, "build", "smoke")
+SPHERES = os.path.join(REPO, "tests", "goldens", "scn", "spheres.scn")
+
+
+def run_entry(label, module, args, card, result, shape=None):
+    """One of the port's entry points as a subprocess in build/smoke/: it
+    must exit 0 and, with `shape`, write a PNG of that shape that is not
+    flat. Logs its MRays/s and other lines into result[label]; returns its
+    standard error."""
+    from tracy_tpu_torch.utils.image_io import decode_png
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", f"tracy_tpu_torch.apps.{module}"] + args,
+                       cwd=SMOKE_DIR, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = [ln for ln in p.stderr.splitlines() if "MRays/s" in ln or "raster frame" in ln
+             or "resumed" in ln or "loss" in ln or "selftest" in ln or "mesh" in ln]
+    print(f"entry {label}: exit {p.returncode} in {secs:.1f} s {card}"
+          + "".join(f"\n    {ln}" for ln in lines[-3:]))
+    if p.returncode != 0:
+        raise RuntimeError(f"entry {label} exited {p.returncode}: {p.stderr[-2000:]}")
+    if shape is not None:
+        outp = os.path.join(SMOKE_DIR, args[args.index("-out") + 1])
+        with open(outp, "rb") as f:
+            img = decode_png(f.read())
+        if img.shape != shape or img.std() == 0:
+            raise RuntimeError(f"entry {label}: output {img.shape}, std {img.std()}")
+    result[label] = {"seconds": secs, "log": lines}
+    return p.stderr
+
+
 def entry_phase(card):
     """The port's entry points as a user runs them, each a subprocess with
     exit code 0 and an output that decodes: render_cli on spheres.scn at
@@ -773,33 +811,12 @@ def entry_phase(card):
     whose accumulator must equal an uninterrupted 16-frame run's bit for
     bit), the viewer's headless burst and the optimiser's albedo self-test,
     whose loss must fall. Outputs go to build/smoke/ in the checkout."""
-    from tracy_tpu_torch.utils.image_io import decode_png
-
-    out_dir = os.path.join(REPO, "build", "smoke")
-    os.makedirs(out_dir, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    spheres = os.path.join(REPO, "tests", "goldens", "scn", "spheres.scn")
+    out_dir = SMOKE_DIR
+    spheres = SPHERES
     result = {}
 
     def run(label, module, args, shape=None):
-        t0 = time.perf_counter()
-        p = subprocess.run([sys.executable, "-m", f"tracy_tpu_torch.apps.{module}"] + args,
-                           cwd=out_dir, env=env, capture_output=True, text=True, timeout=600)
-        secs = time.perf_counter() - t0
-        lines = [ln for ln in p.stderr.splitlines() if "MRays/s" in ln or "raster frame" in ln
-                 or "resumed" in ln or "loss" in ln or "selftest" in ln]
-        print(f"entry {label}: exit {p.returncode} in {secs:.1f} s {card}"
-              + "".join(f"\n    {ln}" for ln in lines[-3:]))
-        if p.returncode != 0:
-            raise RuntimeError(f"entry {label} exited {p.returncode}: {p.stderr[-2000:]}")
-        if shape is not None:
-            outp = os.path.join(out_dir, args[args.index("-out") + 1])
-            with open(outp, "rb") as f:
-                img = decode_png(f.read())
-            if img.shape != shape or img.std() == 0:
-                raise RuntimeError(f"entry {label}: output {img.shape}, std {img.std()}")
-        result[label] = {"seconds": secs, "log": lines}
-        return p.stderr
+        return run_entry(label, module, args, card, result, shape)
 
     run("render_cli spheres.scn 1920x1080 tlas", "render_cli",
         ["-scene", spheres, "-width", "1920", "-height", "1080", "-frames", "4", "-accel",
@@ -837,6 +854,361 @@ def entry_phase(card):
     result["checkpoint_bit_equal"] = same
     result["optimize_losses"] = [losses[0], losses[-1]]
     return result
+
+
+def check_launches(label, counts, want):
+    """The counters since their reset: exactly `want` kernel launches (0
+    for a kernel not named) and no plain version. Returns the launches."""
+    got = {k: c.kernel for k, c in counts.items()}
+    plain = {k: c.plain for k, c in counts.items() if c.plain}
+    full = {k: want.get(k, 0) for k in counts}
+    if got != full or plain:
+        raise RuntimeError(f"{label}: launches {got} (want {full}), plain runs {plain}")
+    return got
+
+
+def mesh_run(step, copies, state, frames):
+    """`frames` sharded steps from `state`; (state, rays, host seconds to
+    the end of the device's work)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rays = 0
+    for _ in range(frames):
+        state, r = step(copies, state)
+        rays = rays + r
+    torch.cuda.synchronize()
+    return state, int(rays), time.perf_counter() - t0
+
+
+def mesh_phase(scene, tscene, ccfg, rends, accum, rays_of, counts, dev, card):
+    """15. The ('data', 'sample') mesh (tracy_tpu_torch/parallel) at 1080p:
+    (a) in-process meshes on this card, compacted, FRAMES frames: 1x1 and
+    4x1 at spp 1 equal Renderer.step_many's accumulator and rays bit for
+    bit, 2x2 at spp 2 the single-device spp-2 frames within atol 3e-6,
+    rtol 1e-5, launching K1 and K2 alone; 4x1 against the single-device
+    path, REPEATS runs each in turn; (b) grid64x28-tex at 2x1, 1 frame,
+    K1 and K4, equal bit for bit; (c) 4x1 for 2 frames, saved, resumed
+    under 2x1 for 2 more, equal to the uninterrupted 4x1 run bit for bit;
+    (d) two processes over gloo on this card, mesh 2x1: host_rows disjoint
+    and covering, 2 compacted 1080p frames equal to one process bit for
+    bit, and one sharded "materials" step at 640x480 whose gradients lie
+    within 1e-4 of the largest entry of the single-process gradient on the
+    card; (e) render_cli -mesh 2x2 -spp 2 on spheres.scn at 1080p, and a
+    -checkpoint run under -mesh 4x1 for 8 frames resumed under -mesh 2x1
+    to 16, equal bit for bit to phase 14's uninterrupted 16 frames.
+    Returns {path: launches} and the figures."""
+    from tracy_tpu_torch.parallel import (
+        make_render_mesh, make_sharded_render_step, replicate_scene)
+    from tracy_tpu_torch.render.renderer import Renderer, init_state
+    from tracy_tpu_torch.utils.checkpoint import load_render_state, save_render_state
+
+    launches, out = {}, {}
+    head = "grid64x28 compacted"
+    bounces = ccfg.max_bounces
+
+    def sharded(cfg, nd, ns, sc):
+        mesh = make_render_mesh(nd, ns, devices=[dev] * (nd * ns))
+        return mesh, make_sharded_render_step(cfg, mesh), replicate_scene(sc, mesh)
+
+    # (a) 1x1, 4x1 and 2x2 at spp 2.
+    cfg2 = ccfg.replace(spp=2)
+    ref2, rays2 = Renderer(cfg2).step_many(scene, init_state(cfg2, dev), FRAMES)
+    steps = {}
+    for label, cfg, nd, ns, ref, ref_rays in (
+            ("mesh 1x1", ccfg, 1, 1, accum[head], rays_of[head]),
+            ("mesh 4x1", ccfg, 4, 1, accum[head], rays_of[head]),
+            ("mesh 2x2 spp 2", cfg2, 2, 2, ref2.accum, rays2)):
+        mesh, step, copies = sharded(cfg, nd, ns, scene)
+        steps[label] = (step, copies, cfg)
+        mesh_run(step, copies, init_state(cfg, dev), 1)  # binds the stages
+        reset(counts)
+        st, rays, secs = mesh_run(step, copies, init_state(cfg, dev), FRAMES)
+        want = nd * ns * FRAMES * bounces * (cfg.spp // ns)
+        launches[label] = check_launches(label, counts, {"K1": want, "K2": want})
+        if ns == 1:
+            same = bool(torch.equal(st.accum, ref))
+            err = 0.0
+        else:
+            err = float(((st.accum - ref).abs() - 1e-5 * ref.abs()).max())
+            same = err <= 3e-6
+        print(f"{label} on {dev} (group {cfg.wave_compact_group}, spp {cfg.spp}), {FRAMES} "
+              f"frames: {rays} rays (single device {ref_rays}); "
+              + ("equal to Renderer.step_many bit for bit" if ns == 1 else
+                 "within atol 3e-6 + rtol 1e-5 of the single-device frames (excess "
+                 f"{err:.3g})")
+              + f": {same}; launches K1 {launches[label]['K1']}, K2 {launches[label]['K2']}, "
+              f"others 0, plain 0; {rays / 1e6 / secs:.2f} MRays/s {card}")
+        if not same or rays != ref_rays:
+            raise RuntimeError(f"{label} differs from the single-device render")
+        out[label] = st
+    rates = {"mesh 4x1": [], head: []}
+    step, copies, _ = steps["mesh 4x1"]
+    rend = rends[head]
+    for _ in range(REPEATS):
+        rend.reset(dev)
+        rend.step_many(scene, init_state(ccfg, dev), FRAMES)
+        rates[head].append(rend.mrays_per_sec)
+        _, rays, secs = mesh_run(step, copies, init_state(ccfg, dev), FRAMES)
+        rates["mesh 4x1"].append(rays / 1e6 / secs)
+    summary = {}
+    for label, r_ in rates.items():
+        r_ = sorted(r_)
+        summary[label] = {"median": r_[len(r_) // 2], "min": r_[0], "max": r_[-1]}
+        print(f"{label}: MRays/s over {REPEATS} runs of {FRAMES} frames in turn {card}: median "
+              f"{r_[len(r_) // 2]:.2f}, min {r_[0]:.2f}, max {r_[-1]:.2f}")
+
+    # (b) the textured scene at 2x1, one frame.
+    _, tstep, tcopies = sharded(ccfg, 2, 1, tscene)
+    ref_t, ref_trays = rends["grid64x28-tex compacted"].step_many(
+        tscene, init_state(ccfg, dev), 1)
+    mesh_run(tstep, tcopies, init_state(ccfg, dev), 1)
+    reset(counts)
+    st, rays, _ = mesh_run(tstep, tcopies, init_state(ccfg, dev), 1)
+    want = 2 * bounces
+    launches["mesh tex 2x1"] = check_launches("mesh tex 2x1", counts, {"K1": want, "K4": want})
+    same = bool(torch.equal(st.accum, ref_t.accum)) and rays == ref_trays
+    print(f"mesh tex 2x1, grid64x28-tex, 1 frame: equal to Renderer.step_many bit for bit "
+          f"(rays {rays} vs {ref_trays}): {same}; launches K1 {want}, K4 {want}, others 0")
+    if not same:
+        raise RuntimeError("the textured 2x1 mesh differs from the single-device frame")
+
+    # (c) elastic: 4x1 for 2 frames, saved, resumed under 2x1.
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    path = os.path.join(SMOKE_DIR, "mesh_elastic.npz")
+    half = FRAMES // 2
+    reset(counts)
+    st, _, _ = mesh_run(step, copies, init_state(ccfg, dev), half)
+    save_render_state(path, st)
+    mesh_b, step_b, copies_b = sharded(ccfg, 2, 1, scene)
+    st = load_render_state(path, mesh=mesh_b)
+    st, _, _ = mesh_run(step_b, copies_b, st, FRAMES - half)
+    want = (4 * half + 2 * (FRAMES - half)) * bounces
+    launches["mesh elastic 4x1 then 2x1"] = check_launches(
+        "mesh elastic", counts, {"K1": want, "K2": want})
+    same = st.frame == FRAMES and bool(torch.equal(st.accum, out["mesh 4x1"].accum))
+    print(f"mesh elastic: 4x1 for {half} frames -> {os.path.basename(path)} -> "
+          f"load_render_state(mesh=2x1) -> {FRAMES - half} frames, equal to the uninterrupted "
+          f"{FRAMES}-frame 4x1 run bit for bit: {same}")
+    if not same:
+        raise RuntimeError("the elastic resume differs from the uninterrupted run")
+
+    # (d) two processes over gloo on this card.
+    more, mp = two_process_check(scene, ccfg, rends[head], dev, card)
+    launches.update(more)
+
+    # (e) render_cli -mesh.
+    entries = {}
+    run_entry("render_cli -mesh 2x2 -spp 2 spheres.scn 1920x1080", "render_cli",
+              ["-scene", SPHERES, "-width", "1920", "-height", "1080", "-mesh", "2x2", "-spp",
+               "2", "-frames", "4", "-out", "mesh_spheres.png"], card, entries, (1080, 1920, 3))
+    ck = os.path.join(SMOKE_DIR, "mesh_resume.npz")
+    if os.path.exists(ck):
+        os.remove(ck)
+    every = ["-checkpoint", ck, "-checkpoint-every", "8"]
+    run_entry("render_cli -mesh 4x1 -checkpoint 8 frames", "render_cli",
+              ["-mesh", "4x1", "-frames", "8", "-out", "mesh_ck8.png"] + every, card, entries)
+    log = run_entry("render_cli -mesh 2x1 -checkpoint resume to 16", "render_cli",
+                    ["-mesh", "2x1", "-frames", "16", "-out", "mesh_ck16.png"] + every, card,
+                    entries)
+    with np.load(ck) as a, np.load(os.path.join(SMOKE_DIR, "straight.npz")) as b:
+        same = (bool(np.array_equal(a["accum"], b["accum"]))
+                and int(a["frame"]) == int(b["frame"]) == 16)
+    print(f"render_cli mesh checkpoint: 4x1 for 8 frames, resumed under 2x1 ({'resumed' in log})"
+          f" to 16, equal to phase 14's uninterrupted 16-frame run bit for bit: {same}")
+    if not same or "resumed" not in log:
+        raise RuntimeError("the CLI's mesh resume differs from the uninterrupted run")
+    return launches, {"rates": summary, "two_process": mp, "entries": entries}
+
+
+def two_process_check(scene, ccfg, rend, dev, card):
+    """(d) of mesh_phase: this script as two gloo ranks on this card
+    (mesh_worker), held against this process."""
+    import socket
+
+    from tracy_tpu_torch.diff import make_train_step
+    from tracy_tpu_torch.parallel import make_render_mesh, make_sharded_train_step
+    from tracy_tpu_torch.render.renderer import init_state
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    outp = os.path.join(SMOKE_DIR, "mesh_2proc.npz")
+    if os.path.exists(outp):
+        os.remove(outp)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = str(sk.getsockname()[1])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-u", os.path.abspath(__file__), "--mesh-worker",
+                               str(r), "2", port, outp], cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    secs = time.perf_counter() - t0
+    for r, (p, lg) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"mesh worker {r} exited {p.returncode}:\n{lg[-3000:]}")
+    ref, ref_rays = rend.step_many(scene, init_state(ccfg, dev), 2)
+    tcfg, tscene, isect, target = training_setup(dev)
+    # One device (the reference), once more (its run-to-run spread), and the
+    # 2x1 mesh in this process (the band split without the ranks).
+    grads = []
+    for mesh in (None, None, make_render_mesh(2, 1, devices=[dev, dev])):
+        if mesh is None:
+            step, params, opt = make_train_step(tscene, tcfg, optimizer=sgd_one,
+                                                intersect_fn=isect)
+        else:
+            step, params, opt = make_sharded_train_step(tscene, tcfg, mesh, optimizer=sgd_one,
+                                                        intersect_fn=isect)
+        step(params, opt, target, 0)
+        grads.append({n: p.grad.cpu().numpy() for n, p in zip(params._fields, params)
+                      if p.grad is not None})
+
+    def rel_err(a, b):
+        """max |a - b| per leaf over the largest entry of b."""
+        out = {}
+        for n, g in b.items():
+            d = float(np.abs(a[n] - g).max())
+            out[n] = d / float(np.abs(g).max()) if d else 0.0
+        return out
+
+    with np.load(outp) as got:
+        rows = [tuple(int(x) for x in got[f"rows{r}"]) for r in range(2)]
+        covered = sorted(rows) == [(0, HEIGHT // 2), (HEIGHT // 2, HEIGHT)]
+        same = (bool(np.array_equal(got["accum"], ref.accum.cpu().numpy()))
+                and int(got["rays"]) == ref_rays)
+        two = {k[2:]: got[k] for k in got.files if k.startswith("g_")}
+        names_ok = sorted(two) == sorted(grads[0])
+        rel = rel_err(two, grads[0]) if names_ok else {}
+        launches = {f"mesh 2 processes, rank {r}": json.loads(str(got[f"launches{r}"]))
+                    for r in range(2)}
+    again, inproc = rel_err(grads[1], grads[0]), rel_err(grads[2], grads[0])
+    print(f"mesh 2 processes over gloo on {dev}, 2x1 ({secs:.1f} s with start-up): host_rows "
+          f"{rows} disjoint and covering: {covered}; 2 compacted 1080p frames equal to one "
+          f"process bit for bit: {same}; one sharded 'materials' step {TRAIN_W}x{TRAIN_H}, "
+          f"gradients vs one process on the card, max |difference| of the largest entry: "
+          + ", ".join(f"{n} {v:.3g}" for n, v in rel.items())
+          + f" (<= 1e-4); one process again: "
+          + ", ".join(f"{n} {v:.3g}" for n, v in again.items())
+          + "; the 2x1 mesh in one process: "
+          + ", ".join(f"{n} {v:.3g}" for n, v in inproc.items())
+          + f"; launches {launches} {card}")
+    worst = max(rel.values()) if rel else 1.0
+    if not (covered and same and names_ok and worst <= 1e-4):
+        raise RuntimeError("the two-process mesh run differs from one process")
+    return launches, {"seconds": secs, "rows": rows, "grad_rel": rel,
+                      "grad_rel_one_process_again": again, "grad_rel_in_process_2x1": inproc}
+
+
+def sgd_one(ps):
+    return torch.optim.SGD(ps, lr=1.0)
+
+
+def train_config():
+    """tools/tpu_grad_bench.py's training configuration: 640x480, 1 spp, 5
+    bounces, RR on, tonemap none, accel packet, BVH width 4,
+    pick_compact_group(640*480)."""
+    from tracy_tpu_torch import RenderConfig
+    from tracy_tpu_torch.accel.reorder import pick_compact_group
+
+    return RenderConfig(width=TRAIN_W, height=TRAIN_H, spp=1, max_bounces=5, tonemap="none",
+                        accel="packet", russian_roulette=True, pallas_bvh_width=4,
+                        wave_compact_group=pick_compact_group(TRAIN_W * TRAIN_H))
+
+
+def render_config(group: int = 0):
+    """The main path's configuration at 1920x1080, compaction group `group`."""
+    from tracy_tpu_torch import RenderConfig
+
+    return RenderConfig(width=WIDTH, height=HEIGHT, spp=1, max_bounces=5,
+                        russian_roulette=True, tonemap="srgb", accel="packet", rng="fast",
+                        wave_compact_group=group)
+
+
+def training_setup(dev):
+    """train_config() on grid64x28 at 640x480 (training_phase's): (cfg,
+    scene, K1 intersector, target)."""
+    from tracy_tpu_torch.diff import make_training_intersector
+    from tracy_tpu_torch.scene import sphere_grid
+
+    scene = sphere_grid(TRAIN_W, TRAIN_H, nsph=64, steps=28).build(device=dev)
+    cfg = train_config()
+    isect = make_training_intersector(scene, cfg, needs_geometry_grads=False)
+    return cfg, scene, isect, torch.full((TRAIN_H, TRAIN_W, 3), 0.5, device=dev)
+
+
+def main_cfg(dev):
+    """The main path's compacted config and grid64x28 on `dev`."""
+    from tracy_tpu_torch.accel.reorder import pick_compact_group
+    from tracy_tpu_torch.scene import sphere_grid
+
+    builder = sphere_grid(WIDTH, HEIGHT, nsph=64, steps=28)
+    cfg = render_config(pick_compact_group(WIDTH * HEIGHT, num_tris=builder.num_triangles,
+                                           has_translucent=builder.has_translucent))
+    return cfg, builder.build(device=dev)
+
+
+def mesh_worker(rank: int, nproc: int, port: str, outp: str) -> int:
+    """One rank of mesh_phase (d): joins the gloo group on this card, checks
+    nothing itself but that every row is owned once, renders 2 compacted
+    1080p frames and takes one sharded SGD(1.0) "materials" step over the
+    2x1 mesh; rank 0 writes the frame, the rays, both ranks' rows and
+    launches, and the summed gradients."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from tracy_tpu_torch.ops import intersect as k1
+    from tracy_tpu_torch.ops import shade as k2
+    from tracy_tpu_torch.parallel import (
+        make_render_mesh, make_sharded_render_step, make_sharded_train_step, replicate_scene)
+    from tracy_tpu_torch.parallel.distributed import all_sum, host_rows, initialize_multihost
+    from tracy_tpu_torch.render.renderer import init_state
+
+    dev = torch.device("cuda", 0)
+    if not initialize_multihost(f"localhost:{port}", nproc, rank, backend="gloo"):
+        raise RuntimeError("initialize_multihost did not join two processes")
+    try:
+        mesh = make_render_mesh(2, 1, devices=[dev])
+        cfg, scene = main_cfg(dev)
+        lo, hi = host_rows(cfg.height, mesh)
+        owned = torch.zeros(cfg.height, dtype=torch.int64, device=dev)
+        owned[lo:hi] = 1
+        all_sum(owned)
+        if hi <= lo or not bool((owned == 1).all()):
+            raise RuntimeError(f"rank {rank}: rows {lo}..{hi} do not split the image")
+        step = make_sharded_render_step(cfg, mesh)
+        copies = replicate_scene(scene, mesh)
+        counts = {"K1": k1.COUNT, "K2": k2.COUNT, "K4": k2.COUNT_TEX}
+        reset(counts)
+        st, rays, _ = mesh_run(step, copies, init_state(cfg, dev), 2)
+        got = check_launches(f"rank {rank}", counts, {"K1": 2 * cfg.max_bounces,
+                                                      "K2": 2 * cfg.max_bounces})
+        tcfg, tscene, isect, target = training_setup(dev)
+        tstep, params, opt = make_sharded_train_step(tscene, tcfg, mesh, optimizer=sgd_one,
+                                                     intersect_fn=isect)
+        reset(counts)
+        tstep(params, opt, target, 0)
+        got_t = {k: c.kernel for k, c in counts.items()}
+        info = torch.tensor([lo, hi, got["K1"], got["K2"], got_t["K1"]], device=dev)
+        both = torch.zeros((2, 5), dtype=torch.int64, device=dev)
+        both[rank] = info
+        all_sum(both)
+        if rank == 0:
+            rows = {f"rows{r}": both[r, :2].cpu().numpy() for r in range(2)}
+            lch = {f"launches{r}": json.dumps({"K1": int(both[r, 2]), "K2": int(both[r, 3]),
+                                               "K1 training step": int(both[r, 4])})
+                   for r in range(2)}
+            np.savez(outp, accum=st.accum.cpu().numpy(), rays=rays, **rows, **lch,
+                     **{f"g_{n}": p.grad.cpu().numpy() for n, p in zip(params._fields, params)
+                        if p.grad is not None})
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
 
 
 def main() -> int:
@@ -882,9 +1254,7 @@ def main() -> int:
         print(f"  ptxas {src}: " + ptxas_summary(log))
 
     # 3. kernel vs plain
-    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, max_bounces=5,
-                       russian_roulette=True, tonemap="srgb", accel="packet",
-                       rng="fast", wave_compact_group=0)
+    cfg = render_config()
     t0 = time.perf_counter()
     builder = sphere_grid(WIDTH, HEIGHT, nsph=64, steps=28)
     scene = builder.build(device=dev)
@@ -1135,7 +1505,7 @@ def main() -> int:
     # Every path is timed REPEATS times, the paths in turn, before any of
     # them runs under the profiler (a profiled window leaves the host
     # slower for later runs).
-    rends, launches, accum, rates, peak = {}, {}, {}, {}, {}
+    rends, launches, accum, rates, peak, rays_of = {}, {}, {}, {}, {}, {}
     for pname, sc, pcfg, need in paths:
         rend = Renderer(pcfg)
         rend.step_many(sc, init_state(pcfg, dev), 1)  # warm-up frame
@@ -1165,6 +1535,7 @@ def main() -> int:
             if rep == 0:
                 launches[pname] = {k: kern for k, (kern, _) in got.items()}
                 accum[pname] = state.accum
+                rays_of[pname] = nrays
                 peak[pname] = torch.cuda.max_memory_allocated(dev) / 1e9
                 img = rend.display(state)
                 if (img.shape != (HEIGHT, WIDTH, 3)
@@ -1317,6 +1688,11 @@ def main() -> int:
     print("slice 9: " + json.dumps({"device": smi, "tlas": tlas_s, "raster_ms": raster_ms,
                                     "entries": entries}))
 
+    # 15. the mesh.
+    more, mesh_s = mesh_phase(scene, tscene, ccfg, rends, accum, rays_of, counts, dev, card)
+    launches.update(more)
+    print("slice 10: " + json.dumps({"device": smi, **mesh_s}))
+
     def entry(kname, label, source, replaces, err, ms, plain_ms, bound, library_ms):
         return {"name": f"{kname} {label}", "route": "cuda",
                 "source": f"tracy_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -1376,4 +1752,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:  # one rank of phase 15 (d)
+        sys.exit(mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

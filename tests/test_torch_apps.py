@@ -157,7 +157,7 @@ def test_render_cli_raster_to_png(tmp_path, kernel):
 
 @pytest.mark.parametrize("args,message", [
     (["-kernel", "bogus"], "invalid choice"),
-    (["-cpu", "-mesh", "2x1"], "multi-device"),
+    (["-cpu", "-mesh", "7x1"], "height 480 not divisible by data axis 7"),
     (["-frames", "1"], "-cpu"),
 ])
 def test_render_cli_refusals_exit_2(monkeypatch, capsys, args, message):

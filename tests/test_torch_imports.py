@@ -3,7 +3,9 @@ machine has none). A fresh interpreter with `sys.modules['jax'] = None`
 (so any `import jax` raises) imports every module of the port, renders
 furnace.scn at 32x24 for one frame and the textured spheres.scn (HDR sky)
 at 16x12 for one frame on CPU, takes one training step on furnace.scn
-through tracy_tpu_torch.diff (a depth AOV too), and reports which
+through tracy_tpu_torch.diff (a depth AOV too), renders furnace.scn
+over a 2x1 mesh of CPU cells (tracy_tpu_torch.parallel) under a
+profiler trace (utils/profiling.py), and reports which
 tracy_tpu modules got loaded: none may be, since the port keeps its own
 copies of what it needs (config, utils.native, utils.log).
 """
@@ -46,12 +48,20 @@ step, params, opt = diff.make_train_step(
 params, opt, loss = step(params, opt, torch.zeros((24, 32, 3)), 0)
 dcfg = tcfg.replace(aov="depth")
 dst, _ = Renderer(dcfg).step(scene, init_state(dcfg, "cpu"))
+from tracy_tpu_torch.parallel import make_render_mesh, make_sharded_render_step, replicate_scene
+from tracy_tpu_torch.utils.profiling import trace
+mesh = make_render_mesh(2, 1, devices=["cpu", "cpu"])
+with trace(TRACE_DIR):
+    mst, mrays = make_sharded_render_step(cfg, mesh)(replicate_scene(scene, mesh),
+                                                     init_state(cfg, "cpu"))
 print(json.dumps({
     "loss": float(loss), "albedo_moved": bool((params.albedo != scene.materials.albedo).any()),
     "depth_max": float(dst.accum.max()),
     "shape": list(img.shape), "finite": bool(np.isfinite(img).all()),
     "corner": float(st.accum[0, 0, 0]), "rays": rays,
     "spheres_finite": bool(np.isfinite(sst.accum.numpy()).all()),
+    "mesh_equal": bool(torch.equal(mst.accum, st.accum)) and int(mrays) == rays,
+    "trace": os.path.getsize(os.path.join(TRACE_DIR, "trace.json")) > 0,
     "spheres_fallbacks": sb.fallbacks,
     "tracy_tpu": sorted(k for k in sys.modules if k.startswith("tracy_tpu.")
                         or k == "tracy_tpu"),
@@ -59,9 +69,10 @@ print(json.dumps({
 """.replace("REPO", repr(REPO))
 
 
-def test_port_imports_and_renders_without_jax():
+def test_port_imports_and_renders_without_jax(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
+    script = SCRIPT.replace("TRACE_DIR", repr(str(tmp_path / "trace")))
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, env=env, timeout=300, cwd=REPO)
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
@@ -70,4 +81,5 @@ def test_port_imports_and_renders_without_jax():
     assert res["rays"] >= 32 * 24
     assert res["spheres_finite"] and res["spheres_fallbacks"] == []
     assert res["loss"] > 0 and res["albedo_moved"] and res["depth_max"] > 0
+    assert res["mesh_equal"] and res["trace"]
     assert res["tracy_tpu"] == [], res["tracy_tpu"]

@@ -19,14 +19,22 @@ a card and without -cpu the CLI exits with an error that names -cpu.
 -width and -height, when given, override the scene's OUT size (in
 tracy_tpu's CLI the OUT tag wins), so a scene renders at any size.
 
+-mesh DATAxSAMPLE renders over a mesh of cells (parallel/mesh.py): the
+image rows split over DATA cells, the samples per pixel over SAMPLE. The
+cells are spread evenly over the visible cards (their count must be a
+multiple of the cards'; 2x2 on one card runs four cells on it), or all on
+the CPU with -cpu. Each card gets the same stages as a render on one
+device (tracy_tpu's -mesh renders brute force whatever -accel says), and
+-checkpoint resumes under any mesh shape, or none.
+
 Left out: tracy_tpu's TPU-only flags -rb-mode, -packet-rays and -ray-chunk
-(mechanics the port does not have), and -mesh, which exits with an error
-until the multi-device slice of the port lands.
+(mechanics the port does not have).
 
 Usage:
   python -m tracy_tpu_torch.apps.render_cli -scene data/scenes/cornell.scn \\
       -frames 64 -spp 4 -out cornell.png [-kernel pt] [-aov normals] ...
   python -m tracy_tpu_torch.apps.render_cli -cpu -width 64 -height 48 -frames 2 -out a.ppm
+  python -m tracy_tpu_torch.apps.render_cli -cpu -mesh 2x2 -spp 2 -width 64 -height 48 -out m.ppm
 """
 
 from __future__ import annotations
@@ -85,7 +93,8 @@ def main(argv=None) -> int:
                    help="branching factor of the BVH K1 walks (default: 4)")
     p.add_argument("-cpu", action="store_true", help="render on the CPU")
     p.add_argument("-mesh", default=None,
-                   help="multi-device mesh as DATAxSAMPLE (not in the port yet)")
+                   help="mesh of cells as DATAxSAMPLE, e.g. 4x2: rows split over DATA, "
+                        "samples over SAMPLE, the cells spread evenly over the cards")
     p.add_argument("-checkpoint", default=None,
                    help="checkpoint npz path: resume if it exists, save every "
                         "-checkpoint-every frames (a resume is bit-identical)")
@@ -93,9 +102,6 @@ def main(argv=None) -> int:
                    help="frames between checkpoint saves (with -checkpoint)")
     args = p.parse_args(argv)
 
-    if args.mesh:
-        p.error("-mesh: multi-device rendering is the port's next slice (ROADMAP queue 1, "
-                "multi-device); render on one device without -mesh")
     dev = pick_device(p, args.cpu)
 
     from tracy_tpu_torch.accel.reorder import pick_compact_group
@@ -103,6 +109,7 @@ def main(argv=None) -> int:
     from tracy_tpu_torch.render.renderer import Renderer
     from tracy_tpu_torch.scene.scn_parser import default_scene, load_scene
     from tracy_tpu_torch.utils.log import log
+    from tracy_tpu_torch.utils.timer import Timer
 
     if args.scene:
         builder = load_scene(args.scene, data_root=args.data_root)
@@ -112,6 +119,7 @@ def main(argv=None) -> int:
     # tracy_tpu's CLI the OUT tag wins).
     builder.width = args.width or builder.width
     builder.height = args.height or builder.height
+    mesh_shape = parse_mesh(p, args)
     scene = builder.build(device=dev)
     log("objects: %s, triangles: %s" % (human_count(builder.num_objects),
                                          human_count(builder.num_triangles)))
@@ -150,39 +158,88 @@ def main(argv=None) -> int:
         _save(img, args.out)
         return 0
 
-    r = Renderer(cfg)
-    state, start = _resume_or_init(args, cfg, dev)
+    if mesh_shape is None:
+        r = Renderer(cfg)
+        mesh = None
+
+        def advance(state):
+            return r.step(scene, state)
+    else:
+        from tracy_tpu_torch.parallel import (
+            make_render_mesh, make_sharded_render_step, replicate_scene)
+
+        nd, ns = mesh_shape
+        cards = torch.cuda.device_count() if card else 1
+        per_card = nd * ns // cards
+        try:
+            # Cells spread evenly over the cards, each card's cells in a run.
+            mesh = make_render_mesh(nd, ns, devices=[
+                torch.device("cuda", c // per_card) if card else dev for c in range(nd * ns)])
+            step = make_sharded_render_step(cfg, mesh)
+        except ValueError as e:  # an axis that does not divide the height or -spp
+            p.error(f"-mesh {args.mesh}: {e}")
+        copies = replicate_scene(scene, mesh)
+        log(f"mesh {nd}x{ns}: {nd * ns} cells on {cards} "
+            f"{'card' if card else 'CPU'}{'s' if cards > 1 else ''}")
+
+        def advance(state):
+            state, rays = step(copies, state)
+            return state, int(rays)
+
+    state, start = _resume_or_init(args, cfg, dev, mesh)
+    timer, total_rays = Timer(), 0
     last_report = time.perf_counter()
     for f in range(start, args.frames):
-        state, _rays = r.step(scene, state)
+        timer.begin()
+        state, rays = advance(state)
+        timer.end()
+        total_rays += rays
         _maybe_checkpoint(args, state, f)
         now = time.perf_counter()
         if now - last_report > 1.0 or f == args.frames - 1:
             # Reference window-title telemetry (win_raytracer.cpp:521-553).
             log("frame %d/%d: %.2f MRays/s @ %.2f fps"
-                % (f + 1, args.frames, r.mrays_per_sec,
-                   (f + 1 - start) / max(r.timer.total, 1e-9)))
+                % (f + 1, args.frames, total_rays / 1e6 / max(timer.total, 1e-9),
+                   (f + 1 - start) / max(timer.total, 1e-9)))
             last_report = now
     log("*** Performance: %.2f MRays/s and %.2f fps on average - Run time: %.1fs ***"
-        % (r.mrays_per_sec, (args.frames - start) / max(r.timer.total, 1e-9),
-           r.timer.total))
-    _save(r.display_u8(state), args.out)
+        % (total_rays / 1e6 / max(timer.total, 1e-9),
+           (args.frames - start) / max(timer.total, 1e-9), timer.total))
+    from tracy_tpu_torch.render import film
+
+    _save(film.to_u8(film.tonemap(state.accum, cfg)).cpu().numpy(), args.out)
     return 0
 
 
-def _resume_or_init(args, cfg, dev):
-    """(state, start frame): resumed from -checkpoint when the file exists,
-    else a fresh state."""
+def parse_mesh(parser: argparse.ArgumentParser, args):
+    """(DATA, SAMPLE) of -mesh, None without it; the parser exits (code 2)
+    on a malformed mesh or one whose cells the cards do not divide."""
+    if not args.mesh:
+        return None
+    try:
+        nd, ns = (int(x) for x in args.mesh.lower().split("x"))
+    except ValueError:
+        parser.error(f"-mesh {args.mesh}: expected DATAxSAMPLE, e.g. 4x2")
+    cards = 1 if args.cpu else torch.cuda.device_count()
+    if (nd * ns) % cards:
+        parser.error(f"-mesh {args.mesh}: {nd * ns} cells do not spread evenly over "
+                     f"{cards} cards")
+    return nd, ns
+
+
+def _resume_or_init(args, cfg, dev, mesh=None):
+    """(state, start frame): resumed from -checkpoint when the file exists
+    (on the mesh's home device under -mesh), else a fresh state."""
     from tracy_tpu_torch.render.renderer import init_state
     from tracy_tpu_torch.utils.log import log
 
     if args.checkpoint and os.path.exists(args.checkpoint):
         from tracy_tpu_torch.utils.checkpoint import load_render_state
 
-        state = load_render_state(args.checkpoint, device=dev)
+        state = load_render_state(args.checkpoint, device=dev, mesh=mesh)
         log(f"resumed {args.checkpoint} at frame {state.frame}")
         return state, state.frame
-    return init_state(cfg, dev), 0
+    return init_state(cfg, mesh.home if mesh is not None else dev), 0
 
 
 def _maybe_checkpoint(args, state, frame_idx: int):

@@ -7,6 +7,7 @@ from tracy_tpu_torch.diff.gradients import (
     make_training_intersector,
     params_from_jax,
     render_loss,
+    render_radiance,
 )
 
 __all__ = [
@@ -18,4 +19,5 @@ __all__ = [
     "make_training_intersector",
     "params_from_jax",
     "render_loss",
+    "render_radiance",
 ]

@@ -42,7 +42,7 @@ from tracy_tpu_torch.ops.intersect import SurfaceHit, intersect, nondiff_interse
 from tracy_tpu_torch.ops.shade import build_material_table, build_material_table_tex, shade_diff
 from tracy_tpu_torch.render.intersect import Hit
 from tracy_tpu_torch.render.material import scene_has_textures
-from tracy_tpu_torch.render.renderer import sample_radiance
+from tracy_tpu_torch.render.renderer import sample_radiance_rows
 from tracy_tpu_torch.scene.scene import SceneArrays
 from tracy_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -206,24 +206,73 @@ def _fetch_texels_diff(*args):
     return texfetch.fetch_texels_plain(*args)
 
 
-def render_loss(params: TrainableParams, scene: SceneArrays, target: torch.Tensor,
-                cfg: RenderConfig, frame: int, intersect_fn=None) -> torch.Tensor:
-    """MSE between a frame (cfg.spp samples at RNG position `frame`) and
-    target [H, W, 3], differentiable in `params`. intersect_fn: None for
-    the brute-force intersector, built here from the traced scene (vertex
-    gradients reach it); a GeometryDiffIntersector is bound to the traced
-    scene here; `.first`, if present, runs bounce 0. Each bounce shades
-    with ops/shade.py::shade_diff, and a textured AOV reads its texels
-    with K3's plain gather (fetch_texels_plain, on any device), since K3
-    has no backward."""
+def render_radiance(params: TrainableParams, scene: SceneArrays, cfg: RenderConfig,
+                    frame: int, intersect_fn=None, **band):
+    """(radiance, rays) of a frame (cfg.spp samples at RNG position
+    `frame`), differentiable in `params`. band: sample_radiance_rows'
+    row_offset, num_rows, spp_offset, spp_count and total_spp, for a band
+    of rows and samples (the whole frame by default). intersect_fn: None
+    for the brute-force intersector, built here from the traced scene
+    (vertex gradients reach it); a GeometryDiffIntersector is bound to the
+    traced scene here; `.first`, if present, runs bounce 0. Each bounce
+    shades with ops/shade.py::shade_diff, and a textured AOV reads its
+    texels with K3's plain gather (fetch_texels_plain, on any device),
+    since K3 has no backward."""
     s = apply_params(scene, params)
     if hasattr(intersect_fn, "bind"):
         intersect_fn = intersect_fn.bind(s)
-    radiance, _ = sample_radiance(s, cfg, frame, intersect_fn,
-                                  shade_fn=differentiable_shade_fn(s, cfg),
-                                  first_intersect_fn=getattr(intersect_fn, "first", None),
-                                  fetch_fn=_fetch_texels_diff)
+    return sample_radiance_rows(s, cfg, frame, intersect_fn,
+                                shade_fn=differentiable_shade_fn(s, cfg),
+                                first_intersect_fn=getattr(intersect_fn, "first", None),
+                                fetch_fn=_fetch_texels_diff, **band)
+
+
+def render_loss(params: TrainableParams, scene: SceneArrays, target: torch.Tensor,
+                cfg: RenderConfig, frame: int, intersect_fn=None, **band) -> torch.Tensor:
+    """MSE between a frame, or the band of it that `band` selects
+    (render_radiance), and target ([H, W, 3], or the band's rows),
+    differentiable in `params`."""
+    radiance, _ = render_radiance(params, scene, cfg, frame, intersect_fn, **band)
     return torch.mean((radiance - target) ** 2)
+
+
+class Trainable(NamedTuple):
+    """The leaves a train step updates, and how (make_trainable)."""
+
+    params: TrainableParams  # fresh leaf tensors, requires_grad where trainable
+    opt_state: torch.optim.Optimizer
+    base: TrainableParams  # the scene's values
+    masks: Optional[list]  # bool per leaf, None = all trainable
+
+    def update(self, params: TrainableParams, opt_state):
+        """Mask the gradients, step the optimizer, and set the masked-out
+        entries back to the scene's values, in place on params."""
+        with torch.no_grad():
+            if self.masks is not None:
+                for p, m in zip(params, self.masks):
+                    if p.grad is not None:
+                        p.grad.mul_(m.to(p.dtype))
+            opt_state.step()
+            if self.masks is not None:
+                for p, b, m in zip(params, self.base, self.masks):
+                    p.copy_(torch.where(m, p, b))
+
+
+def make_trainable(scene: SceneArrays, optimizer=None,
+                   trainable_mask: Optional[TrainableParams] = None) -> Trainable:
+    """Copies of the scene's leaves and an optimizer over them
+    (make_train_step's params and opt_state)."""
+    base = extract_params(scene)
+    masks = (None if trainable_mask is None else
+             [torch.as_tensor(m, device=b.device).to(torch.bool).expand(b.shape)
+              for m, b in zip(trainable_mask, base)])
+    params = TrainableParams(*(
+        b.detach().clone().requires_grad_(masks is None or bool(m.any()))
+        for b, m in zip(base, masks or base)))
+    if optimizer is None:
+        optimizer = functools.partial(torch.optim.Adam, lr=1e-2)
+    opt_state = optimizer([p for p in params if p.requires_grad])
+    return Trainable(params, opt_state, base, masks)
 
 
 def make_train_step(scene: SceneArrays, cfg: RenderConfig, optimizer=None,
@@ -243,30 +292,13 @@ def make_train_step(scene: SceneArrays, cfg: RenderConfig, optimizer=None,
     each step, so they stay bit for bit what they were (tracy_tpu's
     :307-346). A leaf with no entry set gets no gradient at all.
     """
-    base = extract_params(scene)
-    masks = (None if trainable_mask is None else
-             [torch.as_tensor(m, device=b.device).to(torch.bool).expand(b.shape)
-              for m, b in zip(trainable_mask, base)])
-    params = TrainableParams(*(
-        b.detach().clone().requires_grad_(masks is None or bool(m.any()))
-        for b, m in zip(base, masks or base)))
-    if optimizer is None:
-        optimizer = functools.partial(torch.optim.Adam, lr=1e-2)
-    opt_state = optimizer([p for p in params if p.requires_grad])
+    tr = make_trainable(scene, optimizer, trainable_mask)
 
     def step(params: TrainableParams, opt_state, target, frame: int):
         opt_state.zero_grad(set_to_none=True)
         loss = render_loss(params, scene, target, cfg, frame, intersect_fn)
         loss.backward()
-        with torch.no_grad():
-            if masks is not None:
-                for p, m in zip(params, masks):
-                    if p.grad is not None:
-                        p.grad.mul_(m.to(p.dtype))
-            opt_state.step()
-            if masks is not None:
-                for p, b, m in zip(params, base, masks):
-                    p.copy_(torch.where(m, p, b))
+        tr.update(params, opt_state)
         return params, opt_state, loss.detach()
 
-    return step, params, opt_state
+    return step, tr.params, tr.opt_state

@@ -265,9 +265,18 @@ def _store(state, nxt, hit_mask):
 
 
 def _material_rows(mtab, mat_id):
-    """mtab's row per lane; ids out of range read row 0, as in the kernels."""
+    """mtab's row per lane; ids out of range read row 0, as in the kernels.
+
+    Read from a float64 copy of the table: the same float32 values, but
+    under autograd each row's gradient is summed over the lanes in
+    float64. A float32 sum over a wave's lanes depends on their order, so
+    a frame split into bands or ranks (parallel/mesh.py) parted from the
+    whole frame's gradient by 1.1e-4 of the largest albedo entry (a
+    640x480 step on grid64x28 on an H100; 5.8e-8 with the float64 sums,
+    chip_smoke.py phase 15)."""
     mat = mat_id.long()
-    return tm.gather_rows(mtab, torch.where((mat >= 0) & (mat < mtab.shape[0]), mat, 0))
+    idx = torch.where((mat >= 0) & (mat < mtab.shape[0]), mat, 0)
+    return tm.gather_rows(mtab.double(), idx).float()
 
 
 def _params(m, normal) -> SurfaceParams:
@@ -284,7 +293,9 @@ def _next_state(origin, direction, throughput, radiance, alive, pixel_idx, hit_m
     and the textured sky)."""
     m = _material_rows(mtab, mat_id)
     params = _params(m, normal)
-    sky = mtab[SKY_MATERIAL_ID, 6:9]
+    # Broadcast in float64 for the same reason: the miss lanes' gradients
+    # reach the sky row summed in float64.
+    sky = mtab.double()[SKY_MATERIAL_ID, 6:9].expand(mat_id.shape[0], 3).float()
     if tex is not None:
         texels = fetch_texels_plain(mat_id, tex_uv, direction, hit_mask, alive, *tex)
         if tangent is None:

@@ -38,7 +38,7 @@ the whole frame's values.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -196,6 +196,71 @@ def render_step(scene: SceneArrays, state: RenderState, cfg: RenderConfig,
     return RenderState(accum=accum, frame=state.frame + 1), rays
 
 
+class Stages(NamedTuple):
+    """The stages of a render bound for one scene on one device
+    (bind_stages). `intersect` and sample_radiance_rows' keywords
+    (`kwargs()`: the shade stage and `paths`) render a frame or a band."""
+
+    intersect: Callable
+    shade: Optional[Callable]  # None on the AOV path
+    paths: dict  # first_intersect_fn, or bounce_fn and first_bounce_fn
+    path: str  # "two-stage", "fused" or "aov"
+    tables: Optional[BVHTables]  # None for accel 'none'
+    two_level: Optional[TwoLevelBVH]  # accel 'tlas'
+    mtab: Optional[torch.Tensor]  # the material table, beauty only
+
+    def kwargs(self) -> dict:
+        return dict(shade_fn=self.shade, **self.paths)
+
+
+def bind_stages(scene: SceneArrays, cfg: RenderConfig) -> Stages:
+    """Build the BVH tables (host side) and the material table on the
+    scene's device, and bind the bounce path as tracy_tpu's Renderer does.
+    With an AOV set, the intersector alone is bound (no material table),
+    as tracy_tpu binds its shade and bounce stages for beauty only
+    (renderer.py:549, :627); `path` is then "aov"."""
+    packet = cfg.accel == "packet"
+    tables = two_level = None
+    if cfg.accel == "none":
+        isect = make_bruteforce_intersector(scene)
+    elif cfg.accel == "tlas":
+        # tracy_tpu builds the stitched tree at packet_leaf_size (64) for
+        # its XLA packet intersector (renderer.py:300-336); the port's K1
+        # walks it, so it is built at the leaf size K1's tables use on
+        # 'packet'. Renders agree up to ties between equal-t triangles.
+        two_level = build_two_level(scene, leaf_size=cfg.bvh_leaf_size,
+                                    max_depth=max(cfg.traversal_stack_depth - 8, 8))
+        tables = tables_from_host(scene, two_level.stitched, width=cfg.pallas_bvh_width)
+        isect = functools.partial(intersect, tables=tables)
+    else:
+        tables = build_tables(scene, leaf_size=cfg.bvh_leaf_size,
+                              max_depth=max(cfg.traversal_stack_depth - 4, 8),
+                              width=cfg.pallas_bvh_width if packet else 2)
+        isect = functools.partial(intersect, tables=tables)
+    # Compaction wraps the packet and tlas intersectors only (tracy_tpu's
+    # renderer.py:492-494): 'bvh' and 'none' trace every lane. The fused
+    # bounce K5 binds on 'packet' alone (tracy_tpu's :626-628).
+    group = cfg.wave_compact_group if cfg.accel in ("packet", "tlas") else 0
+    peel = group > 0 and cfg.wave_compact_skip_first
+    wrapped = compact_intersector(isect, group) if group else isect
+    paths = {"first_intersect_fn": isect} if peel else {}
+    if cfg.aov != "beauty":
+        return Stages(wrapped, None, paths, "aov", tables, two_level, None)
+    textured = scene_has_textures(scene)
+    mtab = (build_material_table_tex if textured else build_material_table)(scene.materials)
+    shade_fn = make_shade_fn(scene, cfg, mtab)
+    if cfg.use_pallas_bounce and packet and not textured:
+        # The fused bounce is untextured only: a textured scene keeps the
+        # two-stage path, as in tracy_tpu (renderer.py:635-640).
+        bounce = functools.partial(trace_bounce, tables=tables, mtab=mtab, seed=cfg.seed,
+                                   russian_roulette=cfg.russian_roulette, rng=cfg.rng)
+        paths = {"bounce_fn": compact_bounce(bounce, group) if group else bounce}
+        if peel:
+            paths["first_bounce_fn"] = bounce
+        return Stages(wrapped, shade_fn, paths, "fused", tables, two_level, mtab)
+    return Stages(wrapped, shade_fn, paths, "two-stage", tables, two_level, mtab)
+
+
 class Renderer:
     """Holds a config and the per-scene acceleration data.
 
@@ -220,58 +285,14 @@ class Renderer:
         self.timer = Timer()  # host seconds of step_many, device sync included
 
     def prepare(self, scene: SceneArrays):
-        """Build the BVH tables (host side) and the material table, and bind
-        the bounce path, once per renderer; step and step_many call it.
-        With an AOV set, the intersector alone is bound (no material table),
-        as tracy_tpu binds
-        its shade and bounce stages for beauty only (renderer.py:549, :627);
-        `path` is then "aov"."""
+        """Bind the stages (bind_stages) once per renderer; step and
+        step_many call it."""
         if self._intersect is not None:
             return
-        cfg = self.cfg
-        packet = cfg.accel == "packet"
-        if cfg.accel == "none":
-            isect = make_bruteforce_intersector(scene)
-        elif cfg.accel == "tlas":
-            # tracy_tpu builds the stitched tree at packet_leaf_size (64) for
-            # its XLA packet intersector (renderer.py:300-336); the port's K1
-            # walks it, so it is built at the leaf size K1's tables use on
-            # 'packet'. Renders agree up to ties between equal-t triangles.
-            self.two_level = build_two_level(scene, leaf_size=cfg.bvh_leaf_size,
-                                             max_depth=max(cfg.traversal_stack_depth - 8, 8))
-            self.tables = tables_from_host(scene, self.two_level.stitched,
-                                           width=cfg.pallas_bvh_width)
-            isect = functools.partial(intersect, tables=self.tables)
-        else:
-            self.tables = build_tables(scene, leaf_size=cfg.bvh_leaf_size,
-                                       max_depth=max(cfg.traversal_stack_depth - 4, 8),
-                                       width=cfg.pallas_bvh_width if packet else 2)
-            isect = functools.partial(intersect, tables=self.tables)
-        # Compaction wraps the packet and tlas intersectors only (tracy_tpu's
-        # renderer.py:492-494): 'bvh' and 'none' trace every lane. The fused
-        # bounce K5 binds on 'packet' alone (tracy_tpu's :626-628).
-        group = cfg.wave_compact_group if cfg.accel in ("packet", "tlas") else 0
-        peel = group > 0 and cfg.wave_compact_skip_first
-        self._intersect = compact_intersector(isect, group) if group else isect
-        self._paths = {"first_intersect_fn": isect} if peel else {}
-        if cfg.aov != "beauty":
-            self.path = "aov"
-            return
-        textured = scene_has_textures(scene)
-        self._mtab = (build_material_table_tex if textured
-                      else build_material_table)(scene.materials)
-        self._shade = make_shade_fn(scene, cfg, self._mtab)
-        self.path = "two-stage"
-        if cfg.use_pallas_bounce and packet and not textured:
-            # The fused bounce is untextured only: a textured scene keeps the
-            # two-stage path, as in tracy_tpu (renderer.py:635-640).
-            bounce = functools.partial(trace_bounce, tables=self.tables, mtab=self._mtab,
-                                       seed=cfg.seed, russian_roulette=cfg.russian_roulette,
-                                       rng=cfg.rng)
-            self._paths = {"bounce_fn": compact_bounce(bounce, group) if group else bounce}
-            if peel:
-                self._paths["first_bounce_fn"] = bounce
-            self.path = "fused"
+        st = bind_stages(scene, self.cfg)
+        self._intersect, self._shade, self._paths = st.intersect, st.shade, st.paths
+        self.path, self.tables, self.two_level, self._mtab = (st.path, st.tables,
+                                                               st.two_level, st.mtab)
 
     def reset(self, device) -> RenderState:
         self.total_rays = 0

@@ -112,6 +112,26 @@ class SceneArrays:
         idx = self.indices.long()
         return tuple(self.vertex_pos[idx[:, c]] for c in range(3))
 
+    def to(self, device) -> "SceneArrays":
+        """This scene with every tensor (materials and camera too) on
+        `device`; the scene itself when it is there already."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        return _move(self, device)
+
+
+def _move(obj, device):
+    """A copy of dataclass `obj` with its tensors, and those of the
+    dataclasses it holds, on `device`."""
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        return _move(x, device) if dataclasses.is_dataclass(x) else x
+
+    return dataclasses.replace(obj, **{f.name: one(getattr(obj, f.name))
+                                       for f in dataclasses.fields(obj)})
+
 
 class SceneBuilder:
     """Host-side scene assembly (reference Scene::AddSphere/AddBox/AddTriangle/

@@ -1,5 +1,4 @@
-"""Checkpoint and resume for progressive renders and inverse-rendering runs,
-on one device.
+"""Checkpoint and resume for progressive renders and inverse-rendering runs.
 
 Port of tracy_tpu/utils/checkpoint.py. The render state (the accumulated
 radiance and the frame counter) is an npz file with tracy_tpu's keys,
@@ -8,9 +7,14 @@ the other; the counter-based RNG is keyed by the frame index, so a resumed
 render continues the same sample stream and ends bit for bit where an
 uninterrupted one does. The training state holds the parameters, Adam's
 moments and step counts and the step: without the moments a resumed Adam
-run would part from the uninterrupted one. The `mesh=` argument of the
-JAX package's loader (a sharded accumulator) waits for the multi-device
-slice.
+run would part from the uninterrupted one.
+
+Checkpoints do not depend on the mesh: the accumulator is the whole
+image and the RNG streams are keyed by global pixel and sample ids
+(parallel/mesh.py), so a state saved under one mesh shape, or by one
+device, or by tracy_tpu under its mesh, resumes under any other shape and
+continues as the uninterrupted run does (bit for bit when the sample axis
+keeps its size). The training state resumes under another shape too.
 
 Files are written through an open handle, so the name is exactly `path`
 (np.savez given a name adds `.npz` to one without it).
@@ -35,12 +39,14 @@ def save_render_state(path: str, state: RenderState):
            frame=np.asarray(int(state.frame), np.int32))
 
 
-def load_render_state(path: str, device=DEFAULT_DEVICE) -> RenderState:
-    """The render state in `path` (written by either package), its
-    accumulator on `device` (the card by default)."""
+def load_render_state(path: str, device=DEFAULT_DEVICE, mesh=None) -> RenderState:
+    """The render state in `path` (written by either package, under any
+    mesh), its accumulator on `device` (the card by default), or with
+    `mesh` (parallel/mesh.py) where that mesh's sharded step keeps it, on
+    the mesh's home device."""
+    dev = mesh.home if mesh is not None else resolve_device(device)
     with np.load(path) as data:
-        accum = torch.tensor(np.asarray(data["accum"], np.float32),
-                             device=resolve_device(device))
+        accum = torch.tensor(np.asarray(data["accum"], np.float32), device=dev)
         return RenderState(accum=accum, frame=int(data["frame"]))
 
 
