@@ -22,7 +22,11 @@ Phases, each fatal on failure:
    `tex_data.index_select` of the same texels as a yardstick; K1 and K5
    timed at the three widths in turns, K2 on the canned wave and on the
    real lanes of each bounce of a grid64x28 frame, K4 also on the same
-   lanes without texel gathers and with every lane dead;
+   lanes without texel gathers and with every lane dead; at rng 'threefry'
+   K2 and K5 bit for bit against their plain versions, K4 too but for sky
+   lanes that address another texel (K3's contract), K5 under compaction
+   (a third of the lanes live) equal to K1 then K2 and to its plain
+   version, each timed beside its 'fast' twin in turns;
 4. main paths: Renderer.step_many at 1920x1080, 4 progressive frames of
    1 spp, 5 bounces, on the 4-wide BVH (pallas_bvh_width's default), on
    grid64x28 (100,748 triangles) compacted as bench.py's main path is
@@ -31,16 +35,21 @@ Phases, each fatal on failure:
    geometry with helmet-sized maps (K1 + K4; K3 is not launched there),
    compacted and uncompacted; grid64x28 compacted on the 8-wide BVH, and
    compacted and uncompacted on the binary BVH, for the A/B of the widths;
+   grid64x28 compacted at rng 'threefry' (K1 + K2), held against the
+   'fast' compacted path by the block-mean contract over 24 frames each;
    each path must launch exactly its kernels and no plain version, and
    each path's accumulator must equal the other paths' of its scene and
    width; each path is timed 5 times, in turn with the others; then where
    the device time of one more such run goes (torch.profiler), with each
    kernel's time per bounce of frame 0, and the live-lane fraction of each
    bounce of one frame with the compaction round trip's time at that wave;
+   one compacted frame at ray_chunk = a quarter wave equals the whole
+   frame bit for bit;
 5. physics: furnace.scn (untextured; also on the fused, compacted path,
-   with accel 'none' and rng 'lcg', and on the 8-wide BVH) and spheres.scn
-   (HDR equirect sky, textured path; also with accel 'bvh' and rng
-   'xorshift') at 256x192 for 24 frames against the reference's own
+   with accel 'none' and rng 'lcg', on the 8-wide BVH and at rng
+   'threefry', two-stage and fused) and spheres.scn (HDR equirect sky,
+   textured path; also with accel 'bvh' and rng 'xorshift', and at rng
+   'threefry') at 256x192 for 24 frames against the reference's own
    renders (tests/goldens/ref/*.npz), linear block means;
 6. K6: each variant of the leaf-visit microbenchmark against its plain
    version, and its nanoseconds per iteration;
@@ -51,7 +60,9 @@ Phases, each fatal on failure:
    bit; MRays/s at num_rows * W rays a frame;
 8. bands: the compacted 1080p beauty frame as 4 bands of 270 rows equals
    the full frame bit for bit; two 1-spp halves of an spp=2 frame average
-   to it within 1e-6;
+   to it within 1e-6; at rng 'threefry' (a band draws over its own lanes,
+   as in tracy_tpu) the 4 bands equal the same bands through the plain
+   versions on the card, bit for bit;
 9. gradients: furnace.scn at 64x48 with K1 in the forward: the albedo
    gradient and the depth AOV's vertex gradient (GeometryDiffIntersector)
    against central differences and against the port's CPU gradient;
@@ -390,6 +401,48 @@ def band_phase(scene, rend, cfg):
           f"frame: max |difference| {err:.3g} (<= 1e-6)")
     if not same or band_rays != int(rays) or err > 1e-6:
         raise RuntimeError("bands or sample halves differ from the full frame")
+
+
+def threefry_band_phase(scene, rend, cfg):
+    """At rng 'threefry' a band draws over its own lanes (as in tracy_tpu),
+    so the banded frame is not the full frame; it must equal the same 4
+    bands through the plain versions on the card (K1's and K2's, under the
+    same compaction), bit for bit."""
+    import functools
+
+    from tracy_tpu_torch.accel.reorder import compact_intersector
+    from tracy_tpu_torch.ops import intersect as k1
+    from tracy_tpu_torch.ops import shade as k2
+    from tracy_tpu_torch.render.renderer import sample_radiance_rows
+
+    plain_isect = functools.partial(k1.intersect_plain, tables=rend.tables)
+
+    def plain_shade(o, d, thr, rad, alive, pix, hit_mask, t, normal, tangent, tex_uv, mat,
+                    skey, bounce):
+        return k2.shade_plain(o, d, thr, rad, alive, pix, hit_mask, t, normal, mat, rend._mtab,
+                              skey, bounce, seed=cfg.seed,
+                              russian_roulette=cfg.russian_roulette, rng=cfg.rng)
+
+    rows = HEIGHT // 4
+    kern = torch.cat([sample_radiance_rows(scene, cfg, 0, rend._intersect, row_offset=o,
+                                           num_rows=rows, shade_fn=rend._shade,
+                                           **rend._paths)[0]
+                      for o in range(0, HEIGHT, rows)])
+    plain = torch.cat([sample_radiance_rows(
+        scene, cfg, 0, compact_intersector(plain_isect, cfg.wave_compact_group),
+        row_offset=o, num_rows=rows, shade_fn=plain_shade, first_intersect_fn=plain_isect)[0]
+        for o in range(0, HEIGHT, rows)])
+    full, _ = sample_radiance_rows(scene, cfg, 0, rend._intersect, shade_fn=rend._shade,
+                                   **rend._paths)
+    same = bool(torch.equal(kern, plain))
+    differ = int((kern != full).any(-1).sum())
+    print(f"bands at rng threefry: 4 x {rows} rows through K1 and K2 equal to the same bands "
+          f"through their plain versions on the card bit for bit: {same}; {differ} of "
+          f"{WIDTH * HEIGHT} pixels differ from the full frame (each band draws over its own "
+          f"lanes, as in tracy_tpu)")
+    if not same:
+        raise RuntimeError("threefry bands differ from their plain versions' "
+                           f"by up to {float((kern - plain).abs().max()):.3g}")
 
 
 def gradient_phase(dev, card):
@@ -1212,6 +1265,11 @@ def mesh_worker(rank: int, nproc: int, port: str, outp: str) -> int:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
+
+    def stamp(phases: str):  # where the script's time goes
+        print(f"[phases {phases} done at {time.perf_counter() - t_start:.1f} s]")
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
         return 2
@@ -1252,6 +1310,8 @@ def main() -> int:
           + ("" if secs else " (cached)"))
     for src, log in build.LIBRARY.build_log.items():
         print(f"  ptxas {src}: " + ptxas_summary(log))
+
+    stamp("1-2")
 
     # 3. kernel vs plain
     cfg = render_config()
@@ -1481,6 +1541,57 @@ def main() -> int:
           f"{b5['miss_lanes']} miss, {b5['dead_lanes']} dead lanes); K1 then K2 (in place, "
           f"on copies) on the same lanes, width 4, {t_k12:.3f} ms")
 
+    # rng 'threefry' (jax.random's Threefry-2x32 plus the 'fast' mix; the
+    # four keys of a launch folded on the host) in K2, K4 and K5: each
+    # against its plain version on the same lanes, and K5 under compaction
+    # (a third of the real grid64x28 lanes live, as at bounce 1) against K1
+    # then K2 and its plain version; then each timed beside its 'fast' twin,
+    # in turns, and its plain version once.
+    tkw = dict(seed=SEED, russian_roulette=True, rng="threefry")
+    tf2 = compare.compare_shade(lanes, mtab, 3, 1, **tkw)
+    tf4 = compare.compare_shade_textured(real, tscene, mtab_t, 3, 1, **tkw)
+    tf5 = compare.compare_bounce(blanes, tables, mtab_g, 3, 1, **tkw)
+    third = torch.as_tensor(np.random.default_rng(5).uniform(size=wave) < 0.35, device=dev)
+    tf5c = compare.compare_bounce_compacted(dict(blanes, alive=blanes["alive"] & third), tables,
+                                            mtab_g, group, 3, 1, **tkw)
+    print(f"rng threefry, {wave} lanes: K2 (canned lanes) vs plain bit for bit "
+          f"{tf2['bit_equal']} (must be); K4 (real grid64x28-tex lanes) vs plain bit for bit "
+          f"{tf4['bit_equal']}, lanes differing {tf4['lanes_differing']} (hit lanes "
+          f"{tf4['hit_lanes_differing']}, must be 0; sky lanes may address another texel, "
+          f"<= 1e-4 of lanes), max abs err {tf4['max_abs_err']:.3g}; K5 (real grid64x28 lanes) "
+          f"vs plain bit for bit {tf5['bit_equal']} (must be), vs K1 then K2 "
+          f"{tf5['equal_to_k1_k2']}; K5 compacted (group {group}, {tf5c['live_lanes']} live) "
+          f"vs K1 then K2 uncompacted {tf5c['equal_to_k1_k2']}, vs its plain version "
+          f"compacted {tf5c['equal_to_plain']}")
+    if not (tf2["bit_equal"] and tf5["bit_equal"]) or tf4["hit_lanes_differing"] \
+            or tf4["lanes_differing"] > 1e-4 * wave:
+        raise RuntimeError("a kernel at rng threefry differs from its plain version")
+    t_tf = {kn: {"fast": [], "threefry": []} for kn in ("K2", "K4", "K5")}
+    for rng in ("fast", "threefry", "threefry", "fast"):
+        rk = dict(kw, rng=rng)
+        t_tf["K2"][rng].append(compare.inplace_ms(lambda a: k2.shade(*a, mtab, 3, 1, **rk),
+                                                  lanes, 20, compare.SHADE_ARGS))
+        t_tf["K4"][rng].append(compare.inplace_ms(
+            lambda a: k2.shade_textured(*a, mtab_t, *tex, 3, 1, **rk), real, 20))
+        t_tf["K5"][rng].append(compare.cuda_ms(
+            lambda: k5.trace_bounce(*bargs, 3, 1, tables=tables, mtab=mtab_g, **rk), 10))
+    t_tf = {kn: {r: sum(v) / len(v) for r, v in d.items()} for kn, d in t_tf.items()}
+    tp_tf = {"K2": compare.inplace_ms(lambda a: k2.shade_plain(*a, mtab, 3, 1, **tkw), lanes,
+                                      1, compare.SHADE_ARGS),
+             "K4": compare.inplace_ms(
+                 lambda a: k2.shade_textured_plain(*a, mtab_t, *tex, 3, 1, **tkw), real, 1),
+             "K5": compare.cuda_ms(lambda: k5.trace_bounce_plain(
+                 *bargs, 3, 1, tables=tables, mtab=mtab_g, **tkw), 1)}
+    print(f"  threefry vs fast, each the mean of 2 turns (fast, threefry, threefry, fast) "
+          f"{card}: " + ", ".join(
+              f"{kn} {t['threefry']:.4f} ms vs {t['fast']:.4f} ms "
+              f"({t['threefry'] / t['fast']:.2f} x), plain {tp_tf[kn]:.2f} ms"
+              for kn, t in t_tf.items())
+          + " (the bounds count bytes and float32 operations: Threefry's integer work, "
+          "about 4 x 20 rounds a hit lane, is not in them)")
+
+    stamp("3")
+
     # 4. main paths
     ccfg = cfg.replace(wave_compact_group=group)
     paths = (("grid64x28 compacted", scene, ccfg, ("K1", "K2")),
@@ -1492,7 +1603,9 @@ def main() -> int:
               ("K1", "K2")),
              ("grid64x28 compacted width 2", scene, ccfg.replace(pallas_bvh_width=2),
               ("K1", "K2")),
-             ("grid64x28 width 2", scene, cfg.replace(pallas_bvh_width=2), ("K1", "K2")))
+             ("grid64x28 width 2", scene, cfg.replace(pallas_bvh_width=2), ("K1", "K2")),
+             ("grid64x28 compacted threefry", scene, ccfg.replace(rng="threefry"),
+              ("K1", "K2")))
     print("config: " + json.dumps({"width": cfg.width, "height": cfg.height, "spp": cfg.spp,
                                    "frames": FRAMES, "max_bounces": cfg.max_bounces,
                                    "russian_roulette": cfg.russian_roulette,
@@ -1577,6 +1690,37 @@ def main() -> int:
         print(f"accumulators equal to {ref}'s: {same}")
         if not all(same.values()):
             raise RuntimeError(f"accumulators differ from {ref}'s: {same}")
+    # threefry draws other numbers than 'fast': its frames are another
+    # estimate of the same image. Both paths run on to 24 frames, as phase
+    # 5's gates do, and are held by tests/test_ref_parity.py's block-mean
+    # contract on the 8-bit images (4 frames leave a 16x16 block's mean
+    # too noisy for it: on the CPU at 320x180, block p95 0.023).
+    imgs = {}
+    for pname in ("grid64x28 compacted", "grid64x28 compacted threefry"):
+        rend = rends[pname]
+        st24, _ = rend.step_many(scene, init_state(rend.cfg, dev), 24)
+        imgs[pname] = parity.srgb_to_linear(np.clip(rend.display(st24) * 255.99, 0.0, 255.0)
+                                            / 255.99)
+    dmean, p95, dmax = parity.compare(imgs["grid64x28 compacted"],
+                                      imgs["grid64x28 compacted threefry"])
+    print(f"grid64x28 compacted, threefry vs fast, 24 frames each: mean diff {dmean:.5f} "
+          f"(<= 0.01), block p95 {p95:.5f} (<= 0.02), block max {dmax:.5f} (<= 0.05)")
+    if dmean > 0.01 or p95 > 0.02 or dmax > 0.05:
+        raise RuntimeError("the threefry render is outside the block-mean contract")
+    # ray_chunk: a compacted frame traced in 4 chunks of a quarter wave
+    # equals the whole frame bit for bit ('fast').
+    chunk = wave // 4
+    crend = Renderer(ccfg.replace(ray_chunk=chunk))
+    whole, wrays = rends["grid64x28 compacted"].step_many(scene, init_state(ccfg, dev), 1)
+    reset(counts)
+    chunked, crays = crend.step_many(scene, init_state(ccfg, dev), 1)
+    got = {k: (c.kernel, c.plain) for k, c in counts.items()}
+    same = bool(torch.equal(chunked.accum, whole.accum)) and crays == wrays
+    print(f"ray_chunk {chunk} (4 chunks of the {wave}-lane wave), compacted, 1 frame: equal "
+          f"to the whole frame bit for bit {same} (rays {crays} vs {wrays}); launches "
+          + ", ".join(f"{k} {v[0]}" for k, v in got.items() if v[0]))
+    if not same or got["K1"] != (4 * ccfg.max_bounces, 0) or got["K2"][1]:
+        raise RuntimeError(f"ray_chunk: frame equal {same}, launches {got}")
 
     rows, seen = live_lanes(scene, ccfg, tables)
     lo, ld, la = seen[1]
@@ -1607,6 +1751,8 @@ def main() -> int:
           f"uncompacted {card}: "
           + ", ".join(f"{t:.4f} ms (bound {b['bound_ms']:.4f})" for t, b in zip(t2b, b2b)))
 
+    stamp("4")
+
     # 5. physics against the reference's own renders; the last two gates on
     # the other intersectors and counter hashes.
     for gname, fused, extra in (("furnace", False, {}), ("spheres", False, {}),
@@ -1614,7 +1760,10 @@ def main() -> int:
                                 ("spheres", False, dict(accel="bvh", rng="xorshift")),
                                 ("furnace", False, dict(accel="none", rng="lcg")),
                                 ("furnace", False, dict(pallas_bvh_width=8)),
-                                ("furnace", False, dict(accel="tlas"))):
+                                ("furnace", False, dict(accel="tlas")),
+                                ("furnace", False, dict(rng="threefry")),
+                                ("furnace", True, dict(rng="threefry")),
+                                ("spheres", False, dict(rng="threefry"))):
         gb = load_scene(os.path.join(REPO, "tests", "goldens", "scn", f"{gname}.scn"))
         if gb.fallbacks:
             raise RuntimeError(f"{gname}.scn substituted files: {gb.fallbacks}")
@@ -1644,6 +1793,10 @@ def main() -> int:
             raise RuntimeError(f"{gname}: the fused path did not run on K5 alone")
         if gcfg.pallas_bvh_width == 8 and gr.tables.width != 8:
             raise RuntimeError(f"{gname}: the tables have width {gr.tables.width}, not 8")
+        if gcfg.rng == "threefry":
+            launches[f"gate {gname} {gr.path} threefry"] = {k: c.kernel for k, c in counts.items()}
+
+    stamp("5")
 
     # 6. K6, the leaf-visit microbenchmark, through its own entry point's
     # measurement (tools/micro.py: time each variant at 270,336 rays x 2000
@@ -1668,16 +1821,21 @@ def main() -> int:
     launches["tools.micro"] = {k: 0 for k in counts}
     launches["tools.micro"]["K6"] = k6_launches
 
+    stamp("6")
+
     # 7. AOVs, 8. bands, 9. gradients, 10. training, 11. one textured step.
     launches.update(aov_phase((("grid64x28", scene), ("grid64x28-tex", tscene)), ccfg, counts,
                               dev, card))
     band_phase(scene, rends["grid64x28 compacted"], ccfg)
+    threefry_band_phase(scene, rends["grid64x28 compacted threefry"], ccfg.replace(rng="threefry"))
     launches.update(gradient_phase(dev, card))
     more, train_ms = training_phase(builder, counts, dev, card)
     launches.update(more)
     more, tex_ms = textured_step_phase(tbuilder, counts, dev, card)
     launches.update(more)
     print("training: " + json.dumps({"device": smi, **train_ms, "textured": tex_ms}))
+
+    stamp("7-11")
 
     # 12. accel 'tlas', 13. the raster preview, 14. the entry points.
     more, tlas_s = tlas_phase(scene, ccfg, rends["grid64x28 compacted"], counts, dev, card)
@@ -1688,10 +1846,14 @@ def main() -> int:
     print("slice 9: " + json.dumps({"device": smi, "tlas": tlas_s, "raster_ms": raster_ms,
                                     "entries": entries}))
 
+    stamp("12-14")
+
     # 15. the mesh.
     more, mesh_s = mesh_phase(scene, tscene, ccfg, rends, accum, rays_of, counts, dev, card)
     launches.update(more)
     print("slice 10: " + json.dumps({"device": smi, **mesh_s}))
+
+    stamp("15")
 
     def entry(kname, label, source, replaces, err, ms, plain_ms, bound, library_ms):
         return {"name": f"{kname} {label}", "route": "cuda",
@@ -1744,6 +1906,20 @@ def main() -> int:
     kernels[1].update(ms_per_bounce_frame0=by_bounce["K2"], real_lanes_ms_per_bounce_frame0=t2b,
                       real_lanes_bound_ms_per_bounce_frame0=[b["bound_ms"] for b in b2b])
     kernels[4]["k1_then_k2_ms"] = t_k12
+    # The threefry variants: launches on the paths and gates at rng threefry.
+    for kn, label, src, rep, c in (
+            ("K2", "shade, rng threefry", "shade.cu", "tracy_tpu/ops/pallas_shade.py:72", tf2),
+            ("K4", "shade_textured, rng threefry", "shade.cu",
+             "tracy_tpu/ops/pallas_shade.py:355", tf4),
+            ("K5", "bounce, rng threefry", "bounce.cu", "tracy_tpu/ops/pallas_packet.py:2292",
+             tf5)):
+        e = entry(kn, label, src, rep, c["max_abs_err"], t_tf[kn]["threefry"], tp_tf[kn], c,
+                  None)
+        e["launches_by_path"] = {p: v.get(kn, 0) for p, v in launches.items() if "threefry" in p}
+        e["launches"] = sum(e["launches_by_path"].values())
+        e.update(fast_ms=t_tf[kn]["fast"], bit_equal=c["bit_equal"])
+        kernels.append(e)
+    kernels[-1]["compacted_equal_to_k1_k2"] = all(tf5c["equal_to_k1_k2"])
     kernels[5]["ns_per_iter"] = {v: t6[v]["ns_per_iter"] for v in k6.VARIANTS}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

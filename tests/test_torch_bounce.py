@@ -103,9 +103,9 @@ def test_bounce_plain_matches_pallas_trace_bounce(cornell, rr, group, width):
     state = (o, d, lanes["throughput"], lanes["radiance"], a, lanes["pixel_idx"])
     skey, bounce = 4, 1
 
-    def ours(*s):
+    def ours(*s, **kw):  # kw: compact_bounce's slot positions
         return k5.trace_bounce(*s, tables=tables, mtab=mtab, seed=SEED,
-                               russian_roulette=rr)
+                               russian_roulette=rr, **kw)
 
     before = k5.COUNT.plain
     got = (compact_bounce(ours, group) if group else ours)(*state, skey, bounce)

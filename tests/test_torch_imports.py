@@ -8,8 +8,14 @@ over a 2x1 mesh of CPU cells (tracy_tpu_torch.parallel) under a
 profiler trace (utils/profiling.py), and reports which
 tracy_tpu modules got loaded: none may be, since the port keeps its own
 copies of what it needs (config, utils.native, utils.log).
+
+The port covers tracy_tpu's public names: every public function and class
+of each tracy_tpu module is defined (or imported) by the port's module of
+the same path, or listed below as ported elsewhere or not ported, with its
+reason (ROADMAP.md, "Not ported"); the versions are equal.
 """
 
+import ast
 import json
 import os
 import subprocess
@@ -83,3 +89,75 @@ def test_port_imports_and_renders_without_jax(tmp_path):
     assert res["loss"] > 0 and res["albedo_moved"] and res["depth_max"] > 0
     assert res["mesh_equal"] and res["trace"]
     assert res["tracy_tpu"] == [], res["tracy_tpu"]
+
+
+# tracy_tpu's public names that the port holds in another module.
+PORTED_ELSEWHERE = {
+    "accel/native.py": {"build_bvh_native": "accel/bvh_build.py"},
+    "ops/pallas_packet.py": {"PallasSceneTables": "accel/tables.py::BVHTables",
+                             "build_tables": "accel/tables.py",
+                             "make_pallas_intersector": "ops/intersect.py::intersect",
+                             "nondiff_intersector": "ops/intersect.py",
+                             "pallas_intersect": "ops/intersect.py::intersect (K1)",
+                             "pallas_trace_bounce": "ops/bounce.py::trace_bounce (K5)"},
+    "ops/pallas_shade.py": {"build_material_table": "ops/shade.py",
+                            "build_material_table_tex": "ops/shade.py",
+                            "shade_packets": "ops/shade.py::shade (K2)",
+                            "shade_packets_textured": "ops/shade.py::shade_textured (K4)",
+                            "shade_planes": "csrc/shade_lane.cuh::shade_hit"},
+    "ops/pallas_texfetch.py": {"fetch_texels": "ops/texfetch.py (K3)"},
+}
+# ROADMAP.md's "Not ported": TPU mechanics the port has no use for.
+NOT_PORTED = {
+    "accel/bvh.py": {"BVHArrays", "build_scene_bvh", "device_bvh", "intersect_bvh",
+                     "make_bvh_intersector"},  # the XLA binary walk: 'bvh' is K1
+    "accel/packet.py": {"PackedBVH", "PacketAttrs", "build_packet_bvh", "intersect_packet",
+                        "make_packet_intersector", "pack_bvh", "prepare_packet_tri_data",
+                        "prepare_packet_tri_data_host"},  # the XLA packet tier: K1
+    "accel/bvh_build.py": {"pad_leaves"},  # leaves sized for 128-slot chunks
+    "accel/reorder.py": {"pair_merge_backward", "pair_merge_forward",
+                         "pair_merge_intersector"},  # the butterfly's packet merge
+    "ops/pallas_texfetch.py": {"TexturePages", "build_texture_pages",
+                               "lane_page_indices"},  # texel pages
+    "utils/profiling.py": {"packet_hbm_bound", "packet_speed_of_light"},  # v5e rooflines
+}
+
+
+def _public_names(path, defs_only):
+    out = set()
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif not defs_only and isinstance(node, ast.Assign):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif not defs_only and isinstance(node, ast.ImportFrom):
+            out |= {a.asname or a.name for a in node.names}
+    return {n for n in out if not n.startswith("_")}
+
+
+def test_public_names_are_ported_or_listed():
+    ref_root = os.path.join(REPO, "tracy_tpu")
+    missing = []
+    for root, _, files in os.walk(ref_root):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(root, f), ref_root)
+            port = os.path.join(REPO, "tracy_tpu_torch", rel)
+            have = _public_names(port, False) if os.path.exists(port) else set()
+            listed = set(PORTED_ELSEWHERE.get(rel, {})) | NOT_PORTED.get(rel, set())
+            missing += [f"{rel}::{n}" for n in sorted(_public_names(os.path.join(root, f), True)
+                                                       - have - listed)]
+    assert missing == [], missing
+    for rel, names in PORTED_ELSEWHERE.items():
+        for name, where in names.items():
+            port = os.path.join(REPO, "tracy_tpu_torch", where.split("::")[0].split(" ")[0])
+            assert os.path.exists(port), (rel, name, where)
+
+
+def test_version_matches_tracy_tpu():
+    import tracy_tpu
+    import tracy_tpu_torch
+
+    assert tracy_tpu_torch.__version__ == tracy_tpu.__version__
+

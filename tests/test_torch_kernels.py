@@ -1,7 +1,8 @@
 """K1-K6 on the card against their plain PyTorch versions on the same CUDA
 tensors, with the contracts of tracy_tpu_torch/ops/compare.py (those of
 chip_smoke.py's kernel phase, at smaller sizes), K1 and K5 on the binary,
-the 4-wide and the 8-wide BVH, K2, K4 and K5 at each counter hash, K2 (in
+the 4-wide and the 8-wide BVH, K2, K4 and K5 at each counter hash and at
+rng 'threefry' (K2 and K5 bit for bit; K5 also compacted), K2 (in
 place) equal to its plain version bit for bit with dead lanes untouched,
 K4 (texel fetch + textured bounce, in place) on a ragged last block: K5
 also against K1 then K2 on the same lanes (equal), compacted and fused renders against
@@ -52,16 +53,17 @@ def test_intersect_kernel_matches_plain(cuda, width):
     assert res["hit_fraction"] > 0.2
 
 
-@pytest.mark.parametrize("rng", ["fast", "xorshift", "lcg"])
+@pytest.mark.parametrize("rng", ["fast", "xorshift", "lcg", "threefry"])
 @pytest.mark.parametrize("rr", [True, False])
 def test_shade_kernel_matches_plain(cuda, rr, rng):
     scene = load_scene(os.path.join(REPO, "data", "scenes", "default.scn")).build(device=cuda)
     mtab = k2.build_material_table(scene.materials)
     lanes = compare.canned_lanes(mtab.shape[0], 65536, seed=2, device=cuda)
-    compare.compare_shade(lanes, mtab, 3, 1, seed=0xABCDEF, russian_roulette=rr, rng=rng)
+    res = compare.compare_shade(lanes, mtab, 3, 1, seed=0xABCDEF, russian_roulette=rr, rng=rng)
+    assert res["bit_equal"]
 
 
-@pytest.mark.parametrize("rng", ["fast", "xorshift", "lcg"])
+@pytest.mark.parametrize("rng", ["fast", "xorshift", "lcg", "threefry"])
 @pytest.mark.parametrize("rr", [True, False])
 def test_shade_kernel_updates_in_place(cuda, rr, rng):
     """K2 on a ragged wave: the caller's tensors come back updated, equal
@@ -87,8 +89,9 @@ def test_shade_kernel_updates_in_place(cuda, rr, rng):
 
 @pytest.mark.parametrize("setting", [{}, dict(accel="bvh", rng="xorshift"),
                                      dict(accel="none", rng="lcg"),
-                                     dict(pallas_bvh_width=8)],
-                         ids=["packet-fast", "bvh-xorshift", "none-lcg", "packet-width8"])
+                                     dict(pallas_bvh_width=8), dict(rng="threefry")],
+                         ids=["packet-fast", "bvh-xorshift", "none-lcg", "packet-width8",
+                              "packet-threefry"])
 def test_renderer_runs_on_the_kernels(cuda, setting):
     scene = sphere_grid(64, 48, nsph=4, steps=12).build(device=cuda)
     cfg = RenderConfig(width=64, height=48, spp=1, **setting)
@@ -127,7 +130,7 @@ def textured_scene(device):
     return b.build(device=device)
 
 
-@pytest.mark.parametrize("rng", ["fast", "lcg"])
+@pytest.mark.parametrize("rng", ["fast", "lcg", "threefry"])
 @pytest.mark.parametrize("rr", [True, False])
 def test_texfetch_and_textured_shade_kernels_match_plain(cuda, rr, rng):
     scene = textured_scene(cuda)
@@ -173,7 +176,7 @@ def test_textured_renderer_runs_on_the_kernels(cuda):
     assert np.isfinite(r.display(st)).all()
 
 
-@pytest.mark.parametrize("rng", ["fast", "xorshift"])
+@pytest.mark.parametrize("rng", ["fast", "xorshift", "threefry"])
 @pytest.mark.parametrize("width", [2, 4, 8])
 @pytest.mark.parametrize("rr", [True, False])
 def test_bounce_kernel_matches_plain_and_two_stage(cuda, rr, width, rng):
@@ -187,13 +190,23 @@ def test_bounce_kernel_matches_plain_and_two_stage(cuda, rr, width, rng):
     res = compare.compare_bounce(lanes, tables, mtab, 3, 1, seed=0xABCDEF,
                                  russian_roulette=rr, rng=rng)
     assert all(res["equal_to_k1_k2"]) and res["hit_lanes"] > 0 and res["miss_lanes"] > 0
+    if rng == "threefry":
+        assert res["bit_equal"]
+        third = torch.as_tensor(np.random.default_rng(6).uniform(size=65536) < 0.35,
+                                device=cuda)
+        compare.compare_bounce_compacted(dict(lanes, alive=lanes["alive"] & third), tables,
+                                         mtab, 4096, 3, 1, seed=0xABCDEF,
+                                         russian_roulette=rr, rng=rng)
 
 
 def test_compacted_and_fused_renders_equal_on_the_card(cuda):
     scene = sphere_grid(64, 64, nsph=16, steps=12).build(device=cuda)
     out = {}
     for name, kw in (("plain", {}), ("compacted", dict(wave_compact_group=2048)),
-                     ("fused", dict(wave_compact_group=2048, use_pallas_bounce=True))):
+                     ("fused", dict(wave_compact_group=2048, use_pallas_bounce=True)),
+                     ("plain threefry", dict(rng="threefry")),
+                     ("fused threefry", dict(wave_compact_group=2048, use_pallas_bounce=True,
+                                             rng="threefry"))):
         cfg = RenderConfig(width=64, height=64, spp=1, **kw)
         r = Renderer(cfg)
         for c in (k1.COUNT, k2.COUNT, k5.COUNT):
@@ -201,11 +214,12 @@ def test_compacted_and_fused_renders_equal_on_the_card(cuda):
         st, rays = r.step_many(scene, init_state(cfg, cuda), 2)
         assert r.tables.width == cfg.pallas_bvh_width == 4
         out[name] = (st.accum, rays)
-        want = (0, 0, 10) if name == "fused" else (10, 10, 0)
+        want = (0, 0, 10) if name.startswith("fused") else (10, 10, 0)
         assert (k1.COUNT.kernel, k2.COUNT.kernel, k5.COUNT.kernel) == want
         assert k1.COUNT.plain == k2.COUNT.plain == k5.COUNT.plain == 0
-    for name in ("compacted", "fused"):
-        assert torch.equal(out[name][0], out["plain"][0]) and out[name][1] == out["plain"][1]
+    for name, ref in (("compacted", "plain"), ("fused", "plain"),
+                      ("fused threefry", "plain threefry")):
+        assert torch.equal(out[name][0], out[ref][0]) and out[name][1] == out[ref][1]
 
 
 def test_micro_kernel_variants_match_plain(cuda):

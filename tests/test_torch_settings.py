@@ -1,6 +1,7 @@
 """The render settings tracy_tpu renders besides the main path's, through
-the port on the CPU: the counter hashes 'xorshift' and 'lcg' (the shade
-stages K2, K4 and K5 draw from cfg.rng's hash) and the intersectors
+the port on the CPU: the counter hashes 'xorshift' and 'lcg' and
+jax.random's 'threefry' (the shade stages K2, K4 and K5 draw from cfg.rng's
+kind) and the intersectors
 accel='bvh' (K1 over the binary tables) and accel='none' (the brute-force
 intersector), against tracy_tpu's XLA path (use_pallas=False: on a TPU
 tracy_tpu's Pallas shade hashes 'fast' whatever cfg.rng says, so only its
@@ -15,7 +16,8 @@ XLA path is the reference for the other kinds).
   ray counts agree within 0.1%;
 * trace_bounce_plain (K5's plain version) at each kind against K1's plain
   version then K2's on the same lanes: equal, as K5 equals K1 then K2;
-* 2-frame renders of cornell at 32x32 at rng='lcg' (accel 'packet', the
+* 2-frame renders of cornell at 32x32 at rng='lcg' and 'threefry' (accel
+  'packet', the
   port's default) and at accel='bvh' and 'none', against tracy_tpu's
   Renderer(accel='bvh', use_pallas=False) at the same rng, under
   tests/test_torch_render.py's contract (mean 1e-3, p95 5e-3, max 0.05 in
@@ -87,7 +89,7 @@ def jax_renders(cornell):
     return render
 
 
-@pytest.mark.parametrize("kind", ["xorshift", "lcg"])
+@pytest.mark.parametrize("kind", ["xorshift", "lcg", "threefry"])
 def test_trace_paths_rng_kinds_match_jax(cornell, kind):
     js, scene = cornell
     origin, direction = make_rays(scene, N, seed=21)
@@ -115,7 +117,7 @@ def test_trace_paths_rng_kinds_match_jax(cornell, kind):
     assert (fast.numpy() != got).any(axis=1)[lit].sum() >= 3
 
 
-@pytest.mark.parametrize("kind", ["xorshift", "lcg"])
+@pytest.mark.parametrize("kind", ["xorshift", "lcg", "threefry"])
 def test_bounce_plain_rng_kinds_equal_k1_then_k2(cornell, kind):
     _, scene = cornell
     tables = build_tables(scene, width=4)
@@ -140,8 +142,9 @@ def test_bounce_plain_rng_kinds_equal_k1_then_k2(cornell, kind):
     assert not torch.equal(fast[1], got[1])
 
 
-@pytest.mark.parametrize("setting", [dict(rng="lcg"), dict(accel="bvh"), dict(accel="none")],
-                         ids=["rng-lcg", "accel-bvh", "accel-none"])
+@pytest.mark.parametrize("setting", [dict(rng="lcg"), dict(rng="threefry"), dict(accel="bvh"),
+                                     dict(accel="none")],
+                         ids=["rng-lcg", "rng-threefry", "accel-bvh", "accel-none"])
 def test_render_settings_match_jax(cornell, jax_renders, setting):
     js, scene = cornell
     cfg = RenderConfig(width=32, height=32, spp=1, **setting)
@@ -163,8 +166,19 @@ def test_render_settings_match_jax(cornell, jax_renders, setting):
 
 def test_settings_are_bound_as_tracy_tpu_binds_them(cornell):
     _, scene = cornell
-    with pytest.raises(ValueError, match="threefry"):
-        Renderer(RenderConfig(width=32, height=32, rng="threefry"))
+    # rng 'threefry' binds as the other kinds do: the two-stage path (K2)
+    # and the fused one (K5, compacted, bounce 0 peeled) both draw from it
+    # and render the same frame, which the 'fast' hash does not.
+    frames = {}
+    for rng, fused in (("threefry", False), ("threefry", True), ("fast", False)):
+        cfg = RenderConfig(width=32, height=32, max_bounces=2, rng=rng,
+                           wave_compact_group=1024, use_pallas_bounce=fused)
+        r = Renderer(cfg)
+        st, _ = r.step(scene, init_state(cfg, "cpu"))
+        assert r.path == ("fused" if fused else "two-stage")
+        frames[(rng, fused)] = st.accum
+    assert torch.equal(frames[("threefry", False)], frames[("threefry", True)])
+    assert not torch.equal(frames[("threefry", False)], frames[("fast", False)])
     # 'tlas' is K1 on the stitched tables (tests/test_torch_tlas.py):
     # compaction wraps it, bounce 0 peeled; the fused bounce does not.
     r = Renderer(RenderConfig(width=32, height=32, accel="tlas", wave_compact_group=1024,

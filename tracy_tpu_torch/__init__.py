@@ -14,5 +14,6 @@ cameras go to the card (cuda:0) unless the caller passes device="cpu".
 """
 
 from tracy_tpu_torch.config import RenderConfig
+from tracy_tpu_torch.version import __version__
 
-__all__ = ["RenderConfig"]
+__all__ = ["RenderConfig", "__version__"]

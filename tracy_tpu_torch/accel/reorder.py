@@ -106,6 +106,23 @@ def compact_rays(origin, direction, active, group: int):
     return origin.index_select(0, src), direction.index_select(0, src), active_c, dest
 
 
+def scatter_results(planes: torch.Tensor, dest: torch.Tensor) -> torch.Tensor:
+    """Route a result [N, ...] of the compacted rays back to ray order
+    (tracy_tpu's scatter_results, which undoes its butterfly; here the
+    permutation `dest` that compact_rays returns)."""
+    return planes.index_select(0, dest)
+
+
+def _hit_back(sh: SurfaceHit, dest) -> SurfaceHit:
+    """Every field of a SurfaceHit of the compacted rays, back in ray order."""
+
+    def back(x):
+        return None if x is None else scatter_results(x, dest)
+
+    return SurfaceHit(Hit(*(back(x) for x in sh.hit)), back(sh.normal), back(sh.material),
+                      back(sh.tex_uv), back(sh.tangent))
+
+
 def compact_intersector(intersect_fn: Callable[..., SurfaceHit], group: int):
     """Wrap an intersector (origin, direction, active) -> SurfaceHit with
     per-wave live-ray compaction. Every SurfaceHit field routes back, the
@@ -115,30 +132,45 @@ def compact_intersector(intersect_fn: Callable[..., SurfaceHit], group: int):
 
     def wrapped(origin, direction, active):
         o_c, d_c, a_c, dest = compact_rays(origin, direction, active, group)
-        sh = intersect_fn(o_c, d_c, a_c)
+        return _hit_back(intersect_fn(o_c, d_c, a_c), dest)
 
-        def back(x):
-            return None if x is None else x.index_select(0, dest)
+    return wrapped
 
-        hit = Hit(*(back(x) for x in sh.hit))
-        return SurfaceHit(hit, back(sh.normal), back(sh.material), back(sh.tex_uv),
-                          back(sh.tangent))
+
+def compact_intersector_slot(intersect_fn, group: int):
+    """compact_intersector for an intersector that also returns each ray's
+    winner slot, (origin, direction, active) -> (SurfaceHit, slot [N]
+    int32), as tracy_tpu's compact_intersector_slot: the slot routes back
+    with the hit record, and is -1 where the ray missed (an inactive ray
+    misses). diff/gradients.py's geometry intersector reads the winner
+    through it."""
+    _check_group(group)
+
+    def wrapped(origin, direction, active):
+        o_c, d_c, a_c, dest = compact_rays(origin, direction, active, group)
+        sh, slot = intersect_fn(o_c, d_c, a_c)
+        sh = _hit_back(sh, dest)
+        minus = torch.full((), -1, dtype=slot.dtype, device=slot.device)
+        return sh, torch.where(sh.hit.mask, scatter_results(slot, dest), minus)
 
     return wrapped
 
 
 def compact_bounce(bounce_fn, group: int):
-    """Wrap a fused bounce (o, d, thr, rad, alive, pix, sample_key, bounce)
-    -> next (o, d, thr, rad, alive) with per-wave live-ray compaction. The
-    whole state and the pixel id route down, the next state routes back;
-    dead lanes sit in dead slots, which the bounce passes through, so they
-    keep their input state verbatim."""
+    """Wrap a fused bounce (o, d, thr, rad, alive, pix, sample_key, bounce,
+    position=) -> next (o, d, thr, rad, alive) with per-wave live-ray
+    compaction. The whole state and the pixel id route down, the next state
+    routes back; dead lanes sit in dead slots, which the bounce passes
+    through, so they keep their input state verbatim. `position` is each
+    slot's lane index in the wave (route_index's `src`), the counter of the
+    bounce's threefry draws (ops/bounce.py)."""
     _check_group(group)
 
     def wrapped(origin, direction, throughput, radiance, alive, pix, sample_key, bounce):
         dest, src, alive_c = route_index(alive, group)
         state = (x.index_select(0, src) for x in (origin, direction, throughput, radiance))
-        nxt = bounce_fn(*state, alive_c, pix.index_select(0, src), sample_key, bounce)
-        return tuple(x.index_select(0, dest) for x in nxt)
+        nxt = bounce_fn(*state, alive_c, pix.index_select(0, src), sample_key, bounce,
+                        position=src)
+        return tuple(scatter_results(x, dest) for x in nxt)
 
     return wrapped

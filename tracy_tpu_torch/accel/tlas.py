@@ -20,6 +20,7 @@ by walking the tree.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import sys
 from typing import Dict, List, Tuple
 
@@ -27,7 +28,9 @@ import numpy as np
 import torch
 
 from tracy_tpu_torch.accel.bvh_build import HostBVH, build_bvh_auto
+from tracy_tpu_torch.accel.tables import tables_from_host
 from tracy_tpu_torch.core import math as tm
+from tracy_tpu_torch.ops.intersect import intersect
 
 
 @dataclasses.dataclass
@@ -207,3 +210,11 @@ def transform_object(scene, obj: int, matrix):
     nrm[sl] = n / torch.clamp(norm, min=1e-20)
     tan[sl] = mul(tan[sl], m3)
     return dataclasses.replace(scene, vertex_pos=pos, vertex_normal=nrm, vertex_tangent=tan)
+
+
+def make_two_level_intersector(scene, two: TwoLevelBVH, width: int = 4):
+    """K1 over the stitched two-level tree (tracy_tpu's
+    make_two_level_intersector): an intersector (origin, direction, active)
+    -> SurfaceHit on tables_from_host(scene, two.stitched, width), with uv
+    and tangent where the scene's textures need them, as on 'packet'."""
+    return functools.partial(intersect, tables=tables_from_host(scene, two.stitched, width))

@@ -27,8 +27,11 @@ the CPU with -cpu. Each card gets the same stages as a render on one
 device (tracy_tpu's -mesh renders brute force whatever -accel says), and
 -checkpoint resumes under any mesh shape, or none.
 
-Left out: tracy_tpu's TPU-only flags -rb-mode, -packet-rays and -ray-chunk
-(mechanics the port does not have).
+-ray-chunk N traces each sample's lanes in chunks of N (RenderConfig.
+ray_chunk) when N divides them.
+
+Left out: tracy_tpu's TPU-only flags -rb-mode and -packet-rays (mechanics
+the port does not have).
 
 Usage:
   python -m tracy_tpu_torch.apps.render_cli -scene data/scenes/cornell.scn \\
@@ -83,6 +86,8 @@ def main(argv=None) -> int:
     p.add_argument("-exposure", type=float, default=1.0)
     p.add_argument("-data-root", default=None)
     p.add_argument("-no-rr", action="store_true", help="disable russian roulette")
+    p.add_argument("-ray-chunk", type=int, default=0,
+                   help="lanes traced at once (0: a whole sample's)")
     p.add_argument("-accel", default=None, choices=["packet", "tlas", "bvh", "none"],
                    help="acceleration tier (default: packet for -kernel pt on the card, "
                         "bvh with -cpu; none for pt-bf)")
@@ -141,7 +146,7 @@ def main(argv=None) -> int:
                        max_bounces=args.bounces, tonemap=args.tonemap,
                        exposure=args.exposure, aov=args.aov, accel=accel,
                        russian_roulette=not args.no_rr, wave_compact_group=compact,
-                       pallas_bvh_width=args.bvh_width)
+                       pallas_bvh_width=args.bvh_width, ray_chunk=args.ray_chunk)
 
     if args.kernel in ("raster", "raster-gl"):
         from tracy_tpu_torch.raster.rasterizer import render_raster

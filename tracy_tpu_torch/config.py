@@ -3,7 +3,8 @@
 The fields the port reads, with the names, defaults and string constants of
 tracy_tpu/config.py::RenderConfig. The JAX package's TPU-only knobs (the
 other `pallas_*` fields, `use_pallas`, `use_pallas_shade`, `packet_*`,
-`ray_chunk`, `dtype`) have no meaning here and are left out.
+`dtype`) have no meaning here and are left out. `ray_chunk` keeps its
+meaning: under rng 'threefry' a chunk draws over its own lane positions.
 `use_pallas_bounce` keeps its name: in the port it selects the fused bounce
 kernel K5 (csrc/bounce.cu) on untextured scenes. `pallas_bvh_width` keeps
 its name too: the branching factor of the tree that K1 and K5 walk.
@@ -74,6 +75,9 @@ class RenderConfig:
     # The BVH K1 and K5 walk: 4- or 8-wide (accel/tables.py's collapsed
     # trees) or binary (2), as tracy_tpu's (config.py:346-347).
     pallas_bvh_width: int = 4
+    # Trace each sample's lanes in chunks of this many (render/renderer.py::
+    # trace_chunked) when it divides them; 0 = whole.
+    ray_chunk: int = 0
 
     def __post_init__(self):
         if self.pallas_bvh_width not in (2, 4, 8):

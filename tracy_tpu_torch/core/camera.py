@@ -63,6 +63,16 @@ class Camera:
         return origin, direction
 
 
+def pixel_samples(width: int, height: int, jitter_u, jitter_v):
+    """(s, t) sample coordinates for every pixel of the image, the
+    reference's u = (x + rand) / w, v = (y + rand) / h with y counted from
+    the bottom (tracy_tpu's pixel_samples): pixel_samples_rows over all
+    rows. jitter_u/jitter_v: [height, width]. Returns (s, t) each
+    [height, width]."""
+    rows = torch.arange(height, dtype=torch.int32, device=jitter_u.device)
+    return pixel_samples_rows(width, height, rows, jitter_u, jitter_v)
+
+
 def pixel_samples_rows(width: int, height: int, rows, jitter_u, jitter_v):
     """(s, t) sample coordinates for a band of global image rows.
 

@@ -32,6 +32,11 @@ def cross(a, b):
     )
 
 
+def length(v, keepdim: bool = True):
+    """|v| over the trailing axis: dot(v, v)'s root through `sqrt`."""
+    return sqrt(dot(v, v, keepdim))
+
+
 def sqrt(x):
     """The correctly rounded square root, on every device, as XLA's and the
     card's (IEEE) sqrt are. On the CPU torch's float32 sqrt goes through
@@ -104,6 +109,14 @@ def srgb_from_linear(x):
     return torch.where(x <= 0.0031308, lo, hi)
 
 
+def linear_from_srgb(x):
+    """sRGB -> linear, standard piecewise curve (GLM convertSRGBToLinear)."""
+    x = torch.clamp(x, min=0.0)
+    lo = x / 12.92
+    hi = torch.pow((x + 0.055) / 1.055, 2.4)
+    return torch.where(x <= 0.04045, lo, hi)
+
+
 def reinhard(x):
     return x / (1.0 + x)
 
@@ -112,6 +125,17 @@ def aces(x):
     """ACES filmic fit (Narkowicz 2015)."""
     a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
     return torch.clamp((x * (a * x + b)) / (x * (c * x + d) + e), 0.0, 1.0)
+
+
+# Rec. 709 luma weights (tracy_tpu's luminance).
+LUMA = (0.2126, 0.7152, 0.0722)
+
+
+def luminance(rgb):
+    """Rec. 709 luminance over the trailing axis, r, g and b weighted and
+    summed in that order."""
+    w = torch.tensor(LUMA, dtype=rgb.dtype, device=rgb.device)
+    return rgb[..., 0] * w[0] + rgb[..., 1] * w[1] + rgb[..., 2] * w[2]
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,11 @@
 // the winner's normal and reads its material, and runs K2's bounce
 // (tracy::shade_miss / tracy::shade_hit, shade_lane.cuh), all in registers.
 // It writes only the next state (origin, direction, throughput, radiance,
-// alive). Dead lanes pass through unchanged. Since the three kernels share
+// alive). Dead lanes pass through unchanged. Under rng 'threefry' a lane
+// draws at its position in the wave: its own index, or, under compaction
+// (accel/reorder.py::compact_bounce), the wave position of the lane its
+// slot holds, read from `pos` (an int32 plane read only by hit lanes, and
+// only under threefry). Since the three kernels share
 // their device functions and the build turns FMA contraction off, K5's next
 // state equals K1 followed by K2 on the same lanes bit for bit.
 //
@@ -33,13 +37,14 @@ template <int W>
 __global__ void __launch_bounds__(BLOCK) bounce_kernel(
     const float* __restrict__ orig, const float* __restrict__ dir,
     const float* __restrict__ thr_in, const float* __restrict__ rad_in,
-    const bool* __restrict__ alive_in, const int* __restrict__ pix_in, int n,
+    const bool* __restrict__ alive_in, const int* __restrict__ pix_in,
+    const int* __restrict__ pos_in, int n,
     const float4* __restrict__ nb, const int4* __restrict__ nm,
     const float4* __restrict__ wide, const float4* __restrict__ tri,
     const int4* __restrict__ tmeta,
     const float* __restrict__ vnormal, const float* __restrict__ mtab,
-    int num_materials, uint32_t skey, uint32_t bounce, uint32_t seed,
-    int russian_roulette, int rng, float* __restrict__ o_out,
+    int num_materials, const tracy::Rng rng, int russian_roulette,
+    float* __restrict__ o_out,
     float* __restrict__ d_out, float* __restrict__ thr_out,
     float* __restrict__ rad_out, bool* __restrict__ alive_out) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
@@ -63,10 +68,10 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(
       const int4 tm = tmeta[best];
       float nv[3];
       tracy::interp<3>(vnormal, tm, 1.0f - bu - bv, bu, bv, nv);
+      const uint32_t pos = static_cast<uint32_t>(pos_in != nullptr ? pos_in[i] : i);
       alive = tracy::shade_hit<false>(
           o, d, thr, rad, best_t, nv, tm.w, static_cast<uint32_t>(pix_in[i]),
-          mtab, num_materials, skey, bounce, seed, russian_roulette, rng,
-          nullptr, nullptr);
+          pos, mtab, num_materials, rng, russian_roulette, nullptr, nullptr);
     }
   }
   for (int c = 0; c < 3; ++c) {
@@ -80,20 +85,18 @@ __global__ void __launch_bounds__(BLOCK) bounce_kernel(
 
 template <int W>
 void launch(const float* orig, const float* dir, const float* thr,
-            const float* rad, const bool* alive, const int* pix, int n,
-            const float* nb, const int* nm, const float* wide, const float* tri,
-            const int* tmeta, const float* vnormal, const float* mtab,
-            int num_materials, uint32_t sample_key, uint32_t bounce,
-            uint32_t seed, int russian_roulette, int rng, float* o_out,
-            float* d_out, float* thr_out, float* rad_out, bool* alive_out,
-            cudaStream_t stream) {
+            const float* rad, const bool* alive, const int* pix, const int* pos,
+            int n, const float* nb, const int* nm, const float* wide,
+            const float* tri, const int* tmeta, const float* vnormal,
+            const float* mtab, int num_materials, const tracy::Rng& rng,
+            int russian_roulette, float* o_out, float* d_out, float* thr_out,
+            float* rad_out, bool* alive_out, cudaStream_t stream) {
   bounce_kernel<W><<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(
-      orig, dir, thr, rad, alive, pix, n, reinterpret_cast<const float4*>(nb),
+      orig, dir, thr, rad, alive, pix, pos, n, reinterpret_cast<const float4*>(nb),
       reinterpret_cast<const int4*>(nm), reinterpret_cast<const float4*>(wide),
       reinterpret_cast<const float4*>(tri),
-      reinterpret_cast<const int4*>(tmeta), vnormal, mtab, num_materials,
-      sample_key, bounce, seed, russian_roulette, rng, o_out, d_out, thr_out,
-      rad_out, alive_out);
+      reinterpret_cast<const int4*>(tmeta), vnormal, mtab, num_materials, rng,
+      russian_roulette, o_out, d_out, thr_out, rad_out, alive_out);
 }
 
 }  // namespace
@@ -101,17 +104,21 @@ void launch(const float* orig, const float* dir, const float* thr,
 // width 2 walks nb/nm (the binary tree), width 4 or 8 walks `wide` (the
 // wide rows), which must then not be null: as tracy_intersect. vuv and
 // vtan are the tables' texture uv and tangent: K5 is untextured and refuses
-// them when they are not null. rng: the counter hash (tracy::RNG_*).
+// them when they are not null. rng: tracy::RNG_*; keys: the launch's
+// threefry keys (host memory, 2 * NUM_DRAWS words), null for the counter
+// hashes; pos: each slot's position in the wave for threefry, null for the
+// slots' own indices.
 extern "C" int tracy_bounce(const float* orig, const float* dir,
                             const float* thr, const float* rad,
-                            const bool* alive, const int* pix, int n,
+                            const bool* alive, const int* pix, const int* pos, int n,
                             const float* nb, const int* nm, const float* wide,
                             int width, const float* tri, const int* tmeta,
                             const float* vnormal, const float* vuv,
                             const float* vtan, const float* mtab,
                             int num_materials, uint32_t sample_key,
                             uint32_t bounce, uint32_t seed,
-                            int russian_roulette, int rng, float* o_out, float* d_out,
+                            int russian_roulette, int rng, const uint32_t* keys,
+                            float* o_out, float* d_out,
                             float* thr_out, float* rad_out, bool* alive_out,
                             void* stream) {
   if (vuv != nullptr || vtan != nullptr ||
@@ -121,21 +128,19 @@ extern "C" int tracy_bounce(const float* orig, const float* dir,
   }
   if (n > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const tracy::Rng r = tracy::make_rng(rng, seed, sample_key, bounce, keys);
     if (width == 8) {
-      launch<8>(orig, dir, thr, rad, alive, pix, n, nb, nm, wide, tri, tmeta,
-                vnormal, mtab, num_materials, sample_key, bounce, seed,
-                russian_roulette, rng, o_out, d_out, thr_out, rad_out,
-                alive_out, st);
+      launch<8>(orig, dir, thr, rad, alive, pix, pos, n, nb, nm, wide, tri,
+                tmeta, vnormal, mtab, num_materials, r, russian_roulette,
+                o_out, d_out, thr_out, rad_out, alive_out, st);
     } else if (width == 4) {
-      launch<4>(orig, dir, thr, rad, alive, pix, n, nb, nm, wide, tri, tmeta,
-                vnormal, mtab, num_materials, sample_key, bounce, seed,
-                russian_roulette, rng, o_out, d_out, thr_out, rad_out,
-                alive_out, st);
+      launch<4>(orig, dir, thr, rad, alive, pix, pos, n, nb, nm, wide, tri,
+                tmeta, vnormal, mtab, num_materials, r, russian_roulette,
+                o_out, d_out, thr_out, rad_out, alive_out, st);
     } else {
-      launch<2>(orig, dir, thr, rad, alive, pix, n, nb, nm, wide, tri, tmeta,
-                vnormal, mtab, num_materials, sample_key, bounce, seed,
-                russian_roulette, rng, o_out, d_out, thr_out, rad_out,
-                alive_out, st);
+      launch<2>(orig, dir, thr, rad, alive, pix, pos, n, nb, nm, wide, tri,
+                tmeta, vnormal, mtab, num_materials, r, russian_roulette,
+                o_out, d_out, thr_out, rad_out, alive_out, st);
     }
   }
   return static_cast<int>(cudaGetLastError());

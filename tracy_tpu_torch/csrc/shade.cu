@@ -10,8 +10,10 @@
 // (bounce.cu) shares: the material row lookup, Material::Scatter (reference
 // material.h:210-268), the sky on misses, radiance += emission *
 // throughput, throughput *= attenuation, Russian roulette with p = EPS +
-// max(throughput) and a true-division 1/p reweight. The counter RNG is one
-// of tracy_tpu/core/rng.py's three hashes, chosen per launch. K4's texel
+// max(throughput) and a true-division 1/p reweight. The RNG is one of
+// tracy_tpu/core/rng.py's four kinds, chosen per launch; under threefry a
+// lane's counter is its index in the wave, which is its position in the
+// reference's flat pixel array (the wave is shaded whole). K4's texel
 // addresses are K3's (texfetch_lane.cuh), and it adds the texture overrides
 // and tangent-space normal mapping of apply_textures.
 //
@@ -65,8 +67,7 @@ __global__ void __launch_bounds__(BLOCK) shade_kernel(
     const int* __restrict__ pix_in, const bool* __restrict__ hit_in,
     const float* __restrict__ t_in, const float* __restrict__ nrm_in,
     const int* __restrict__ mat_in, int n, const float* __restrict__ mtab,
-    int num_materials, uint32_t skey, uint32_t bounce, uint32_t seed,
-    int russian_roulette, int rng) {
+    int num_materials, const tracy::Rng rng, int russian_roulette) {
   // Shared: mtab [M, 10] f32.
   extern __shared__ float4 smem[];
   float* s_mtab = reinterpret_cast<float*>(smem);
@@ -100,9 +101,10 @@ __global__ void __launch_bounds__(BLOCK) shade_kernel(
   }
   bool alive = false;
   if (hit) {
-    alive = tracy::shade_hit<false>(o, d, thr, rad, t, nv, m, pix, s_mtab,
-                                    num_materials, skey, bounce, seed,
-                                    russian_roulette, rng, nullptr, nullptr);
+    alive = tracy::shade_hit<false>(o, d, thr, rad, t, nv, m, pix,
+                                    static_cast<uint32_t>(i), s_mtab,
+                                    num_materials, rng, russian_roulette,
+                                    nullptr, nullptr);
     for (int c = 0; c < 3; ++c) {
       orig[3 * i + c] = o[c];
       dir[3 * i + c] = d[c];
@@ -124,8 +126,8 @@ __global__ void __launch_bounds__(BLOCK) shade_textured_kernel(
     const int* __restrict__ mat_in, int n, const float* __restrict__ mtab,
     int num_materials, const float4* __restrict__ tex_data,
     const int4* __restrict__ tex_table, int num_textures,
-    const int* __restrict__ tex_index, uint32_t skey, uint32_t bounce,
-    uint32_t seed, int russian_roulette, int rng) {
+    const int* __restrict__ tex_index, const tracy::Rng rng,
+    int russian_roulette) {
   // Shared: mtab [M, 16] f32, tex_table [K] int4, tex_index [M, 5] i32.
   extern __shared__ float4 smem[];
   float* s_mtab = reinterpret_cast<float*>(smem);
@@ -189,9 +191,10 @@ __global__ void __launch_bounds__(BLOCK) shade_textured_kernel(
     float tex[12];
     tracy::texel_row(q, tex);
     alive = tracy::shade_hit<true>(o, d, thr, rad, t_in[i], nv, m,
-                                   static_cast<uint32_t>(pix_in[i]), s_mtab,
-                                   num_materials, skey, bounce, seed,
-                                   russian_roulette, rng, tex, tan_lane);
+                                   static_cast<uint32_t>(pix_in[i]),
+                                   static_cast<uint32_t>(i), s_mtab,
+                                   num_materials, rng, russian_roulette, tex,
+                                   tan_lane);
     for (int c = 0; c < 3; ++c) {
       orig[3 * i + c] = o[c];
       dir[3 * i + c] = d[c];
@@ -206,18 +209,21 @@ __global__ void __launch_bounds__(BLOCK) shade_textured_kernel(
 
 // K2, in place: orig, dir, thr, rad and alive are read and written. mtab is
 // [M, 10]; smem is its shared memory, which the wrapper computes and bounds.
+// rng: tracy::RNG_*; keys: the launch's threefry keys (host memory,
+// 2 * NUM_DRAWS words), null for the counter hashes.
 extern "C" int tracy_shade(float* orig, float* dir, float* thr, float* rad,
                            bool* alive, const int* pix, const bool* hit,
                            const float* t, const float* normal, const int* mat,
                            int n, const float* mtab, int num_materials,
                            uint32_t sample_key, uint32_t bounce, uint32_t seed,
-                           int russian_roulette, int rng, int smem,
-                           void* stream) {
+                           int russian_roulette, int rng, const uint32_t* keys,
+                           int smem, void* stream) {
   if (n > 0) {
     shade_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, smem,
                    static_cast<cudaStream_t>(stream)>>>(
         orig, dir, thr, rad, alive, pix, hit, t, normal, mat, n, mtab,
-        num_materials, sample_key, bounce, seed, russian_roulette, rng);
+        num_materials, tracy::make_rng(rng, seed, sample_key, bounce, keys),
+        russian_roulette);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -226,7 +232,7 @@ extern "C" int tracy_shade(float* orig, float* dir, float* thr, float* rad,
 // tangent may be null (no normal maps: read as zero), uv too (no material
 // textured, the sky may be: read as zero); mtab is [M, 16]; tex_data
 // [P, 4] f32 is 16-byte aligned; smem is the tables' shared memory, which
-// the wrapper computes and bounds.
+// the wrapper computes and bounds. rng and keys: as tracy_shade's.
 extern "C" int tracy_shade_textured(
     float* orig, float* dir, float* thr, float* rad, bool* alive,
     const int* pix, const bool* hit, const float* t, const float* normal,
@@ -234,14 +240,14 @@ extern "C" int tracy_shade_textured(
     const float* mtab, int num_materials, const float* tex_data,
     const int* tex_table, int num_textures, const int* tex_index,
     uint32_t sample_key, uint32_t bounce, uint32_t seed, int russian_roulette,
-    int rng, int smem, void* stream) {
+    int rng, const uint32_t* keys, int smem, void* stream) {
   if (n > 0) {
     shade_textured_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, smem,
                             static_cast<cudaStream_t>(stream)>>>(
         orig, dir, thr, rad, alive, pix, hit, t, normal, tangent, uv, mat, n,
         mtab, num_materials, reinterpret_cast<const float4*>(tex_data),
         reinterpret_cast<const int4*>(tex_table), num_textures, tex_index,
-        sample_key, bounce, seed, russian_roulette, rng);
+        tracy::make_rng(rng, seed, sample_key, bounce, keys), russian_roulette);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,10 +8,14 @@
 // material.h:210-268: diffuse, specular and refraction lobes, Schlick, the
 // specular-chance lerps, the TIR clamp), radiance += emission * throughput,
 // throughput *= attenuation, and Russian roulette with p = EPS +
-// max(throughput) and a true-division 1/p reweight. The counter RNG is one
-// of tracy_tpu/core/rng.py's hashes of (seed, pixel, sample_key, bounce,
-// draw) in uint32_t, bit for bit: 'fast' (PCG), 'xorshift' (xorshift32
-// twice) or 'lcg' (two LCG steps with xor-folds), chosen per launch.
+// max(throughput) and a true-division 1/p reweight. The RNG is one of
+// tracy_tpu/core/rng.py's kinds, chosen per launch, bit for bit: a counter
+// hash of (seed, pixel, sample_key, bounce, draw) in uint32_t, 'fast' (PCG),
+// 'xorshift' (xorshift32 twice) or 'lcg' (two LCG steps with xor-folds); or
+// 'threefry', jax.random's Threefry-2x32 of the lane's position in the wave
+// under the draw's key (the host folds (seed, sample_key, bounce, draw) into
+// the four keys of a launch: core/rng.py::threefry_keys), plus the 'fast'
+// draw of seed ^ 0x5BD1E995, modulo 1.
 //
 // TEXTURED adds, per the slot flags of the material table (columns 10-14,
 // build_material_table_tex): texture overrides of basecolor, roughness,
@@ -40,8 +44,29 @@ constexpr int HAS_BC = 10, HAS_N = 11, HAS_R = 12, HAS_M = 13, HAS_E = 14;
 constexpr int TX_BC = 0, TX_NM = 3, TX_ROUGH = 6, TX_METAL = 7, TX_EM = 8;
 constexpr uint32_t K_PIXEL = 0x9E3779B9u, K_FRAME = 0x85EBCA6Bu;
 constexpr uint32_t K_BOUNCE = 0xC2B2AE35u, K_DRAW = 0x27D4EB2Fu;
-// Counter hash kinds (core/rng.py KINDS order).
-constexpr int RNG_FAST = 0, RNG_XORSHIFT = 1, RNG_LCG = 2;
+// RNG kinds (core/rng.py KINDS order).
+constexpr int RNG_FAST = 0, RNG_XORSHIFT = 1, RNG_LCG = 2, RNG_THREEFRY = 3;
+constexpr uint32_t THREEFRY_MIX_SEED = 0x5BD1E995u;
+constexpr int NUM_DRAWS = 4;  // sphere z, sphere phi, specular, roulette
+
+// A launch's RNG: its kind, seed, sample key and bounce, and under
+// threefry the keys of draws 0-3, (k1, k2) each, which depend on host
+// integers only (core/rng.py::threefry_keys).
+struct Rng {
+  int kind;
+  uint32_t seed, skey, bounce;
+  uint32_t keys[2 * NUM_DRAWS];
+};
+
+// keys: 2 * NUM_DRAWS words, read only under threefry (may be null else).
+inline Rng make_rng(int kind, uint32_t seed, uint32_t skey, uint32_t bounce,
+                    const uint32_t* keys) {
+  Rng r{kind, seed, skey, bounce, {}};
+  if (kind == RNG_THREEFRY && keys != nullptr) {
+    for (int k = 0; k < 2 * NUM_DRAWS; ++k) r.keys[k] = keys[k];
+  }
+  return r;
+}
 
 __device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
   x = x * 747796405u + 2891336453u;
@@ -69,13 +94,50 @@ __device__ __forceinline__ uint32_t counter_hash(uint32_t x, int kind) {
 }
 
 // Uniform [0, 1) from the top 24 hashed bits (core/rng.py::uniform_fast).
-__device__ __forceinline__ float rand01(uint32_t seed, uint32_t pix,
+__device__ __forceinline__ float hash01(uint32_t seed, uint32_t pix,
                                         uint32_t skey, uint32_t bounce,
                                         uint32_t draw, int kind) {
   uint32_t h = seed + pix * K_PIXEL;
   h = counter_hash(h + skey * K_FRAME, kind);
   h = counter_hash(h + bounce * K_BOUNCE + draw * K_DRAW, kind);
   return static_cast<float>(counter_hash(h, kind) >> 8u) * (1.0f / 16777216.0f);
+}
+
+// Threefry-2x32 with 20 rounds (jax/_src/prng.py::_threefry2x32_lowering),
+// in place on the counter words (x1, x2).
+__device__ __forceinline__ void threefry2x32(uint32_t k1, uint32_t k2,
+                                             uint32_t& x1, uint32_t& x2) {
+  constexpr int ROT[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  const uint32_t ks[3] = {k1, k2, k1 ^ k2 ^ 0x1BD11BDAu};
+  x1 += ks[0];
+  x2 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x1 += x2;
+      x2 = __funnelshift_l(x2, x2, ROT[i & 1][j]) ^ x1;
+    }
+    x1 += ks[(i + 1) % 3];
+    x2 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+  }
+}
+
+// Draw `draw` of a lane with pixel id pix at position pos of the wave
+// (core/rng.py::RngSpec.uniform): uniform [0, 1).
+__device__ __forceinline__ float rand01(const Rng& rng, uint32_t pix,
+                                        uint32_t pos, uint32_t draw) {
+  if (rng.kind != RNG_THREEFRY) {
+    return hash01(rng.seed, pix, rng.skey, rng.bounce, draw, rng.kind);
+  }
+  // jax.random.uniform over the wave: the counter is (pos >> 32, pos),
+  // bits = x1 ^ x2, a float in [1, 2) from the top 23 bits, minus one.
+  uint32_t x1 = 0u, x2 = pos;
+  threefry2x32(rng.keys[2 * draw], rng.keys[2 * draw + 1], x1, x2);
+  const float base = __uint_as_float(((x1 ^ x2) >> 9u) | 0x3F800000u) - 1.0f;
+  const float s = base + hash01(rng.seed ^ THREEFRY_MIX_SEED, pix, rng.skey,
+                                rng.bounce, draw, RNG_FAST);
+  return s >= 1.0f ? s - 1.0f : s;
 }
 
 __device__ __forceinline__ float schlick(float cosine, float ref_idx) {
@@ -104,19 +166,20 @@ __device__ __forceinline__ void shade_miss(float* rad, const float* thr,
 
 // A live lane that hit at distance t, with the winner's unnormalised
 // interpolated normal nrm and material m: updates o, d, thr, rad in place
-// to the next state and returns whether the path lives on. tex and
-// tan_lane are the lane's 12-float texel row (registers) and tangent
-// (TEXTURED only; tan_lane may be null, read as zero). rng: RNG_*.
+// to the next state and returns whether the path lives on. pix and pos are
+// the lane's pixel id and its position in the wave (threefry's counter).
+// tex and tan_lane are the lane's 12-float texel row (registers) and
+// tangent (TEXTURED only; tan_lane may be null, read as zero).
 template <bool TEXTURED>
 __device__ __forceinline__ bool shade_hit(
     float* o, float* d, float* thr, float* rad, float t, const float* nrm,
-    int m, uint32_t pix, const float* mtab, int num_materials,
-    uint32_t skey, uint32_t bounce, uint32_t seed, int russian_roulette,
-    int rng, const float* tex, const float* __restrict__ tan_lane) {
+    int m, uint32_t pix, uint32_t pos, const float* mtab, int num_materials,
+    const Rng& rng, int russian_roulette, const float* tex,
+    const float* __restrict__ tan_lane) {
   constexpr int COLS = TEXTURED ? MTAB_TEX_COLS : MTAB_COLS;
-  const float r_z = rand01(seed, pix, skey, bounce, 0u, rng);
-  const float r_phi = rand01(seed, pix, skey, bounce, 1u, rng);
-  const float r_spec = rand01(seed, pix, skey, bounce, 2u, rng);
+  const float r_z = rand01(rng, pix, pos, 0u);
+  const float r_phi = rand01(rng, pix, pos, 1u);
+  const float r_spec = rand01(rng, pix, pos, 2u);
 
   m = (m < 0 || m >= num_materials) ? 0 : m;
   const float* row = mtab + m * COLS;
@@ -209,7 +272,7 @@ __device__ __forceinline__ bool shade_hit(
   bool alive = true;
   if (russian_roulette) {
     const float p = SHADE_EPS + fmaxf(thr[0], fmaxf(thr[1], thr[2]));
-    alive = rand01(seed, pix, skey, bounce, 3u, rng) <= p;
+    alive = rand01(rng, pix, pos, 3u) <= p;
     if (alive) {
       const float den = fmaxf(p, SHADE_EPS);
       for (int c = 0; c < 3; ++c) thr[c] = thr[c] / den;

@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from tracy_tpu_torch.accel.reorder import compact_intersector
+from tracy_tpu_torch.accel.reorder import compact_intersector, compact_intersector_slot
 from tracy_tpu_torch.accel.tables import build_tables
 from tracy_tpu_torch.config import RenderConfig
 from tracy_tpu_torch.core import math as tm
@@ -88,8 +88,11 @@ def params_from_jax(src, device=DEFAULT_DEVICE) -> TrainableParams:
 class GeometryDiffIntersector:
     """Winner-recompute differentiable intersector (tracy_tpu's, :78-177).
 
-    The base intersector (K1 under nondiff_intersector, maybe compacted)
-    finds each ray's winning triangle, detached. bind(scene) gives an
+    The base intersector (K1 under nondiff_intersector, with_slot, maybe
+    compacted by accel/reorder.py::compact_intersector_slot) finds each
+    ray's winning triangle, detached, and returns it as the winner slot
+    (-1 on a miss); K1's triangle id is the global one, so the slot needs
+    no map to a triangle (tracy_tpu's slot_tri). bind(scene) gives an
     intersector that recomputes, in torch, from the scene's traced
     vertices at that winner: Möller–Trumbore's t and barycentrics, and the
     interpolated normal, texture uv and tangent. Misses keep the base
@@ -99,23 +102,21 @@ class GeometryDiffIntersector:
 
     The base's BVH is built once, from the geometry it was given: winners
     come from that geometry while t, uv and the normal follow the traced
-    vertices, as in tracy_tpu. The base's triangle id is the global one
-    (compaction routes it back: accel/reorder.py), so no slot map is
-    needed, as tracy_tpu's compact_intersector_slot gives one.
+    vertices, as in tracy_tpu.
     """
 
     def __init__(self, base, first_base=None):
-        self._base = base
+        self._base = base  # (o, d, act) -> (SurfaceHit, slot [N])
         # An uncompacted base for bounce 0, bound as `.first`.
         self._first_base = first_base
 
     def bind(self, s: SceneArrays):
         def make_isect(base):
             def isect(o, d, act):
-                sh = base(o, d, act)
+                sh, slot = base(o, d, act)
                 hit0 = sh.hit
                 mask = hit0.mask
-                vidx = s.indices[hit0.tri.long()].long()
+                vidx = s.indices[slot.clamp(min=0).long()].long()
                 p0, p1, p2 = (tm.gather_rows(s.vertex_pos, vidx[:, c]) for c in range(3))
                 e1, e2 = p1 - p0, p2 - p0
                 # Möller–Trumbore on the winner (collision.h:33-74).
@@ -153,7 +154,19 @@ class GeometryDiffIntersector:
 
     def __call__(self, o, d, act) -> SurfaceHit:
         """Unbound: the base's values (no geometry gradients)."""
-        return self._base(o, d, act)
+        return self._base(o, d, act)[0]
+
+
+def with_slot(intersect_fn):
+    """An intersector that also returns each ray's winner slot: K1's
+    (global) triangle id where the ray hit, -1 elsewhere."""
+
+    def isect(o, d, act):
+        sh = intersect_fn(o, d, act)
+        minus = torch.full((), -1, dtype=sh.hit.tri.dtype, device=sh.hit.tri.device)
+        return sh, torch.where(sh.hit.mask, sh.hit.tri, minus)
+
+    return isect
 
 
 def make_training_intersector(scene: SceneArrays, cfg: RenderConfig,
@@ -166,18 +179,22 @@ def make_training_intersector(scene: SceneArrays, cfg: RenderConfig,
     cfg.wave_compact_group, wrapped in accel/reorder.py's compaction, with
     the uncompacted base as `.first` for bounce 0 when
     cfg.wave_compact_skip_first (render_loss passes it on).
-    needs_geometry_grads: a GeometryDiffIntersector around that (compacted)
-    base, for vertex gradients.
+    needs_geometry_grads: a GeometryDiffIntersector around that base with
+    its winner slot (with_slot; compact_intersector_slot when compacted),
+    for vertex gradients.
     """
     tables = build_tables(scene, leaf_size=cfg.bvh_leaf_size,
                           max_depth=max(cfg.traversal_stack_depth - 4, 8),
                           width=cfg.pallas_bvh_width)
     base = nondiff_intersector(functools.partial(intersect, tables=tables))
     group = cfg.wave_compact_group
-    inner = compact_intersector(base, group) if group else base
     first = base if group and cfg.wave_compact_skip_first else None
     if needs_geometry_grads:
-        return GeometryDiffIntersector(inner, first_base=first)
+        slotted = with_slot(base)
+        return GeometryDiffIntersector(
+            compact_intersector_slot(slotted, group) if group else slotted,
+            first_base=slotted if first is not None else None)
+    inner = compact_intersector(base, group) if group else base
     if first is not None:
         inner.first = first
     return inner

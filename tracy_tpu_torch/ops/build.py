@@ -41,11 +41,11 @@ _U = ctypes.c_uint32
 # C signatures (csrc/*.cu): every pointer and the stream as c_void_p.
 SIGNATURES = {
     "tracy_intersect": [_C, _C, _C, _I] + [_C] * 3 + [_I] + [_C] * 6 + [_C] * 8 + [_C],
-    "tracy_shade": [_C] * 10 + [_I, _C, _I, _U, _U, _U, _I, _I, _I] + [_C],
-    "tracy_shade_textured": ([_C] * 12 + [_I, _C, _I, _C, _C, _I, _C, _U, _U, _U, _I, _I, _I]
-                             + [_C]),
+    "tracy_shade": [_C] * 10 + [_I, _C, _I, _U, _U, _U, _I, _I, _C, _I] + [_C],
+    "tracy_shade_textured": ([_C] * 12 + [_I, _C, _I, _C, _C, _I, _C, _U, _U, _U, _I, _I, _C,
+                                          _I] + [_C]),
     "tracy_texfetch": [_C] * 5 + [_I, _C, _C, _I, _C, _I, _C, _C],
-    "tracy_bounce": ([_C] * 6 + [_I] + [_C] * 3 + [_I] + [_C] * 6 + [_I, _U, _U, _U, _I, _I]
+    "tracy_bounce": ([_C] * 7 + [_I] + [_C] * 3 + [_I] + [_C] * 6 + [_I, _U, _U, _U, _I, _I, _C]
                      + [_C] * 5 + [_C]),
     "tracy_micro": [_I, _C, _I, _C, _C, _C, _I, _I, _I, _C, _C, _C],
 }

@@ -15,7 +15,13 @@ built without FMA contraction or fast math), so the contracts are tight:
   texel on at most 0.01% of lanes.
 * K5: K2's contract against its plain version (K1's plain version, then
   K2's); and against K1 then K2 launched on the same lanes, all five
-  outputs equal: the three kernels share their device functions.
+  outputs equal: the three kernels share their device functions. Under
+  compaction (compare_bounce_compacted) a slot draws threefry's numbers
+  at its lane's wave position, so compacted K5 equals K1 then K2 too.
+
+Each comparison also says whether every output is equal bit for bit
+(`bit_equal`), which rng 'threefry' is held to on the card: its draws
+are integer work, and the rest runs the same float32 operations.
 
 Beside each kernel, `bound_ms`: the least time an H100 could take for the
 same work, the larger of the bytes it must move over 3.35 TB/s and its
@@ -37,6 +43,7 @@ The wide trees' own counts are reported beside it.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict
 
 import numpy as np
@@ -334,6 +341,14 @@ def compare_shade_textured(lanes, scene, mtab, sample_key: int, bounce: int, *,
     ref = k2.shade_textured_plain(*textured_args(lanes), mtab, *tex, sample_key, bounce,
                                   **kw)
     res = _bounce_agreement("K4", got, ref, decision_frac)
+    res["bit_equal"] = all(bool(torch.equal(g, r)) for g, r in zip(got, ref))
+    differ = torch.zeros_like(lanes["alive"])
+    for g, r in zip(got, ref):
+        diff = g != r
+        differ |= diff.view(diff.shape[0], -1).any(dim=1)
+    # K3's contract: a sky lane may address another texel; a hit lane not.
+    res["lanes_differing"] = int(differ.sum())
+    res["hit_lanes_differing"] = int((differ & lanes["alive"] & lanes["hit_mask"]).sum())
     res.update(textured_bounce_bound(lanes, scene, mtab))
     return res
 
@@ -456,6 +471,7 @@ def compare_bounce(lanes, tables, mtab, sample_key: int, bounce: int, *, seed: i
     ref = k5.trace_bounce_plain(*args, sample_key, bounce, tables=tables, mtab=mtab,
                                 counts=counts, **kw)
     res = _bounce_agreement("K5", got, ref, decision_frac)
+    res["bit_equal"] = all(bool(torch.equal(g, r)) for g, r in zip(got, ref))
     o, d, thr, rad, alive, pix = args
     sh = k1.intersect(o, d, alive, tables)
     two = k2.shade(*(x.clone() for x in (o, d, thr, rad, alive)), pix, sh.hit.mask,
@@ -473,6 +489,33 @@ def compare_bounce(lanes, tables, mtab, sample_key: int, bounce: int, *, seed: i
     res.update(traversal_work(o, d, alive, tables, counts))
     res.update(bound_ms(moved, res["traversal_ops"] + OPS_SHADE_LANE * n_hit))
     res.update(hit_lanes=n_hit, miss_lanes=n_miss, dead_lanes=n_dead)
+    return res
+
+
+def compare_bounce_compacted(lanes, tables, mtab, group: int, sample_key: int, bounce: int,
+                             *, seed: int, russian_roulette: bool,
+                             rng: str = "fast") -> Dict[str, object]:
+    """K5 under accel/reorder.py::compact_bounce (the fused path's binding)
+    against K1 then K2 launched on the same lanes uncompacted, and against
+    K5's plain version under the same compaction: all five outputs equal
+    bit for bit, or it raises."""
+    args = [lanes[k] for k in BOUNCE_ARGS]
+    kw = dict(tables=tables, mtab=mtab, seed=seed, russian_roulette=russian_roulette, rng=rng)
+    got = compact_bounce(functools.partial(k5.trace_bounce, **kw), group)(
+        *args, sample_key, bounce)
+    plain = compact_bounce(functools.partial(k5.trace_bounce_plain, **kw), group)(
+        *args, sample_key, bounce)
+    o, d, thr, rad, alive, pix = args
+    sh = k1.intersect(o, d, alive, tables)
+    two = k2.shade(*(x.clone() for x in (o, d, thr, rad, alive)), pix, sh.hit.mask,
+                   sh.hit.t, sh.normal, sh.material, mtab, sample_key, bounce, seed=seed,
+                   russian_roulette=russian_roulette, rng=rng)
+    res = {"lanes": o.shape[0], "live_lanes": int(alive.sum()), "group": group,
+           "equal_to_k1_k2": [bool(torch.equal(g, r)) for g, r in zip(got, two)],
+           "equal_to_plain": [bool(torch.equal(g, r)) for g, r in zip(got, plain)]}
+    if not all(res["equal_to_k1_k2"] + res["equal_to_plain"]):
+        raise RuntimeError(f"compacted K5 differs from K1 then K2 or from its plain "
+                           f"version: {res}")
     return res
 
 
@@ -494,7 +537,8 @@ def compaction_ms(origin, direction, throughput, radiance, alive, pixel_idx, gro
             mask=torch.zeros(n, dtype=torch.bool, device=dev)),
         f32(3), torch.zeros(n, dtype=torch.int32, device=dev))
     isect = compact_intersector(lambda o, d, a: ready, group)
-    fused = compact_bounce(lambda o, d, t, r, a, p, k, b: (o, d, t, r, a), group)
+    fused = compact_bounce(lambda o, d, t, r, a, p, k, b, position: (o, d, t, r, a),
+                           group)
     return {"intersector_ms": cuda_ms(lambda: isect(origin, direction, alive), reps),
             "bounce_ms": cuda_ms(lambda: fused(origin, direction, throughput, radiance,
                                                alive, pixel_idx, 0, 0), reps)}

@@ -7,8 +7,11 @@ on CPU tensors, and only there, they run `shade_plain` and
 render/material.py. K2 replaces tracy_tpu/ops/pallas_shade.py::_kernel
 (entered through shade_packets). K4 replaces the whole of
 shade_packets_textured: the texel fetch (ops/texfetch.py, K3's addresses)
-and pallas_shade.py::_kernel_tex in one launch. Both draw from the counter
-hash `rng` names ('fast', 'xorshift' or 'lcg', core/rng.py).
+and pallas_shade.py::_kernel_tex in one launch. Both draw from the RNG
+`rng` names (core/rng.py KINDS): a counter hash ('fast', 'xorshift' or
+'lcg'), or 'threefry', whose counter is a lane's index in the wave (its
+position in the array tracy_tpu draws over) and whose four keys of a
+launch are folded on the host (core/rng.py::threefry_keys).
 
 Both update the state in place, as it saves memory traffic: a dead lane
 moves only its alive flag, a miss lane only radiance and alive, and no
@@ -26,10 +29,12 @@ else; it is not a stand-in for K2 or K4, which have no backward.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from tracy_tpu_torch.core import math as tm
-from tracy_tpu_torch.core.rng import KINDS, MASK32, RngSpec
+from tracy_tpu_torch.core.rng import KINDS, MASK32, RngSpec, threefry_keys
 from tracy_tpu_torch.ops.build import LIBRARY
 from tracy_tpu_torch.ops.launch import LaunchCount, check, raise_on_error
 from tracy_tpu_torch.ops.texfetch import (
@@ -80,7 +85,7 @@ def shade(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
     [N, 3] float32: origin, direction, throughput, radiance, normal;
     [N] float32 t; [N] bool alive, hit_mask; [N] int32 pixel_idx, mat_id;
     mtab from build_material_table, which the kernel stages in shared
-    memory; rng: the counter hash (core/rng.py KINDS).
+    memory; rng: the RNG kind (core/rng.py KINDS).
     """
     if origin.device.type == "cpu":
         COUNT.plain += 1
@@ -100,8 +105,8 @@ def shade(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
         *(x.data_ptr() for x in (origin, direction, throughput, radiance, alive,
                                  pixel_idx, hit_mask, t, normal, mat_id)),
         n, mtab.data_ptr(), mtab.shape[0], sample_key & MASK32, bounce & MASK32,
-        seed & MASK32, int(bool(russian_roulette)), rng_index(rng), smem,
-        torch.cuda.current_stream(origin.device).cuda_stream)
+        seed & MASK32, int(bool(russian_roulette)), *rng_args(rng, seed, sample_key, bounce),
+        smem, torch.cuda.current_stream(origin.device).cuda_stream)
     raise_on_error("shade", code)
     COUNT.kernel += 1
     return state
@@ -109,12 +114,14 @@ def shade(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
 
 def shade_plain(origin, direction, throughput, radiance, alive, pixel_idx,
                 hit_mask, t, normal, mat_id, mtab, sample_key: int, bounce: int,
-                *, seed: int, russian_roulette: bool, rng: str = "fast"):
+                *, seed: int, russian_roulette: bool, rng: str = "fast", position=None):
     """The kernel's bounce in PyTorch (tracy_tpu's integrator bounce_step),
-    in place as the kernel."""
+    in place as the kernel. position: the lanes' positions in the wave for
+    threefry's counter (K5's plain version under compaction passes them),
+    None for their own indices, as K2 draws."""
     state = (origin, direction, throughput, radiance, alive)
     nxt = _next_state(*state, pixel_idx, hit_mask, t, normal, None, None, mat_id, mtab,
-                      None, sample_key, bounce, seed, russian_roulette, rng)
+                      None, sample_key, bounce, seed, russian_roulette, rng, position)
     return _store(state, nxt, hit_mask)
 
 
@@ -171,8 +178,9 @@ def shade_textured(origin, direction, throughput, radiance, alive, pixel_idx,
         0 if tex_uv is None else tex_uv.data_ptr(), mat_id.data_ptr(), n,
         mtab.data_ptr(), mtab.shape[0], tex_data.data_ptr(), tex_table.data_ptr(),
         tex_table.shape[0], tex_index.data_ptr(), sample_key & MASK32,
-        bounce & MASK32, seed & MASK32, int(bool(russian_roulette)), rng_index(rng),
-        smem, torch.cuda.current_stream(dev).cuda_stream)
+        bounce & MASK32, seed & MASK32, int(bool(russian_roulette)),
+        *rng_args(rng, seed, sample_key, bounce), smem,
+        torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("shade_textured", code)
     COUNT_TEX.kernel += 1
     return state
@@ -215,11 +223,17 @@ def shade_diff(origin, direction, throughput, radiance, alive, pixel_idx, hit_ma
                        seed, russian_roulette, rng)
 
 
-def rng_index(rng: str) -> int:
-    """The kernels' id of a counter hash kind (csrc/shade_lane.cuh RNG_*)."""
+def rng_args(rng: str, seed: int, sample_key: int, bounce: int):
+    """The kernels' RNG arguments: the kind's id (csrc/shade_lane.cuh
+    RNG_*) and, for threefry, the launch's draw keys (a host array of 8
+    uint32, core/rng.py::threefry_keys), else None."""
     if rng not in KINDS:
-        RngSpec(rng, 0)  # raises, with the reason for threefry
-    return KINDS.index(rng)
+        raise ValueError(f"unknown rng kind {rng!r}")
+    keys = None
+    if rng == "threefry":
+        keys = (ctypes.c_uint32 * 8)(*threefry_keys(seed, sample_key & MASK32,
+                                                      bounce & MASK32))
+    return KINDS.index(rng), keys
 
 
 def _check_bounce(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
@@ -287,10 +301,10 @@ def _params(m, normal) -> SurfaceParams:
 
 def _next_state(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask, t,
                 normal, tangent, tex_uv, mat_id, mtab, tex, sample_key: int, bounce: int,
-                seed: int, russian_roulette: bool, rng: str):
+                seed: int, russian_roulette: bool, rng: str, position=None):
     """The next state of one bounce, out of place: the untextured bounce
     when tex is None, else K4's (K3's plain fetch, the textured overrides
-    and the textured sky)."""
+    and the textured sky). position: threefry's counters (shade_plain)."""
     m = _material_rows(mtab, mat_id)
     params = _params(m, normal)
     # Broadcast in float64 for the same reason: the miss lanes' gradients
@@ -305,18 +319,19 @@ def _next_state(origin, direction, throughput, radiance, alive, pixel_idx, hit_m
         if bool(mtab[SKY_MATERIAL_ID, HAS_COL + TEX_EMISSIVE] > 0.0):
             sky = texels[:, TX_EMR:TX_EMR + 3]
     return _bounce_plain(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
-                         t, params, sky, sample_key, bounce, seed, russian_roulette, rng)
+                         t, params, sky, sample_key, bounce, seed, russian_roulette, rng,
+                         position)
 
 
 def _bounce_plain(origin, direction, throughput, radiance, alive, pixel_idx,
                   hit_mask, t, params: SurfaceParams, sky, sample_key: int,
-                  bounce: int, seed: int, russian_roulette: bool, rng: str):
+                  bounce: int, seed: int, russian_roulette: bool, rng: str, position=None):
     """Scatter, emission, throughput and Russian roulette of one bounce;
     sky: [3] or [N, 3], the radiance a miss lane gathers."""
     spec = RngSpec(rng, seed)
 
     def rand(draw):
-        return spec.uniform(pixel_idx, sample_key, bounce, draw)
+        return spec.uniform(pixel_idx, sample_key, bounce, draw, position)
 
     point = origin + t[:, None] * direction
     res = scatter(direction, point, params, rand(DRAW_SPHERE_Z),

@@ -22,7 +22,8 @@ use_pallas_bounce on an untextured scene and accel 'packet', K5
 accel 'packet' or 'tlas', K1 (or K5) runs inside accel/reorder.py's compaction, and
 K4 on the routed-back lanes, as tracy_tpu binds them (tracy_tpu/render/
 renderer.py:488-512, :619-689); with wave_compact_skip_first, bounce 0 runs
-uncompacted. The image is folded into 32x32-pixel tiles, so that
+uncompacted. On 'packet' and 'tlas' the image is folded into 32x32-pixel
+tiles (tracy_tpu folds for those two accels only), so that
 neighbouring rays of a wave are neighbours on screen. On CUDA tensors the
 stages launch their kernels; on CPU tensors, their plain versions.
 
@@ -32,7 +33,11 @@ sample, then the surface parameters (K3 once a sample on a textured
 scene); nothing shades. `sample_radiance_rows` renders a band of rows and
 samples (row_offset, num_rows, spp_offset, spp_count, total_spp), keyed
 by the global pixel and sample ids, so that bands and sample splits give
-the whole frame's values.
+the whole frame's values under the counter hashes. cfg.ray_chunk traces
+a sample's lanes in consecutive chunks, as tracy_tpu's lax.map does.
+Under rng 'threefry' a draw's counter is the lane's position in the array
+it is drawn over (core/rng.py), so bands, chunks and shards draw other
+numbers than the whole frame, as they do in tracy_tpu.
 """
 
 from __future__ import annotations
@@ -113,15 +118,20 @@ def sample_radiance_rows(scene: SceneArrays, cfg: RenderConfig, frame: int,
     spp_offset .. spp_offset + spp_count - 1 (default: cfg.spp) of a frame
     of total_spp samples (default: cfg.spp). RNG streams are keyed by the
     global pixel index and the global sample id frame * total_spp + s, so
-    any split into bands renders the same values. The band is folded into
-    tiles by its own row count (pick_tile); rows that do not fill a tile
+    under the counter hashes any split into bands renders the same values
+    (threefry draws over the band's own array, as tracy_tpu's does). On
+    'packet' and 'tlas' the band is folded into tiles by its own row count
+    (pick_tile); rows that do not fill a tile
     (1080 % 32 = 24) are padded with dead rows, which trace nothing and
     are not counted. intersect_fn None: the brute-force intersector, built
     here from `scene` (differentiable in its vertices). shade_fn,
     bounce_fn, first_intersect_fn, first_bounce_fn: trace_paths'. With
     cfg.aov set, trace_aov runs instead (first_intersect_fn, else
     intersect_fn; fetch_fn its texel fetch) and each sample counts
-    num_rows * W rays, as tracy_tpu counts them.
+    num_rows * W rays, as tracy_tpu counts them. With 0 < cfg.ray_chunk <
+    the band's lane count, and dividing it, each sample's lanes are traced
+    in consecutive chunks of ray_chunk lanes (tracy_tpu's :172-187); else
+    whole.
     """
     h, w = cfg.height, cfg.width
     num_rows = h if num_rows is None else num_rows
@@ -131,7 +141,9 @@ def sample_radiance_rows(scene: SceneArrays, cfg: RenderConfig, frame: int,
         intersect_fn = make_bruteforce_intersector(scene)
     dev = scene.device
     rng = RngSpec(cfg.rng, cfg.seed)
-    tile_h, tile_w = pick_tile(num_rows, w)
+    # tracy_tpu folds tiles for its packet tiers only (renderer.py:114-116);
+    # threefry's draws follow the lane order, so the port folds as it does.
+    tile_h, tile_w = pick_tile(num_rows, w) if cfg.accel in ("packet", "tlas") else (0, 0)
     rows_r = num_rows + ((-num_rows) % tile_h if tile_h else 0)
     local = torch.arange(rows_r, dtype=torch.int32, device=dev)
     rows = row_offset + local  # global rows
@@ -170,15 +182,36 @@ def sample_radiance_rows(scene: SceneArrays, cfg: RenderConfig, frame: int,
                                  first_intersect_fn or intersect_fn, active0, fetch_fn)
             r = torch.full((), num_rows * w, dtype=torch.int64, device=dev)
         else:
-            radiance, r = trace_paths(
+            radiance, r = trace_chunked(
                 scene, fold(origin), fold(direction), lanes, sample_key, cfg,
-                intersect_fn, active0=active0, shade_fn=shade_fn, bounce_fn=bounce_fn,
+                intersect_fn, active0, shade_fn=shade_fn, bounce_fn=bounce_fn,
                 first_intersect_fn=first_intersect_fn, first_bounce_fn=first_bounce_fn)
         acc = acc + unfold(radiance)[:num_rows]
         rays = rays + r
     if spp_count > 1:  # a tensor divisor: see core/camera.py::pixel_samples_rows
         acc = acc / torch.full((), spp_count, dtype=acc.dtype, device=dev)
     return acc, rays
+
+
+def trace_chunked(scene: SceneArrays, origin, direction, lanes, sample_key: int,
+                  cfg: RenderConfig, intersect_fn, active0, **paths):
+    """trace_paths over the flat lanes, in n // cfg.ray_chunk consecutive
+    chunks when 0 < ray_chunk < n and ray_chunk divides n, else whole.
+    Returns (radiance [n, 3], rays)."""
+    n = origin.shape[0]
+    chunk = cfg.ray_chunk
+    if not (0 < chunk < n and n % chunk == 0):
+        return trace_paths(scene, origin, direction, lanes, sample_key, cfg, intersect_fn,
+                           active0=active0, **paths)
+    rads, rays = [], 0
+    for lo in range(0, n, chunk):
+        part = slice(lo, lo + chunk)
+        rad, r = trace_paths(scene, origin[part], direction[part], lanes[part], sample_key,
+                             cfg, intersect_fn,
+                             active0=None if active0 is None else active0[part], **paths)
+        rads.append(rad)
+        rays = rays + r
+    return torch.cat(rads), rays
 
 
 def sample_radiance(scene: SceneArrays, cfg: RenderConfig, frame: int, intersect_fn=None,
@@ -272,7 +305,6 @@ class Renderer:
     """
 
     def __init__(self, cfg: RenderConfig):
-        RngSpec(cfg.rng, cfg.seed)  # refuses threefry (jax.random) with its reason
         self.cfg = cfg
         self.tables: Optional[BVHTables] = None
         self.two_level: Optional[TwoLevelBVH] = None  # accel 'tlas', once prepared

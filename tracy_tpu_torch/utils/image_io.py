@@ -144,6 +144,12 @@ def decode_ppm(data: bytes) -> np.ndarray:
     return np.frombuffer(data[pos:pos + w * h * 3], np.uint8).reshape(h, w, 3).copy()
 
 
+def load_npy_state(path: str) -> np.ndarray:
+    """An array saved as .npy (save_image's raw float output), as
+    tracy_tpu's load_npy_state."""
+    return np.load(path)
+
+
 def read_image(path: str):
     """(float32 RGB [H, W, 3], linear): 8-bit files scaled to [0, 1]
     (display values, linear False), .hdr and float .npy as stored (linear
