@@ -106,15 +106,37 @@ Phases, each fatal on failure:
    640x480 "materials" step with gradients within 1e-4 of the largest
    entry of one process's; render_cli -mesh 2x2 -spp 2 on spheres.scn at
    1080p, and a -mesh 4x1 checkpoint resumed under -mesh 2x1 equal to
-   phase 14's uninterrupted run.
+   phase 14's uninterrupted run;
+16. image textures without PIL (blocked in this process from the start,
+   if installed): each map of tests/goldens/textured/ (2048x2048 4:2:0
+   JPEG, 4:4:4 JPEG, progressive grey JPEG, palette PNG, 16-bit PNG)
+   decoded on this host by csrc/image_decode.cpp, with its seconds;
+   textured.scn loaded with no fallback, rendered at 256x192 for 24 frames
+   through K1 + K4 and held against tracy_tpu's CPU render
+   (textured.npz) by phase 5's contract; its basecolor AOV through K1 +
+   K3, frame 0 equal to the plain versions'; grid64x28 with those maps in
+   place of the numpy maps at 1080p, compacted, 4 frames, timed (no gain
+   claimed);
+17. the table routes of K2, K3 and K4 (ops/launch.py: shared memory
+   within 48 KB, opted-in shared memory, global memory): scenes of 2,000
+   and 8,000 materials and of 520 and 3,000 textured ones (five 4x4 maps
+   each); at the 1080p canned wave each kernel on every route that holds
+   its tables (the main path's on 'shared' and 'global') against its plain
+   version and against its other routes bit for bit (K3 and K4 but for the
+   main path's textured-sky lanes, K3's contract), each route timed in
+   turns; the 8,000-material scene rendered two-stage and fused (K5) and
+   the 3,000-material one compacted and uncompacted, with equal
+   accumulators.
 
+The main paths' K2 and K4 launches must all take the 48 KB staged route.
 Prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
-prints no result. Imports nothing of jax.
+prints no result. Imports nothing of jax, and runs without PIL.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import re
@@ -134,12 +156,14 @@ SKY_SIZE = (1024, 2048)  # rows, columns of the equirect sky
 
 
 def textured_grid(width: int, height: int, map_size: int = MAP_SIZE,
-                  sky_size=SKY_SIZE, seed: int = SEED):
+                  sky_size=SKY_SIZE, seed: int = SEED, maps=None):
     """grid64x28-tex: sphere_grid(64, 28) with textures made with numpy
     from `seed`, modelled on helmet.scn's five maps. Material 1 (grey)
     gets basecolor (sRGB), normal, roughness, metalness and emissive (sRGB)
     maps; material 3 (floor) a basecolor map; material 2 (metal) none; the
-    sky is a float equirect with a bright sun. Returns the builder."""
+    sky is a float equirect with a bright sun. maps: {slot: (float RGBA
+    image, srgb)} in place of the numpy maps (the floor then takes the
+    basecolor map). Returns the builder."""
     from tracy_tpu_torch.scene import sphere_grid
     from tracy_tpu_torch.scene.scene import (
         TEX_BASECOLOR, TEX_EMISSIVE, TEX_METALNESS, TEX_NORMAL, TEX_ROUGHNESS)
@@ -158,17 +182,21 @@ def textured_grid(width: int, height: int, map_size: int = MAP_SIZE,
         return rng.uniform(lo, hi, shape).astype(np.float32)
 
     grey, floor = 1, 3
-    maps = {
-        TEX_BASECOLOR: (rgba(noise(0.2, 0.9), noise(0.2, 0.9), noise(0.2, 0.9)), True),
-        TEX_NORMAL: (rgba(noise(0.4, 0.6), noise(0.4, 0.6), 1.0), False),
-        TEX_ROUGHNESS: (rgba(noise(0.1, 1.0)), False),
-        TEX_METALNESS: (rgba(noise(0.0, 1.0)), False),
-        TEX_EMISSIVE: (rgba(*([np.where(noise(0.0, 1.0) < 0.005, 1.0, 0.0)] * 3)), True),
-    }
+    if maps is None:
+        maps = {
+            TEX_BASECOLOR: (rgba(noise(0.2, 0.9), noise(0.2, 0.9), noise(0.2, 0.9)), True),
+            TEX_NORMAL: (rgba(noise(0.4, 0.6), noise(0.4, 0.6), 1.0), False),
+            TEX_ROUGHNESS: (rgba(noise(0.1, 1.0)), False),
+            TEX_METALNESS: (rgba(noise(0.0, 1.0)), False),
+            TEX_EMISSIVE: (rgba(*([np.where(noise(0.0, 1.0) < 0.005, 1.0, 0.0)] * 3)), True),
+        }
+        floor_map = (rgba(noise(0.1, 0.6), noise(0.1, 0.6), noise(0.1, 0.6)), True)
+    else:
+        b.name = "grid64x28-jpeg"
+        floor_map = maps[TEX_BASECOLOR]
     for slot, (img, srgb) in maps.items():
         b.set_material_texture(grey, slot, b.add_texture(img, srgb=srgb))
-    b.set_material_texture(floor, TEX_BASECOLOR, b.add_texture(
-        rgba(noise(0.1, 0.6), noise(0.1, 0.6), noise(0.1, 0.6)), srgb=True))
+    b.set_material_texture(floor, TEX_BASECOLOR, b.add_texture(*floor_map))
 
     rows, cols = sky_size
     elev = 1.0 - (np.arange(rows, dtype=np.float32) + 0.5) / rows  # 1 at the top row
@@ -920,6 +948,308 @@ def check_launches(label, counts, want):
     return got
 
 
+FIXTURE_DIR = os.path.join(REPO, "tests", "goldens", "textured")
+# The fixture's maps as helmet.scn lays them out: file, slot name, sRGB.
+FIXTURE_MAPS = (("basecolor.jpg", "B", True), ("normal.jpg", "N", False),
+                ("roughness.jpg", "R", False), ("metalness.png", "M", False),
+                ("emissive.png", "E", True))
+
+
+def image_phase(ccfg, counts, dev, card):
+    """16. Image textures on the card's machine, with PIL blocked (main()
+    blocks it before any phase): each fixture map's decode seconds on the host
+    (csrc/image_decode.cpp, built by g++); the fixture scene loaded with no
+    fallback, rendered at 256x192 for 24 frames through K1 + K4 and held
+    against tracy_tpu's CPU render (tests/goldens/textured/textured.npz) by
+    the block-mean contract; its basecolor AOV through K1 + K3, frame 0
+    equal to the plain versions' on the card; grid64x28 with the fixture's
+    maps in place of the numpy maps, 1080p compacted, 4 frames, timed
+    (a beside-number). Returns ({path: launches}, results)."""
+    from tracy_tpu_torch import RenderConfig
+    from tracy_tpu_torch.ops import intersect as k1
+    from tracy_tpu_torch.ops import texfetch as k3
+    from tracy_tpu_torch.render.renderer import Renderer, init_state, sample_radiance_rows
+    from tracy_tpu_torch.scene import load_scene
+    from tracy_tpu_torch.scene.scene import (
+        TEX_BASECOLOR, TEX_EMISSIVE, TEX_METALNESS, TEX_NORMAL, TEX_ROUGHNESS)
+    from tracy_tpu_torch.scene.textures import load_image_rgba
+    from tracy_tpu_torch.utils import parity
+
+    res, launches = {}, {}
+    decoded = {}
+    for name, slot, srgb in FIXTURE_MAPS:
+        t0 = time.perf_counter()
+        img = load_image_rgba(os.path.join(FIXTURE_DIR, name))
+        secs = time.perf_counter() - t0
+        if img is None or img.shape[-1] != 4 or not np.isfinite(img).all():
+            raise RuntimeError(f"fixture map {name} did not decode")
+        decoded[slot] = (img, srgb)
+        res[f"decode_s {name}"] = secs
+        print(f"decode {name} ({img.shape[1]}x{img.shape[0]}) on this card's host {card}: "
+              f"{secs:.4f} s")
+
+    b = load_scene(os.path.join(FIXTURE_DIR, "textured.scn"))
+    if b.fallbacks:
+        raise RuntimeError(f"textured.scn substituted files: {b.fallbacks}")
+    fscene = b.build(device=dev)
+    res["atlas_bytes"] = fscene.tex_data.numel() * 4
+    gcfg = RenderConfig(width=b.width, height=b.height, spp=1)
+    gr = Renderer(gcfg)
+    reset(counts)
+    gst, _ = gr.step_many(fscene, init_state(gcfg, dev), 24)
+    launches["fixture textured.scn 24 frames"] = check_launches(
+        "fixture render", counts, {"K1": 24 * gcfg.max_bounces, "K4": 24 * gcfg.max_bounces})
+    ours = np.clip(gr.display(gst) * 255.99, 0.0, 255.0)
+    ours = parity.srgb_to_linear(ours / 255.99)[::-1]
+    ref = parity.load_golden(os.path.join(FIXTURE_DIR, "textured.npz"))
+    dmean, p95, dmax = parity.compare(ref, ours)
+    res["gate"] = [dmean, p95, dmax]
+    print(f"textured.scn {b.width}x{b.height} ({gr.path}) {card}, {len(b.atlas)} maps, atlas "
+          f"{res['atlas_bytes']} bytes on the card, 24 frames vs tracy_tpu's CPU render "
+          f"(tests/goldens/textured/textured.npz): mean diff {dmean:.5f} (<= 0.01), block p95 "
+          f"{p95:.5f} (<= 0.02), block max {dmax:.5f} (<= 0.05); no fallback")
+    if dmean > 0.01 or p95 > 0.02 or dmax > 0.05:
+        raise RuntimeError("textured.scn parity failed")
+
+    acfg = gcfg.replace(aov="basecolor", tonemap="none")
+    arend = Renderer(acfg)
+    reset(counts)
+    ast, _ = arend.step_many(fscene, init_state(acfg, dev), 4)
+    launches["fixture basecolor AOV 4 frames"] = check_launches(
+        "fixture basecolor AOV", counts, {"K1": 4, "K3": 4})
+    first, _ = arend.step_many(fscene, init_state(acfg, dev), 1)
+    aref, _ = sample_radiance_rows(
+        fscene, acfg, 0, lambda o, d, a: k1.intersect_plain(o, d, a, arend.tables),
+        fetch_fn=k3.fetch_texels_plain)
+    if not torch.equal(first.accum, aref) or float(first.accum.std()) == 0.0:
+        raise RuntimeError("the fixture's basecolor AOV differs from the plain versions' or "
+                           "is flat")
+    print(f"textured.scn basecolor AOV ({arend.path}): K1 and K3 once a frame, frame 0 equal "
+          f"to the plain versions' bit for bit; image std {float(ast.accum.std()):.4f}")
+
+    slots = {"B": TEX_BASECOLOR, "N": TEX_NORMAL, "R": TEX_ROUGHNESS, "M": TEX_METALNESS,
+             "E": TEX_EMISSIVE}
+    t0 = time.perf_counter()
+    jb = textured_grid(WIDTH, HEIGHT, maps={slots[k]: v for k, v in decoded.items()})
+    jscene = jb.build(device=dev)
+    jrend = Renderer(ccfg)
+    jrend.step_many(jscene, init_state(ccfg, dev), 1)
+    setup = time.perf_counter() - t0
+    rates = []
+    for _ in range(3):
+        jrend.reset(dev)
+        reset(counts)
+        jst, nrays = jrend.step_many(jscene, init_state(ccfg, dev), FRAMES)
+        rates.append(jrend.mrays_per_sec)
+    launches["grid64x28-jpeg compacted"] = check_launches(
+        "grid64x28-jpeg", counts, {"K1": FRAMES * ccfg.max_bounces,
+                                   "K4": FRAMES * ccfg.max_bounces})
+    if not torch.isfinite(jst.accum).all():
+        raise RuntimeError("grid64x28-jpeg: non-finite image")
+    r_ = sorted(rates)
+    res["grid64x28-jpeg MRays/s"] = r_
+    print(f"grid64x28-jpeg (grid64x28 with the fixture's decoded maps), 1920x1080 compacted, "
+          f"{FRAMES} frames {card}: MRays/s median {r_[1]:.2f} (min {r_[0]:.2f}, max "
+          f"{r_[2]:.2f}) over 3 runs, {nrays} rays; set-up {setup:.1f} s, atlas "
+          f"{jscene.tex_data.numel() * 4} bytes; no gain claimed")
+    return launches, res
+
+
+def material_grid(n: int, textured: bool, width: int, height: int, seed: int):
+    """n boxes in a grid before the camera, each with its own material
+    (random albedo, roughness, metalness); textured: five 4x4 maps a
+    material (basecolor and emissive sRGB). A constant sky. Returns the
+    builder."""
+    from tracy_tpu_torch.scene import SceneBuilder
+
+    b = SceneBuilder(width, height, f"materials{n}{'-tex' if textured else ''}")
+    b.set_sky_color((0.7, 0.8, 1.0))
+    rng = np.random.default_rng(seed)
+    cols = int(np.ceil(np.sqrt(n * width / height)))
+    rows = -(-n // cols)
+    for i in range(n):
+        m = b.add_material(tuple(rng.uniform(0.1, 0.9, 3)), roughness=float(rng.uniform(0.2, 1)),
+                           metalness=float(rng.uniform() < 0.3))
+        if textured:
+            for slot in range(5):
+                hi = 0.2 if slot == 4 else 1.0  # dim emissive
+                img = rng.uniform(0.0, hi, (4, 4, 4)).astype(np.float32)
+                b.set_material_texture(m, slot, b.add_texture(img, srgb=slot in (0, 4)))
+        x, y = i % cols, i // cols
+        b.add_box((x - cols / 2, y - rows / 2, -0.4), (x - cols / 2 + 0.8, y - rows / 2 + 0.8, 0.4),
+                  m)
+    b.set_camera((0.0, 0.0, 1.2 * max(cols, rows)), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 60.0)
+    return b
+
+
+# The many-material scenes of the table-route phase: (materials, textured).
+# 520 textured materials put K3's tables (52,000 bytes) past the 48 KB
+# default, so each kernel meets the global route on these scenes and the
+# shared one on the main path's.
+ROUTE_SCENES = ((2000, False), (8000, False), (520, True), (3000, True))
+
+
+def route_phase(wave, ccfg, small, counts, dev, card):
+    """17. The table routes of K2, K3 and K4 (ops/launch.py): scenes whose
+    tables land in each route. At the 1080p canned wave each kernel is held
+    against its plain version bit for bit on every route that holds its
+    tables (the main path's tables, `small`, on 'shared' and 'global';
+    each scene's, beyond 48 KB, on 'global'), and timed on each, in
+    turns. small: the main path's (untextured, textured) scenes.
+    Then the largest untextured scene renders two-stage
+    (K1 + K2) and fused (K5), compacted, and the largest textured one
+    (K1 + K4) compacted and uncompacted: each path's accumulator must equal
+    the others'. Returns ({path: launches}, results)."""
+    from tracy_tpu_torch.ops import compare
+    from tracy_tpu_torch.ops import shade as k2
+    from tracy_tpu_torch.ops import texfetch as k3
+    from tracy_tpu_torch.ops.launch import SMEM_DEFAULT, table_route
+    from tracy_tpu_torch.render.renderer import Renderer, init_state
+
+    kw = dict(seed=SEED, russian_roulette=True)
+    res = {"checks": {}, "ms": {}}
+    scenes = {}
+    t0 = time.perf_counter()
+    for n, textured in ROUTE_SCENES:
+        b = material_grid(n, textured, WIDTH, HEIGHT, seed=SEED + n)
+        scenes[b.name] = b.build(device=dev)
+    print(f"route scenes built in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} ({v.materials.albedo.shape[0]} materials, {v.tex_table.shape[0]} "
+                      f"textures)" for k, v in scenes.items()))
+
+    def tables_of(kern, sc):
+        m, t = sc.materials.albedo.shape[0], sc.tex_table.shape[0]
+        return {"K2": 4 * k2.MTAB_COLS * m, "K3": k3.table_bytes(m, t),
+                "K4": 4 * k2.MTAB_TEX_COLS * m + k3.table_bytes(m, t)}[kern]
+
+    # (kernel, scene name, scene, table bytes, route): every route that
+    # holds the kernel's tables.
+    subjects = [("K2", "main path", small[0]), ("K3", "main path", small[1]),
+                ("K4", "main path", small[1])]
+    for sname, sc in scenes.items():
+        subjects += [(k, sname, sc) for k in (("K3", "K4") if "-tex" in sname else ("K2",))]
+    jobs = []
+    for kern, sname, sc in subjects:
+        nbytes = tables_of(kern, sc)
+        for route in ("shared", "global"):
+            if route == "global" or nbytes <= SMEM_DEFAULT:
+                jobs.append((kern, sname, sc, nbytes, route))
+
+    def run(kern, sc, lanes, route):
+        """One launch on fresh copies of the lanes' state; its outputs."""
+        tex = (sc.tex_data, sc.tex_table, sc.materials.tex_index)
+        if kern == "K2":
+            return k2.shade(*compare.state_args(lanes, compare.SHADE_ARGS),
+                            k2.build_material_table(sc.materials), 3, 1, route=route, **kw)
+        if kern == "K3":
+            return (k3.fetch_texels(*(lanes[k] for k in compare.TEXFETCH_ARGS), *tex,
+                                    route=route),)
+        return k2.shade_textured(*compare.textured_args(lanes),
+                                 k2.build_material_table_tex(sc.materials), *tex, 3, 1,
+                                 route=route, **kw)
+
+    # Against the plain version on each route: K2 bit for bit; K3 and K4
+    # by K3's contract (hit lanes bit for bit; a sky lane may address
+    # another texel, <= 1e-4 of lanes), which is bit for bit where the sky
+    # is not textured (the route scenes). And the routes bit for bit
+    # against each other.
+    lane_cache, outs = {}, {}
+    for kern, sname, sc, nbytes, route in jobs:
+        m = sc.materials.albedo.shape[0]
+        key = (sname, kern == "K2")
+        if key not in lane_cache:
+            lane_cache[key] = (compare.canned_lanes(m, wave, seed=21, device=dev) if kern == "K2"
+                               else compare.textured_lanes(m, wave, seed=22, device=dev))
+        lanes = lane_cache[key]
+        if kern == "K2":
+            c = compare.compare_shade(lanes, k2.build_material_table(sc.materials), 3, 1,
+                                      route=route, **kw)
+            equal = c["bit_equal"]
+            ok = equal
+        elif kern == "K3":
+            c = compare.compare_texfetch(lanes, sc, route=route)
+            equal = c["max_abs_err"] == 0.0
+            ok = equal or sname == "main path"  # compare_texfetch raised on a broken contract
+        else:
+            c = compare.compare_shade_textured(lanes, sc, k2.build_material_table_tex(sc.materials),
+                                               3, 1, route=route, **kw)
+            equal = c["bit_equal"]
+            ok = equal or (sname == "main path" and not c["hit_lanes_differing"]
+                           and c["lanes_differing"] <= 1e-4 * wave)
+        label = f"{kern} {sname} {route}"
+        res["checks"][label] = {"bytes": nbytes, "equal_to_plain": bool(equal),
+                                "picked": table_route(nbytes),
+                                "max_abs_err": c["max_abs_err"], "bound_ms": c["bound_ms"]}
+        if not ok:
+            raise RuntimeError(f"{label}: the kernel differs from its plain version: {c}")
+        got = run(kern, sc, lanes, route)
+        first = outs.setdefault((kern, sname), (route, got))
+        if not all(torch.equal(a, b) for a, b in zip(first[1], got)):
+            raise RuntimeError(f"{kern} {sname}: route {route} differs from route {first[0]}")
+    outs.clear()
+    # Time each (kernel, scene) on each of its routes, in turns (a, b, b, a).
+    for kern, sname, sc, nbytes, _ in jobs:
+        label = f"{kern} {sname}"
+        if label in res["ms"]:
+            continue
+        mine = [j[4] for j in jobs if j[0] == kern and j[1] == sname]
+        order = mine + mine[::-1]
+        lanes = lane_cache[(sname, kern == "K2")]
+        tex = (sc.tex_data, sc.tex_table, sc.materials.tex_index)
+        times = {r: [] for r in mine}
+        for route in order:
+            if kern == "K2":
+                mtab = k2.build_material_table(sc.materials)
+                t = compare.inplace_ms(lambda a: k2.shade(*a, mtab, 3, 1, route=route, **kw),
+                                       lanes, 20, compare.SHADE_ARGS)
+            elif kern == "K3":
+                fargs = [lanes[k] for k in compare.TEXFETCH_ARGS]
+                t = compare.cuda_ms(lambda: k3.fetch_texels(*fargs, *tex, route=route), 20)
+            else:
+                mtab = k2.build_material_table_tex(sc.materials)
+                t = compare.inplace_ms(
+                    lambda a: k2.shade_textured(*a, mtab, *tex, 3, 1, route=route, **kw),
+                    lanes, 20)
+            times[route].append(t)
+        res["ms"][label] = {r: sum(v) / len(v) for r, v in times.items()}
+        res["ms"][label]["bytes"] = nbytes
+    print(f"table routes at the {wave}-lane 1080p canned wave {card}; on every route each "
+          f"kernel equals its plain version "
+          f"(K2 bit for bit; K3 and K4 bit for bit but for the main path's textured-sky lanes, "
+          f"K3's contract) and its other routes bit for bit; ms, in turns:")
+    for label, t in res["ms"].items():
+        picked = table_route(t["bytes"])
+        print(f"  {label} ({t['bytes']} bytes of tables, table_route picks {picked}): "
+              + ", ".join(f"{r} {v:.4f} ms" for r, v in t.items() if r != "bytes"))
+
+    launches = {}
+    big = f"materials{max(n for n, tex in ROUTE_SCENES if not tex)}"
+    big_tex = f"materials{max(n for n, tex in ROUTE_SCENES if tex)}-tex"
+    accum = {}
+    for pname, sname, pcfg, want in (
+            (f"{big} compacted", big, ccfg, ("K1", "K2")),
+            (f"{big} fused", big, ccfg.replace(use_pallas_bounce=True), ("K5",)),
+            (f"{big_tex} compacted", big_tex, ccfg, ("K1", "K4")),
+            (big_tex, big_tex, ccfg.replace(wave_compact_group=0), ("K1", "K4"))):
+        rend = Renderer(pcfg)
+        reset(counts)
+        st, nrays = rend.step_many(scenes[sname], init_state(pcfg, dev), 2)
+        launches[pname] = check_launches(pname, counts, {k: 2 * pcfg.max_bounces for k in want})
+        routes = {k: dict(counts[k].routes) for k in ("K2", "K4") if counts[k].kernel}
+        accum[pname] = st.accum
+        print(f"  {pname} ({rend.path}), {pcfg.width}x{pcfg.height}, 2 frames: {nrays} rays, "
+              f"launches " + ", ".join(f"{k} {v}" for k, v in launches[pname].items() if v)
+              + f", table routes {routes}; image mean {float(st.accum.mean()):.4f}")
+        if not torch.isfinite(st.accum).all():
+            raise RuntimeError(f"{pname}: non-finite image")
+    for a, b_ in ((f"{big} compacted", f"{big} fused"), (f"{big_tex} compacted", big_tex)):
+        if not torch.equal(accum[a], accum[b_]):
+            raise RuntimeError(f"{a} and {b_} accumulators differ")
+    print(f"  accumulators equal: {big} two-stage = fused (K5 reads its table from global "
+          f"memory, unchanged), {big_tex} compacted = uncompacted")
+    return launches, res
+
+
 def mesh_run(step, copies, state, frames):
     """`frames` sharded steps from `state`; (state, rays, host seconds to
     the end of the device's work)."""
@@ -1273,6 +1603,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
         return 2
+    # The card's machine has no PIL, and the port must not need it: block it
+    # for every phase of this process.
+    pil_found = importlib.util.find_spec("PIL") is not None
+    for mod in [m for m in sys.modules if m == "PIL" or m.startswith("PIL.")]:
+        sys.modules[mod] = None
+    sys.modules["PIL"] = None
     sys.path.insert(0, REPO)
     from tracy_tpu_torch import RenderConfig
     from tracy_tpu_torch.accel.reorder import pick_compact_group
@@ -1284,7 +1620,7 @@ def main() -> int:
     from tracy_tpu_torch.render.renderer import Renderer, init_state, pick_tile
     from tracy_tpu_torch.scene import load_scene, sphere_grid
     from tracy_tpu_torch.tools import micro as k6
-    from tracy_tpu_torch.utils import parity
+    from tracy_tpu_torch.utils import native, parity
 
     dev = torch.device("cuda", 0)
     counts = {"K1": k1.COUNT, "K2": k2.COUNT, "K3": k3.COUNT, "K4": k2.COUNT_TEX,
@@ -1297,7 +1633,8 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     card = f"[{smi}]"
     print(f"device: {name}, capability {torch.cuda.get_device_capability(0)}, "
-          f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}; PIL "
+          f"{'installed, blocked for this run' if pil_found else 'not installed'}")
     print(smi)
 
     # 2. build
@@ -1310,6 +1647,10 @@ def main() -> int:
           + ("" if secs else " (cached)"))
     for src, log in build.LIBRARY.build_log.items():
         print(f"  ptxas {src}: " + ptxas_summary(log))
+    t0 = time.perf_counter()
+    native.get_image_lib()  # the PNG/JPEG decoders, g++ at first use
+    print(f"build: csrc/image_decode.cpp with g++ {' '.join(native.IMAGE_CXXFLAGS)}, built or "
+          f"loaded in {time.perf_counter() - t0:.2f} s")
 
     stamp("1-2")
 
@@ -1644,6 +1985,9 @@ def main() -> int:
                 if kern != want or plain != 0:
                     raise RuntimeError(f"{pname}: {kname} {kern} kernel launches (want "
                                        f"{want}), {plain} plain runs")
+                # The main paths' few materials keep the 48 KB staged route.
+                if kname in ("K2", "K4") and kern and counts[kname].routes != {"shared": kern}:
+                    raise RuntimeError(f"{pname}: {kname} routes {counts[kname].routes}")
             rates[pname].append(rend.mrays_per_sec)
             if rep == 0:
                 launches[pname] = {k: kern for k, (kern, _) in got.items()}
@@ -1855,6 +2199,16 @@ def main() -> int:
 
     stamp("15")
 
+    # 16. image textures without PIL, 17. the table routes.
+    more, image_res = image_phase(ccfg, counts, dev, card)
+    launches.update(more)
+    stamp("16")
+    more, route_res = route_phase(wave, ccfg, (dscene, tscene), counts, dev, card)
+    launches.update(more)
+    print("slice 12: " + json.dumps({"device": smi, "pil_installed": pil_found,
+                                     "images": image_res, "routes": route_res}))
+    stamp("17")
+
     def entry(kname, label, source, replaces, err, ms, plain_ms, bound, library_ms):
         return {"name": f"{kname} {label}", "route": "cuda",
                 "source": f"tracy_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -1906,6 +2260,10 @@ def main() -> int:
     kernels[1].update(ms_per_bounce_frame0=by_bounce["K2"], real_lanes_ms_per_bounce_frame0=t2b,
                       real_lanes_bound_ms_per_bounce_frame0=[b["bound_ms"] for b in b2b])
     kernels[4]["k1_then_k2_ms"] = t_k12
+    for kern in kernels[1:4]:  # K2, K3, K4: ms on each table route (phase 17)
+        kn = kern["name"].split()[0]
+        kern["table_routes_ms"] = {k: v for k, v in route_res["ms"].items()
+                                   if k.startswith(kn + " ")}
     # The threefry variants: launches on the paths and gates at rng threefry.
     for kn, label, src, rep, c in (
             ("K2", "shade, rng threefry", "shade.cu", "tracy_tpu/ops/pallas_shade.py:72", tf2),

@@ -7,7 +7,9 @@ place) equal to its plain version bit for bit with dead lanes untouched,
 K4 (texel fetch + textured bounce, in place) on a ragged last block: K5
 also against K1 then K2 on the same lanes (equal), compacted and fused renders against
 the uncompacted one (equal), each K6 variant against its plain version
-(equal). Marked `cuda`: without an NVIDIA GPU these tests skip. On a GPU
+(equal), K2, K3 and K4 on each table route (shared, global), and the
+global route at table sizes the 48 KB default cannot hold. Marked `cuda`: without an
+NVIDIA GPU these tests skip. On a GPU
 machine without jax, where tests/conftest.py cannot load, run them with
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
@@ -144,21 +146,60 @@ def test_texfetch_and_textured_shade_kernels_match_plain(cuda, rr, rng):
 
 
 def test_textured_tables_beyond_shared_memory_are_refused(cuda):
-    """K3 and K4 stage the texture and material tables in shared memory;
-    tables that do not fit in 48 KB are refused before any launch."""
+    """K3 and K4 stage the texture and material tables in shared memory
+    while they fit in 48 KB. Larger tables are refused by that route, and
+    taken from global memory instead, equal to the plain versions."""
     scene = textured_scene(cuda)
     m = 2500  # K3: 2,500 x 20 bytes of tex_index > 48 KB (K4: x 84 bytes)
     mtab = k2.build_material_table_tex(scene.materials)[:1].repeat(m, 1)
     tex_index = scene.materials.tex_index[:1].repeat(m, 1)
     lanes = compare.textured_lanes(m, 1024, seed=4, device=cuda)
     tex = (scene.tex_data, scene.tex_table, tex_index)
-    with pytest.raises(ValueError, match="shared memory"):
-        k3.fetch_texels(*(lanes[k] for k in compare.TEXFETCH_ARGS), *tex)
-    before = k2.COUNT_TEX.kernel
-    with pytest.raises(ValueError, match="shared memory"):
+    fargs = [lanes[k] for k in compare.TEXFETCH_ARGS]
+    ref3 = k3.fetch_texels_plain(*fargs, *tex)
+    ref4 = k2.shade_textured_plain(*compare.textured_args(lanes), mtab, *tex, 3, 1, seed=1,
+                                   russian_roulette=True)
+    before = (k3.COUNT.kernel, k2.COUNT_TEX.kernel)
+    with pytest.raises(ValueError, match="do not fit the 'shared' route"):
+        k3.fetch_texels(*fargs, *tex, route="shared")
+    with pytest.raises(ValueError, match="do not fit the 'shared' route"):
         k2.shade_textured(*compare.textured_args(lanes), mtab, *tex, 3, 1, seed=1,
-                          russian_roulette=True)
-    assert k2.COUNT_TEX.kernel == before
+                          russian_roulette=True, route="shared")
+    assert (k3.COUNT.kernel, k2.COUNT_TEX.kernel) == before
+    for route in (None, "global"):
+        k3.COUNT.reset()
+        k2.COUNT_TEX.reset()
+        got3 = k3.fetch_texels(*fargs, *tex, route=route)
+        got4 = k2.shade_textured(*compare.textured_args(lanes), mtab, *tex, 3, 1, seed=1,
+                                 russian_roulette=True, route=route)
+        hit = lanes["alive"] & lanes["hit_mask"]
+        assert torch.equal(got3[hit], ref3[hit])
+        assert all(torch.equal(g[hit], r[hit]) for g, r in zip(got4, ref4))
+        assert k3.COUNT.routes == k2.COUNT_TEX.routes == {"global": 1}
+
+
+def many_materials(m, device, seed=6):
+    """An untextured material table of m rows (sky first)."""
+    rng = np.random.default_rng(seed)
+    rows = rng.uniform(0.05, 0.95, (m, k2.MTAB_COLS)).astype(np.float32)
+    rows[:, 5] = 1.5  # ior
+    rows[:, 9] = (rng.uniform(size=m) < 0.2).astype(np.float32)  # some translucent
+    return torch.as_tensor(rows, device=device)
+
+
+@pytest.mark.parametrize("m,routes", [(6, ("shared", "global")),
+                                      (2000, ("global",)),
+                                      (8000, ("global",))])
+def test_shade_kernel_table_routes_match_plain(cuda, m, routes):
+    """K2 on each route that holds an m-material table, at 65,537 lanes:
+    bit for bit against its plain version, and so against each other."""
+    mtab = many_materials(m, cuda)
+    lanes = compare.canned_lanes(m, 65537, seed=7, device=cuda)
+    for route in routes:
+        k2.COUNT.reset()
+        res = compare.compare_shade(lanes, mtab, 3, 1, seed=0xABCDEF, russian_roulette=True,
+                                    route=route)
+        assert res["bit_equal"] and k2.COUNT.routes == {route: 1}
 
 
 def test_textured_renderer_runs_on_the_kernels(cuda):

@@ -14,7 +14,7 @@ positions) so that a re-render matches a target image.
 
 -target reads .npy and .hdr (linear radiance as stored), .ppm and 8-bit
 .npy (display values, taken to linear radiance through the sRGB curve),
-and .png the same way, through PIL where it is installed
+and .png, .jpg and .jpeg the same way, without PIL
 (utils/image_io.py::read_image). The scene renders on the card; -cpu asks
 for the CPU. A self-test exits 0 when the largest error of the observable
 entries is under 0.1, else 1.
@@ -42,7 +42,8 @@ def main(argv=None) -> int:
     p.add_argument("-height", type=int, default=72)
     p.add_argument("-spp", type=int, default=4)
     p.add_argument("-bounces", type=int, default=3)
-    p.add_argument("-target", default=None, help="target image (.npy, .hdr, .ppm, .png)")
+    p.add_argument("-target", default=None,
+                   help="target image (.npy, .hdr, .ppm, .png, .jpg, .jpeg)")
     p.add_argument("-params", default="albedo",
                    help="comma list: albedo,roughness,metalness,ior,emissive,"
                         "translucent,tex_data,vertex_pos")

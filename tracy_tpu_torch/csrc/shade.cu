@@ -26,7 +26,11 @@
 // radiance and alive; a hit lane reads its hit record and state and writes
 // the state. Each block stages the material table in shared memory
 // (tracy::stage_words), so the per-lane material gather never leaves the
-// SM.
+// SM, where the tables fit the 48 KB a block gets by default. Larger
+// tables are read where they lie, through the read-only cache: the
+// STAGED = false instance of each kernel, which does the same arithmetic
+// (ops/launch.py::table_route picks; staging them in opted-in shared
+// memory ran 2.5-4.2 x slower on an H100, PERF.md).
 //
 // K2 (M x 10 floats of material table in shared memory) moves 1 byte for a
 // dead lane, 39 for a miss lane and 123 for a hit lane. Once a live lane
@@ -61,6 +65,7 @@ namespace {
 
 constexpr int BLOCK = 256;
 
+template <bool STAGED>
 __global__ void __launch_bounds__(BLOCK) shade_kernel(
     float* __restrict__ orig, float* __restrict__ dir, float* __restrict__ thr_io,
     float* __restrict__ rad_io, bool* __restrict__ alive_io,
@@ -68,13 +73,17 @@ __global__ void __launch_bounds__(BLOCK) shade_kernel(
     const float* __restrict__ t_in, const float* __restrict__ nrm_in,
     const int* __restrict__ mat_in, int n, const float* __restrict__ mtab,
     int num_materials, const tracy::Rng rng, int russian_roulette) {
-  // Shared: mtab [M, 10] f32.
+  // STAGED: mtab [M, 10] f32 in shared memory; else read where it lies.
   extern __shared__ float4 smem[];
-  float* s_mtab = reinterpret_cast<float*>(smem);
-  tracy::stage_words(reinterpret_cast<uint32_t*>(s_mtab),
-                     reinterpret_cast<const uint32_t*>(mtab),
-                     tracy::MTAB_COLS * num_materials);
-  __syncthreads();
+  const float* s_mtab = mtab;
+  if (STAGED) {
+    float* staged = reinterpret_cast<float*>(smem);
+    tracy::stage_words(reinterpret_cast<uint32_t*>(staged),
+                       reinterpret_cast<const uint32_t*>(mtab),
+                       tracy::MTAB_COLS * num_materials);
+    __syncthreads();
+    s_mtab = staged;
+  }
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   if (i >= n || !alive_io[i]) return;
   // Every load the lane's class needs, before any math: both classes read
@@ -101,7 +110,7 @@ __global__ void __launch_bounds__(BLOCK) shade_kernel(
   }
   bool alive = false;
   if (hit) {
-    alive = tracy::shade_hit<false>(o, d, thr, rad, t, nv, m, pix,
+    alive = tracy::shade_hit<false, !STAGED>(o, d, thr, rad, t, nv, m, pix,
                                     static_cast<uint32_t>(i), s_mtab,
                                     num_materials, rng, russian_roulette,
                                     nullptr, nullptr);
@@ -111,12 +120,13 @@ __global__ void __launch_bounds__(BLOCK) shade_kernel(
       thr_io[3 * i + c] = thr[c];
     }
   } else {
-    tracy::shade_miss<false>(rad, thr, s_mtab, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+    tracy::shade_miss<false, !STAGED>(rad, thr, s_mtab, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
   }
   for (int c = 0; c < 3; ++c) rad_io[3 * i + c] = rad[c];
   alive_io[i] = alive;
 }
 
+template <bool STAGED>
 __global__ void __launch_bounds__(BLOCK) shade_textured_kernel(
     float* __restrict__ orig, float* __restrict__ dir, float* __restrict__ thr_io,
     float* __restrict__ rad_io, bool* __restrict__ alive_io,
@@ -128,24 +138,30 @@ __global__ void __launch_bounds__(BLOCK) shade_textured_kernel(
     const int4* __restrict__ tex_table, int num_textures,
     const int* __restrict__ tex_index, const tracy::Rng rng,
     int russian_roulette) {
-  // Shared: mtab [M, 16] f32, tex_table [K] int4, tex_index [M, 5] i32.
+  // STAGED: mtab [M, 16] f32, tex_table [K] int4 and tex_index [M, 5] i32
+  // in shared memory; else read where they lie.
   extern __shared__ float4 smem[];
-  float* s_mtab = reinterpret_cast<float*>(smem);
-  int4* s_table = reinterpret_cast<int4*>(smem + (tracy::MTAB_TEX_COLS / 4) * num_materials);
-  int* s_index = reinterpret_cast<int*>(s_table + num_textures);
-
-  tracy::stage_words(reinterpret_cast<uint32_t*>(s_mtab),
-                     reinterpret_cast<const uint32_t*>(mtab),
-                     tracy::MTAB_TEX_COLS * num_materials);
-  tracy::stage_words(reinterpret_cast<uint32_t*>(s_table),
-                     reinterpret_cast<const uint32_t*>(tex_table), 4 * num_textures);
-  tracy::stage_words(reinterpret_cast<uint32_t*>(s_index),
-                     reinterpret_cast<const uint32_t*>(tex_index),
-                     tracy::NUM_TEX_SLOTS * num_materials);
-  __syncthreads();
+  constexpr bool LDG = !STAGED;
+  const float* s_mtab = mtab;
+  tracy::TexTables tt{tex_table, tex_index, num_textures};
+  if (STAGED) {
+    float* m_s = reinterpret_cast<float*>(smem);
+    int4* t_s = reinterpret_cast<int4*>(smem + (tracy::MTAB_TEX_COLS / 4) * num_materials);
+    int* x_s = reinterpret_cast<int*>(t_s + num_textures);
+    tracy::stage_words(reinterpret_cast<uint32_t*>(m_s),
+                       reinterpret_cast<const uint32_t*>(mtab),
+                       tracy::MTAB_TEX_COLS * num_materials);
+    tracy::stage_words(reinterpret_cast<uint32_t*>(t_s),
+                       reinterpret_cast<const uint32_t*>(tex_table), 4 * num_textures);
+    tracy::stage_words(reinterpret_cast<uint32_t*>(x_s),
+                       reinterpret_cast<const uint32_t*>(tex_index),
+                       tracy::NUM_TEX_SLOTS * num_materials);
+    __syncthreads();
+    s_mtab = m_s;
+    tt = tracy::TexTables{t_s, x_s, num_textures};
+  }
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   if (i >= n || !alive_io[i]) return;
-  const tracy::TexTables tt{s_table, s_index, num_textures};
   const bool hit = hit_in[i];
 
   // The gathers first: material, flags and uv, or the sky direction.
@@ -159,14 +175,17 @@ __global__ void __launch_bounds__(BLOCK) shade_textured_kernel(
     const float* row = s_mtab + m * tracy::MTAB_TEX_COLS;
     bool textured = false;
 #pragma unroll
-    for (int s = 0; s < tracy::NUM_TEX_SLOTS; ++s) textured |= row[tracy::HAS_BC + s] > 0.0f;
+    for (int s = 0; s < tracy::NUM_TEX_SLOTS; ++s) {
+      textured |= tracy::ld<LDG>(row + tracy::HAS_BC + s) > 0.0f;
+    }
     if (textured) {
       const float u = uv_in != nullptr ? uv_in[2 * i] : 0.0f;
       const float v = uv_in != nullptr ? uv_in[2 * i + 1] : 0.0f;
-      tracy::hit_addresses(tt, m, u, v, addr);
+      tracy::hit_addresses<LDG>(tt, m, u, v, addr);
     }
-  } else if (s_mtab[tracy::HAS_E] > 0.0f) {
-    addr[tracy::SLOT_EMISSIVE] = tracy::sky_address(tt, dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
+  } else if (tracy::ld<LDG>(s_mtab + tracy::HAS_E) > 0.0f) {
+    addr[tracy::SLOT_EMISSIVE] =
+        tracy::sky_address<LDG>(tt, dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
   }
   float4 q[tracy::NUM_TEX_SLOTS];
   tracy::gather_texels<tracy::NUM_TEX_SLOTS>(tex_data, addr, q);
@@ -179,7 +198,7 @@ __global__ void __launch_bounds__(BLOCK) shade_textured_kernel(
   }
   bool alive = false;
   if (!hit) {
-    tracy::shade_miss<true>(rad, thr, s_mtab, q[tracy::SLOT_EMISSIVE]);
+    tracy::shade_miss<true, LDG>(rad, thr, s_mtab, q[tracy::SLOT_EMISSIVE]);
   } else {
     float o[3], d[3], nv[3];
     for (int c = 0; c < 3; ++c) {
@@ -190,7 +209,7 @@ __global__ void __launch_bounds__(BLOCK) shade_textured_kernel(
     const float* tan_lane = tan_in == nullptr ? nullptr : tan_in + 3 * i;
     float tex[12];
     tracy::texel_row(q, tex);
-    alive = tracy::shade_hit<true>(o, d, thr, rad, t_in[i], nv, m,
+    alive = tracy::shade_hit<true, LDG>(o, d, thr, rad, t_in[i], nv, m,
                                    static_cast<uint32_t>(pix_in[i]),
                                    static_cast<uint32_t>(i), s_mtab,
                                    num_materials, rng, russian_roulette, tex,
@@ -208,9 +227,9 @@ __global__ void __launch_bounds__(BLOCK) shade_textured_kernel(
 }  // namespace
 
 // K2, in place: orig, dir, thr, rad and alive are read and written. mtab is
-// [M, 10]; smem is its shared memory, which the wrapper computes and bounds.
-// rng: tracy::RNG_*; keys: the launch's threefry keys (host memory,
-// 2 * NUM_DRAWS words), null for the counter hashes.
+// [M, 10]. smem: its bytes, to stage it in shared memory (at most 48 KB;
+// the wrapper checks), or 0 to read it from global memory. rng: tracy::RNG_*; keys: the launch's threefry keys (host
+// memory, 2 * NUM_DRAWS words), null for the counter hashes.
 extern "C" int tracy_shade(float* orig, float* dir, float* thr, float* rad,
                            bool* alive, const int* pix, const bool* hit,
                            const float* t, const float* normal, const int* mat,
@@ -219,11 +238,18 @@ extern "C" int tracy_shade(float* orig, float* dir, float* thr, float* rad,
                            int russian_roulette, int rng, const uint32_t* keys,
                            int smem, void* stream) {
   if (n > 0) {
-    shade_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-        orig, dir, thr, rad, alive, pix, hit, t, normal, mat, n, mtab,
-        num_materials, tracy::make_rng(rng, seed, sample_key, bounce, keys),
-        russian_roulette);
+    const int blocks = (n + BLOCK - 1) / BLOCK;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const tracy::Rng r = tracy::make_rng(rng, seed, sample_key, bounce, keys);
+    if (smem > 0) {
+      shade_kernel<true><<<blocks, BLOCK, smem, st>>>(
+          orig, dir, thr, rad, alive, pix, hit, t, normal, mat, n, mtab, num_materials, r,
+          russian_roulette);
+    } else {
+      shade_kernel<false><<<blocks, BLOCK, 0, st>>>(
+          orig, dir, thr, rad, alive, pix, hit, t, normal, mat, n, mtab, num_materials, r,
+          russian_roulette);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -231,8 +257,10 @@ extern "C" int tracy_shade(float* orig, float* dir, float* thr, float* rad,
 // K4, in place: orig, dir, thr, rad and alive are read and written.
 // tangent may be null (no normal maps: read as zero), uv too (no material
 // textured, the sky may be: read as zero); mtab is [M, 16]; tex_data
-// [P, 4] f32 is 16-byte aligned; smem is the tables' shared memory, which
-// the wrapper computes and bounds. rng and keys: as tracy_shade's.
+// [P, 4] f32 is 16-byte aligned. smem: the three tables' bytes, to stage
+// them in shared memory (at most 48 KB; the wrapper checks), or 0 to read
+// them from global memory. rng and keys: as
+// tracy_shade's.
 extern "C" int tracy_shade_textured(
     float* orig, float* dir, float* thr, float* rad, bool* alive,
     const int* pix, const bool* hit, const float* t, const float* normal,
@@ -242,12 +270,20 @@ extern "C" int tracy_shade_textured(
     uint32_t sample_key, uint32_t bounce, uint32_t seed, int russian_roulette,
     int rng, const uint32_t* keys, int smem, void* stream) {
   if (n > 0) {
-    shade_textured_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-        orig, dir, thr, rad, alive, pix, hit, t, normal, tangent, uv, mat, n,
-        mtab, num_materials, reinterpret_cast<const float4*>(tex_data),
-        reinterpret_cast<const int4*>(tex_table), num_textures, tex_index,
-        tracy::make_rng(rng, seed, sample_key, bounce, keys), russian_roulette);
+    const int blocks = (n + BLOCK - 1) / BLOCK;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const tracy::Rng r = tracy::make_rng(rng, seed, sample_key, bounce, keys);
+    const auto* data = reinterpret_cast<const float4*>(tex_data);
+    const auto* table = reinterpret_cast<const int4*>(tex_table);
+    if (smem > 0) {
+      shade_textured_kernel<true><<<blocks, BLOCK, smem, st>>>(
+          orig, dir, thr, rad, alive, pix, hit, t, normal, tangent, uv, mat, n, mtab,
+          num_materials, data, table, num_textures, tex_index, r, russian_roulette);
+    } else {
+      shade_textured_kernel<false><<<blocks, BLOCK, 0, st>>>(
+          orig, dir, thr, rad, alive, pix, hit, t, normal, tangent, uv, mat, n, mtab,
+          num_materials, data, table, num_textures, tex_index, r, russian_roulette);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,6 +25,11 @@
 // material.h:189-203). The tangent is read only where the material has a
 // normal map.
 //
+// The material table comes as a pointer: K2 and K4 pass the block's staged
+// copy in shared memory, or on their global route the table in global
+// memory with LDG true (read through __ldg); K5 passes it in global memory
+// and reads it with plain loads.
+//
 // Operation order is that of the plain PyTorch versions (ops/shade.py),
 // with FMA contraction off at build time, so they agree to rounding.
 
@@ -32,6 +37,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "texfetch_lane.cuh"
 
 namespace tracy {
 
@@ -151,12 +158,12 @@ __device__ __forceinline__ float schlick(float cosine, float ref_idx) {
 // A live lane that hit nothing: rad += sky * thr. sky_texel is the sky's
 // equirect texel in this lane's direction (TEXTURED only; used when the
 // sky is textured).
-template <bool TEXTURED>
+template <bool TEXTURED, bool LDG = false>
 __device__ __forceinline__ void shade_miss(float* rad, const float* thr,
                                            const float* mtab,
                                            float4 sky_texel) {
-  float sky[3] = {mtab[6], mtab[7], mtab[8]};
-  if (TEXTURED && mtab[HAS_E] > 0.0f) {
+  float sky[3] = {ld<LDG>(mtab + 6), ld<LDG>(mtab + 7), ld<LDG>(mtab + 8)};
+  if (TEXTURED && ld<LDG>(mtab + HAS_E) > 0.0f) {
     sky[0] = sky_texel.x;
     sky[1] = sky_texel.y;
     sky[2] = sky_texel.z;
@@ -170,7 +177,7 @@ __device__ __forceinline__ void shade_miss(float* rad, const float* thr,
 // the lane's pixel id and its position in the wave (threefry's counter).
 // tex and tan_lane are the lane's 12-float texel row (registers) and
 // tangent (TEXTURED only; tan_lane may be null, read as zero).
-template <bool TEXTURED>
+template <bool TEXTURED, bool LDG = false>
 __device__ __forceinline__ bool shade_hit(
     float* o, float* d, float* thr, float* rad, float t, const float* nrm,
     int m, uint32_t pix, uint32_t pos, const float* mtab, int num_materials,
@@ -183,25 +190,25 @@ __device__ __forceinline__ bool shade_hit(
 
   m = (m < 0 || m >= num_materials) ? 0 : m;
   const float* row = mtab + m * COLS;
-  float bc[3] = {row[0], row[1], row[2]};
-  float rough = row[3], metal = row[4];
-  const float ior = row[5];
-  float emis[3] = {row[6], row[7], row[8]};
-  const float transl = row[9];
+  float bc[3] = {ld<LDG>(row), ld<LDG>(row + 1), ld<LDG>(row + 2)};
+  float rough = ld<LDG>(row + 3), metal = ld<LDG>(row + 4);
+  const float ior = ld<LDG>(row + 5);
+  float emis[3] = {ld<LDG>(row + 6), ld<LDG>(row + 7), ld<LDG>(row + 8)};
+  const float transl = ld<LDG>(row + 9);
   float nv[3] = {nrm[0], nrm[1], nrm[2]};
 
   if (TEXTURED) {
     // Texture overrides and normal mapping (render/material.py::
     // apply_textures, in its operation order).
-    if (row[HAS_BC] > 0.0f) {
+    if (ld<LDG>(row + HAS_BC) > 0.0f) {
       for (int c = 0; c < 3; ++c) bc[c] = tex[TX_BC + c];
     }
-    if (row[HAS_R] > 0.0f) rough = tex[TX_ROUGH];
-    if (row[HAS_M] > 0.0f) metal = tex[TX_METAL];
-    if (row[HAS_E] > 0.0f) {
+    if (ld<LDG>(row + HAS_R) > 0.0f) rough = tex[TX_ROUGH];
+    if (ld<LDG>(row + HAS_M) > 0.0f) metal = tex[TX_METAL];
+    if (ld<LDG>(row + HAS_E) > 0.0f) {
       for (int c = 0; c < 3; ++c) emis[c] = tex[TX_EM + c];
     }
-    if (row[HAS_N] > 0.0f) {
+    if (ld<LDG>(row + HAS_N) > 0.0f) {
       float tg[3] = {0.0f, 0.0f, 0.0f};
       if (tan_lane != nullptr) {
         for (int c = 0; c < 3; ++c) tg[c] = tan_lane[c];

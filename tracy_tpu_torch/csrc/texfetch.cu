@@ -26,7 +26,9 @@
 // state and up to five 16-byte texels scattered over a 100-500 MB atlas,
 // and writes 48 bytes; the arithmetic is a few dozen flops. The design:
 // the block stages tex_table and tex_index in shared memory, so a lane's
-// chain material -> texture -> texel has one dependent global load; a lane
+// chain material -> texture -> texel has one dependent global load (tables
+// too large to stage are read where they lie, through the read-only cache:
+// the STAGED = false instance, ops/texfetch.py picks the route); a lane
 // issues all of its texel gathers back to back through the read-only path;
 // the row leaves as three 16-byte streaming stores (__stcs: written once,
 // not read again by this kernel, so kept out of the way of the texels in
@@ -38,6 +40,7 @@ namespace {
 
 constexpr int BLOCK = 256;
 
+template <bool STAGED>
 __global__ void __launch_bounds__(BLOCK) texfetch_kernel(
     const int* __restrict__ mat_in, const float* __restrict__ uv_in,
     const float* __restrict__ dir, const bool* __restrict__ hit_in,
@@ -45,17 +48,21 @@ __global__ void __launch_bounds__(BLOCK) texfetch_kernel(
     const float4* __restrict__ tex_data, const int4* __restrict__ tex_table,
     int num_textures, const int* __restrict__ tex_index, int num_materials,
     float4* __restrict__ out) {
-  extern __shared__ int4 smem[];  // tex_table [K], then tex_index [M, 5]
-  int* s_index = reinterpret_cast<int*>(smem + num_textures);
-  tracy::stage_words(reinterpret_cast<uint32_t*>(smem),
-                     reinterpret_cast<const uint32_t*>(tex_table), 4 * num_textures);
-  tracy::stage_words(reinterpret_cast<uint32_t*>(s_index),
-                     reinterpret_cast<const uint32_t*>(tex_index),
-                     tracy::NUM_TEX_SLOTS * num_materials);
-  __syncthreads();
+  extern __shared__ int4 smem[];  // STAGED: tex_table [K], then tex_index [M, 5]
+  constexpr bool LDG = !STAGED;
+  tracy::TexTables tt{tex_table, tex_index, num_textures};
+  if (STAGED) {
+    int* s_index = reinterpret_cast<int*>(smem + num_textures);
+    tracy::stage_words(reinterpret_cast<uint32_t*>(smem),
+                       reinterpret_cast<const uint32_t*>(tex_table), 4 * num_textures);
+    tracy::stage_words(reinterpret_cast<uint32_t*>(s_index),
+                       reinterpret_cast<const uint32_t*>(tex_index),
+                       tracy::NUM_TEX_SLOTS * num_materials);
+    __syncthreads();
+    tt = tracy::TexTables{smem, s_index, num_textures};
+  }
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   if (i >= n) return;
-  const tracy::TexTables tt{smem, s_index, num_textures};
 
   long long addr[tracy::NUM_TEX_SLOTS];
 #pragma unroll
@@ -66,10 +73,10 @@ __global__ void __launch_bounds__(BLOCK) texfetch_kernel(
       m = (m < 0 || m >= num_materials) ? 0 : m;
       const float u = uv_in != nullptr ? uv_in[2 * i] : 0.0f;
       const float v = uv_in != nullptr ? uv_in[2 * i + 1] : 0.0f;
-      tracy::hit_addresses(tt, m, u, v, addr);
+      tracy::hit_addresses<LDG>(tt, m, u, v, addr);
     } else {
       addr[tracy::SLOT_EMISSIVE] =
-          tracy::sky_address(tt, dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
+          tracy::sky_address<LDG>(tt, dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
     }
   }
   float4 q[tracy::NUM_TEX_SLOTS];
@@ -86,22 +93,31 @@ __global__ void __launch_bounds__(BLOCK) texfetch_kernel(
 }  // namespace
 
 // uv may be null (no material but the sky is textured: uv reads as zero).
-// tex_data [P, 4] f32 and out [n, 12] f32 must be 16-byte aligned. The
-// tables take 16 K + 20 M bytes of shared memory, at most 48 KB (the
-// wrapper checks).
+// tex_data [P, 4] f32 and out [n, 12] f32 must be 16-byte aligned. smem:
+// the tables' bytes (16 K + 20 M) to stage them in shared memory, at most
+// the 48 KB a block gets by default (the wrapper checks); 0 reads them
+// from global memory.
 extern "C" int tracy_texfetch(const int* mat, const float* uv,
                               const float* dir, const bool* hit,
                               const bool* alive, int n, const float* tex_data,
                               const int* tex_table, int num_textures,
                               const int* tex_index, int num_materials,
-                              float* out, void* stream) {
+                              float* out, int smem, void* stream) {
   if (n > 0) {
-    const size_t smem = 16u * num_textures + 4u * tracy::NUM_TEX_SLOTS * num_materials;
-    texfetch_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-        mat, uv, dir, hit, alive, n, reinterpret_cast<const float4*>(tex_data),
-        reinterpret_cast<const int4*>(tex_table), num_textures, tex_index,
-        num_materials, reinterpret_cast<float4*>(out));
+    const int blocks = (n + BLOCK - 1) / BLOCK;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const auto* data = reinterpret_cast<const float4*>(tex_data);
+    const auto* table = reinterpret_cast<const int4*>(tex_table);
+    auto* rows = reinterpret_cast<float4*>(out);
+    if (smem > 0) {
+      texfetch_kernel<true><<<blocks, BLOCK, smem, st>>>(
+          mat, uv, dir, hit, alive, n, data, table, num_textures, tex_index, num_materials,
+          rows);
+    } else {
+      texfetch_kernel<false><<<blocks, BLOCK, 0, st>>>(
+          mat, uv, dir, hit, alive, n, data, table, num_textures, tex_index, num_materials,
+          rows);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

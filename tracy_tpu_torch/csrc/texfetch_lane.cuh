@@ -5,9 +5,11 @@
 //
 // The atlas is tex_data [P, 4] float32 (one 16-byte texel a row), addressed
 // through tex_table [K, 4] int32 (offset, width, height, 0) and tex_index
-// [M, 5] int32 (the texture of each material slot, -1 for none). A block
-// stages both tables in shared memory (stage_words) so that a lane's chain
-// material -> slot -> texture row -> texel has one dependent global gather.
+// [M, 5] int32 (the texture of each material slot, -1 for none). Where the
+// tables fit, a block stages both in shared memory (stage_words) so that a
+// lane's chain material -> slot -> texture row -> texel has one dependent
+// global gather; beyond that the kernels read them where they lie, through
+// the read-only cache (the LDG template argument, ld below).
 //
 // Addresses (render/texture.py::texel_index): nearest texel, repeat via
 // frac, v flipped, clipped to the texture, truncated, in float32 in the
@@ -38,6 +40,18 @@ __device__ __forceinline__ int slot_col(int s) {
 }
 __device__ __forceinline__ int slot_nch(int s) { return (s == 2 || s == 3) ? 1 : 3; }
 
+// One read of a material or texture table: a plain load from the block's
+// staged copy in shared memory, or with LDG an __ldg from global memory
+// (the tables' global route).
+template <bool LDG, class T>
+__device__ __forceinline__ T ld(const T* p) {
+  if constexpr (LDG) {
+    return __ldg(p);
+  } else {
+    return *p;
+  }
+}
+
 // Copy `words` 32-bit words from global memory to shared memory, strided
 // over the block's threads. The caller synchronises the block afterwards.
 __device__ __forceinline__ void stage_words(uint32_t* dst,
@@ -46,7 +60,8 @@ __device__ __forceinline__ void stage_words(uint32_t* dst,
   for (int k = threadIdx.x; k < words; k += blockDim.x) dst[k] = src[k];
 }
 
-// The block's copy of the two texture tables.
+// The two texture tables: the block's staged copy, or (read with LDG) the
+// global arrays.
 struct TexTables {
   const int4* table;  // [K]: offset, width, height, 0
   const int* index;   // [M, 5]
@@ -65,31 +80,34 @@ __device__ __forceinline__ long long texel_address(int4 e, float u, float v) {
 }
 
 // The atlas row of texture tid at (u, v), -1 when tid is out of range.
+template <bool LDG>
 __device__ __forceinline__ long long slot_address(const TexTables& tt, int tid,
                                                   float u, float v) {
-  return (tid >= 0 && tid < tt.num_textures) ? texel_address(tt.table[tid], u, v)
+  return (tid >= 0 && tid < tt.num_textures) ? texel_address(ld<LDG>(tt.table + tid), u, v)
                                              : -1ll;
 }
 
 // A live hit lane of material m (in range) at texture uv (u, v): the atlas
 // row of each slot, -1 where the material has none.
+template <bool LDG>
 __device__ __forceinline__ void hit_addresses(const TexTables& tt, int m, float u,
                                               float v, long long addr[NUM_TEX_SLOTS]) {
 #pragma unroll
   for (int s = 0; s < NUM_TEX_SLOTS; ++s) {
-    addr[s] = slot_address(tt, tt.index[NUM_TEX_SLOTS * m + s], u, v);
+    addr[s] = slot_address<LDG>(tt, ld<LDG>(tt.index + NUM_TEX_SLOTS * m + s), u, v);
   }
 }
 
 // A live miss lane going in direction (dx, dy, dz): the atlas row of the
 // sky's emissive texel, -1 when the sky is not textured.
+template <bool LDG>
 __device__ __forceinline__ long long sky_address(const TexTables& tt, float dx,
                                                  float dy, float dz) {
-  const int tid = tt.index[SLOT_EMISSIVE];  // material 0
+  const int tid = ld<LDG>(tt.index + SLOT_EMISSIVE);  // material 0
   if (tid < 0 || tid >= tt.num_textures) return -1ll;
   const float su = atan2f(dz, dx) / TWO_PI_F32 + 0.5f;
   const float sv = asinf(fminf(fmaxf(dy, -1.0f), 1.0f)) / PI_F32 + 0.5f;
-  return texel_address(tt.table[tid], su, sv);
+  return texel_address(ld<LDG>(tt.table + tid), su, sv);
 }
 
 // The texel at each address (zero where it is -1), every load issued

@@ -44,7 +44,7 @@ SIGNATURES = {
     "tracy_shade": [_C] * 10 + [_I, _C, _I, _U, _U, _U, _I, _I, _C, _I] + [_C],
     "tracy_shade_textured": ([_C] * 12 + [_I, _C, _I, _C, _C, _I, _C, _U, _U, _U, _I, _I, _C,
                                           _I] + [_C]),
-    "tracy_texfetch": [_C] * 5 + [_I, _C, _C, _I, _C, _I, _C, _C],
+    "tracy_texfetch": [_C] * 5 + [_I, _C, _C, _I, _C, _I, _C, _I, _C],
     "tracy_bounce": ([_C] * 7 + [_I] + [_C] * 3 + [_I] + [_C] * 6 + [_I, _U, _U, _U, _I, _I, _C]
                      + [_C] * 5 + [_C]),
     "tracy_micro": [_I, _C, _I, _C, _C, _C, _I, _I, _I, _C, _C, _C],

@@ -227,11 +227,13 @@ def decisions_flipped(got, ref) -> torch.Tensor:
 
 def compare_shade(lanes, mtab, sample_key: int, bounce: int, *, seed: int,
                   russian_roulette: bool, rng: str = "fast",
-                  decision_frac: float = 1e-4) -> Dict[str, float]:
+                  decision_frac: float = 1e-4, route=None) -> Dict[str, float]:
     """K2 vs shade_plain on CUDA tensors, each on its own copy of the lanes'
-    state (both update it in place); raises on a broken contract."""
+    state (both update it in place); raises on a broken contract. route:
+    K2's table route (None: the one its wrapper picks)."""
     kw = dict(seed=seed, russian_roulette=russian_roulette, rng=rng)
-    got = k2.shade(*state_args(lanes, SHADE_ARGS), mtab, sample_key, bounce, **kw)
+    got = k2.shade(*state_args(lanes, SHADE_ARGS), mtab, sample_key, bounce, route=route,
+                   **kw)
     ref = k2.shade_plain(*state_args(lanes, SHADE_ARGS), mtab, sample_key, bounce, **kw)
     res = _bounce_agreement("K2", got, ref, decision_frac)
     res.update(in_place_kept(lanes, got))
@@ -275,13 +277,13 @@ def textured_lanes(num_materials: int, n: int, seed: int, device) -> Dict[str, t
 TEXFETCH_ARGS = ("mat_id", "tex_uv", "direction", "hit_mask", "alive")
 
 
-def compare_texfetch(lanes, scene, sky_frac: float = 1e-4) -> Dict[str, object]:
+def compare_texfetch(lanes, scene, sky_frac: float = 1e-4, route=None) -> Dict[str, object]:
     """K3 vs fetch_texels_plain on CUDA tensors; raises on a broken contract.
     Also returns the atlas rows the lanes read ("addresses", for the
-    index_select yardstick)."""
+    index_select yardstick). route: as compare_shade's."""
     args = [lanes[k] for k in TEXFETCH_ARGS]
     tex = (scene.tex_data, scene.tex_table, scene.materials.tex_index)
-    got = k3.fetch_texels(*args, *tex)
+    got = k3.fetch_texels(*args, *tex, route=route)
     ref = k3.fetch_texels_plain(*args, *tex)
     hit = lanes["alive"] & lanes["hit_mask"]
     sky = lanes["alive"] & ~lanes["hit_mask"]
@@ -331,13 +333,15 @@ def texfetch_work(lanes, scene) -> Dict[str, object]:
 
 def compare_shade_textured(lanes, scene, mtab, sample_key: int, bounce: int, *,
                            seed: int, russian_roulette: bool, rng: str = "fast",
-                           decision_frac: float = 1e-4) -> Dict[str, float]:
+                           decision_frac: float = 1e-4, route=None) -> Dict[str, float]:
     """K4 vs shade_textured_plain on CUDA tensors, each on its own copy of
     the lanes' state (both update it in place); raises on a broken
-    contract. Also K4's bound on these lanes (textured_bounce_bound)."""
+    contract. Also K4's bound on these lanes (textured_bounce_bound).
+    route: as compare_shade's."""
     kw = dict(seed=seed, russian_roulette=russian_roulette, rng=rng)
     tex = (scene.tex_data, scene.tex_table, scene.materials.tex_index)
-    got = k2.shade_textured(*textured_args(lanes), mtab, *tex, sample_key, bounce, **kw)
+    got = k2.shade_textured(*textured_args(lanes), mtab, *tex, sample_key, bounce,
+                            route=route, **kw)
     ref = k2.shade_textured_plain(*textured_args(lanes), mtab, *tex, sample_key, bounce,
                                   **kw)
     res = _bounce_agreement("K4", got, ref, decision_frac)

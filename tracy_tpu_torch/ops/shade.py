@@ -36,9 +36,9 @@ import torch
 from tracy_tpu_torch.core import math as tm
 from tracy_tpu_torch.core.rng import KINDS, MASK32, RngSpec, threefry_keys
 from tracy_tpu_torch.ops.build import LIBRARY
-from tracy_tpu_torch.ops.launch import LaunchCount, check, raise_on_error
+from tracy_tpu_torch.ops.launch import LaunchCount, check, pick_route, raise_on_error
 from tracy_tpu_torch.ops.texfetch import (
-    COUNT as TEX_COUNT, SMEM_LIMIT, check_texture_tables, fetch_texels_plain)
+    COUNT as TEX_COUNT, check_texture_tables, fetch_texels_plain, table_bytes)
 from tracy_tpu_torch.render.material import SurfaceParams, apply_textures, scatter
 from tracy_tpu_torch.render.texture import TX_EMR
 from tracy_tpu_torch.scene.scene import NUM_TEX_SLOTS, SKY_MATERIAL_ID, TEX_EMISSIVE
@@ -76,7 +76,7 @@ def build_material_table_tex(materials) -> torch.Tensor:
 
 def shade(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
           t, normal, mat_id, mtab, sample_key: int, bounce: int, *, seed: int,
-          russian_roulette: bool, rng: str = "fast"):
+          russian_roulette: bool, rng: str = "fast", route=None):
     """One untextured bounce (K2), IN PLACE: origin, direction, throughput,
     radiance and alive are updated to the next state and returned. A lane
     that is not alive keeps its state; a miss lane changes only radiance
@@ -85,7 +85,9 @@ def shade(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
     [N, 3] float32: origin, direction, throughput, radiance, normal;
     [N] float32 t; [N] bool alive, hit_mask; [N] int32 pixel_idx, mat_id;
     mtab from build_material_table, which the kernel stages in shared
-    memory; rng: the RNG kind (core/rng.py KINDS).
+    memory or reads from global memory, as ops/launch.py::table_route picks
+    for its size (route names one, to time them; every route gives the
+    same bits); rng: the RNG kind (core/rng.py KINDS).
     """
     if origin.device.type == "cpu":
         COUNT.plain += 1
@@ -97,10 +99,7 @@ def shade(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
     _check_bounce(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
                   t, normal, mat_id, mtab, MTAB_COLS)
     state = _check_state(origin, direction, throughput, radiance, alive, "shade")
-    smem = 4 * MTAB_COLS * mtab.shape[0]
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"shade: {mtab.shape[0]} materials need {smem} bytes of shared "
-                         f"memory, more than the kernel's {SMEM_LIMIT}")
+    route, smem = pick_route("shade", 4 * MTAB_COLS * mtab.shape[0], route)
     code = LIBRARY.get().tracy_shade(
         *(x.data_ptr() for x in (origin, direction, throughput, radiance, alive,
                                  pixel_idx, hit_mask, t, normal, mat_id)),
@@ -108,7 +107,7 @@ def shade(origin, direction, throughput, radiance, alive, pixel_idx, hit_mask,
         seed & MASK32, int(bool(russian_roulette)), *rng_args(rng, seed, sample_key, bounce),
         smem, torch.cuda.current_stream(origin.device).cuda_stream)
     raise_on_error("shade", code)
-    COUNT.kernel += 1
+    COUNT.launched(route)
     return state
 
 
@@ -128,7 +127,7 @@ def shade_plain(origin, direction, throughput, radiance, alive, pixel_idx,
 def shade_textured(origin, direction, throughput, radiance, alive, pixel_idx,
                    hit_mask, t, normal, tangent, tex_uv, mat_id, mtab, tex_data,
                    tex_table, tex_index, sample_key: int, bounce: int, *, seed: int,
-                   russian_roulette: bool, rng: str = "fast"):
+                   russian_roulette: bool, rng: str = "fast", route=None):
     """One textured bounce (K4), IN PLACE: fetches each live lane's texels
     from the atlas (a hit lane the slots of its material at tex_uv, a miss
     lane the textured sky's), applies render/material.py::apply_textures'
@@ -141,8 +140,9 @@ def shade_textured(origin, direction, throughput, radiance, alive, pixel_idx,
     material has a normal map (read as zero); tex_uv: [N, 2] float32, or
     None when no material is textured (read as zero); mtab from
     build_material_table_tex; tex_data [P, 4] float32, tex_table [K, 4] and
-    tex_index [M, 5] int32 (scene/scene.py), which the kernel stages in
-    shared memory. The other arguments are shade's.
+    tex_index [M, 5] int32 (scene/scene.py); the kernel stages mtab,
+    tex_table and tex_index in shared memory or reads them from global
+    memory, as shade's table. The other arguments are shade's.
     """
     if origin.device.type == "cpu":
         COUNT_TEX.plain += 1
@@ -164,13 +164,10 @@ def shade_textured(origin, direction, throughput, radiance, alive, pixel_idx,
         raise ValueError(f"tex_index has {tex_index.shape[0]} materials, mtab "
                          f"{mtab.shape[0]}")
     state = _check_state(origin, direction, throughput, radiance, alive, "shade_textured")
-    # Shared memory: mtab, tex_table (16-byte rows), then tex_index.
-    smem = 4 * MTAB_TEX_COLS * mtab.shape[0] + 16 * tex_table.shape[0] + \
-        4 * NUM_TEX_SLOTS * tex_index.shape[0]
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"shade_textured: {mtab.shape[0]} materials and "
-                         f"{tex_table.shape[0]} textures need {smem} bytes of shared "
-                         f"memory, more than the kernel's {SMEM_LIMIT}")
+    # The tables: mtab, then K3's (tex_table, tex_index).
+    route, smem = pick_route(
+        "shade_textured", 4 * MTAB_TEX_COLS * mtab.shape[0]
+        + table_bytes(tex_index.shape[0], tex_table.shape[0]), route)
     code = LIBRARY.get().tracy_shade_textured(
         *(x.data_ptr() for x in (origin, direction, throughput, radiance, alive,
                                  pixel_idx, hit_mask, t, normal)),
@@ -182,7 +179,7 @@ def shade_textured(origin, direction, throughput, radiance, alive, pixel_idx,
         *rng_args(rng, seed, sample_key, bounce), smem,
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("shade_textured", code)
-    COUNT_TEX.kernel += 1
+    COUNT_TEX.launched(route)
     return state
 
 

@@ -23,7 +23,7 @@ import torch
 
 from tracy_tpu_torch.core.math import gather_rows
 from tracy_tpu_torch.ops.build import LIBRARY
-from tracy_tpu_torch.ops.launch import LaunchCount, check, raise_on_error
+from tracy_tpu_torch.ops.launch import LaunchCount, check, pick_route, raise_on_error
 from tracy_tpu_torch.render.texture import (
     SLOT_COLUMNS,
     TEXEL_COLS,
@@ -33,19 +33,24 @@ from tracy_tpu_torch.render.texture import (
 from tracy_tpu_torch.scene.scene import NUM_TEX_SLOTS, SKY_MATERIAL_ID, TEX_EMISSIVE
 
 COUNT = LaunchCount()
-# Shared memory for the staged tables: the 48 KB a block gets without
-# opting in.
-SMEM_LIMIT = 48 * 1024
+
+
+def table_bytes(num_materials: int, num_textures: int) -> int:
+    """K3's tables: tex_table (16 bytes a texture), then tex_index."""
+    return 16 * num_textures + 4 * NUM_TEX_SLOTS * num_materials
 
 
 def fetch_texels(mat_id, uv, direction, hit_mask, alive, tex_data, tex_table,
-                 tex_index) -> torch.Tensor:
+                 tex_index, *, route=None) -> torch.Tensor:
     """Texel rows [N, TEXEL_COLS] for N lanes.
 
     mat_id [N] int32; uv [N, 2] float32 interpolated texture uv, or None
     (read as zero: no material but the sky is textured); direction [N, 3];
     hit_mask, alive [N] bool; tex_data [P, 4] float32; tex_table [K, 4] and
-    tex_index [M, 5] int32 (scene/scene.py).
+    tex_index [M, 5] int32 (scene/scene.py). The kernel stages the two
+    tables in shared memory or reads them from global memory, as
+    ops/launch.py::table_route picks for their size (route names one, to
+    time them); every route gives the same rows.
     """
     if mat_id.device.type == "cpu":
         COUNT.plain += 1
@@ -60,11 +65,8 @@ def fetch_texels(mat_id, uv, direction, hit_mask, alive, tex_data, tex_table,
     check("hit_mask", hit_mask, torch.bool, (n,), dev)
     check("alive", alive, torch.bool, (n,), dev)
     check_texture_tables(tex_data, tex_table, tex_index, dev)
-    smem = 16 * tex_table.shape[0] + 4 * NUM_TEX_SLOTS * tex_index.shape[0]
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fetch_texels: {tex_index.shape[0]} materials and "
-                         f"{tex_table.shape[0]} textures need {smem} bytes of shared "
-                         f"memory, more than the kernel's {SMEM_LIMIT}")
+    route, smem = pick_route("fetch_texels",
+                             table_bytes(tex_index.shape[0], tex_table.shape[0]), route)
 
     out = torch.empty((n, TEXEL_COLS), dtype=torch.float32, device=dev)
     lib = LIBRARY.get()
@@ -72,9 +74,9 @@ def fetch_texels(mat_id, uv, direction, hit_mask, alive, tex_data, tex_table,
         mat_id.data_ptr(), 0 if uv is None else uv.data_ptr(), direction.data_ptr(),
         hit_mask.data_ptr(), alive.data_ptr(), n, tex_data.data_ptr(),
         tex_table.data_ptr(), tex_table.shape[0], tex_index.data_ptr(),
-        tex_index.shape[0], out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        tex_index.shape[0], out.data_ptr(), smem, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("texfetch", code)
-    COUNT.kernel += 1
+    COUNT.launched(route)
     return out
 
 

@@ -6,9 +6,10 @@ through, optional sRGB -> linear; src/texture.h:93-108). All textures of a
 scene live in ONE flat `[P, 4]` float32 atlas plus an int table
 `[K, 4] = (offset, width, height, 0)`.
 
-Radiance .hdr files go through the own decoder below (numpy only). PIL
-decodes PNG/JPG and is imported only on that branch: a machine without PIL
-still loads HDR skies and textures made with numpy.
+Radiance .hdr files go through the own decoder below (numpy only); PNG
+and JPEG files through csrc/image_decode.cpp (utils/image_io.py), told
+apart by their first bytes, whatever their name says. Nothing here imports
+PIL, which the GPU machine lacks.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from tracy_tpu_torch.utils.image_io import (
+    JPEG_SIGNATURE, PNG_SIGNATURE, decode_image_rgba)
 from tracy_tpu_torch.utils.log import log
 
 
@@ -25,9 +28,17 @@ def load_image_rgba(path: str) -> Optional[np.ndarray]:
     """Decode an image to float32 RGBA [H, W, 4] in [0,1] (u8) or raw (HDR).
 
     Equivalent of stb_image's stbi_load/stbi_loadf with 4 forced channels
-    (scene.cpp:28-45). Returns None if the file can't be read.
+    (scene.cpp:28-45). Returns None if the file can't be read (missing,
+    corrupt, or a format or coding the decoders refuse). Raises
+    RuntimeError (ImageDecoderUnavailable when the decoder library cannot
+    be built, else a failure inside it): that is not the file's fault, and
+    must not turn a texture grey.
     """
     try:
+        with open(path, "rb") as f:
+            data = f.read()
+        if data.startswith(PNG_SIGNATURE) or data.startswith(JPEG_SIGNATURE):
+            return decode_image_rgba(data).astype(np.float32) / 255.0
         if path.lower().endswith(".hdr"):
             img = _load_radiance_hdr(path)
             return np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
@@ -40,12 +51,10 @@ def load_image_rgba(path: str) -> Optional[np.ndarray]:
             if img.shape[-1] == 3:
                 img = np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
             return img
-        from PIL import Image
-
-        with Image.open(path) as im:
-            img = np.asarray(im.convert("RGBA"), dtype=np.float32) / 255.0
-        return img
-    except Exception as e:  # missing file, bad format, no decoder
+        raise ValueError("not a PNG, JPEG, Radiance .hdr or .exr file")
+    except RuntimeError:
+        raise
+    except Exception as e:  # missing file, bad or refused format
         log(f"texture load failed for '{path}': {e}")
         return None
 

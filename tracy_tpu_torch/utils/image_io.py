@@ -1,25 +1,31 @@
-"""Image files: PNG, PPM and .npy, written and read without PIL.
+"""Image files: PNG, JPEG, PPM and .npy, written and read without PIL.
 
 Port of tracy_tpu/utils/image_io.py. The JAX package writes PNG through
 PIL; the GPU machine has no PIL, and the command-line default output is
 `render.png`, so the port writes PNG with the standard library (zlib and
-struct: 8-bit RGB, one IDAT chunk, filter 0 on every row). `read_image`
-reads back what the inverse-rendering CLI takes as a target: .npy, .hdr
-(scene/textures.py's Radiance decoder), binary PPM (P6, maxval 255) and
-PNG, through PIL where it is installed, else the decoder below (8-bit
-grey, grey+alpha, RGB or RGBA, not interlaced).
+struct: 8-bit RGB, one IDAT chunk, filter 0 on every row). PNG and JPEG
+files are read by the decoders of csrc/image_decode.cpp (built by g++ at
+first use, utils/native.py::get_image_lib; Python's zlib inflates PNG
+data), never by PIL. `read_image` reads back what the inverse-rendering
+CLI takes as a target: .npy, .hdr (scene/textures.py's Radiance decoder),
+binary PPM (P6, maxval 255), PNG and JPEG.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 
 import numpy as np
 
+from tracy_tpu_torch.utils.native import get_image_lib
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# Channels of each PNG colour type at 8 bits.
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+JPEG_SIGNATURE = b"\xff\xd8\xff"
+# Larger images are refused as corrupt headers (PIL's decompression-bomb
+# error starts at twice its 89.5 M-pixel warning).
+MAX_PIXELS = 2 * 89_478_485
 
 
 def to_u8(img) -> np.ndarray:
@@ -66,20 +72,26 @@ def encode_png(img: np.ndarray) -> bytes:
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """uint8 [H, W, C] of an 8-bit, non-interlaced PNG (colour types grey,
-    grey+alpha, RGB, RGBA; every row filter). Raises on anything else."""
+def _png_chunks(data: bytes):
+    """(IHDR fields, PLTE, tRNS, IDAT bytes) of a PNG file; checks each
+    chunk's CRC."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
-    pos, idat, header = 8, [], None
-    while pos < len(data):
+    pos, idat, header, plte, trns = 8, [], None, b"", b""
+    while pos + 8 <= len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(
-                ">I", data[pos + 8 + n:pos + 12 + n])[0]:
+        crc = data[pos + 8 + n:pos + 12 + n]
+        if len(body) != n or len(crc) != 4:
+            raise ValueError(f"PNG chunk {kind!r} is truncated")
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(">I", crc)[0]:
             raise ValueError(f"PNG chunk {kind!r}: bad CRC")
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = body
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -87,40 +99,81 @@ def decode_png(data: bytes) -> np.ndarray:
         pos += 12 + n
     if header is None:
         raise ValueError("PNG without IHDR")
-    w, h, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
-        raise ValueError(f"PNG: bit depth {depth}, colour type {ctype}, interlace "
-                         f"{interlace} not read (8-bit, non-interlaced only)")
-    c = _PNG_CHANNELS[ctype]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * c)
-    out = np.zeros((h, w * c), np.int32)
-    prev = np.zeros(w * c, np.int32)
-    for y in range(h):
-        f, line = raw[y, 0], raw[y, 1:].astype(np.int32)
-        if f == 0:
-            row = line
-        elif f == 2:
-            row = (line + prev) & 0xFF
-        else:  # sub, average and Paeth depend on the pixel to the left
-            row = np.zeros_like(line)
-            for x in range(w * c):
-                a = row[x - c] if x >= c else 0
-                b = prev[x]
-                cc = prev[x - c] if x >= c else 0
-                if f == 1:
-                    pred = a
-                elif f == 3:
-                    pred = (a + b) // 2
-                elif f == 4:
-                    p = a + b - cc
-                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - cc)
-                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else cc)
-                else:
-                    raise ValueError(f"PNG row filter {f}")
-                row[x] = (line[x] + pred) & 0xFF
-        out[y] = row
-        prev = row
-    return out.astype(np.uint8).reshape(h, w, c)
+    return header, plte, trns, b"".join(idat)
+
+
+def _decode_error(lib, what: str, code: int):
+    """Raise for a decoder's return code: 1 is the file's fault
+    (ValueError), anything else a failure inside the decoder
+    (RuntimeError)."""
+    if code != 0:
+        msg = f"{what}: {lib.tracy_decode_error().decode(errors='replace')}"
+        raise ValueError(msg) if code == 1 else RuntimeError(msg)
+
+
+def _png_rgba(data: bytes):
+    """(uint8 RGBA [H, W, 4], colour type, has tRNS) of a PNG file, decoded
+    by csrc/image_decode.cpp after zlib inflates the image data."""
+    header, plte, trns, idat = _png_chunks(data)
+    w, h, depth, ctype, compression, filt, interlace = header
+    if compression != 0 or filt != 0:
+        raise ValueError(f"PNG: compression {compression}, filter method {filt} not read")
+    if w == 0 or h == 0 or w * h > MAX_PIXELS:
+        raise ValueError(f"PNG: {w}x{h} pixels not read")
+    try:
+        raw = bytearray(zlib.decompress(idat))
+    except zlib.error as e:
+        raise ValueError(f"PNG: image data does not inflate: {e}") from e
+    lib = get_image_lib()
+    out = np.empty((h, w, 4), np.uint8)
+    buf = (ctypes.c_uint8 * len(raw)).from_buffer(raw)
+    code = lib.tracy_png_decode(ctypes.addressof(buf), len(raw), w, h, depth, ctype, interlace,
+                                plte or None, len(plte), trns or None, len(trns),
+                                out.ctypes.data)
+    del buf
+    _decode_error(lib, "PNG", code)
+    return out, ctype, bool(trns)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """uint8 [H, W, C] of a PNG file, C the channels it holds: grey 1, grey
+    + alpha 2, RGB 3, RGBA 4; a palette gives RGB, and a tRNS chunk adds
+    alpha to grey, RGB and palette images. Every colour type, bit depth
+    (16-bit samples keep their high byte), Adam7 and every row filter.
+    Raises ValueError on a file it cannot read."""
+    rgba, ctype, has_trns = _png_rgba(data)
+    grey = ctype in (0, 4)
+    alpha = ctype in (4, 6) or has_trns
+    return rgba[..., [0, 3] if alpha else [0]] if grey else rgba[..., :4 if alpha else 3]
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """uint8 RGBA [H, W, 4] of a JPEG file (grey replicated, alpha 255):
+    baseline, extended and progressive Huffman coding, 1 or 3 components,
+    decoded by csrc/image_decode.cpp as libjpeg decodes them. Raises
+    ValueError on a file it cannot read, naming what it refuses
+    (arithmetic coding, lossless, 12-bit, CMYK/YCCK)."""
+    lib = get_image_lib()
+    w, h, comps, prog = (ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int())
+    _decode_error(lib, "JPEG", lib.tracy_jpeg_info(data, len(data), ctypes.byref(w),
+                                                   ctypes.byref(h), ctypes.byref(comps),
+                                                   ctypes.byref(prog)))
+    if w.value * h.value > MAX_PIXELS:
+        raise ValueError(f"JPEG: {w.value}x{h.value} pixels not read")
+    out = np.empty((h.value, w.value, 4), np.uint8)
+    _decode_error(lib, "JPEG", lib.tracy_jpeg_decode(data, len(data), out.ctypes.data,
+                                                     w.value, h.value))
+    return out
+
+
+def decode_image_rgba(data: bytes) -> np.ndarray:
+    """uint8 RGBA [H, W, 4] of a PNG or JPEG file, told apart by its first
+    bytes (not its name). Raises ValueError for anything else."""
+    if data[:8] == PNG_SIGNATURE:
+        return _png_rgba(data)[0]
+    if data[:3] == JPEG_SIGNATURE:
+        return decode_jpeg(data)
+    raise ValueError("neither a PNG nor a JPEG file")
 
 
 def decode_ppm(data: bytes) -> np.ndarray:
@@ -168,16 +221,8 @@ def read_image(path: str):
         data = f.read()
     if low.endswith(".ppm"):
         img = decode_ppm(data)
-    elif low.endswith(".png"):
-        try:
-            from PIL import Image
-        except ImportError:
-            img = decode_png(data)
-            if img.shape[-1] < 3:  # grey (+ alpha) -> RGB
-                img = img[..., :1].repeat(3, axis=-1)
-        else:
-            with Image.open(path) as im:
-                img = np.asarray(im.convert("RGB"))
+    elif low.endswith((".png", ".jpg", ".jpeg")):
+        img = decode_image_rgba(data)
     else:
-        raise ValueError(f"{path}: read .npy, .hdr, .ppm or .png")
+        raise ValueError(f"{path}: read .npy, .hdr, .ppm, .png, .jpg or .jpeg")
     return img[..., :3].astype(np.float32) / 255.0, False

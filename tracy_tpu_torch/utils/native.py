@@ -1,13 +1,22 @@
-"""Loader of the native host library (native/bvh_builder.cpp, obj_loader.cpp).
+"""Loaders of the port's two native host libraries, built by g++.
 
-The port's own copy of tracy_tpu/utils/native.py. g++ compiles the two
-sources with native/Makefile's flags (`-ffp-contract=off` keeps the SAH
-cost sums bit-equal to the numpy builder) into
-build/native/<hash>/libtracy_native.so at the repository root, keyed by a
-hash of the sources and flags. The library is written under a temporary
-name and renamed into place, so several processes may build at once. The
-build happens at first use, never at import; without a compiler the
-callers take their numpy versions.
+`get_native_lib`: the port's own copy of tracy_tpu/utils/native.py. g++
+compiles native/bvh_builder.cpp and obj_loader.cpp with native/Makefile's
+flags (`-ffp-contract=off` keeps the SAH cost sums bit-equal to the numpy
+builder) into build/native/<hash>/libtracy_native.so; without a compiler
+the callers take their numpy versions.
+
+`get_image_lib`: the PNG and JPEG decoders of csrc/image_decode.cpp, in
+build/native/<hash>/libtracy_image.so. g++ (not nvcc), so that the CPU
+tests run the same code as the card's host. They have no other version:
+if the library cannot be built, `get_image_lib` raises
+ImageDecoderUnavailable with the compiler's output.
+
+Both live at the repository root, keyed by a hash of the sources and
+flags; `CXX` names the compiler, else g++ on the PATH. A library is
+written under a temporary name and renamed into place, so several
+processes may build at once. The builds happen at first use, never at
+import.
 """
 
 from __future__ import annotations
@@ -25,42 +34,53 @@ from tracy_tpu_torch.utils.log import log, warn
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
+CSRC_DIR = os.path.join(_REPO_ROOT, "tracy_tpu_torch", "csrc")
 BUILD_ROOT = os.path.join(_REPO_ROOT, "build", "native")
-SOURCES = ("bvh_builder.cpp", "obj_loader.cpp")
+SOURCES = tuple(os.path.join(NATIVE_DIR, s) for s in ("bvh_builder.cpp", "obj_loader.cpp"))
 CXXFLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-fPIC", "-shared",
             "-std=c++17", "-Wall"]
+IMAGE_SOURCES = (os.path.join(CSRC_DIR, "image_decode.cpp"),)
+# No -march=native: the same code on this machine and on the card's host.
+IMAGE_CXXFLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17", "-Wall"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _failed = False
+_image_lib: Optional[ctypes.CDLL] = None
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(CXXFLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(NATIVE_DIR, name), "rb") as f:
-            h.update(name.encode() + f.read())
-    return h.hexdigest()[:16]
+class ImageDecoderUnavailable(RuntimeError):
+    """The PNG/JPEG decoder library could not be built or loaded."""
 
 
-def _build(so_path: str) -> bool:
+def _so_path(name: str, sources, flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sources:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], name)
+
+
+def _compile(so_path: str, sources, flags) -> Optional[str]:
+    """Build so_path; None on success, else what went wrong (with the
+    compiler's output)."""
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if not cxx:
-        warn("native build skipped: no g++")
-        return False
+        return "no C++ compiler: CXX is unset and g++ is not on the PATH"
     out_dir = os.path.dirname(so_path)
     os.makedirs(out_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        tmp_so = os.path.join(tmp, "libtracy_native.so")
-        cmd = [cxx, *CXXFLAGS, "-o", tmp_so,
-               *(os.path.join(NATIVE_DIR, s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        tmp_so = os.path.join(tmp, os.path.basename(so_path))
+        cmd = [cxx, *flags, "-o", tmp_so, *sources]
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        except OSError as e:
+            return f"{' '.join(cmd)}: {e}"
         if res.returncode != 0:
-            warn(f"native build failed:\n{res.stderr[-2000:]}")
-            return False
+            return f"{' '.join(cmd)} exited {res.returncode}:\n{res.stderr[-2000:]}"
         os.replace(tmp_so, so_path)
-    log("native library built")
-    return True
+    log(f"built {so_path}")
+    return None
 
 
 def get_native_lib() -> Optional[ctypes.CDLL]:
@@ -71,8 +91,10 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
             return _lib
         if _failed:
             return None
-        so_path = os.path.join(BUILD_ROOT, _digest(), "libtracy_native.so")
-        if not os.path.exists(so_path) and not _build(so_path):
+        so_path = _so_path("libtracy_native.so", SOURCES, CXXFLAGS)
+        err = None if os.path.exists(so_path) else _compile(so_path, SOURCES, CXXFLAGS)
+        if err is not None:
+            warn(f"native build failed: {err}")
             _failed = True
             return None
         try:
@@ -98,3 +120,35 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
 
         _lib = lib
         return _lib
+
+
+def get_image_lib() -> ctypes.CDLL:
+    """The loaded decoder library, built if needed. Raises
+    ImageDecoderUnavailable, naming the compiler's output, if it cannot be
+    built or loaded; a later call tries again."""
+    global _image_lib
+    with _lock:
+        if _image_lib is not None:
+            return _image_lib
+        so_path = _so_path("libtracy_image.so", IMAGE_SOURCES, IMAGE_CXXFLAGS)
+        err = None if os.path.exists(so_path) else _compile(so_path, IMAGE_SOURCES,
+                                                              IMAGE_CXXFLAGS)
+        if err is not None:
+            raise ImageDecoderUnavailable(f"the PNG/JPEG decoder library cannot be built: {err}")
+        try:
+            lib = ctypes.CDLL(so_path)
+        except OSError as e:
+            raise ImageDecoderUnavailable(f"the PNG/JPEG decoder library cannot be loaded: {e}")
+        u8p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.tracy_decode_error.restype = ctypes.c_char_p
+        lib.tracy_decode_error.argtypes = []
+        lib.tracy_png_decode.restype = i32
+        lib.tracy_png_decode.argtypes = [u8p, i64, i32, i32, i32, i32, i32, u8p, i32, u8p, i32,
+                                         u8p]
+        lib.tracy_jpeg_info.restype = i32
+        lib.tracy_jpeg_info.argtypes = [u8p, i64, ip, ip, ip, ip]
+        lib.tracy_jpeg_decode.restype = i32
+        lib.tracy_jpeg_decode.argtypes = [u8p, i64, u8p, i32, i32]
+        _image_lib = lib
+        return _image_lib
