@@ -109,14 +109,16 @@ Phases, each fatal on failure:
    phase 14's uninterrupted run;
 16. image textures without PIL (blocked in this process from the start,
    if installed): each map of tests/goldens/textured/ (2048x2048 4:2:0
-   JPEG, 4:4:4 JPEG, progressive grey JPEG, palette PNG, 16-bit PNG)
-   decoded on this host by csrc/image_decode.cpp, with its seconds;
-   textured.scn loaded with no fallback, rendered at 256x192 for 24 frames
-   through K1 + K4 and held against tracy_tpu's CPU render
-   (textured.npz) by phase 5's contract; its basecolor AOV through K1 +
-   K3, frame 0 equal to the plain versions'; grid64x28 with those maps in
-   place of the numpy maps at 1080p, compacted, 4 frames, timed (no gain
-   claimed);
+   JPEG, 4:4:4 JPEG, progressive grey JPEG, palette PNG, 16-bit PNG) and
+   of tests/goldens/formats/ (RLE TGA, palette BMP, interlaced GIF with a
+   transparency index, binary PGM, PackBits PSD) decoded on this host by
+   csrc/image_decode.cpp and image_formats.cpp, with its seconds;
+   textured.scn and formats.scn each loaded with no fallback, rendered at
+   256x192 for 24 frames through K1 + K4 and held against tracy_tpu's CPU
+   render (textured.npz, formats.npz) by phase 5's contract, and each
+   one's basecolor AOV through K1 + K3, frame 0 equal to the plain
+   versions'; grid64x28 with the JPEG/PNG maps in place of the numpy maps
+   at 1080p, compacted, 4 frames, timed (no gain claimed);
 17. the table routes of K2, K3 and K4 (ops/launch.py: shared memory
    within 48 KB, opted-in shared memory, global memory): scenes of 2,000
    and 8,000 materials and of 520 and 3,000 textured ones (five 4x4 maps
@@ -953,84 +955,106 @@ FIXTURE_DIR = os.path.join(REPO, "tests", "goldens", "textured")
 FIXTURE_MAPS = (("basecolor.jpg", "B", True), ("normal.jpg", "N", False),
                 ("roughness.jpg", "R", False), ("metalness.png", "M", False),
                 ("emissive.png", "E", True))
+# The same slots in the formats of csrc/image_formats.cpp.
+FORMATS_DIR = os.path.join(REPO, "tests", "goldens", "formats")
+FORMAT_MAPS = ("basecolor.tga", "normal.bmp", "roughness.gif", "metalness.pgm", "emissive.psd")
 
 
-def image_phase(ccfg, counts, dev, card):
-    """16. Image textures on the card's machine, with PIL blocked (main()
-    blocks it before any phase): each fixture map's decode seconds on the host
-    (csrc/image_decode.cpp, built by g++); the fixture scene loaded with no
-    fallback, rendered at 256x192 for 24 frames through K1 + K4 and held
-    against tracy_tpu's CPU render (tests/goldens/textured/textured.npz) by
-    the block-mean contract; its basecolor AOV through K1 + K3, frame 0
-    equal to the plain versions' on the card; grid64x28 with the fixture's
-    maps in place of the numpy maps, 1080p compacted, 4 frames, timed
-    (a beside-number). Returns ({path: launches}, results)."""
+def fixture_gate(directory, scn, counts, dev, card):
+    """One image-texture fixture scene (`scn` in `directory`, beside its
+    tracy_tpu CPU render of the same name, .npz) loaded with no fallback,
+    rendered at its 256x192 for 24 frames through K1 + K4 and held against
+    the render by the block-mean contract; its basecolor AOV through K1 +
+    K3, frame 0 equal to the plain versions' on the card. Returns
+    ({path: launches}, results)."""
     from tracy_tpu_torch import RenderConfig
     from tracy_tpu_torch.ops import intersect as k1
     from tracy_tpu_torch.ops import texfetch as k3
     from tracy_tpu_torch.render.renderer import Renderer, init_state, sample_radiance_rows
     from tracy_tpu_torch.scene import load_scene
-    from tracy_tpu_torch.scene.scene import (
-        TEX_BASECOLOR, TEX_EMISSIVE, TEX_METALNESS, TEX_NORMAL, TEX_ROUGHNESS)
-    from tracy_tpu_torch.scene.textures import load_image_rgba
     from tracy_tpu_torch.utils import parity
 
     res, launches = {}, {}
-    decoded = {}
-    for name, slot, srgb in FIXTURE_MAPS:
-        t0 = time.perf_counter()
-        img = load_image_rgba(os.path.join(FIXTURE_DIR, name))
-        secs = time.perf_counter() - t0
-        if img is None or img.shape[-1] != 4 or not np.isfinite(img).all():
-            raise RuntimeError(f"fixture map {name} did not decode")
-        decoded[slot] = (img, srgb)
-        res[f"decode_s {name}"] = secs
-        print(f"decode {name} ({img.shape[1]}x{img.shape[0]}) on this card's host {card}: "
-              f"{secs:.4f} s")
-
-    b = load_scene(os.path.join(FIXTURE_DIR, "textured.scn"))
+    b = load_scene(os.path.join(directory, scn))
     if b.fallbacks:
-        raise RuntimeError(f"textured.scn substituted files: {b.fallbacks}")
+        raise RuntimeError(f"{scn} substituted files: {b.fallbacks}")
     fscene = b.build(device=dev)
     res["atlas_bytes"] = fscene.tex_data.numel() * 4
     gcfg = RenderConfig(width=b.width, height=b.height, spp=1)
     gr = Renderer(gcfg)
     reset(counts)
     gst, _ = gr.step_many(fscene, init_state(gcfg, dev), 24)
-    launches["fixture textured.scn 24 frames"] = check_launches(
-        "fixture render", counts, {"K1": 24 * gcfg.max_bounces, "K4": 24 * gcfg.max_bounces})
+    launches[f"fixture {scn} 24 frames"] = check_launches(
+        f"{scn} render", counts, {"K1": 24 * gcfg.max_bounces, "K4": 24 * gcfg.max_bounces})
     ours = np.clip(gr.display(gst) * 255.99, 0.0, 255.0)
     ours = parity.srgb_to_linear(ours / 255.99)[::-1]
-    ref = parity.load_golden(os.path.join(FIXTURE_DIR, "textured.npz"))
+    golden = os.path.splitext(scn)[0] + ".npz"
+    ref = parity.load_golden(os.path.join(directory, golden))
     dmean, p95, dmax = parity.compare(ref, ours)
     res["gate"] = [dmean, p95, dmax]
-    print(f"textured.scn {b.width}x{b.height} ({gr.path}) {card}, {len(b.atlas)} maps, atlas "
+    print(f"{scn} {b.width}x{b.height} ({gr.path}) {card}, {len(b.atlas)} maps, atlas "
           f"{res['atlas_bytes']} bytes on the card, 24 frames vs tracy_tpu's CPU render "
-          f"(tests/goldens/textured/textured.npz): mean diff {dmean:.5f} (<= 0.01), block p95 "
-          f"{p95:.5f} (<= 0.02), block max {dmax:.5f} (<= 0.05); no fallback")
+          f"({golden}): mean diff {dmean:.5f} (<= 0.01), block p95 {p95:.5f} (<= 0.02), "
+          f"block max {dmax:.5f} (<= 0.05); no fallback")
     if dmean > 0.01 or p95 > 0.02 or dmax > 0.05:
-        raise RuntimeError("textured.scn parity failed")
+        raise RuntimeError(f"{scn} parity failed")
 
     acfg = gcfg.replace(aov="basecolor", tonemap="none")
     arend = Renderer(acfg)
     reset(counts)
     ast, _ = arend.step_many(fscene, init_state(acfg, dev), 4)
-    launches["fixture basecolor AOV 4 frames"] = check_launches(
-        "fixture basecolor AOV", counts, {"K1": 4, "K3": 4})
+    launches[f"fixture {scn} basecolor AOV 4 frames"] = check_launches(
+        f"{scn} basecolor AOV", counts, {"K1": 4, "K3": 4})
     first, _ = arend.step_many(fscene, init_state(acfg, dev), 1)
     aref, _ = sample_radiance_rows(
         fscene, acfg, 0, lambda o, d, a: k1.intersect_plain(o, d, a, arend.tables),
         fetch_fn=k3.fetch_texels_plain)
     if not torch.equal(first.accum, aref) or float(first.accum.std()) == 0.0:
-        raise RuntimeError("the fixture's basecolor AOV differs from the plain versions' or "
-                           "is flat")
-    print(f"textured.scn basecolor AOV ({arend.path}): K1 and K3 once a frame, frame 0 equal "
+        raise RuntimeError(f"{scn}'s basecolor AOV differs from the plain versions' or is flat")
+    print(f"{scn} basecolor AOV ({arend.path}): K1 and K3 once a frame, frame 0 equal "
           f"to the plain versions' bit for bit; image std {float(ast.accum.std()):.4f}")
+    return launches, res
+
+
+def image_phase(ccfg, counts, dev, card):
+    """16. Image textures on the card's machine, with PIL blocked (main()
+    blocks it before any phase): each map's decode seconds on the host
+    (csrc/image_decode.cpp and image_formats.cpp, built by g++), the
+    JPEG/PNG fixture's and the TGA/BMP/GIF/PGM/PSD fixture's; each fixture
+    scene through `fixture_gate` (K1 + K4 against tracy_tpu's CPU render,
+    its basecolor AOV through K1 + K3 against the plain versions);
+    grid64x28 with the JPEG/PNG fixture's maps in place of the numpy maps,
+    1080p compacted, 4 frames, timed (a beside-number). Returns ({path:
+    launches}, results)."""
+    from tracy_tpu_torch.render.renderer import Renderer, init_state
+    from tracy_tpu_torch.scene.scene import (
+        TEX_BASECOLOR, TEX_EMISSIVE, TEX_METALNESS, TEX_NORMAL, TEX_ROUGHNESS)
+    from tracy_tpu_torch.scene.textures import load_image_rgba
+
+    res, launches = {}, {}
+    decoded = {}
+    maps = [(FIXTURE_DIR, name) for name, _, _ in FIXTURE_MAPS]
+    for directory, name in maps + [(FORMATS_DIR, name) for name in FORMAT_MAPS]:
+        t0 = time.perf_counter()
+        img = load_image_rgba(os.path.join(directory, name))
+        secs = time.perf_counter() - t0
+        if img is None or img.shape[-1] != 4 or not np.isfinite(img).all():
+            raise RuntimeError(f"map {name} did not decode")
+        decoded[name] = img
+        res[f"decode_s {name}"] = secs
+        print(f"decode {name} ({img.shape[1]}x{img.shape[0]}) on this card's host {card}: "
+              f"{secs:.4f} s")
+
+    for directory, scn in ((FIXTURE_DIR, "textured.scn"), (FORMATS_DIR, "formats.scn")):
+        more, gate = fixture_gate(directory, scn, counts, dev, card)
+        launches.update(more)
+        res[scn] = gate
 
     slots = {"B": TEX_BASECOLOR, "N": TEX_NORMAL, "R": TEX_ROUGHNESS, "M": TEX_METALNESS,
              "E": TEX_EMISSIVE}
     t0 = time.perf_counter()
-    jb = textured_grid(WIDTH, HEIGHT, maps={slots[k]: v for k, v in decoded.items()})
+    jb = textured_grid(WIDTH, HEIGHT, maps={slots[slot]: (decoded[name], srgb)
+                                            for name, slot, srgb in FIXTURE_MAPS})
     jscene = jb.build(device=dev)
     jrend = Renderer(ccfg)
     jrend.step_many(jscene, init_state(ccfg, dev), 1)
@@ -1648,9 +1672,10 @@ def main() -> int:
     for src, log in build.LIBRARY.build_log.items():
         print(f"  ptxas {src}: " + ptxas_summary(log))
     t0 = time.perf_counter()
-    native.get_image_lib()  # the PNG/JPEG decoders, g++ at first use
-    print(f"build: csrc/image_decode.cpp with g++ {' '.join(native.IMAGE_CXXFLAGS)}, built or "
-          f"loaded in {time.perf_counter() - t0:.2f} s")
+    native.get_image_lib()  # the image decoders, g++ at first use
+    print(f"build: csrc/image_decode.cpp and image_formats.cpp with g++ "
+          f"{' '.join(native.IMAGE_CXXFLAGS)}, built or loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     stamp("1-2")
 

@@ -36,12 +36,14 @@ SCN = os.path.join(REPO, "tests", "goldens", "textured", "textured.scn")
 MAPS = [(2048, 2048), (1024, 1024), (512, 512), (512, 512), (256, 256)]
 
 
-def test_fixture_scene_loads_without_pil():
+def loads_without_pil(scn, maps):
+    """Load scn in a fresh interpreter: no fallback, the maps' sizes, no
+    PIL (and no jax) module imported."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "from tracy_tpu_torch.scene import load_scene\n"
-        f"b = load_scene({SCN!r})\n"
+        f"b = load_scene({scn!r})\n"
         "assert b.fallbacks == [], b.fallbacks\n"
         "print([tuple(p.shape[:2]) for p in b.atlas.pixels])\n"
         "print(sorted(k for k in sys.modules if k == 'PIL' or k.startswith('PIL.')))\n")
@@ -50,13 +52,19 @@ def test_fixture_scene_loads_without_pil():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     sizes, pil = out.stdout.strip().splitlines()[-2:]
-    assert sizes == str(MAPS)
+    assert sizes == str(maps)
     assert pil == "[]"
 
 
-def test_fixture_render_matches_tracy_tpu():
+def test_fixture_scene_loads_without_pil():
+    loads_without_pil(SCN, MAPS)
+
+
+def render_matches_tracy_tpu(scn):
+    """The port's textured render of scn at 64x48, 4 frames, against
+    tracy_tpu's on the CPU by the block-mean contract."""
     w, h, frames = 64, 48, 4
-    b = load_scene(SCN)
+    b = load_scene(scn)
     assert b.fallbacks == []
     b.width, b.height = w, h
     cfg = RenderConfig(width=w, height=h, spp=1)
@@ -64,7 +72,7 @@ def test_fixture_render_matches_tracy_tpu():
     st, _ = r.step_many(b.build(device="cpu"), init_state(cfg, "cpu"), frames)
     ours = parity.srgb_to_linear(np.clip(r.display(st) * 255.99, 0.0, 255.0) / 255.99)
 
-    jb = jload(SCN)
+    jb = jload(scn)
     jb.width, jb.height = w, h
     jcfg = JConfig(width=w, height=h, spp=1, accel="bvh", use_pallas=False)
     jst = JRenderer(jcfg).render_progressive(jb.build(), frames, state=jinit(jcfg),
@@ -74,3 +82,7 @@ def test_fixture_render_matches_tracy_tpu():
     dmean, p95, dmax = parity.compare(ref, ours)
     assert dmean <= 0.01 and p95 <= 0.02 and dmax <= 0.05, (dmean, p95, dmax)
     assert float(ours.std()) > 0.05  # the maps show: not a flat grey
+
+
+def test_fixture_render_matches_tracy_tpu():
+    render_matches_tracy_tpu(SCN)

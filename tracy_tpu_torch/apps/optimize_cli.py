@@ -12,12 +12,12 @@ positions) so that a re-render matches a target image.
   # self-test: perturb the scene's parameter, then recover it
   python -m tracy_tpu_torch.apps.optimize_cli -selftest albedo -steps 100
 
--target reads .npy and .hdr (linear radiance as stored), .ppm and 8-bit
-.npy (display values, taken to linear radiance through the sRGB curve),
-and .png, .jpg and .jpeg the same way, without PIL
-(utils/image_io.py::read_image). The scene renders on the card; -cpu asks
-for the CPU. A self-test exits 0 when the largest error of the observable
-entries is under 0.1, else 1.
+-target reads .npy and .hdr by name (linear radiance as stored; 8-bit
+.npy as display values, taken to linear radiance through the sRGB curve)
+and any PNG, JPEG, BMP, GIF, PNM, PSD or TGA file by its content, as
+display values the same way, without PIL (utils/image_io.py::read_image).
+The scene renders on the card; -cpu asks for the CPU. A self-test exits 0
+when the largest error of the observable entries is under 0.1, else 1.
 """
 
 from __future__ import annotations
@@ -43,7 +43,8 @@ def main(argv=None) -> int:
     p.add_argument("-spp", type=int, default=4)
     p.add_argument("-bounces", type=int, default=3)
     p.add_argument("-target", default=None,
-                   help="target image (.npy, .hdr, .ppm, .png, .jpg, .jpeg)")
+                   help="target image: .npy, .hdr, or a PNG, JPEG, BMP, GIF, PNM, PSD or "
+                        "TGA file (told apart by content)")
     p.add_argument("-params", default="albedo",
                    help="comma list: albedo,roughness,metalness,ior,emissive,"
                         "translucent,tex_data,vertex_pos")
@@ -118,7 +119,10 @@ def main(argv=None) -> int:
     else:
         if not args.target:
             p.error("need -target or -selftest")
-        img, linear = read_image(args.target)
+        try:
+            img, linear = read_image(args.target)
+        except (OSError, ValueError) as e:
+            p.error(f"-target: {e}")
         if not linear:
             img = srgb_to_linear(img)  # display values -> approximately linear
         target = torch.as_tensor(np.asarray(img, np.float32), device=dev)

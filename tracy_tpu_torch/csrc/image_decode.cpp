@@ -1,4 +1,5 @@
-// PNG and JPEG decoding on the host, for the texture loader and read_image.
+// PNG and JPEG decoding on the host, for the texture loader and read_image
+// (TGA, BMP, GIF, PNM and PSD: image_formats.cpp, in the same library).
 //
 // Plain C++17 with an extern "C" interface, built by g++ at first use
 // (utils/native.py::get_image_lib) and loaded through ctypes, so the
@@ -1002,6 +1003,13 @@ int guarded(F&& f) {
 }
 
 }  // namespace
+
+namespace tracy_image {
+
+// Set the calling thread's message (image_formats.cpp's entry points).
+void set_error(const std::string& msg) { g_error = msg; }
+
+}  // namespace tracy_image
 
 extern "C" {
 

@@ -6,10 +6,12 @@ through, optional sRGB -> linear; src/texture.h:93-108). All textures of a
 scene live in ONE flat `[P, 4]` float32 atlas plus an int table
 `[K, 4] = (offset, width, height, 0)`.
 
-Radiance .hdr files go through the own decoder below (numpy only); PNG
-and JPEG files through csrc/image_decode.cpp (utils/image_io.py), told
-apart by their first bytes, whatever their name says. Nothing here imports
-PIL, which the GPU machine lacks.
+Radiance .hdr files go through the own decoder below (numpy only); PNG,
+JPEG, BMP, GIF, PNM (P1-P6), PSD and TGA files through
+csrc/image_decode.cpp and csrc/image_formats.cpp (utils/image_io.py), told
+apart by their first bytes, whatever their name says: every 8-bit format
+that stb_image (the C++ reference's loader) and PIL (tracy_tpu's) both
+read. Nothing here imports PIL, which the GPU machine lacks.
 """
 
 from __future__ import annotations
@@ -19,8 +21,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from tracy_tpu_torch.utils.image_io import (
-    JPEG_SIGNATURE, PNG_SIGNATURE, decode_image_rgba)
+from tracy_tpu_torch.utils.image_io import READ_FORMATS, decode_image_rgba, image_format
 from tracy_tpu_torch.utils.log import log
 
 
@@ -37,7 +38,7 @@ def load_image_rgba(path: str) -> Optional[np.ndarray]:
     try:
         with open(path, "rb") as f:
             data = f.read()
-        if data.startswith(PNG_SIGNATURE) or data.startswith(JPEG_SIGNATURE):
+        if image_format(data) is not None:
             return decode_image_rgba(data).astype(np.float32) / 255.0
         if path.lower().endswith(".hdr"):
             img = _load_radiance_hdr(path)
@@ -51,7 +52,7 @@ def load_image_rgba(path: str) -> Optional[np.ndarray]:
             if img.shape[-1] == 3:
                 img = np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
             return img
-        raise ValueError("not a PNG, JPEG, Radiance .hdr or .exr file")
+        raise ValueError(f"not a {READ_FORMATS}, Radiance .hdr or .exr file")
     except RuntimeError:
         raise
     except Exception as e:  # missing file, bad or refused format

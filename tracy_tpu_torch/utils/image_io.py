@@ -1,14 +1,17 @@
-"""Image files: PNG, JPEG, PPM and .npy, written and read without PIL.
+"""Image files: PNG and PPM written, every 8-bit format of stb_image read,
+without PIL.
 
 Port of tracy_tpu/utils/image_io.py. The JAX package writes PNG through
 PIL; the GPU machine has no PIL, and the command-line default output is
 `render.png`, so the port writes PNG with the standard library (zlib and
-struct: 8-bit RGB, one IDAT chunk, filter 0 on every row). PNG and JPEG
-files are read by the decoders of csrc/image_decode.cpp (built by g++ at
-first use, utils/native.py::get_image_lib; Python's zlib inflates PNG
-data), never by PIL. `read_image` reads back what the inverse-rendering
-CLI takes as a target: .npy, .hdr (scene/textures.py's Radiance decoder),
-binary PPM (P6, maxval 255), PNG and JPEG.
+struct: 8-bit RGB, one IDAT chunk, filter 0 on every row). Files are read
+by the decoders of csrc/image_decode.cpp (PNG, JPEG; Python's zlib
+inflates PNG data) and csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD),
+built by g++ at first use (utils/native.py::get_image_lib), never by PIL;
+`image_format` tells them apart by their first bytes, as PIL does.
+`read_image` reads back what the inverse-rendering CLI takes as a target:
+.npy and .hdr (scene/textures.py's Radiance decoder) by name, any of those
+formats by content.
 """
 
 from __future__ import annotations
@@ -23,8 +26,10 @@ from tracy_tpu_torch.utils.native import get_image_lib
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
+READ_FORMATS = "PNG, JPEG, BMP, GIF, PNM, PSD or TGA"
 # Larger images are refused as corrupt headers (PIL's decompression-bomb
-# error starts at twice its 89.5 M-pixel warning).
+# error starts at twice its 89.5 M-pixel warning); csrc/image_formats.cpp
+# holds the other formats to the same limit (kMaxPixels).
 MAX_PIXELS = 2 * 89_478_485
 
 
@@ -166,35 +171,73 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     return out
 
 
-def decode_image_rgba(data: bytes) -> np.ndarray:
-    """uint8 RGBA [H, W, 4] of a PNG or JPEG file, told apart by its first
-    bytes (not its name). Raises ValueError for anything else."""
+def _tga_header_ok(data: bytes) -> bool:
+    """Whether an 18-byte TGA header is one PIL's TGA plugin takes (its
+    colour-map type, a size, a depth and an image type it knows); the port
+    adds the 15-bit depth, which stb_image reads. TGA has no magic number,
+    so PIL tries it after every format that has one."""
+    if len(data) < 18:
+        return False
+    cm_type, itype = data[1], data[2]
+    w, h = struct.unpack("<HH", data[12:16])
+    return (cm_type in (0, 1) and w > 0 and h > 0 and data[16] in (1, 8, 15, 16, 24, 32)
+            and itype in (1, 2, 3, 9, 10, 11))
+
+
+def image_format(data: bytes):
+    """The format of an image file by its first bytes, as PIL tells them
+    apart: "png", "jpeg", "bmp" (BM), "gif" (GIF87a/GIF89a), "pnm" (P and a
+    kind), "psd" (8BPS), else "tga" if the header passes TGA's checks, else
+    None. The decoders may still refuse a kind they do not read."""
     if data[:8] == PNG_SIGNATURE:
-        return _png_rgba(data)[0]
+        return "png"
     if data[:3] == JPEG_SIGNATURE:
+        return "jpeg"
+    if data[:2] == b"BM":
+        return "bmp"
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "gif"
+    if data[:1] == b"P" and len(data) > 1 and data[1] in b"0123456fy":
+        return "pnm"
+    if data[:4] == b"8BPS":
+        return "psd"
+    return "tga" if _tga_header_ok(data) else None
+
+
+def _decode_native(fmt: str, data: bytes) -> np.ndarray:
+    """uint8 RGBA [H, W, 4] from csrc/image_formats.cpp's tracy_<fmt>_info
+    (which refuses sizes beyond MAX_PIXELS) and tracy_<fmt>_decode."""
+    lib = get_image_lib()
+    name = fmt.upper()
+    w, h = ctypes.c_int(), ctypes.c_int()
+    info, decode = getattr(lib, f"tracy_{fmt}_info"), getattr(lib, f"tracy_{fmt}_decode")
+    _decode_error(lib, name, info(data, len(data), ctypes.byref(w), ctypes.byref(h)))
+    out = np.empty((h.value, w.value, 4), np.uint8)
+    _decode_error(lib, name, decode(data, len(data), out.ctypes.data, w.value, h.value))
+    return out
+
+
+def decode_image_rgba(data: bytes) -> np.ndarray:
+    """uint8 RGBA [H, W, 4] of a PNG, JPEG, BMP, GIF, PNM, PSD or TGA file,
+    told apart by its first bytes (not its name; `image_format`), as PIL's
+    open(...).convert("RGBA") gives it but for ROADMAP's hazards. Raises
+    ValueError for anything else, or for a kind the decoders refuse, named."""
+    fmt = image_format(data)
+    if fmt == "png":
+        return _png_rgba(data)[0]
+    if fmt == "jpeg":
         return decode_jpeg(data)
-    raise ValueError("neither a PNG nor a JPEG file")
+    if fmt is None:
+        raise ValueError(f"not a {READ_FORMATS} file")
+    return _decode_native(fmt, data)
 
 
 def decode_ppm(data: bytes) -> np.ndarray:
-    """uint8 [H, W, 3] of a binary PPM (P6, maxval 255; # comments allowed)."""
-    fields, pos = [], 0
-    while len(fields) < 4:
-        while data[pos:pos + 1].isspace():
-            pos += 1
-        if data[pos:pos + 1] == b"#":
-            pos = data.index(b"\n", pos) + 1
-            continue
-        end = pos
-        while not data[end:end + 1].isspace():
-            end += 1
-        fields.append(data[pos:end])
-        pos = end
-    magic, w, h, maxval = fields[0], int(fields[1]), int(fields[2]), int(fields[3])
-    if magic != b"P6" or maxval != 255:
-        raise ValueError(f"PPM: {magic!r} with maxval {maxval} not read (P6, 255 only)")
-    pos += 1  # the single whitespace after maxval
-    return np.frombuffer(data[pos:pos + w * h * 3], np.uint8).reshape(h, w, 3).copy()
+    """uint8 RGB [H, W, 3] of a PNM file: P1-P6, ASCII or binary, any
+    maxval (csrc/image_formats.cpp; grey replicated)."""
+    if image_format(data) != "pnm":
+        raise ValueError("not a PNM file")
+    return _decode_native("pnm", data)[..., :3]
 
 
 def load_npy_state(path: str) -> np.ndarray:
@@ -204,9 +247,11 @@ def load_npy_state(path: str) -> np.ndarray:
 
 
 def read_image(path: str):
-    """(float32 RGB [H, W, 3], linear): 8-bit files scaled to [0, 1]
-    (display values, linear False), .hdr and float .npy as stored (linear
-    True)."""
+    """(float32 RGB [H, W, 3], linear): .npy and .hdr by name, .hdr and
+    float .npy as stored (linear True); any other file by its content, a
+    PNG, JPEG, BMP, GIF, PNM, PSD or TGA file scaled to [0, 1] (display
+    values, linear False), as tracy_tpu's optimize_cli reads its target
+    (PIL's convert("RGB"), alpha dropped)."""
     low = path.lower()
     if low.endswith(".npy"):
         img = np.load(path)
@@ -219,10 +264,4 @@ def read_image(path: str):
         return _load_radiance_hdr(path), True
     with open(path, "rb") as f:
         data = f.read()
-    if low.endswith(".ppm"):
-        img = decode_ppm(data)
-    elif low.endswith((".png", ".jpg", ".jpeg")):
-        img = decode_image_rgba(data)
-    else:
-        raise ValueError(f"{path}: read .npy, .hdr, .ppm, .png, .jpg or .jpeg")
-    return img[..., :3].astype(np.float32) / 255.0, False
+    return decode_image_rgba(data)[..., :3].astype(np.float32) / 255.0, False

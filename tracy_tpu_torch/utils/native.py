@@ -6,7 +6,8 @@ flags (`-ffp-contract=off` keeps the SAH cost sums bit-equal to the numpy
 builder) into build/native/<hash>/libtracy_native.so; without a compiler
 the callers take their numpy versions.
 
-`get_image_lib`: the PNG and JPEG decoders of csrc/image_decode.cpp, in
+`get_image_lib`: the image decoders of csrc/image_decode.cpp (PNG, JPEG)
+and csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD), in
 build/native/<hash>/libtracy_image.so. g++ (not nvcc), so that the CPU
 tests run the same code as the card's host. They have no other version:
 if the library cannot be built, `get_image_lib` raises
@@ -39,7 +40,10 @@ BUILD_ROOT = os.path.join(_REPO_ROOT, "build", "native")
 SOURCES = tuple(os.path.join(NATIVE_DIR, s) for s in ("bvh_builder.cpp", "obj_loader.cpp"))
 CXXFLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-fPIC", "-shared",
             "-std=c++17", "-Wall"]
-IMAGE_SOURCES = (os.path.join(CSRC_DIR, "image_decode.cpp"),)
+IMAGE_SOURCES = tuple(os.path.join(CSRC_DIR, s) for s in ("image_decode.cpp",
+                                                          "image_formats.cpp"))
+# Formats of csrc/image_formats.cpp, each with tracy_<fmt>_info/_decode.
+IMAGE_FORMATS = ("tga", "bmp", "gif", "pnm", "psd")
 # No -march=native: the same code on this machine and on the card's host.
 IMAGE_CXXFLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17", "-Wall"]
 
@@ -50,7 +54,7 @@ _image_lib: Optional[ctypes.CDLL] = None
 
 
 class ImageDecoderUnavailable(RuntimeError):
-    """The PNG/JPEG decoder library could not be built or loaded."""
+    """The image decoder library could not be built or loaded."""
 
 
 def _so_path(name: str, sources, flags) -> str:
@@ -134,11 +138,11 @@ def get_image_lib() -> ctypes.CDLL:
         err = None if os.path.exists(so_path) else _compile(so_path, IMAGE_SOURCES,
                                                               IMAGE_CXXFLAGS)
         if err is not None:
-            raise ImageDecoderUnavailable(f"the PNG/JPEG decoder library cannot be built: {err}")
+            raise ImageDecoderUnavailable(f"the image decoder library cannot be built: {err}")
         try:
             lib = ctypes.CDLL(so_path)
         except OSError as e:
-            raise ImageDecoderUnavailable(f"the PNG/JPEG decoder library cannot be loaded: {e}")
+            raise ImageDecoderUnavailable(f"the image decoder library cannot be loaded: {e}")
         u8p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
         lib.tracy_decode_error.restype = ctypes.c_char_p
@@ -150,5 +154,10 @@ def get_image_lib() -> ctypes.CDLL:
         lib.tracy_jpeg_info.argtypes = [u8p, i64, ip, ip, ip, ip]
         lib.tracy_jpeg_decode.restype = i32
         lib.tracy_jpeg_decode.argtypes = [u8p, i64, u8p, i32, i32]
+        for fmt in IMAGE_FORMATS:
+            info, decode = getattr(lib, f"tracy_{fmt}_info"), getattr(lib, f"tracy_{fmt}_decode")
+            info.restype = decode.restype = i32
+            info.argtypes = [u8p, i64, ip, ip]
+            decode.argtypes = [u8p, i64, u8p, i32, i32]
         _image_lib = lib
         return _image_lib
