@@ -117,8 +117,13 @@ Phases, each fatal on failure:
    256x192 for 24 frames through K1 + K4 and held against tracy_tpu's CPU
    render (textured.npz, formats.npz) by phase 5's contract, and each
    one's basecolor AOV through K1 + K3, frame 0 equal to the plain
-   versions'; grid64x28 with the JPEG/PNG maps in place of the numpy maps
-   at 1080p, compacted, 4 frames, timed (no gain claimed);
+   versions'; the same for tests/goldens/tiffdds/ (DXT5 and BC5 DDS, LZW
+   and tiled deflate TIFF, QOI; csrc/image_blocks.cpp, image_tiff.cpp)
+   and tiffdds.scn; grid64x28 with the JPEG/PNG maps in place of the numpy
+   maps at 1080p, compacted, 4 frames, timed (no gain claimed), and
+   grid64x28-dds, the same with 2048x2048 DDS maps made here from random
+   blocks (BC7 basecolor and emissive, BC5 normal, BC4 roughness and
+   metalness), decoded on this host;
 17. the table routes of K2, K3 and K4 (ops/launch.py: shared memory
    within 48 KB, opted-in shared memory, global memory): scenes of 2,000
    and 8,000 materials and of 520 and 3,000 textured ones (five 4x4 maps
@@ -142,6 +147,7 @@ import importlib.util
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -158,14 +164,14 @@ SKY_SIZE = (1024, 2048)  # rows, columns of the equirect sky
 
 
 def textured_grid(width: int, height: int, map_size: int = MAP_SIZE,
-                  sky_size=SKY_SIZE, seed: int = SEED, maps=None):
+                  sky_size=SKY_SIZE, seed: int = SEED, maps=None, name="grid64x28-jpeg"):
     """grid64x28-tex: sphere_grid(64, 28) with textures made with numpy
     from `seed`, modelled on helmet.scn's five maps. Material 1 (grey)
     gets basecolor (sRGB), normal, roughness, metalness and emissive (sRGB)
     maps; material 3 (floor) a basecolor map; material 2 (metal) none; the
     sky is a float equirect with a bright sun. maps: {slot: (float RGBA
     image, srgb)} in place of the numpy maps (the floor then takes the
-    basecolor map). Returns the builder."""
+    basecolor map) and the scene is called `name`. Returns the builder."""
     from tracy_tpu_torch.scene import sphere_grid
     from tracy_tpu_torch.scene.scene import (
         TEX_BASECOLOR, TEX_EMISSIVE, TEX_METALNESS, TEX_NORMAL, TEX_ROUGHNESS)
@@ -194,7 +200,7 @@ def textured_grid(width: int, height: int, map_size: int = MAP_SIZE,
         }
         floor_map = (rgba(noise(0.1, 0.6), noise(0.1, 0.6), noise(0.1, 0.6)), True)
     else:
-        b.name = "grid64x28-jpeg"
+        b.name = name
         floor_map = maps[TEX_BASECOLOR]
     for slot, (img, srgb) in maps.items():
         b.set_material_texture(grey, slot, b.add_texture(img, srgb=srgb))
@@ -958,6 +964,28 @@ FIXTURE_MAPS = (("basecolor.jpg", "B", True), ("normal.jpg", "N", False),
 # The same slots in the formats of csrc/image_formats.cpp.
 FORMATS_DIR = os.path.join(REPO, "tests", "goldens", "formats")
 FORMAT_MAPS = ("basecolor.tga", "normal.bmp", "roughness.gif", "metalness.pgm", "emissive.psd")
+# And in the formats of csrc/image_blocks.cpp, image_tiff.cpp and QOI.
+TIFFDDS_DIR = os.path.join(REPO, "tests", "goldens", "tiffdds")
+TIFFDDS_MAPS = ("basecolor.dds", "normal.dds", "roughness.tif", "metalness.tif", "emissive.qoi")
+# grid64x28-dds's maps: slot name, DXGI block format, sRGB.
+DDS_GRID_MAPS = (("B", "BC7", True), ("N", "BC5", False), ("R", "BC4", False),
+                 ("M", "BC4", False), ("E", "BC7", True))
+
+
+def random_dds(size: int, fmt: str, seed: int) -> bytes:
+    """A size x size DDS file of random blocks from `seed`: a DX10 header
+    naming DXGI BC4, BC5 or BC7 UNORM, then the blocks (BC7's first byte
+    set to one of its eight modes)."""
+    dxgi, block = {"BC4": (80, 8), "BC5": (83, 16), "BC7": (98, 16)}[fmt]
+    rng = np.random.default_rng(seed)
+    n = (size // 4) ** 2
+    data = rng.integers(0, 256, (n, block), dtype=np.uint8)
+    if fmt == "BC7":
+        data[:, 0] = ((data[:, 0] | 1) << rng.integers(0, 8, n)).astype(np.uint8)
+    pf = struct.pack("<II4sI4I", 32, 0x4, b"DX10", 0, 0, 0, 0, 0)
+    head = (struct.pack("<7I", 124, 0x81007, size, size, n * block, 0, 0) + bytes(44) + pf
+            + struct.pack("<5I", 0x1000, 0, 0, 0, 0))
+    return b"DDS " + head + struct.pack("<5I", dxgi, 3, 0, 1, 0) + data.tobytes()
 
 
 def fixture_gate(directory, scn, counts, dev, card):
@@ -1019,22 +1047,26 @@ def fixture_gate(directory, scn, counts, dev, card):
 def image_phase(ccfg, counts, dev, card):
     """16. Image textures on the card's machine, with PIL blocked (main()
     blocks it before any phase): each map's decode seconds on the host
-    (csrc/image_decode.cpp and image_formats.cpp, built by g++), the
-    JPEG/PNG fixture's and the TGA/BMP/GIF/PGM/PSD fixture's; each fixture
-    scene through `fixture_gate` (K1 + K4 against tracy_tpu's CPU render,
-    its basecolor AOV through K1 + K3 against the plain versions);
+    (csrc/image_decode.cpp, image_formats.cpp, image_tiff.cpp and
+    image_blocks.cpp, built by g++), the JPEG/PNG fixture's, the
+    TGA/BMP/GIF/PGM/PSD fixture's and the DDS/TIFF/QOI fixture's; each
+    fixture scene through `fixture_gate` (K1 + K4 against tracy_tpu's CPU
+    render, its basecolor AOV through K1 + K3 against the plain versions);
     grid64x28 with the JPEG/PNG fixture's maps in place of the numpy maps,
-    1080p compacted, 4 frames, timed (a beside-number). Returns ({path:
-    launches}, results)."""
+    and grid64x28-dds with 2048x2048 DDS maps of random blocks decoded
+    here, each 1080p compacted, 4 frames, timed (beside-numbers). Returns
+    ({path: launches}, results)."""
     from tracy_tpu_torch.render.renderer import Renderer, init_state
     from tracy_tpu_torch.scene.scene import (
         TEX_BASECOLOR, TEX_EMISSIVE, TEX_METALNESS, TEX_NORMAL, TEX_ROUGHNESS)
     from tracy_tpu_torch.scene.textures import load_image_rgba
+    from tracy_tpu_torch.utils.image_io import decode_image_rgba
 
     res, launches = {}, {}
     decoded = {}
     maps = [(FIXTURE_DIR, name) for name, _, _ in FIXTURE_MAPS]
-    for directory, name in maps + [(FORMATS_DIR, name) for name in FORMAT_MAPS]:
+    for directory, name in (maps + [(FORMATS_DIR, name) for name in FORMAT_MAPS]
+                            + [(TIFFDDS_DIR, name) for name in TIFFDDS_MAPS]):
         t0 = time.perf_counter()
         img = load_image_rgba(os.path.join(directory, name))
         secs = time.perf_counter() - t0
@@ -1045,37 +1077,60 @@ def image_phase(ccfg, counts, dev, card):
         print(f"decode {name} ({img.shape[1]}x{img.shape[0]}) on this card's host {card}: "
               f"{secs:.4f} s")
 
-    for directory, scn in ((FIXTURE_DIR, "textured.scn"), (FORMATS_DIR, "formats.scn")):
+    for directory, scn in ((FIXTURE_DIR, "textured.scn"), (FORMATS_DIR, "formats.scn"),
+                           (TIFFDDS_DIR, "tiffdds.scn")):
         more, gate = fixture_gate(directory, scn, counts, dev, card)
         launches.update(more)
         res[scn] = gate
 
     slots = {"B": TEX_BASECOLOR, "N": TEX_NORMAL, "R": TEX_ROUGHNESS, "M": TEX_METALNESS,
              "E": TEX_EMISSIVE}
-    t0 = time.perf_counter()
-    jb = textured_grid(WIDTH, HEIGHT, maps={slots[slot]: (decoded[name], srgb)
-                                            for name, slot, srgb in FIXTURE_MAPS})
-    jscene = jb.build(device=dev)
-    jrend = Renderer(ccfg)
-    jrend.step_many(jscene, init_state(ccfg, dev), 1)
-    setup = time.perf_counter() - t0
-    rates = []
-    for _ in range(3):
-        jrend.reset(dev)
-        reset(counts)
-        jst, nrays = jrend.step_many(jscene, init_state(ccfg, dev), FRAMES)
-        rates.append(jrend.mrays_per_sec)
-    launches["grid64x28-jpeg compacted"] = check_launches(
-        "grid64x28-jpeg", counts, {"K1": FRAMES * ccfg.max_bounces,
-                                   "K4": FRAMES * ccfg.max_bounces})
-    if not torch.isfinite(jst.accum).all():
-        raise RuntimeError("grid64x28-jpeg: non-finite image")
-    r_ = sorted(rates)
-    res["grid64x28-jpeg MRays/s"] = r_
+
+    def grid_path(label, grid_maps):
+        """grid64x28 with grid_maps ({slot: (float RGBA, srgb)}), 1080p
+        compacted, FRAMES frames, 3 timed runs: K1 and K4 once a bounce."""
+        t0 = time.perf_counter()
+        jb = textured_grid(WIDTH, HEIGHT, maps=grid_maps, name=label)
+        jscene = jb.build(device=dev)
+        jrend = Renderer(ccfg)
+        jrend.step_many(jscene, init_state(ccfg, dev), 1)
+        setup = time.perf_counter() - t0
+        rates = []
+        for _ in range(3):
+            jrend.reset(dev)
+            reset(counts)
+            jst, nrays = jrend.step_many(jscene, init_state(ccfg, dev), FRAMES)
+            rates.append(jrend.mrays_per_sec)
+        launches[f"{label} compacted"] = check_launches(
+            label, counts, {"K1": FRAMES * ccfg.max_bounces, "K4": FRAMES * ccfg.max_bounces})
+        if not torch.isfinite(jst.accum).all():
+            raise RuntimeError(f"{label}: non-finite image")
+        r_ = sorted(rates)
+        res[f"{label} MRays/s"] = r_
+        return r_, nrays, setup, jscene.tex_data.numel() * 4
+
+    r_, nrays, setup, atlas = grid_path("grid64x28-jpeg", {
+        slots[slot]: (decoded[name], srgb) for name, slot, srgb in FIXTURE_MAPS})
     print(f"grid64x28-jpeg (grid64x28 with the fixture's decoded maps), 1920x1080 compacted, "
           f"{FRAMES} frames {card}: MRays/s median {r_[1]:.2f} (min {r_[0]:.2f}, max "
           f"{r_[2]:.2f}) over 3 runs, {nrays} rays; set-up {setup:.1f} s, atlas "
-          f"{jscene.tex_data.numel() * 4} bytes; no gain claimed")
+          f"{atlas} bytes; no gain claimed")
+
+    dds_maps = {}
+    for k, (slot, fmt, srgb) in enumerate(DDS_GRID_MAPS):
+        data = random_dds(MAP_SIZE, fmt, SEED + k)
+        t0 = time.perf_counter()
+        img = decode_image_rgba(data).astype(np.float32) / 255.0
+        secs = time.perf_counter() - t0
+        res[f"decode_s grid64x28-dds {slot} {fmt}"] = secs
+        print(f"decode grid64x28-dds {slot} map ({MAP_SIZE}x{MAP_SIZE} {fmt}, {len(data)} "
+              f"bytes) on this card's host {card}: {secs:.4f} s")
+        dds_maps[slots[slot]] = (img, srgb)
+    r_, nrays, setup, atlas = grid_path("grid64x28-dds", dds_maps)
+    print(f"grid64x28-dds (grid64x28 with 2048x2048 BC7/BC5/BC4 maps decoded here), 1920x1080 "
+          f"compacted, {FRAMES} frames {card}: MRays/s median {r_[1]:.2f} (min {r_[0]:.2f}, "
+          f"max {r_[2]:.2f}) over 3 runs, {nrays} rays; set-up {setup:.1f} s, atlas "
+          f"{atlas} bytes; no gain claimed")
     return launches, res
 
 

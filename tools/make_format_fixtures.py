@@ -109,7 +109,9 @@ def write_maps(rng):
         f.write(SCN)
 
 
-def render_golden():
+def render_golden(out=OUT, name="formats", want=SIZES):
+    """tracy_tpu's CPU render of out/name.scn into out/name.npz, after
+    checking that it loaded maps of the sizes `want`."""
     sys.path.insert(0, REPO)
     import jax
 
@@ -119,16 +121,16 @@ def render_golden():
     from tracy_tpu.render.renderer import Renderer, init_state
     from tracy_tpu.scene.scn_parser import load_scene
 
-    b = load_scene(os.path.join(OUT, "formats.scn"))
+    b = load_scene(os.path.join(out, f"{name}.scn"))
     sizes = [img.shape[:2] for img in b.atlas.pixels]
-    if sizes != SIZES:
+    if sizes != want:
         raise RuntimeError(f"tracy_tpu did not load the five maps: {sizes}")
     cfg = RenderConfig(width=b.width, height=b.height, spp=1, accel="bvh", use_pallas=False)
     r = Renderer(cfg)
     st = r.render_progressive(b.build(), FRAMES, state=init_state(cfg),
                               steps_per_dispatch=FRAMES)
     img = np.clip(np.asarray(film.tonemap(st.accum, cfg)) * 255.99, 0.0, 255.0)
-    np.savez_compressed(os.path.join(OUT, "formats.npz"), image=img[::-1].astype(np.float16),
+    np.savez_compressed(os.path.join(out, f"{name}.npz"), image=img[::-1].astype(np.float16),
                         frames=np.int32(FRAMES))
 
 

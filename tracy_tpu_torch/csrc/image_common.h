@@ -1,0 +1,108 @@
+// What the host image decoders share (image_formats.cpp, image_tiff.cpp,
+// image_blocks.cpp): bounds-checked reads of the file, the size limit, the
+// fault type, and the guard that turns a fault into the return codes of
+// the extern "C" entry points (0; 1, a fault of the file; 2, a failure
+// inside the decoder), the message going to tracy_decode_error().
+
+#pragma once
+
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <stdexcept>
+#include <string>
+#include <vector>
+
+namespace tracy_image {
+void set_error(const std::string& msg);
+}
+
+namespace {
+
+struct DecodeError : std::runtime_error {
+  using std::runtime_error::runtime_error;
+};
+
+[[noreturn]] void fail(const std::string& msg) { throw DecodeError(msg); }
+
+// PIL's decompression-bomb error starts at twice its 89.5 M-pixel warning
+// (utils/image_io.py::MAX_PIXELS, which PNG and JPEG are held to).
+constexpr int64_t kMaxPixels = 2 * int64_t(89478485);
+
+// Bounds-checked reads of the file; `fmt` names the format in errors.
+struct Bytes {
+  const uint8_t* p;
+  size_t n;
+  const char* fmt;
+
+  void need(size_t at, size_t k) const {
+    if (at > n || k > n - at) fail(std::string(fmt) + ": file is truncated");
+  }
+  uint8_t u8(size_t at) const {
+    need(at, 1);
+    return p[at];
+  }
+  uint32_t le16(size_t at) const {
+    need(at, 2);
+    return p[at] | p[at + 1] << 8;
+  }
+  uint32_t le32(size_t at) const {
+    need(at, 4);
+    return p[at] | p[at + 1] << 8 | p[at + 2] << 16 | uint32_t(p[at + 3]) << 24;
+  }
+  uint32_t be16(size_t at) const {
+    need(at, 2);
+    return p[at] << 8 | p[at + 1];
+  }
+  uint32_t be32(size_t at) const {
+    need(at, 4);
+    return uint32_t(p[at]) << 24 | p[at + 1] << 16 | p[at + 2] << 8 | p[at + 3];
+  }
+};
+
+void check_size(const char* fmt, int64_t w, int64_t h) {
+  if (w <= 0 || h <= 0 || w * h > kMaxPixels) {
+    fail(std::string(fmt) + ": " + std::to_string(w) + "x" + std::to_string(h) +
+         " pixels not read");
+  }
+}
+
+void check_out(const char* fmt, int64_t w, int64_t h, int out_w, int out_h) {
+  if (w != out_w || h != out_h) fail(std::string(fmt) + ": size changed between calls");
+}
+
+inline void put(uint8_t* o, int r, int g, int b, int a) {
+  o[0] = static_cast<uint8_t>(r);
+  o[1] = static_cast<uint8_t>(g);
+  o[2] = static_cast<uint8_t>(b);
+  o[3] = static_cast<uint8_t>(a);
+}
+
+
+template <class F>
+int guarded(F&& f) {
+  try {
+    f();
+    return 0;
+  } catch (const DecodeError& e) {
+    tracy_image::set_error(e.what());
+    return 1;
+  } catch (const std::exception& e) {
+    tracy_image::set_error(std::string("decoder failure: ") + e.what());
+    return 2;
+  }
+}
+
+template <class H>
+int info(const char* fmt, const uint8_t* data, int64_t len, int* w, int* h, H&& header) {
+  return guarded([&] {
+    const Bytes b{data, static_cast<size_t>(len), fmt};
+    const auto m = header(b);
+    *w = static_cast<int>(m.w);
+    *h = static_cast<int>(m.h);
+  });
+}
+
+}  // namespace

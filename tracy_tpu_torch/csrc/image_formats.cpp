@@ -1,6 +1,7 @@
-// TGA, BMP, GIF, PNM and PSD decoding on the host, for the texture loader
-// and read_image: the rest of the formats that stb_image (the C++
-// reference's loader) and PIL (tracy_tpu's) both read.
+// TGA, BMP, GIF, PNM, PSD and QOI decoding on the host, for the texture
+// loader and read_image: the rest of the formats that stb_image (the C++
+// reference's loader) and PIL (tracy_tpu's) both read, and QOI, which PIL
+// reads.
 //
 // Built into the same library as image_decode.cpp (utils/native.py::
 // get_image_lib) and with its conventions: an extern "C" pair for each
@@ -41,84 +42,16 @@
 //   data; RGB with exactly 4 channels keeps the fourth as alpha, as PIL
 //   does. PackBits counts are read for every channel of the file (PIL
 //   reads those of the channels it uses only).
+// QOI: RGB and RGBA, all six ops and the index hash, as PIL's QoiDecoder.
 //
 // Anything else is refused by name: TGA at 1 bit, BMP JPEG/PNG/other
 // compressions and bitfield layouts PIL refuses, PFM and PIL's own P0/Py
 // PNM kinds, PSB, 16- and 32-bit PSD, CMYK, Lab and 1-bit bitmap PSD. Only
 // a GIF's first frame is ever read.
 
-#include <algorithm>
-#include <cmath>
-#include <cstdint>
-#include <cstring>
-#include <stdexcept>
-#include <string>
-#include <vector>
-
-namespace tracy_image {
-void set_error(const std::string& msg);
-}
+#include "image_common.h"
 
 namespace {
-
-struct DecodeError : std::runtime_error {
-  using std::runtime_error::runtime_error;
-};
-
-[[noreturn]] void fail(const std::string& msg) { throw DecodeError(msg); }
-
-// PIL's decompression-bomb error starts at twice its 89.5 M-pixel warning
-// (utils/image_io.py::MAX_PIXELS, which PNG and JPEG are held to).
-constexpr int64_t kMaxPixels = 2 * int64_t(89478485);
-
-// Bounds-checked reads of the file; `fmt` names the format in errors.
-struct Bytes {
-  const uint8_t* p;
-  size_t n;
-  const char* fmt;
-
-  void need(size_t at, size_t k) const {
-    if (at > n || k > n - at) fail(std::string(fmt) + ": file is truncated");
-  }
-  uint8_t u8(size_t at) const {
-    need(at, 1);
-    return p[at];
-  }
-  uint32_t le16(size_t at) const {
-    need(at, 2);
-    return p[at] | p[at + 1] << 8;
-  }
-  uint32_t le32(size_t at) const {
-    need(at, 4);
-    return p[at] | p[at + 1] << 8 | p[at + 2] << 16 | uint32_t(p[at + 3]) << 24;
-  }
-  uint32_t be16(size_t at) const {
-    need(at, 2);
-    return p[at] << 8 | p[at + 1];
-  }
-  uint32_t be32(size_t at) const {
-    need(at, 4);
-    return uint32_t(p[at]) << 24 | p[at + 1] << 16 | p[at + 2] << 8 | p[at + 3];
-  }
-};
-
-void check_size(const char* fmt, int64_t w, int64_t h) {
-  if (w <= 0 || h <= 0 || w * h > kMaxPixels) {
-    fail(std::string(fmt) + ": " + std::to_string(w) + "x" + std::to_string(h) +
-         " pixels not read");
-  }
-}
-
-void check_out(const char* fmt, int64_t w, int64_t h, int out_w, int out_h) {
-  if (w != out_w || h != out_h) fail(std::string(fmt) + ": size changed between calls");
-}
-
-inline void put(uint8_t* o, int r, int g, int b, int a) {
-  o[0] = static_cast<uint8_t>(r);
-  o[1] = static_cast<uint8_t>(g);
-  o[2] = static_cast<uint8_t>(b);
-  o[3] = static_cast<uint8_t>(a);
-}
 
 inline int scale5(int v) { return v * 255 / 31; }
 
@@ -978,30 +911,63 @@ void psd_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
   }
 }
 
-// ---------------------------------------------------------------- entry
+// ---------------------------------------------------------------- QOI
 
-template <class F>
-int guarded(F&& f) {
-  try {
-    f();
-    return 0;
-  } catch (const DecodeError& e) {
-    tracy_image::set_error(e.what());
-    return 1;
-  } catch (const std::exception& e) {
-    tracy_image::set_error(std::string("decoder failure: ") + e.what());
-    return 2;
-  }
+struct Qoi {
+  int64_t w, h;
+  bool rgba;
+};
+
+Qoi qoi_header(const Bytes& b) {
+  b.need(0, 14);
+  if (std::memcmp(b.p, "qoif", 4) != 0) fail("QOI: not a QOI file");
+  Qoi q{b.be32(4), b.be32(8), b.u8(12) != 3};
+  check_size("QOI", q.w, q.h);
+  return q;
 }
 
-template <class H>
-int info(const char* fmt, const uint8_t* data, int64_t len, int* w, int* h, H&& header) {
-  return guarded([&] {
-    const Bytes b{data, static_cast<size_t>(len), fmt};
-    const auto m = header(b);
-    *w = static_cast<int>(m.w);
-    *h = static_cast<int>(m.h);
-  });
+// As PIL's QoiDecoder: the previous pixel starts (0, 0, 0, 255), the index
+// (0, 0, 0, 0); a run repeats the previous pixel and may pass the last one.
+// An RGB file keeps the alpha an RGBA op sets in its state, and drops it.
+void qoi_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
+  const Qoi q = qoi_header(b);
+  check_out("QOI", q.w, q.h, out_w, out_h);
+  uint8_t index[64][4] = {};
+  uint8_t px[4] = {0, 0, 0, 255};
+  const size_t n = static_cast<size_t>(q.w * q.h);
+  size_t pos = 14, i = 0;
+  while (i < n) {
+    const int op = b.u8(pos++);
+    if (op == 0xfe) {
+      b.need(pos, 3);
+      std::memcpy(px, b.p + pos, 3);
+      pos += 3;
+    } else if (op == 0xff) {
+      b.need(pos, 4);
+      std::memcpy(px, b.p + pos, 4);
+      pos += 4;
+    } else if (op >> 6 == 0) {
+      std::memcpy(px, index[op & 63], 4);
+    } else if (op >> 6 == 1) {
+      px[0] = static_cast<uint8_t>(px[0] + ((op >> 4) & 3) - 2);
+      px[1] = static_cast<uint8_t>(px[1] + ((op >> 2) & 3) - 2);
+      px[2] = static_cast<uint8_t>(px[2] + (op & 3) - 2);
+    } else if (op >> 6 == 2) {
+      const int second = b.u8(pos++);
+      const int dg = (op & 63) - 32;
+      px[0] = static_cast<uint8_t>(px[0] + dg + (second >> 4) - 8);
+      px[1] = static_cast<uint8_t>(px[1] + dg);
+      px[2] = static_cast<uint8_t>(px[2] + dg + (second & 15) - 8);
+    } else {
+      const size_t run = std::min<size_t>((op & 63) + 1, n - i);
+      for (size_t k = 0; k < run; ++k, ++i) {
+        put(out + 4 * i, px[0], px[1], px[2], q.rgba ? px[3] : 255);
+      }
+      continue;
+    }
+    std::memcpy(index[(px[0] * 3 + px[1] * 5 + px[2] * 7 + px[3] * 11) % 64], px, 4);
+    put(out + 4 * i++, px[0], px[1], px[2], q.rgba ? px[3] : 255);
+  }
 }
 
 }  // namespace
@@ -1039,6 +1005,12 @@ int tracy_psd_info(const uint8_t* data, int64_t len, int* w, int* h) {
 }
 int tracy_psd_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) {
   return guarded([&] { psd_decode({data, static_cast<size_t>(len), "PSD"}, out, w, h); });
+}
+int tracy_qoi_info(const uint8_t* data, int64_t len, int* w, int* h) {
+  return info("QOI", data, len, w, h, qoi_header);
+}
+int tracy_qoi_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) {
+  return guarded([&] { qoi_decode({data, static_cast<size_t>(len), "QOI"}, out, w, h); });
 }
 
 }  // extern "C"

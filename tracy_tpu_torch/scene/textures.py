@@ -7,11 +7,12 @@ scene live in ONE flat `[P, 4]` float32 atlas plus an int table
 `[K, 4] = (offset, width, height, 0)`.
 
 Radiance .hdr files go through the own decoder below (numpy only); PNG,
-JPEG, BMP, GIF, PNM (P1-P6), PSD and TGA files through
-csrc/image_decode.cpp and csrc/image_formats.cpp (utils/image_io.py), told
-apart by their first bytes, whatever their name says: every 8-bit format
-that stb_image (the C++ reference's loader) and PIL (tracy_tpu's) both
-read. Nothing here imports PIL, which the GPU machine lacks.
+JPEG, BMP, GIF, PNM (P1-P6), PSD and TGA files (every 8-bit format that
+stb_image, the C++ reference's loader, and PIL, tracy_tpu's, both read)
+and TIFF, DDS and QOI files (which PIL reads) through csrc/image_decode.cpp,
+image_formats.cpp, image_tiff.cpp and image_blocks.cpp (utils/image_io.py),
+told apart by their first bytes, whatever their name says. Nothing here
+imports PIL, which the GPU machine lacks.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ def load_image_rgba(path: str) -> Optional[np.ndarray]:
             if img.shape[-1] == 3:
                 img = np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
             return img
-        raise ValueError(f"not a {READ_FORMATS}, Radiance .hdr or .exr file")
+        raise ValueError(f"not a {READ_FORMATS} file, nor a Radiance .hdr or .exr file")
     except RuntimeError:
         raise
     except Exception as e:  # missing file, bad or refused format

@@ -6,8 +6,9 @@ PIL; the GPU machine has no PIL, and the command-line default output is
 `render.png`, so the port writes PNG with the standard library (zlib and
 struct: 8-bit RGB, one IDAT chunk, filter 0 on every row). Files are read
 by the decoders of csrc/image_decode.cpp (PNG, JPEG; Python's zlib
-inflates PNG data) and csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD),
-built by g++ at first use (utils/native.py::get_image_lib), never by PIL;
+inflates PNG data), csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD, QOI),
+csrc/image_tiff.cpp (TIFF) and csrc/image_blocks.cpp (DDS), built by g++
+at first use (utils/native.py::get_image_lib), never by PIL;
 `image_format` tells them apart by their first bytes, as PIL does.
 `read_image` reads back what the inverse-rendering CLI takes as a target:
 .npy and .hdr (scene/textures.py's Radiance decoder) by name, any of those
@@ -26,9 +27,11 @@ from tracy_tpu_torch.utils.native import get_image_lib
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
-READ_FORMATS = "PNG, JPEG, BMP, GIF, PNM, PSD or TGA"
+# Classic TIFF and BigTIFF, little- and big-endian.
+TIFF_SIGNATURES = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
+READ_FORMATS = "PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF, DDS or QOI"
 # Larger images are refused as corrupt headers (PIL's decompression-bomb
-# error starts at twice its 89.5 M-pixel warning); csrc/image_formats.cpp
+# error starts at twice its 89.5 M-pixel warning); csrc/image_common.h
 # holds the other formats to the same limit (kMaxPixels).
 MAX_PIXELS = 2 * 89_478_485
 
@@ -187,8 +190,10 @@ def _tga_header_ok(data: bytes) -> bool:
 def image_format(data: bytes):
     """The format of an image file by its first bytes, as PIL tells them
     apart: "png", "jpeg", "bmp" (BM), "gif" (GIF87a/GIF89a), "pnm" (P and a
-    kind), "psd" (8BPS), else "tga" if the header passes TGA's checks, else
-    None. The decoders may still refuse a kind they do not read."""
+    kind), "psd" (8BPS), "tiff" (II*, MM*, and BigTIFF's II+, MM+), "dds"
+    (DDS and a space), "qoi" (qoif), else "tga" if the header passes TGA's
+    checks (it has no magic, so it comes last), else None. The decoders may
+    still refuse a kind they do not read."""
     if data[:8] == PNG_SIGNATURE:
         return "png"
     if data[:3] == JPEG_SIGNATURE:
@@ -201,12 +206,19 @@ def image_format(data: bytes):
         return "pnm"
     if data[:4] == b"8BPS":
         return "psd"
+    if data[:4] in TIFF_SIGNATURES:
+        return "tiff"
+    if data[:4] == b"DDS ":
+        return "dds"
+    if data[:4] == b"qoif":
+        return "qoi"
     return "tga" if _tga_header_ok(data) else None
 
 
 def _decode_native(fmt: str, data: bytes) -> np.ndarray:
-    """uint8 RGBA [H, W, 4] from csrc/image_formats.cpp's tracy_<fmt>_info
-    (which refuses sizes beyond MAX_PIXELS) and tracy_<fmt>_decode."""
+    """uint8 RGBA [H, W, 4] from tracy_<fmt>_info (which refuses sizes
+    beyond MAX_PIXELS) and tracy_<fmt>_decode of csrc/image_formats.cpp,
+    image_tiff.cpp or image_blocks.cpp."""
     lib = get_image_lib()
     name = fmt.upper()
     w, h = ctypes.c_int(), ctypes.c_int()
@@ -218,8 +230,8 @@ def _decode_native(fmt: str, data: bytes) -> np.ndarray:
 
 
 def decode_image_rgba(data: bytes) -> np.ndarray:
-    """uint8 RGBA [H, W, 4] of a PNG, JPEG, BMP, GIF, PNM, PSD or TGA file,
-    told apart by its first bytes (not its name; `image_format`), as PIL's
+    """uint8 RGBA [H, W, 4] of a PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF,
+    DDS or QOI file, told apart by its first bytes (not its name; `image_format`), as PIL's
     open(...).convert("RGBA") gives it but for ROADMAP's hazards. Raises
     ValueError for anything else, or for a kind the decoders refuse, named."""
     fmt = image_format(data)
@@ -249,7 +261,8 @@ def load_npy_state(path: str) -> np.ndarray:
 def read_image(path: str):
     """(float32 RGB [H, W, 3], linear): .npy and .hdr by name, .hdr and
     float .npy as stored (linear True); any other file by its content, a
-    PNG, JPEG, BMP, GIF, PNM, PSD or TGA file scaled to [0, 1] (display
+    PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF, DDS or QOI file scaled to
+    [0, 1] (display
     values, linear False), as tracy_tpu's optimize_cli reads its target
     (PIL's convert("RGB"), alpha dropped)."""
     low = path.lower()

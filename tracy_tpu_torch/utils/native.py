@@ -6,8 +6,9 @@ flags (`-ffp-contract=off` keeps the SAH cost sums bit-equal to the numpy
 builder) into build/native/<hash>/libtracy_native.so; without a compiler
 the callers take their numpy versions.
 
-`get_image_lib`: the image decoders of csrc/image_decode.cpp (PNG, JPEG)
-and csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD), in
+`get_image_lib`: the image decoders of csrc/image_decode.cpp (PNG, JPEG),
+csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD, QOI), image_tiff.cpp
+(TIFF) and image_blocks.cpp (DDS), in
 build/native/<hash>/libtracy_image.so. g++ (not nvcc), so that the CPU
 tests run the same code as the card's host. They have no other version:
 if the library cannot be built, `get_image_lib` raises
@@ -41,9 +42,14 @@ SOURCES = tuple(os.path.join(NATIVE_DIR, s) for s in ("bvh_builder.cpp", "obj_lo
 CXXFLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-fPIC", "-shared",
             "-std=c++17", "-Wall"]
 IMAGE_SOURCES = tuple(os.path.join(CSRC_DIR, s) for s in ("image_decode.cpp",
-                                                          "image_formats.cpp"))
-# Formats of csrc/image_formats.cpp, each with tracy_<fmt>_info/_decode.
-IMAGE_FORMATS = ("tga", "bmp", "gif", "pnm", "psd")
+                                                          "image_formats.cpp",
+                                                          "image_tiff.cpp",
+                                                          "image_blocks.cpp"))
+# Included by the sources: part of the library's hash, not of the command.
+IMAGE_HEADERS = (os.path.join(CSRC_DIR, "image_common.h"),)
+# Formats of csrc/image_formats.cpp, image_tiff.cpp and image_blocks.cpp,
+# each with tracy_<fmt>_info/_decode.
+IMAGE_FORMATS = ("tga", "bmp", "gif", "pnm", "psd", "qoi", "tiff", "dds")
 # No -march=native: the same code on this machine and on the card's host.
 IMAGE_CXXFLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17", "-Wall"]
 
@@ -57,9 +63,9 @@ class ImageDecoderUnavailable(RuntimeError):
     """The image decoder library could not be built or loaded."""
 
 
-def _so_path(name: str, sources, flags) -> str:
+def _so_path(name: str, sources, flags, headers=()) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    for path in sources:
+    for path in (*sources, *headers):
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + f.read())
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16], name)
@@ -134,7 +140,7 @@ def get_image_lib() -> ctypes.CDLL:
     with _lock:
         if _image_lib is not None:
             return _image_lib
-        so_path = _so_path("libtracy_image.so", IMAGE_SOURCES, IMAGE_CXXFLAGS)
+        so_path = _so_path("libtracy_image.so", IMAGE_SOURCES, IMAGE_CXXFLAGS, IMAGE_HEADERS)
         err = None if os.path.exists(so_path) else _compile(so_path, IMAGE_SOURCES,
                                                               IMAGE_CXXFLAGS)
         if err is not None:
