@@ -119,8 +119,11 @@ Phases, each fatal on failure:
    one's basecolor AOV through K1 + K3, frame 0 equal to the plain
    versions'; the same for tests/goldens/tiffdds/ (DXT5 and BC5 DDS, LZW
    and tiled deflate TIFF, QOI; csrc/image_blocks.cpp, image_tiff.cpp)
-   and tiffdds.scn; grid64x28 with the JPEG/PNG maps in place of the numpy
-   maps at 1080p, compacted, 4 frames, timed (no gain claimed), and
+   and tiffdds.scn, and for tests/goldens/webp/ (lossy, lossless, lossy
+   with alpha, lossless palette and animated WebP; csrc/image_webp.cpp)
+   and webp.scn, with the decode seconds of its two 2048x2048 maps (lossy
+   with alpha, lossless); grid64x28 with the JPEG/PNG maps in place of
+   the numpy maps at 1080p, compacted, 4 frames, timed (no gain claimed), and
    grid64x28-dds, the same with 2048x2048 DDS maps made here from random
    blocks (BC7 basecolor and emissive, BC5 normal, BC4 roughness and
    metalness), decoded on this host;
@@ -967,6 +970,12 @@ FORMAT_MAPS = ("basecolor.tga", "normal.bmp", "roughness.gif", "metalness.pgm", 
 # And in the formats of csrc/image_blocks.cpp, image_tiff.cpp and QOI.
 TIFFDDS_DIR = os.path.join(REPO, "tests", "goldens", "tiffdds")
 TIFFDDS_MAPS = ("basecolor.dds", "normal.dds", "roughness.tif", "metalness.tif", "emissive.qoi")
+# And as WebP (csrc/image_webp.cpp): lossy, lossless, lossy with alpha,
+# lossless palette, animated; and two 2048x2048 maps, decode timing only.
+WEBP_DIR = os.path.join(REPO, "tests", "goldens", "webp")
+WEBP_MAPS = ("basecolor.webp", "normal.webp", "roughness.webp", "metalness.webp",
+             "emissive.webp")
+WEBP_BIG = ("big_lossy_alpha.webp", "big_lossless.webp")
 # grid64x28-dds's maps: slot name, DXGI block format, sRGB.
 DDS_GRID_MAPS = (("B", "BC7", True), ("N", "BC5", False), ("R", "BC4", False),
                  ("M", "BC4", False), ("E", "BC7", True))
@@ -1047,11 +1056,13 @@ def fixture_gate(directory, scn, counts, dev, card):
 def image_phase(ccfg, counts, dev, card):
     """16. Image textures on the card's machine, with PIL blocked (main()
     blocks it before any phase): each map's decode seconds on the host
-    (csrc/image_decode.cpp, image_formats.cpp, image_tiff.cpp and
-    image_blocks.cpp, built by g++), the JPEG/PNG fixture's, the
-    TGA/BMP/GIF/PGM/PSD fixture's and the DDS/TIFF/QOI fixture's; each
-    fixture scene through `fixture_gate` (K1 + K4 against tracy_tpu's CPU
-    render, its basecolor AOV through K1 + K3 against the plain versions);
+    (csrc/image_decode.cpp, image_formats.cpp, image_tiff.cpp,
+    image_blocks.cpp and image_webp.cpp, built by g++), the JPEG/PNG
+    fixture's, the TGA/BMP/GIF/PGM/PSD fixture's, the DDS/TIFF/QOI
+    fixture's and the WebP fixture's, and the two 2048x2048 WebP maps';
+    each fixture scene through `fixture_gate` (K1 + K4 against tracy_tpu's
+    CPU render, its basecolor AOV through K1 + K3 against the plain
+    versions);
     grid64x28 with the JPEG/PNG fixture's maps in place of the numpy maps,
     and grid64x28-dds with 2048x2048 DDS maps of random blocks decoded
     here, each 1080p compacted, 4 frames, timed (beside-numbers). Returns
@@ -1066,7 +1077,8 @@ def image_phase(ccfg, counts, dev, card):
     decoded = {}
     maps = [(FIXTURE_DIR, name) for name, _, _ in FIXTURE_MAPS]
     for directory, name in (maps + [(FORMATS_DIR, name) for name in FORMAT_MAPS]
-                            + [(TIFFDDS_DIR, name) for name in TIFFDDS_MAPS]):
+                            + [(TIFFDDS_DIR, name) for name in TIFFDDS_MAPS]
+                            + [(WEBP_DIR, name) for name in WEBP_MAPS + WEBP_BIG]):
         t0 = time.perf_counter()
         img = load_image_rgba(os.path.join(directory, name))
         secs = time.perf_counter() - t0
@@ -1078,7 +1090,7 @@ def image_phase(ccfg, counts, dev, card):
               f"{secs:.4f} s")
 
     for directory, scn in ((FIXTURE_DIR, "textured.scn"), (FORMATS_DIR, "formats.scn"),
-                           (TIFFDDS_DIR, "tiffdds.scn")):
+                           (TIFFDDS_DIR, "tiffdds.scn"), (WEBP_DIR, "webp.scn")):
         more, gate = fixture_gate(directory, scn, counts, dev, card)
         launches.update(more)
         res[scn] = gate
@@ -1728,7 +1740,7 @@ def main() -> int:
         print(f"  ptxas {src}: " + ptxas_summary(log))
     t0 = time.perf_counter()
     native.get_image_lib()  # the image decoders, g++ at first use
-    print(f"build: csrc/image_decode.cpp and image_formats.cpp with g++ "
+    print(f"build: {', '.join(os.path.basename(s) for s in native.IMAGE_SOURCES)} with g++ "
           f"{' '.join(native.IMAGE_CXXFLAGS)}, built or loaded in "
           f"{time.perf_counter() - t0:.2f} s")
 

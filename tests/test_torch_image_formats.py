@@ -631,7 +631,7 @@ def test_read_image_and_optimize_cli_target(tmp_path, monkeypatch, caplog, name)
 def test_optimize_cli_names_the_formats_it_reads(tmp_path, capsys):
     from tracy_tpu_torch.apps import optimize_cli
 
-    path = write(tmp_path, "target.webp", b"RIFF" + struct.pack("<I", 64) + b"WEBPVP8 " + bytes(56))
+    path = write(tmp_path, "target.avif", struct.pack(">I", 28) + b"ftypavif" + bytes(16))
     with pytest.raises(SystemExit):
         optimize_cli.main(["-cpu", "-width", "8", "-height", "6", "-target", path])
-    assert "PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF, DDS or QOI" in capsys.readouterr().err
+    assert "PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF, DDS, QOI or WebP" in capsys.readouterr().err

@@ -1,5 +1,5 @@
-"""Image files: PNG and PPM written, every 8-bit format of stb_image read,
-without PIL.
+"""Image files: PNG and PPM written, every 8-bit format of stb_image and
+WebP read, without PIL.
 
 Port of tracy_tpu/utils/image_io.py. The JAX package writes PNG through
 PIL; the GPU machine has no PIL, and the command-line default output is
@@ -7,7 +7,8 @@ PIL; the GPU machine has no PIL, and the command-line default output is
 struct: 8-bit RGB, one IDAT chunk, filter 0 on every row). Files are read
 by the decoders of csrc/image_decode.cpp (PNG, JPEG; Python's zlib
 inflates PNG data), csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD, QOI),
-csrc/image_tiff.cpp (TIFF) and csrc/image_blocks.cpp (DDS), built by g++
+csrc/image_tiff.cpp (TIFF), csrc/image_blocks.cpp (DDS) and
+csrc/image_webp.cpp (WebP), built by g++
 at first use (utils/native.py::get_image_lib), never by PIL;
 `image_format` tells them apart by their first bytes, as PIL does.
 `read_image` reads back what the inverse-rendering CLI takes as a target:
@@ -29,7 +30,9 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
 # Classic TIFF and BigTIFF, little- and big-endian.
 TIFF_SIGNATURES = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
-READ_FORMATS = "PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF, DDS or QOI"
+READ_FORMATS = "PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF, DDS, QOI or WebP"
+# The chunks after RIFF....WEBP that PIL's WebP plugin accepts.
+WEBP_CHUNKS = (b"VP8 ", b"VP8X", b"VP8L")
 # Larger images are refused as corrupt headers (PIL's decompression-bomb
 # error starts at twice its 89.5 M-pixel warning); csrc/image_common.h
 # holds the other formats to the same limit (kMaxPixels).
@@ -191,9 +194,10 @@ def image_format(data: bytes):
     """The format of an image file by its first bytes, as PIL tells them
     apart: "png", "jpeg", "bmp" (BM), "gif" (GIF87a/GIF89a), "pnm" (P and a
     kind), "psd" (8BPS), "tiff" (II*, MM*, and BigTIFF's II+, MM+), "dds"
-    (DDS and a space), "qoi" (qoif), else "tga" if the header passes TGA's
-    checks (it has no magic, so it comes last), else None. The decoders may
-    still refuse a kind they do not read."""
+    (DDS and a space), "qoi" (qoif), "webp" (RIFF, WEBP at byte 8 and a VP8,
+    VP8L or VP8X chunk at 12), else "tga" if the header passes TGA's checks
+    (it has no magic, so it comes last), else None. The decoders may still
+    refuse a kind they do not read."""
     if data[:8] == PNG_SIGNATURE:
         return "png"
     if data[:3] == JPEG_SIGNATURE:
@@ -212,13 +216,15 @@ def image_format(data: bytes):
         return "dds"
     if data[:4] == b"qoif":
         return "qoi"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in WEBP_CHUNKS:
+        return "webp"
     return "tga" if _tga_header_ok(data) else None
 
 
 def _decode_native(fmt: str, data: bytes) -> np.ndarray:
     """uint8 RGBA [H, W, 4] from tracy_<fmt>_info (which refuses sizes
     beyond MAX_PIXELS) and tracy_<fmt>_decode of csrc/image_formats.cpp,
-    image_tiff.cpp or image_blocks.cpp."""
+    image_tiff.cpp, image_blocks.cpp or image_webp.cpp."""
     lib = get_image_lib()
     name = fmt.upper()
     w, h = ctypes.c_int(), ctypes.c_int()
@@ -231,8 +237,8 @@ def _decode_native(fmt: str, data: bytes) -> np.ndarray:
 
 def decode_image_rgba(data: bytes) -> np.ndarray:
     """uint8 RGBA [H, W, 4] of a PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF,
-    DDS or QOI file, told apart by its first bytes (not its name; `image_format`), as PIL's
-    open(...).convert("RGBA") gives it but for ROADMAP's hazards. Raises
+    DDS, QOI or WebP file, told apart by its first bytes (not its name;
+    `image_format`), as PIL's open(...).convert("RGBA") gives it but for ROADMAP's hazards. Raises
     ValueError for anything else, or for a kind the decoders refuse, named."""
     fmt = image_format(data)
     if fmt == "png":
@@ -261,7 +267,7 @@ def load_npy_state(path: str) -> np.ndarray:
 def read_image(path: str):
     """(float32 RGB [H, W, 3], linear): .npy and .hdr by name, .hdr and
     float .npy as stored (linear True); any other file by its content, a
-    PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF, DDS or QOI file scaled to
+    PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF, DDS, QOI or WebP file scaled to
     [0, 1] (display
     values, linear False), as tracy_tpu's optimize_cli reads its target
     (PIL's convert("RGB"), alpha dropped)."""

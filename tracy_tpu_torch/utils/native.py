@@ -8,7 +8,7 @@ the callers take their numpy versions.
 
 `get_image_lib`: the image decoders of csrc/image_decode.cpp (PNG, JPEG),
 csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD, QOI), image_tiff.cpp
-(TIFF) and image_blocks.cpp (DDS), in
+(TIFF), image_blocks.cpp (DDS) and image_webp.cpp (WebP), in
 build/native/<hash>/libtracy_image.so. g++ (not nvcc), so that the CPU
 tests run the same code as the card's host. They have no other version:
 if the library cannot be built, `get_image_lib` raises
@@ -44,12 +44,13 @@ CXXFLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-fPIC", "-shared",
 IMAGE_SOURCES = tuple(os.path.join(CSRC_DIR, s) for s in ("image_decode.cpp",
                                                           "image_formats.cpp",
                                                           "image_tiff.cpp",
-                                                          "image_blocks.cpp"))
+                                                          "image_blocks.cpp",
+                                                          "image_webp.cpp"))
 # Included by the sources: part of the library's hash, not of the command.
 IMAGE_HEADERS = (os.path.join(CSRC_DIR, "image_common.h"),)
-# Formats of csrc/image_formats.cpp, image_tiff.cpp and image_blocks.cpp,
-# each with tracy_<fmt>_info/_decode.
-IMAGE_FORMATS = ("tga", "bmp", "gif", "pnm", "psd", "qoi", "tiff", "dds")
+# Formats of csrc/image_formats.cpp, image_tiff.cpp, image_blocks.cpp and
+# image_webp.cpp, each with tracy_<fmt>_info/_decode.
+IMAGE_FORMATS = ("tga", "bmp", "gif", "pnm", "psd", "qoi", "tiff", "dds", "webp")
 # No -march=native: the same code on this machine and on the card's host.
 IMAGE_CXXFLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17", "-Wall"]
 
