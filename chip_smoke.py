@@ -122,7 +122,11 @@ Phases, each fatal on failure:
    and tiffdds.scn, and for tests/goldens/webp/ (lossy, lossless, lossy
    with alpha, lossless palette and animated WebP; csrc/image_webp.cpp)
    and webp.scn, with the decode seconds of its two 2048x2048 maps (lossy
-   with alpha, lossless); grid64x28 with the JPEG/PNG maps in place of
+   with alpha, lossless), and for tests/goldens/containers/ (Adobe CMYK
+   progressive JPEG, 4:1:1 JPEG, ICO, BLP1 JPEG of four components, ICNS
+   it32; csrc/image_decode.cpp, image_containers.cpp) and containers.scn,
+   with the decode seconds of its 2048x2048 Adobe CMYK JPEG and of a YCCK
+   JPEG, a CUR, a DIB, an FTEX and two BLP2 files; grid64x28 with the JPEG/PNG maps in place of
    the numpy maps at 1080p, compacted, 4 frames, timed (no gain claimed), and
    grid64x28-dds, the same with 2048x2048 DDS maps made here from random
    blocks (BC7 basecolor and emissive, BC5 normal, BC4 roughness and
@@ -976,6 +980,16 @@ WEBP_DIR = os.path.join(REPO, "tests", "goldens", "webp")
 WEBP_MAPS = ("basecolor.webp", "normal.webp", "roughness.webp", "metalness.webp",
              "emissive.webp")
 WEBP_BIG = ("big_lossy_alpha.webp", "big_lossless.webp")
+# And as JPEG's four-component and 4:1:1 kinds and the containers
+# (csrc/image_decode.cpp, image_containers.cpp): Adobe CMYK progressive
+# JPEG, 4:1:1 JPEG, ICO, BLP1 JPEG of four components, ICNS it32; besides,
+# decode timing only: a 2048x2048 Adobe CMYK JPEG, YCCK, CUR, DIB, FTEX and
+# two BLP2 files (DXT5, palette).
+CONTAINERS_DIR = os.path.join(REPO, "tests", "goldens", "containers")
+CONTAINER_MAPS = ("basecolor.jpg", "normal_411.jpg", "roughness.ico", "metalness.blp",
+                  "emissive.icns")
+CONTAINER_EXTRA = ("big_cmyk.jpg", "ycck.jpg", "cursor.cur", "bitmap.dib", "texture.ftc",
+                   "dxt5.blp", "palette.blp")
 # grid64x28-dds's maps: slot name, DXGI block format, sRGB.
 DDS_GRID_MAPS = (("B", "BC7", True), ("N", "BC5", False), ("R", "BC4", False),
                  ("M", "BC4", False), ("E", "BC7", True))
@@ -1057,9 +1071,11 @@ def image_phase(ccfg, counts, dev, card):
     """16. Image textures on the card's machine, with PIL blocked (main()
     blocks it before any phase): each map's decode seconds on the host
     (csrc/image_decode.cpp, image_formats.cpp, image_tiff.cpp,
-    image_blocks.cpp and image_webp.cpp, built by g++), the JPEG/PNG
-    fixture's, the TGA/BMP/GIF/PGM/PSD fixture's, the DDS/TIFF/QOI
-    fixture's and the WebP fixture's, and the two 2048x2048 WebP maps';
+    image_blocks.cpp, image_webp.cpp and image_containers.cpp, built by
+    g++), the JPEG/PNG fixture's, the TGA/BMP/GIF/PGM/PSD fixture's, the
+    DDS/TIFF/QOI fixture's, the WebP fixture's and the two 2048x2048 WebP
+    maps', and the CMYK/4:1:1 JPEG, ICO, BLP and ICNS fixture's with the
+    2048x2048 CMYK JPEG and the YCCK, CUR, DIB, FTEX and BLP2 files;
     each fixture scene through `fixture_gate` (K1 + K4 against tracy_tpu's
     CPU render, its basecolor AOV through K1 + K3 against the plain
     versions);
@@ -1078,7 +1094,9 @@ def image_phase(ccfg, counts, dev, card):
     maps = [(FIXTURE_DIR, name) for name, _, _ in FIXTURE_MAPS]
     for directory, name in (maps + [(FORMATS_DIR, name) for name in FORMAT_MAPS]
                             + [(TIFFDDS_DIR, name) for name in TIFFDDS_MAPS]
-                            + [(WEBP_DIR, name) for name in WEBP_MAPS + WEBP_BIG]):
+                            + [(WEBP_DIR, name) for name in WEBP_MAPS + WEBP_BIG]
+                            + [(CONTAINERS_DIR, name)
+                               for name in CONTAINER_MAPS + CONTAINER_EXTRA]):
         t0 = time.perf_counter()
         img = load_image_rgba(os.path.join(directory, name))
         secs = time.perf_counter() - t0
@@ -1090,7 +1108,8 @@ def image_phase(ccfg, counts, dev, card):
               f"{secs:.4f} s")
 
     for directory, scn in ((FIXTURE_DIR, "textured.scn"), (FORMATS_DIR, "formats.scn"),
-                           (TIFFDDS_DIR, "tiffdds.scn"), (WEBP_DIR, "webp.scn")):
+                           (TIFFDDS_DIR, "tiffdds.scn"), (WEBP_DIR, "webp.scn"),
+                           (CONTAINERS_DIR, "containers.scn")):
         more, gate = fixture_gate(directory, scn, counts, dev, card)
         launches.update(more)
         res[scn] = gate

@@ -17,8 +17,9 @@ sys.modules. Contracts:
   decoder reproduces libjpeg's fancy upsampling and colour tables), at
   qualities 50 and 95, baseline, progressive, optimised Huffman tables and
   restart intervals, at odd sizes.
-* Files the decoders refuse (arithmetic coding, lossless, 12-bit, CMYK)
-  raise ValueError naming it, and the texture loader falls back (None);
+* Files the decoders refuse (arithmetic coding, lossless, 12-bit) raise
+  ValueError naming it (CMYK, YCCK and 4:1:1 are read:
+  test_torch_image_jpeg_kinds.py), and the texture loader falls back (None);
   a decoder library that cannot be built raises instead.
 * The fixture's 2048x2048 JPEG decodes in under 1 s on the CPU; a -target .jpg
   drives optimize_cli's albedo recovery.
@@ -305,8 +306,6 @@ def _rewrite_sof(data: bytes, marker: int, precision=None) -> bytes:
     ("arithmetic coding", lambda d: _rewrite_sof(d, 0xC9)),
     ("lossless", lambda d: _rewrite_sof(d, 0xC3)),
     ("12-bit", lambda d: _rewrite_sof(d, 0xC0, precision=12)),
-    ("CMYK", lambda d: pil_bytes(Image.fromarray(smooth(16, 16, 4, 15), "CMYK"),
-                                 format="JPEG")),
 ])
 def test_refused_jpeg_falls_back_by_name(tmp_path, monkeypatch, what, make):
     data = make(_jpeg("4:2:0", 90, "baseline", (16, 16)))

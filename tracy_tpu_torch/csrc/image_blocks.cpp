@@ -657,6 +657,25 @@ void dds_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
 
 }  // namespace
 
+namespace tracy_image {
+
+void bc1_decode(const uint8_t* p, int64_t w, int64_t h, uint8_t* out) {
+  Rgba col[16];
+  for (int64_t by = 0; by < (h + 3) / 4; ++by) {
+    for (int64_t bx = 0; bx < (w + 3) / 4; ++bx, p += 8) {
+      bc1_colour(col, p, false);
+      for (int j = 0; j < 4 && 4 * by + j < h; ++j) {
+        for (int i = 0; i < 4 && 4 * bx + i < w; ++i) {
+          const Rgba& c = col[4 * j + i];
+          put(out + 4 * ((4 * by + j) * w + 4 * bx + i), c.r, c.g, c.b, c.a);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace tracy_image
+
 extern "C" {
 
 // Width and height of the first surface (0, or 1 with a message when the

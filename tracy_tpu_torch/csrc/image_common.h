@@ -1,8 +1,9 @@
 // What the host image decoders share (image_formats.cpp, image_tiff.cpp,
-// image_blocks.cpp): bounds-checked reads of the file, the size limit, the
-// fault type, and the guard that turns a fault into the return codes of
-// the extern "C" entry points (0; 1, a fault of the file; 2, a failure
-// inside the decoder), the message going to tracy_decode_error().
+// image_blocks.cpp, image_webp.cpp, image_containers.cpp): bounds-checked
+// reads of the file, the size limit, the fault type, and the guard that
+// turns a fault into the return codes of the extern "C" entry points (0;
+// 1, a fault of the file; 2, a failure inside the decoder), the message
+// going to tracy_decode_error().
 
 #pragma once
 
@@ -17,13 +18,37 @@
 
 namespace tracy_image {
 void set_error(const std::string& msg);
-}
 
-namespace {
-
+// A fault of the file (return code 1): one type across the sources, so that
+// a fault raised in one (a DIB inside an ICO) is caught in another.
 struct DecodeError : std::runtime_error {
   using std::runtime_error::runtime_error;
 };
+
+// What one source lends another (image_containers.cpp reads the bitmaps of
+// ICO, CUR and DIB files and FTEX's BC1 blocks with these).
+//
+// The DIB whose info header starts at `at` of p[0, n) (a BMP without its
+// 14-byte file header): its width and height as the header gives them.
+struct DibSize {
+  int64_t w, h;
+};
+DibSize dib_size(const uint8_t* p, size_t n, size_t at);
+// Its first `rows` rows in file order (PIL's tile cut to that height), as
+// PIL's DibImageFile reads them: the pixels follow the header, the
+// bitfield masks and the palette. `raw_alpha`: a 32-bit BI_RGB pixel's
+// fourth byte is its alpha (PIL's BGRA rawmode), else alpha is 255. Writes
+// RGBA8 [rows, w, 4] and returns where the pixel data starts.
+size_t dib_decode(const uint8_t* p, size_t n, size_t at, int64_t rows, bool raw_alpha,
+                  uint8_t* out);
+// BC1 blocks (ceil(w / 4) x ceil(h / 4), 8 bytes each, already bounds-
+// checked) to RGBA8 [h, w, 4], as DDS reads them (image_blocks.cpp).
+void bc1_decode(const uint8_t* p, int64_t w, int64_t h, uint8_t* out);
+}  // namespace tracy_image
+
+namespace {
+
+using tracy_image::DecodeError;
 
 [[noreturn]] void fail(const std::string& msg) { throw DecodeError(msg); }
 

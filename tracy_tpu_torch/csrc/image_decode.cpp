@@ -17,14 +17,19 @@
 // PIL clips 16-bit grey instead (ROADMAP, hazards).
 //
 // JPEG: baseline (SOF0), extended Huffman 8-bit (SOF1) and progressive
-// (SOF2) with spectral selection and successive approximation; 1 or 3
-// components with sampling factors 1 and 2; restart intervals; any Huffman
-// tables. The arithmetic follows libjpeg's, so that the pixels equal PIL's:
-// the ISLOW integer IDCT (jidctint.c) with its range-limit table, "fancy"
-// triangle upsampling (jdsample.c: h2v1, h1v2, h2v2, with box replication
-// where libjpeg takes it) and the JFIF YCbCr -> RGB fixed-point tables
-// (jdcolor.c). Arithmetic coding, lossless, hierarchical, 12-bit and
-// CMYK/YCCK files are refused by name.
+// (SOF2) with spectral selection and successive approximation; 1, 3 or 4
+// components with sampling factors 1 to 4 in integral ratios; restart
+// intervals; any Huffman tables. The arithmetic follows libjpeg's, so that
+// the pixels equal PIL's: the ISLOW integer IDCT (jidctint.c) with its
+// range-limit table, "fancy" triangle upsampling (jdsample.c: h2v1, h1v2,
+// h2v2, with box replication where libjpeg takes it; every other integral
+// ratio, 4:1:1's among them, replicated as int_upsample does) and the JFIF
+// YCbCr -> RGB fixed-point tables (jdcolor.c). Four components are CMYK,
+// or YCCK when an Adobe marker's transform is not 0 (libjpeg's rule), and
+// reach RGB as PIL takes them: libjpeg's CMYK, inverted (PIL's "CMYK;I"
+// rawmode, with or without the marker), through Pillow's cmyk2rgb.
+// Arithmetic coding, lossless, hierarchical, 12-bit files and non-integral
+// sampling ratios are refused by name.
 //
 // Every entry point returns 0, or a nonzero code with a message that
 // tracy_decode_error() returns (per thread).
@@ -360,7 +365,7 @@ struct Jpeg {
   uint16_t qt[4][64] = {};
   bool qt_defined[4] = {};
   Huffman dc[4], ac[4];
-  Component comp[3];
+  Component comp[4];
   int eobrun = 0;
 
   Jpeg(const uint8_t* data, size_t len) : d(data), n(len) {}
@@ -441,8 +446,7 @@ struct Jpeg {
     ncomp = u8();
     if (height == 0) fail("JPEG: DNL-defined height is not read");
     if (width == 0) fail("JPEG: empty image");
-    if (ncomp == 4) fail("JPEG: CMYK/YCCK (4 components) is not read");
-    if (ncomp != 1 && ncomp != 3) {
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4) {
       fail("JPEG: " + std::to_string(ncomp) + " components are not read");
     }
     for (int i = 0; i < ncomp; ++i) {
@@ -452,9 +456,7 @@ struct Jpeg {
       c.h = hv >> 4;
       c.v = hv & 15;
       c.tq = u8();
-      if (c.h < 1 || c.h > 2 || c.v < 1 || c.v > 2) {
-        fail("JPEG: sampling factors other than 1 and 2 are not read");
-      }
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) fail("JPEG: bad sampling factors");
       if (c.tq > 3) fail("JPEG: bad quantisation table id");
     }
     if (ncomp == 1) comp[0].h = comp[0].v = 1;  // one component: one block an MCU
@@ -466,7 +468,11 @@ struct Jpeg {
     mcuy = (height + 8 * vmax - 1) / (8 * vmax);
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
-      if (hmax % c.h || vmax % c.v) fail("JPEG: sampling factors are not read");
+      if (hmax % c.h || vmax % c.v) {  // libjpeg's JERR_FRACT_SAMPLE_NOTIMPL
+        fail("JPEG: non-integral sampling ratio " + std::to_string(hmax) + "x" +
+             std::to_string(vmax) + " over " + std::to_string(c.h) + "x" + std::to_string(c.v) +
+             " is not read");
+      }
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
       c.dw = (width * c.h + hmax - 1) / hmax;
@@ -581,7 +587,8 @@ struct Jpeg {
     const int len = u16();
     const int ns = u8();
     if (ns < 1 || ns > ncomp || len != 6 + 2 * ns) fail("JPEG: bad scan header");
-    Component* sc[3];
+    int blocks = 0;
+    Component* sc[4];
     for (int i = 0; i < ns; ++i) {
       const int id = u8(), tables = u8();
       Component* c = nullptr;
@@ -598,7 +605,11 @@ struct Jpeg {
         c->quant_set = true;
       }
       sc[i] = c;
+      blocks += c->h * c->v;
     }
+    // libjpeg's D_MAX_BLOCKS_IN_MCU: an interleaved scan's MCU holds 10
+    // blocks at most.
+    if (ns > 1 && blocks > 10) fail("JPEG: sampling factors too large for an interleaved scan");
     const int ss = u8(), se = u8(), ahal = u8();
     const int ah = ahal >> 4, al = ahal & 15;
     if (progressive) {
@@ -684,10 +695,9 @@ struct Jpeg {
     pos = 2;
     bool scanned = false;
     for (;;) {
-      if (pos >= n) {
-        if (scanned) return;  // a missing EOI, as libjpeg tolerates
-        fail("JPEG: file is truncated");
-      }
+      // PIL reads no file that ends before its EOI marker (libjpeg
+      // suspends for more data, and PIL calls that truncation).
+      if (pos >= n) fail("JPEG: file is truncated");
       const int m = marker();
       if (m == 0xD9) break;
       if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
@@ -853,36 +863,36 @@ inline const uint8_t* comp_row(const Component& c, int y) {
 }
 
 // One output row (image row y) of component c upsampled to full width
-// `out_w` (>= the image width), libjpeg-turbo's way for ratios 1 and 2.
+// `out_w` (>= the image width), libjpeg-turbo's way with fancy upsampling on
+// (jdsample.c's jinit_upsampler): ratio 1x1 copied, 2x1 and 2x2 through the
+// triangle filters when the component is wider than 2 samples (else
+// replicated), 1x2 through its filter, every other integral ratio rh x rv
+// replicated (int_upsample).
 void upsample_row(const Component& c, int rh, int rv, int y, uint8_t* out, int out_w) {
   const int dw = c.dw;
-  if (rv == 1) {
+  if (rh == 1 && rv == 1) {
+    std::memcpy(out, comp_row(c, y), out_w);
+  } else if (rh == 2 && rv == 1 && dw > 2) {  // h2v1 fancy
     const uint8_t* in = comp_row(c, y);
-    if (rh == 1) {
-      std::memcpy(out, in, out_w);
-    } else if (dw > 2) {  // h2v1 fancy
-      out[0] = in[0];
-      out[1] = static_cast<uint8_t>((in[0] * 3 + in[1] + 2) >> 2);
-      for (int x = 1; x < dw - 1; ++x) {
-        const int v = in[x] * 3;
-        out[2 * x] = static_cast<uint8_t>((v + in[x - 1] + 1) >> 2);
-        out[2 * x + 1] = static_cast<uint8_t>((v + in[x + 1] + 2) >> 2);
-      }
-      out[2 * dw - 2] = static_cast<uint8_t>((in[dw - 1] * 3 + in[dw - 2] + 1) >> 2);
-      out[2 * dw - 1] = in[dw - 1];
-    } else {  // h2v1 box
-      for (int x = 0; x < dw; ++x) out[2 * x] = out[2 * x + 1] = in[x];
+    out[0] = in[0];
+    out[1] = static_cast<uint8_t>((in[0] * 3 + in[1] + 2) >> 2);
+    for (int x = 1; x < dw - 1; ++x) {
+      const int v = in[x] * 3;
+      out[2 * x] = static_cast<uint8_t>((v + in[x - 1] + 1) >> 2);
+      out[2 * x + 1] = static_cast<uint8_t>((v + in[x + 1] + 2) >> 2);
     }
-    return;
-  }
-  // rv == 2: the nearer input row and the next nearer one.
-  const int iy = y >> 1;
-  const uint8_t* in0 = comp_row(c, iy);
-  const uint8_t* in1 = comp_row(c, (y & 1) ? iy + 1 : iy - 1);
-  if (rh == 1) {  // h1v2 fancy
+    out[2 * dw - 2] = static_cast<uint8_t>((in[dw - 1] * 3 + in[dw - 2] + 1) >> 2);
+    out[2 * dw - 1] = in[dw - 1];
+  } else if (rh == 1 && rv == 2) {  // h1v2 fancy: the nearer row and the next nearer
+    const int iy = y >> 1;
+    const uint8_t* in0 = comp_row(c, iy);
+    const uint8_t* in1 = comp_row(c, (y & 1) ? iy + 1 : iy - 1);
     const int bias = (y & 1) ? 2 : 1;
     for (int x = 0; x < dw; ++x) out[x] = static_cast<uint8_t>((in0[x] * 3 + in1[x] + bias) >> 2);
-  } else if (dw > 2) {  // h2v2 fancy
+  } else if (rh == 2 && rv == 2 && dw > 2) {  // h2v2 fancy
+    const int iy = y >> 1;
+    const uint8_t* in0 = comp_row(c, iy);
+    const uint8_t* in1 = comp_row(c, (y & 1) ? iy + 1 : iy - 1);
     int thiscol = in0[0] * 3 + in1[0];
     int nextcol = in0[1] * 3 + in1[1];
     out[0] = static_cast<uint8_t>((thiscol * 4 + 8) >> 4);
@@ -898,8 +908,9 @@ void upsample_row(const Component& c, int rh, int rv, int y, uint8_t* out, int o
     }
     out[2 * dw - 2] = static_cast<uint8_t>((thiscol * 3 + lastcol + 8) >> 4);
     out[2 * dw - 1] = static_cast<uint8_t>((thiscol * 4 + 7) >> 4);
-  } else {  // h2v2 box: each input row twice
-    for (int x = 0; x < dw; ++x) out[2 * x] = out[2 * x + 1] = in0[x];
+  } else {  // replication: each sample rh times, each row rv times
+    const uint8_t* in = comp_row(c, y / rv);
+    for (int x = 0; x < dw; ++x) std::memset(out + static_cast<size_t>(x) * rh, in[x], rh);
   }
 }
 
@@ -923,7 +934,16 @@ const YccTables YCC;
 
 inline uint8_t clamp8(int v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); }
 
-void jpeg_decode(const uint8_t* data, size_t len, uint8_t* out, int out_w, int out_h) {
+// Pillow's cmyk2rgb (Convert.c): MULDIV255 rounding, alpha 255.
+inline uint8_t cmyk_channel(int v, int nk) {
+  const int t = v * nk + 128;
+  return clamp8(nk - (((t >> 8) + t) >> 8));
+}
+
+// `four_as_cmyk`: four components are CMYK whatever the Adobe marker says
+// (PIL's jpegmode "CMYK", which BLP1's JPEG reader sets).
+void jpeg_decode(const uint8_t* data, size_t len, uint8_t* out, int out_w, int out_h,
+                 bool four_as_cmyk) {
   Jpeg j(data, len);
   j.parse(false);
   if (j.width != out_w || j.height != out_h) fail("JPEG: size changed between calls");
@@ -943,17 +963,19 @@ void jpeg_decode(const uint8_t* data, size_t len, uint8_t* out, int out_w, int o
   }
   // Upsample row by row and convert.
   const int row_w = j.mcux * j.hmax * 8;  // >= W, room for every upsampled row
-  std::vector<uint8_t> rows(static_cast<size_t>(3) * row_w);
-  int rh[3], rv[3];
+  std::vector<uint8_t> rows(static_cast<size_t>(4) * row_w);
+  int rh[4], rv[4];
   for (int i = 0; i < j.ncomp; ++i) {
     rh[i] = j.hmax / j.comp[i].h;
     rv[i] = j.vmax / j.comp[i].v;
   }
   // Three components are YCbCr unless an Adobe marker says transform 0 or
-  // the component ids spell R, G, B (libjpeg's and stb_image's rules).
+  // the component ids spell R, G, B (libjpeg's and stb_image's rules); four
+  // are YCCK when an Adobe marker's transform is not 0 (jdapimin.c).
   const bool rgb = j.ncomp == 3 && ((j.adobe && j.adobe_transform == 0) ||
                                     (j.comp[0].id == 'R' && j.comp[1].id == 'G' &&
                                      j.comp[2].id == 'B'));
+  const bool ycck = j.ncomp == 4 && j.adobe && j.adobe_transform != 0 && !four_as_cmyk;
   for (int y = 0; y < H; ++y) {
     uint8_t* orow = out + static_cast<size_t>(y) * W * 4;
     if (j.ncomp == 1) {
@@ -964,25 +986,33 @@ void jpeg_decode(const uint8_t* data, size_t len, uint8_t* out, int out_w, int o
       }
       continue;
     }
-    for (int i = 0; i < 3; ++i) {
+    for (int i = 0; i < j.ncomp; ++i) {
       upsample_row(j.comp[i], rh[i], rv[i], y, rows.data() + static_cast<size_t>(i) * row_w,
                    row_w);
     }
     const uint8_t* c0 = rows.data();
     const uint8_t* c1 = c0 + row_w;
     const uint8_t* c2 = c1 + row_w;
+    const uint8_t* c3 = c2 + row_w;
     for (int x = 0; x < W; ++x) {
       uint8_t* o = orow + 4 * x;
-      if (rgb) {
-        o[0] = c0[x];
-        o[1] = c1[x];
-        o[2] = c2[x];
-      } else {
+      int r = c0[x], g = c1[x], b = c2[x];
+      if (!rgb && (j.ncomp == 3 || ycck)) {
         const int yy = c0[x], cb = c1[x], cr = c2[x];
-        o[0] = clamp8(yy + YCC.cr_r[cr]);
-        o[1] = clamp8(yy + ((YCC.cb_g[cb] + YCC.cr_g[cr]) >> 16));
-        o[2] = clamp8(yy + YCC.cb_b[cb]);
+        r = clamp8(yy + YCC.cr_r[cr]);
+        g = clamp8(yy + ((YCC.cb_g[cb] + YCC.cr_g[cr]) >> 16));
+        b = clamp8(yy + YCC.cb_b[cb]);
       }
+      if (j.ncomp == 4) {
+        // libjpeg's CMYK (YCCK: 255 - R, 255 - G, 255 - B and K), inverted
+        // by PIL's "CMYK;I", then cmyk2rgb with 255 - K' = K.
+        const int nk = c3[x];
+        if (!ycck) r = 255 - r, g = 255 - g, b = 255 - b;
+        r = cmyk_channel(r, nk), g = cmyk_channel(g, nk), b = cmyk_channel(b, nk);
+      }
+      o[0] = static_cast<uint8_t>(r);
+      o[1] = static_cast<uint8_t>(g);
+      o[2] = static_cast<uint8_t>(b);
       o[3] = 255;
     }
   }
@@ -1042,9 +1072,13 @@ int tracy_jpeg_info(const uint8_t* data, int64_t len, int* w, int* h, int* comps
   });
 }
 
-// Decode a JPEG to RGBA8 [h, w, 4] in `out` (w, h from tracy_jpeg_info).
-int tracy_jpeg_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) {
-  return guarded([&] { jpeg_decode(data, static_cast<size_t>(len), out, w, h); });
+// Decode a JPEG to RGBA8 [h, w, 4] in `out` (w, h from tracy_jpeg_info);
+// `four_as_cmyk` nonzero reads four components as CMYK whatever the Adobe
+// marker's transform (BLP1's JPEG kind, as PIL opens it).
+int tracy_jpeg_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h,
+                      int four_as_cmyk) {
+  return guarded(
+      [&] { jpeg_decode(data, static_cast<size_t>(len), out, w, h, four_as_cmyk != 0); });
 }
 
 }  // extern "C"

@@ -196,28 +196,29 @@ struct Bmp {
   size_t data_at;
 };
 
-Bmp bmp_header(const Bytes& b) {
+// The info header at `at` (14 in a BMP file, 0 in a DIB); `off` the pixel
+// offset of a BMP's file header, 0 for a DIB, whose pixels follow the
+// header, the bitfield masks and the palette (PIL's tile offset).
+Bmp bmp_info(const Bytes& b, size_t at, uint32_t off) {
   Bmp m{};
-  if (b.n < 2 || b.p[0] != 'B' || b.p[1] != 'M') fail("not a BMP file");
-  uint32_t off = b.le32(10);
-  const uint32_t hsize = b.le32(14);
+  const uint32_t hsize = b.le32(at);
   int64_t colors = 0;
   int pad = 4;
   if (hsize == 12) {
-    m.w = b.le16(18);
-    m.h = b.le16(20);
-    m.bits = static_cast<int>(b.le16(24));
+    m.w = b.le16(at + 4);
+    m.h = b.le16(at + 6);
+    m.bits = static_cast<int>(b.le16(at + 10));
     pad = 3;
   } else if (hsize == 40 || hsize == 52 || hsize == 56 || hsize == 64 || hsize == 108 ||
              hsize == 124) {
-    b.need(14, hsize);
-    m.w = b.le32(18);
-    const uint32_t h = b.le32(22);
-    m.top_down = b.u8(25) == 0xFF;  // a negative height, as PIL tests it
+    b.need(at, hsize);
+    m.w = b.le32(at + 4);
+    const uint32_t h = b.le32(at + 8);
+    m.top_down = b.u8(at + 11) == 0xFF;  // a negative height, as PIL tests it
     m.h = m.top_down ? (int64_t(1) << 32) - h : h;
-    m.bits = static_cast<int>(b.le16(28));
-    m.comp = static_cast<int>(b.le32(30));
-    colors = b.le32(46);
+    m.bits = static_cast<int>(b.le16(at + 14));
+    m.comp = static_cast<int>(b.le32(at + 16));
+    colors = b.le32(at + 32);
   } else {
     fail("BMP: header of " + std::to_string(hsize) + " bytes not read");
   }
@@ -230,10 +231,10 @@ Bmp bmp_header(const Bytes& b) {
   if (off == 14 + hsize && m.bits <= 8) off += static_cast<uint32_t>(4 * colors);
   m.layout = m.bits <= 8 ? kIndexed : m.bits == 16 ? k555 : m.bits == 24 ? kBGR : k32;
   m.shift[0] = 2, m.shift[1] = 1, m.shift[2] = 0, m.shift[3] = -1;  // BGRX
-  size_t table_end = 14 + hsize;
+  size_t table_end = at + hsize;
   if (m.comp == 3) {  // BI_BITFIELDS: the layouts PIL reads
-    const uint32_t r = b.le32(54), g = b.le32(58), bl = b.le32(62);
-    const uint32_t a = hsize >= 56 ? b.le32(66) : 0;
+    const uint32_t r = b.le32(at + 40), g = b.le32(at + 44), bl = b.le32(at + 48);
+    const uint32_t a = hsize >= 56 ? b.le32(at + 52) : 0;
     if (hsize == 40) table_end += 12;
     bool ok = false;
     if (m.bits == 32) {
@@ -289,6 +290,11 @@ Bmp bmp_header(const Bytes& b) {
   }
   m.data_at = off ? off : table_end;
   return m;
+}
+
+Bmp bmp_header(const Bytes& b) {
+  if (b.n < 2 || b.p[0] != 'B' || b.p[1] != 'M') fail("not a BMP file");
+  return bmp_info(b, 14, b.le32(10));
 }
 
 inline void bmp_index(const Bmp& m, int k, uint8_t* o) {
@@ -350,9 +356,8 @@ std::vector<uint8_t> bmp_rle(const Bytes& b, const Bmp& m) {
   return idx;
 }
 
-void bmp_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
-  const Bmp m = bmp_header(b);
-  check_out("BMP", m.w, m.h, out_w, out_h);
+// The pixels of a parsed BMP (m.h rows from m.data_at) to RGBA8 [h, w, 4].
+void bmp_pixels(const Bytes& b, const Bmp& m, uint8_t* out) {
   const int64_t w = m.w, h = m.h;
   auto row_out = [&](int64_t r) {  // output row of file row r
     return out + 4 * w * (m.top_down ? r : h - 1 - r);
@@ -400,6 +405,36 @@ void bmp_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
     }
   }
 }
+
+void bmp_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
+  const Bmp m = bmp_header(b);
+  check_out("BMP", m.w, m.h, out_w, out_h);
+  bmp_pixels(b, m, out);
+}
+
+}  // namespace
+
+namespace tracy_image {
+
+DibSize dib_size(const uint8_t* p, size_t n, size_t at) {
+  const Bmp m = bmp_info({p, n, "BMP"}, at, 0);
+  return {m.w, m.h};
+}
+
+size_t dib_decode(const uint8_t* p, size_t n, size_t at, int64_t rows, bool raw_alpha,
+                  uint8_t* out) {
+  const Bytes b{p, n, "BMP"};
+  Bmp m = bmp_info(b, at, 0);
+  if (rows <= 0 || rows > m.h) fail("BMP: " + std::to_string(rows) + " rows not read");
+  m.h = rows;
+  if (raw_alpha && m.comp == 0 && m.bits == 32) m.shift[3] = 3;
+  bmp_pixels(b, m, out);
+  return m.data_at;
+}
+
+}  // namespace tracy_image
+
+namespace {
 
 // ---------------------------------------------------------------- GIF
 

@@ -9,9 +9,10 @@ scene live in ONE flat `[P, 4]` float32 atlas plus an int table
 Radiance .hdr files go through the own decoder below (numpy only); PNG,
 JPEG, BMP, GIF, PNM (P1-P6), PSD and TGA files (every 8-bit format that
 stb_image, the C++ reference's loader, and PIL, tracy_tpu's, both read)
-and TIFF, DDS, QOI and WebP files (which PIL reads) through
-csrc/image_decode.cpp, image_formats.cpp, image_tiff.cpp, image_blocks.cpp
-and image_webp.cpp (utils/image_io.py),
+and TIFF, DDS, QOI, WebP, DIB, ICO, CUR, FTEX, BLP and ICNS files (which
+PIL reads) through csrc/image_decode.cpp, image_formats.cpp,
+image_tiff.cpp, image_blocks.cpp, image_webp.cpp and image_containers.cpp
+(utils/image_io.py),
 told apart by their first bytes, whatever their name says. Nothing here
 imports PIL, which the GPU machine lacks.
 """

@@ -1,5 +1,5 @@
-"""Image files: PNG and PPM written, every 8-bit format of stb_image and
-WebP read, without PIL.
+"""Image files: PNG and PPM written, every 8-bit format of stb_image,
+WebP and the icon and game-texture containers read, without PIL.
 
 Port of tracy_tpu/utils/image_io.py. The JAX package writes PNG through
 PIL; the GPU machine has no PIL, and the command-line default output is
@@ -7,10 +7,12 @@ PIL; the GPU machine has no PIL, and the command-line default output is
 struct: 8-bit RGB, one IDAT chunk, filter 0 on every row). Files are read
 by the decoders of csrc/image_decode.cpp (PNG, JPEG; Python's zlib
 inflates PNG data), csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD, QOI),
-csrc/image_tiff.cpp (TIFF), csrc/image_blocks.cpp (DDS) and
-csrc/image_webp.cpp (WebP), built by g++
-at first use (utils/native.py::get_image_lib), never by PIL;
-`image_format` tells them apart by their first bytes, as PIL does.
+csrc/image_tiff.cpp (TIFF), csrc/image_blocks.cpp (DDS),
+csrc/image_webp.cpp (WebP) and csrc/image_containers.cpp (DIB, ICO, CUR,
+FTEX, BLP, ICNS; their PNG and JPEG entries go to the PNG and JPEG
+decoders), built by g++ at first use (utils/native.py::get_image_lib),
+never by PIL; `image_format` tells them apart by their first bytes, as PIL
+does.
 `read_image` reads back what the inverse-rendering CLI takes as a target:
 .npy and .hdr (scene/textures.py's Radiance decoder) by name, any of those
 formats by content.
@@ -24,13 +26,17 @@ import zlib
 
 import numpy as np
 
-from tracy_tpu_torch.utils.native import get_image_lib
+from tracy_tpu_torch.utils.native import STREAM_FORMATS, get_image_lib
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
 # Classic TIFF and BigTIFF, little- and big-endian.
 TIFF_SIGNATURES = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
-READ_FORMATS = "PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF, DDS, QOI or WebP"
+READ_FORMATS = ("PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA, TIFF, DDS, QOI, WebP, ICO, CUR, "
+                "FTEX, BLP or ICNS")
+# The first u32 (little-endian) of a DIB: its info header's size, as PIL's
+# _dib_accept takes it.
+DIB_HEADER_SIZES = (12, 40, 52, 56, 64, 108, 124)
 # The chunks after RIFF....WEBP that PIL's WebP plugin accepts.
 WEBP_CHUNKS = (b"VP8 ", b"VP8X", b"VP8L")
 # Larger images are refused as corrupt headers (PIL's decompression-bomb
@@ -158,12 +164,15 @@ def decode_png(data: bytes) -> np.ndarray:
     return rgba[..., [0, 3] if alpha else [0]] if grey else rgba[..., :4 if alpha else 3]
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
+def decode_jpeg(data: bytes, four_as_cmyk: bool = False) -> np.ndarray:
     """uint8 RGBA [H, W, 4] of a JPEG file (grey replicated, alpha 255):
-    baseline, extended and progressive Huffman coding, 1 or 3 components,
-    decoded by csrc/image_decode.cpp as libjpeg decodes them. Raises
-    ValueError on a file it cannot read, naming what it refuses
-    (arithmetic coding, lossless, 12-bit, CMYK/YCCK)."""
+    baseline, extended and progressive Huffman coding, 1, 3 or 4 components
+    (CMYK, Adobe-inverted CMYK, YCCK) at sampling factors 1-4, decoded by
+    csrc/image_decode.cpp as libjpeg decodes them and PIL converts them.
+    `four_as_cmyk` reads four components as CMYK whatever the Adobe marker
+    says, as PIL opens BLP1's JPEG. Raises ValueError on a file it cannot
+    read, naming what it refuses (arithmetic coding, lossless, 12-bit,
+    non-integral sampling ratios)."""
     lib = get_image_lib()
     w, h, comps, prog = (ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int())
     _decode_error(lib, "JPEG", lib.tracy_jpeg_info(data, len(data), ctypes.byref(w),
@@ -173,7 +182,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         raise ValueError(f"JPEG: {w.value}x{h.value} pixels not read")
     out = np.empty((h.value, w.value, 4), np.uint8)
     _decode_error(lib, "JPEG", lib.tracy_jpeg_decode(data, len(data), out.ctypes.data,
-                                                     w.value, h.value))
+                                                     w.value, h.value, int(four_as_cmyk)))
     return out
 
 
@@ -190,55 +199,102 @@ def _tga_header_ok(data: bytes) -> bool:
             and itype in (1, 2, 3, 9, 10, 11))
 
 
+def _icon_directory_ok(data: bytes) -> bool:
+    """Whether an ICO or CUR file's directory holds at least one whole
+    entry: else PIL's plugin raises an error that Image.open takes for "not
+    this format" (no entry, a short one) and tries the next plugin."""
+    n = struct.unpack("<H", data[4:6])[0] if len(data) >= 6 else 0
+    return n > 0 and len(data) >= 6 + 16 * n
+
+
 def image_format(data: bytes):
     """The format of an image file by its first bytes, as PIL tells them
-    apart: "png", "jpeg", "bmp" (BM), "gif" (GIF87a/GIF89a), "pnm" (P and a
-    kind), "psd" (8BPS), "tiff" (II*, MM*, and BigTIFF's II+, MM+), "dds"
-    (DDS and a space), "qoi" (qoif), "webp" (RIFF, WEBP at byte 8 and a VP8,
-    VP8L or VP8X chunk at 12), else "tga" if the header passes TGA's checks
-    (it has no magic, so it comes last), else None. The decoders may still
-    refuse a kind they do not read."""
-    if data[:8] == PNG_SIGNATURE:
-        return "png"
-    if data[:3] == JPEG_SIGNATURE:
-        return "jpeg"
+    apart, in PIL's order (the formats it loads first, then its plugins by
+    name): "bmp" (BM), "dib" (a first u32 that is a BMP info header's size),
+    "gif" (GIF87a/GIF89a), "jpeg", "pnm" (P and a kind), "png", "blp" (BLP1,
+    BLP2), "cur" (0 0 2 0), "dds" (DDS and a space), "ftex" (FTEX), "icns",
+    "ico" (0 0 1 0; "cur" and "ico" with a whole directory of at least one
+    entry, else PIL's plugins give way), "psd" (8BPS), "qoi" (qoif), "tiff"
+    (II*, MM*, and BigTIFF's II+, MM+), "webp" (RIFF, WEBP at byte 8 and a
+    VP8, VP8L or VP8X chunk at 12), else "tga" if the header passes TGA's
+    checks (it has no magic, so it comes last), else None. The decoders may
+    still refuse a kind they do not read."""
+    head4 = data[:4]
     if data[:2] == b"BM":
         return "bmp"
+    if len(data) >= 4 and struct.unpack("<I", head4)[0] in DIB_HEADER_SIZES:
+        return "dib"
     if data[:6] in (b"GIF87a", b"GIF89a"):
         return "gif"
+    if data[:3] == JPEG_SIGNATURE:
+        return "jpeg"
     if data[:1] == b"P" and len(data) > 1 and data[1] in b"0123456fy":
         return "pnm"
-    if data[:4] == b"8BPS":
-        return "psd"
-    if data[:4] in TIFF_SIGNATURES:
+    if data[:8] == PNG_SIGNATURE:
+        return "png"
+    magic = {b"BLP1": "blp", b"BLP2": "blp", b"\0\0\2\0": "cur", b"DDS ": "dds",
+             b"FTEX": "ftex", b"icns": "icns", b"\0\0\1\0": "ico", b"8BPS": "psd",
+             b"qoif": "qoi"}.get(head4)
+    if magic and (magic not in ("cur", "ico") or _icon_directory_ok(data)):
+        return magic
+    if head4 in TIFF_SIGNATURES:
         return "tiff"
-    if data[:4] == b"DDS ":
-        return "dds"
-    if data[:4] == b"qoif":
-        return "qoi"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in WEBP_CHUNKS:
+    if head4 == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in WEBP_CHUNKS:
         return "webp"
     return "tga" if _tga_header_ok(data) else None
 
 
-def _decode_native(fmt: str, data: bytes) -> np.ndarray:
-    """uint8 RGBA [H, W, 4] from tracy_<fmt>_info (which refuses sizes
-    beyond MAX_PIXELS) and tracy_<fmt>_decode of csrc/image_formats.cpp,
-    image_tiff.cpp, image_blocks.cpp or image_webp.cpp."""
-    lib = get_image_lib()
-    name = fmt.upper()
+def _native_size(lib, fmt: str, data: bytes):
+    """(width, height) from tracy_<fmt>_info, which refuses sizes beyond
+    MAX_PIXELS."""
     w, h = ctypes.c_int(), ctypes.c_int()
-    info, decode = getattr(lib, f"tracy_{fmt}_info"), getattr(lib, f"tracy_{fmt}_decode")
-    _decode_error(lib, name, info(data, len(data), ctypes.byref(w), ctypes.byref(h)))
-    out = np.empty((h.value, w.value, 4), np.uint8)
-    _decode_error(lib, name, decode(data, len(data), out.ctypes.data, w.value, h.value))
+    info = getattr(lib, f"tracy_{fmt}_info")
+    _decode_error(lib, fmt.upper(), info(data, len(data), ctypes.byref(w), ctypes.byref(h)))
+    return w.value, h.value
+
+
+def _decode_native(fmt: str, data: bytes) -> np.ndarray:
+    """uint8 RGBA [H, W, 4] from tracy_<fmt>_info and tracy_<fmt>_decode of
+    csrc/image_formats.cpp, image_tiff.cpp, image_blocks.cpp, image_webp.cpp
+    or image_containers.cpp."""
+    lib = get_image_lib()
+    w, h = _native_size(lib, fmt, data)
+    out = np.empty((h, w, 4), np.uint8)
+    decode = getattr(lib, f"tracy_{fmt}_decode")
+    _decode_error(lib, fmt.upper(), decode(data, len(data), out.ctypes.data, w, h))
+    return out
+
+
+def _embedded_stream(fmt: str, data: bytes):
+    """The PNG or JPEG stream that the ICO, ICNS or BLP entry PIL opens is
+    (csrc/image_containers.cpp's tracy_<fmt>_stream), or None when that
+    entry is pixels of the container's own."""
+    lib = get_image_lib()
+    parts = (ctypes.c_int64 * 4)()
+    _decode_error(lib, fmt.upper(), getattr(lib, f"tracy_{fmt}_stream")(data, len(data), parts))
+    if parts[1] == 0:
+        return None
+    return data[parts[0]:parts[0] + parts[1]] + data[parts[2]:parts[2] + parts[3]]
+
+
+def _blp_jpeg(data: bytes, stream: bytes) -> np.ndarray:
+    """BLP1's JPEG kind as PIL reads it: the JPEG (four components as CMYK
+    whatever its Adobe marker says) converted to RGB, its bytes laid out at
+    the BLP header's size and read as BGR, alpha 255."""
+    w, h = _native_size(get_image_lib(), "blp", data)
+    rgb = decode_jpeg(stream, four_as_cmyk=True)[..., :3].reshape(-1)
+    if rgb.size < w * h * 3:
+        raise ValueError(f"BLP: the JPEG holds fewer than the header's {w}x{h} pixels")
+    out = np.full((h, w, 4), 255, np.uint8)
+    out[..., :3] = rgb[:w * h * 3].reshape(h, w, 3)[..., ::-1]
     return out
 
 
 def decode_image_rgba(data: bytes) -> np.ndarray:
-    """uint8 RGBA [H, W, 4] of a PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF,
-    DDS, QOI or WebP file, told apart by its first bytes (not its name;
-    `image_format`), as PIL's open(...).convert("RGBA") gives it but for ROADMAP's hazards. Raises
+    """uint8 RGBA [H, W, 4] of a PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA,
+    TIFF, DDS, QOI, WebP, ICO, CUR, FTEX, BLP or ICNS file, told apart by its
+    first bytes (not its name; `image_format`), as PIL's
+    open(...).convert("RGBA") gives it but for ROADMAP's hazards. Raises
     ValueError for anything else, or for a kind the decoders refuse, named."""
     fmt = image_format(data)
     if fmt == "png":
@@ -247,6 +303,10 @@ def decode_image_rgba(data: bytes) -> np.ndarray:
         return decode_jpeg(data)
     if fmt is None:
         raise ValueError(f"not a {READ_FORMATS} file")
+    if fmt in STREAM_FORMATS:
+        stream = _embedded_stream(fmt, data)
+        if stream is not None:
+            return _blp_jpeg(data, stream) if fmt == "blp" else _png_rgba(stream)[0]
     return _decode_native(fmt, data)
 
 
@@ -267,9 +327,8 @@ def load_npy_state(path: str) -> np.ndarray:
 def read_image(path: str):
     """(float32 RGB [H, W, 3], linear): .npy and .hdr by name, .hdr and
     float .npy as stored (linear True); any other file by its content, a
-    PNG, JPEG, BMP, GIF, PNM, PSD, TGA, TIFF, DDS, QOI or WebP file scaled to
-    [0, 1] (display
-    values, linear False), as tracy_tpu's optimize_cli reads its target
+    file of any of READ_FORMATS scaled to [0, 1] (display values, linear
+    False), as tracy_tpu's optimize_cli reads its target
     (PIL's convert("RGB"), alpha dropped)."""
     low = path.lower()
     if low.endswith(".npy"):

@@ -8,7 +8,8 @@ the callers take their numpy versions.
 
 `get_image_lib`: the image decoders of csrc/image_decode.cpp (PNG, JPEG),
 csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD, QOI), image_tiff.cpp
-(TIFF), image_blocks.cpp (DDS) and image_webp.cpp (WebP), in
+(TIFF), image_blocks.cpp (DDS), image_webp.cpp (WebP) and
+image_containers.cpp (DIB, ICO, CUR, FTEX, BLP, ICNS), in
 build/native/<hash>/libtracy_image.so. g++ (not nvcc), so that the CPU
 tests run the same code as the card's host. They have no other version:
 if the library cannot be built, `get_image_lib` raises
@@ -45,12 +46,17 @@ IMAGE_SOURCES = tuple(os.path.join(CSRC_DIR, s) for s in ("image_decode.cpp",
                                                           "image_formats.cpp",
                                                           "image_tiff.cpp",
                                                           "image_blocks.cpp",
-                                                          "image_webp.cpp"))
+                                                          "image_webp.cpp",
+                                                          "image_containers.cpp"))
 # Included by the sources: part of the library's hash, not of the command.
 IMAGE_HEADERS = (os.path.join(CSRC_DIR, "image_common.h"),)
-# Formats of csrc/image_formats.cpp, image_tiff.cpp, image_blocks.cpp and
-# image_webp.cpp, each with tracy_<fmt>_info/_decode.
-IMAGE_FORMATS = ("tga", "bmp", "gif", "pnm", "psd", "qoi", "tiff", "dds", "webp")
+# Formats of csrc/image_formats.cpp, image_tiff.cpp, image_blocks.cpp,
+# image_webp.cpp and image_containers.cpp, each with tracy_<fmt>_info/_decode.
+IMAGE_FORMATS = ("tga", "bmp", "gif", "pnm", "psd", "qoi", "tiff", "dds", "webp", "dib", "ico",
+                 "cur", "ftex", "blp", "icns")
+# Containers whose opened entry may be a PNG or JPEG stream, each with
+# tracy_<fmt>_stream (csrc/image_containers.cpp).
+STREAM_FORMATS = ("ico", "icns", "blp")
 # No -march=native: the same code on this machine and on the card's host.
 IMAGE_CXXFLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17", "-Wall"]
 
@@ -160,11 +166,15 @@ def get_image_lib() -> ctypes.CDLL:
         lib.tracy_jpeg_info.restype = i32
         lib.tracy_jpeg_info.argtypes = [u8p, i64, ip, ip, ip, ip]
         lib.tracy_jpeg_decode.restype = i32
-        lib.tracy_jpeg_decode.argtypes = [u8p, i64, u8p, i32, i32]
+        lib.tracy_jpeg_decode.argtypes = [u8p, i64, u8p, i32, i32, i32]
         for fmt in IMAGE_FORMATS:
             info, decode = getattr(lib, f"tracy_{fmt}_info"), getattr(lib, f"tracy_{fmt}_decode")
             info.restype = decode.restype = i32
             info.argtypes = [u8p, i64, ip, ip]
             decode.argtypes = [u8p, i64, u8p, i32, i32]
+        for fmt in STREAM_FORMATS:
+            stream = getattr(lib, f"tracy_{fmt}_stream")
+            stream.restype = i32
+            stream.argtypes = [u8p, i64, ctypes.POINTER(ctypes.c_int64)]
         _image_lib = lib
         return _image_lib
