@@ -990,6 +990,16 @@ CONTAINER_MAPS = ("basecolor.jpg", "normal_411.jpg", "roughness.ico", "metalness
                   "emissive.icns")
 CONTAINER_EXTRA = ("big_cmyk.jpg", "ycck.jpg", "cursor.cur", "bitmap.dib", "texture.ftc",
                    "dxt5.blp", "palette.blp")
+# And in PIL's small raw and run-length formats (csrc/image_legacy.cpp):
+# 24-bit PCX, run-length SGI, IM, run-length Sun raster, XPM; besides,
+# decode timing only: DCX, MSP, XBM, PIXAR, SPIDER, FITS (BITPIX 8 and 16),
+# GBR, McIdas, XV thumbnail, IMT, IPTC and FLC files, and a Photo CD image
+# and a 2048x2048 PCX made here (legacy_big).
+LEGACY_DIR = os.path.join(REPO, "tests", "goldens", "legacy")
+LEGACY_MAPS = ("basecolor.pcx", "normal.sgi", "roughness.im", "metalness.ras", "emissive.xpm")
+LEGACY_EXTRA = ("pages.dcx", "paint.msp", "mask.xbm", "image.pxr", "density.spi", "plate8.fits",
+                "plate16.fits", "brush.gbr", "area.mcidas", "thumb.xv", "tools.imt", "photo.iim",
+                "anim.flc")
 # grid64x28-dds's maps: slot name, DXGI block format, sRGB.
 DDS_GRID_MAPS = (("B", "BC7", True), ("N", "BC5", False), ("R", "BC4", False),
                  ("M", "BC4", False), ("E", "BC7", True))
@@ -1009,6 +1019,60 @@ def random_dds(size: int, fmt: str, seed: int) -> bytes:
     head = (struct.pack("<7I", 124, 0x81007, size, size, n * block, 0, 0) + bytes(44) + pf
             + struct.pack("<5I", 0x1000, 0, 0, 0, 0))
     return b"DDS " + head + struct.pack("<5I", dxgi, 3, 0, 1, 0) + data.tobytes()
+
+
+def big_pcx(size: int, seed: int):
+    """(a size x size 24-bit PCX file, its RGB [size, size, 3]) from `seed`:
+    each row's three planes as 64 pieces of a 48-byte run of a random value
+    (one packet, 0xF0 v) and 48 random literal bytes below 0xC0."""
+    rng = np.random.default_rng(seed)
+    pieces = 3 * size // 96
+    vals = rng.integers(0, 256, (size, pieces, 1), dtype=np.uint8)
+    lits = rng.integers(0, 0xC0, (size, pieces, 48), dtype=np.uint8)
+    coded = np.concatenate([np.full_like(vals, 0xC0 | 48), vals, lits], axis=2)
+    rows = np.concatenate([np.repeat(vals, 48, axis=2), lits], axis=2).reshape(size, 3, size)
+    head = struct.pack("<BBBBHHHHHH", 10, 5, 1, 8, 0, 0, size - 1, size - 1, 72, 72)
+    head += bytes(49) + bytes([3]) + struct.pack("<HH", size, 1)
+    return head.ljust(128, b"\0") + coded.tobytes(), rows.transpose(0, 2, 1)
+
+
+def random_pcd(seed: int, orientation: int) -> bytes:
+    """A Kodak Photo CD file (786,432 bytes) of random luma and chroma from
+    `seed`: the 768x512 base image at 96 x 2048, each pair of rows Y, Y,
+    C1, C2; the orientation byte at 2048 + 1538."""
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    return bytes(head) + np.random.default_rng(seed).integers(0, 256, 256 * 2304,
+                                                              dtype=np.uint8).tobytes()
+
+
+def legacy_big(res, card):
+    """The 2048x2048 PCX and the Photo CD image, decoded and timed on the
+    host: the PCX equal to the picture it was made from, the Photo CD's
+    orientation 1 equal to its orientation 0 turned by 90 degrees."""
+    from tracy_tpu_torch.utils.image_io import decode_image_rgba
+
+    data, want = big_pcx(MAP_SIZE, SEED)
+    t0 = time.perf_counter()
+    rgba = decode_image_rgba(data)
+    img = rgba.astype(np.float32) / 255.0
+    secs = time.perf_counter() - t0
+    if not np.array_equal(rgba[..., :3], want) or (rgba[..., 3] != 255).any() or img.max() > 1:
+        raise RuntimeError("the 2048x2048 PCX decoded to another picture")
+    res[f"decode_s big_pcx {MAP_SIZE}"] = secs
+    print(f"decode big.pcx ({MAP_SIZE}x{MAP_SIZE} 24-bit, {len(data)} bytes, made here) with "
+          f"the float conversion on this card's host {card}: {secs:.4f} s; equal to its picture")
+    flat = decode_image_rgba(random_pcd(SEED, 0))
+    t0 = time.perf_counter()
+    rgba = decode_image_rgba(random_pcd(SEED, 1))
+    img = rgba.astype(np.float32) / 255.0
+    secs = time.perf_counter() - t0
+    if rgba.shape != (768, 512, 4) or not np.array_equal(rgba, np.rot90(flat)) or img.std() == 0:
+        raise RuntimeError("the Photo CD image's orientation 1 is not its orientation 0 turned")
+    res["decode_s photo.pcd"] = secs
+    print(f"decode photo.pcd (768x512 PhotoYCC turned to 512x768, made here) with the float "
+          f"conversion on this card's host {card}: {secs:.4f} s")
 
 
 def fixture_gate(directory, scn, counts, dev, card):
@@ -1071,11 +1135,14 @@ def image_phase(ccfg, counts, dev, card):
     """16. Image textures on the card's machine, with PIL blocked (main()
     blocks it before any phase): each map's decode seconds on the host
     (csrc/image_decode.cpp, image_formats.cpp, image_tiff.cpp,
-    image_blocks.cpp, image_webp.cpp and image_containers.cpp, built by
-    g++), the JPEG/PNG fixture's, the TGA/BMP/GIF/PGM/PSD fixture's, the
-    DDS/TIFF/QOI fixture's, the WebP fixture's and the two 2048x2048 WebP
-    maps', and the CMYK/4:1:1 JPEG, ICO, BLP and ICNS fixture's with the
-    2048x2048 CMYK JPEG and the YCCK, CUR, DIB, FTEX and BLP2 files;
+    image_blocks.cpp, image_webp.cpp, image_containers.cpp and
+    image_legacy.cpp, built by g++), the JPEG/PNG fixture's, the
+    TGA/BMP/GIF/PGM/PSD fixture's, the DDS/TIFF/QOI fixture's, the WebP
+    fixture's and the two 2048x2048 WebP maps', the CMYK/4:1:1 JPEG, ICO,
+    BLP and ICNS fixture's with the 2048x2048 CMYK JPEG and the YCCK, CUR,
+    DIB, FTEX and BLP2 files, and the PCX/SGI/IM/Sun/XPM fixture's with its
+    thirteen files of PIL's other small formats, a 2048x2048 PCX and a
+    Photo CD image (`legacy_big`);
     each fixture scene through `fixture_gate` (K1 + K4 against tracy_tpu's
     CPU render, its basecolor AOV through K1 + K3 against the plain
     versions);
@@ -1096,7 +1163,8 @@ def image_phase(ccfg, counts, dev, card):
                             + [(TIFFDDS_DIR, name) for name in TIFFDDS_MAPS]
                             + [(WEBP_DIR, name) for name in WEBP_MAPS + WEBP_BIG]
                             + [(CONTAINERS_DIR, name)
-                               for name in CONTAINER_MAPS + CONTAINER_EXTRA]):
+                               for name in CONTAINER_MAPS + CONTAINER_EXTRA]
+                            + [(LEGACY_DIR, name) for name in LEGACY_MAPS + LEGACY_EXTRA]):
         t0 = time.perf_counter()
         img = load_image_rgba(os.path.join(directory, name))
         secs = time.perf_counter() - t0
@@ -1106,10 +1174,11 @@ def image_phase(ccfg, counts, dev, card):
         res[f"decode_s {name}"] = secs
         print(f"decode {name} ({img.shape[1]}x{img.shape[0]}) on this card's host {card}: "
               f"{secs:.4f} s")
+    legacy_big(res, card)
 
     for directory, scn in ((FIXTURE_DIR, "textured.scn"), (FORMATS_DIR, "formats.scn"),
                            (TIFFDDS_DIR, "tiffdds.scn"), (WEBP_DIR, "webp.scn"),
-                           (CONTAINERS_DIR, "containers.scn")):
+                           (CONTAINERS_DIR, "containers.scn"), (LEGACY_DIR, "legacy.scn")):
         more, gate = fixture_gate(directory, scn, counts, dev, card)
         launches.update(more)
         res[scn] = gate

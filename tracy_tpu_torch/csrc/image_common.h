@@ -1,8 +1,9 @@
 // What the host image decoders share (image_formats.cpp, image_tiff.cpp,
-// image_blocks.cpp, image_webp.cpp, image_containers.cpp): bounds-checked
-// reads of the file, the size limit, the fault type, and the guard that
-// turns a fault into the return codes of the extern "C" entry points (0;
-// 1, a fault of the file; 2, a failure inside the decoder), the message
+// image_blocks.cpp, image_webp.cpp, image_containers.cpp,
+// image_legacy.cpp): bounds-checked reads of the file, the size limit, the
+// fault types, and the guard that turns a fault into the return codes of
+// the extern "C" entry points (0; 1, a fault of the file; 2, a failure
+// inside the decoder; 3, not a file of the format asked for), the message
 // going to tracy_decode_error().
 
 #pragma once
@@ -25,6 +26,13 @@ struct DecodeError : std::runtime_error {
   using std::runtime_error::runtime_error;
 };
 
+// Not a file of the format asked for (return code 3): where PIL's plugin
+// raises an error that Image.open takes for "not this format", so that it
+// tries its next plugin (image_legacy.cpp's header readers).
+struct NotFormat : DecodeError {
+  using DecodeError::DecodeError;
+};
+
 // What one source lends another (image_containers.cpp reads the bitmaps of
 // ICO, CUR and DIB files and FTEX's BC1 blocks with these).
 //
@@ -44,6 +52,12 @@ size_t dib_decode(const uint8_t* p, size_t n, size_t at, int64_t rows, bool raw_
 // BC1 blocks (ceil(w / 4) x ceil(h / 4), 8 bytes each, already bounds-
 // checked) to RGBA8 [h, w, 4], as DDS reads them (image_blocks.cpp).
 void bc1_decode(const uint8_t* p, int64_t w, int64_t h, uint8_t* out);
+// Raw deflate (RFC 1951) of p[0, n), appended to `out` until `want` bytes
+// are out or the final block ends (image_tiff.cpp). Returns the bytes of p
+// consumed, to the byte that holds the last bit read; `fmt` names the
+// format in errors.
+size_t inflate(const uint8_t* p, size_t n, std::vector<uint8_t>& out, size_t want,
+               const char* fmt);
 }  // namespace tracy_image
 
 namespace {
@@ -51,6 +65,7 @@ namespace {
 using tracy_image::DecodeError;
 
 [[noreturn]] void fail(const std::string& msg) { throw DecodeError(msg); }
+[[noreturn]] inline void not_format(const std::string& msg) { throw tracy_image::NotFormat(msg); }
 
 // PIL's decompression-bomb error starts at twice its 89.5 M-pixel warning
 // (utils/image_io.py::MAX_PIXELS, which PNG and JPEG are held to).
@@ -111,6 +126,9 @@ int guarded(F&& f) {
   try {
     f();
     return 0;
+  } catch (const tracy_image::NotFormat& e) {
+    tracy_image::set_error(e.what());
+    return 3;
   } catch (const DecodeError& e) {
     tracy_image::set_error(e.what());
     return 1;

@@ -446,17 +446,20 @@ void packbits_decode(const uint8_t* p, size_t n, uint8_t* out, size_t want) {
   }
 }
 
-// Inflate (RFC 1950/1951) of a zlib stream, until `want` bytes are out, as
-// libtiff's ZIPDecode stops (the Adler-32 after them is not read).
+// The bit reader of a raw deflate stream (RFC 1951); `fmt` names the format
+// in errors.
 struct Inflate {
   const uint8_t* p;
-  size_t n, pos = 0;
+  size_t n;
+  const char* fmt;
+  size_t pos = 0;
   uint64_t acc = 0;
   int have = 0;
 
+  [[noreturn]] void error(const char* what) const { fail(std::string(fmt) + ": " + what); }
   void fill(int k) {
     while (have < k) {
-      if (pos >= n) fail("TIFF: deflate data ends early");
+      if (pos >= n) error("deflate data ends early");
       acc |= uint64_t(p[pos++]) << have;
       have += 8;
     }
@@ -478,7 +481,7 @@ struct Inflate {
     return static_cast<uint32_t>(acc & ((uint64_t(1) << k) - 1));
   }
   void drop(int k) {
-    if (k > have) fail("TIFF: deflate data ends early");
+    if (k > have) error("deflate data ends early");
     acc >>= k;
     have -= k;
   }
@@ -491,14 +494,14 @@ struct Huffman {
   uint16_t symbol[320] = {};
   uint16_t fast[1 << kFast] = {};  // symbol << 4 | length, 0 when longer
 
-  void build(const uint8_t* lengths, int n) {
+  void build(const uint8_t* lengths, int n, const Inflate& in) {
     std::memset(count, 0, sizeof(count));
     for (int i = 0; i < n; ++i) ++count[lengths[i]];
     count[0] = 0;
     int left = 1;
     for (int len = 1; len < 16; ++len) {
       left = 2 * left - count[len];
-      if (left < 0) fail("TIFF: deflate code lengths are over-subscribed");
+      if (left < 0) in.error("deflate code lengths are over-subscribed");
     }
     uint16_t offs[16] = {};
     for (int len = 1; len < 15; ++len) offs[len + 1] = offs[len] + count[len];
@@ -533,11 +536,16 @@ struct Huffman {
       first = (first + c) << 1;
       code <<= 1;
     }
-    fail("TIFF: bad deflate code");
+    in.error("bad deflate code");
   }
 };
 
-void inflate_decode(const uint8_t* p, size_t n, uint8_t* out, size_t want) {
+}  // namespace
+
+namespace tracy_image {
+
+size_t inflate(const uint8_t* p, size_t n, std::vector<uint8_t>& out, size_t want,
+               const char* fmt) {
   static const uint16_t kLenBase[29] = {3,  4,  5,  6,  7,  8,  9,  10, 11,  13,
                                         15, 17, 19, 23, 27, 31, 35, 43, 51,  59,
                                         67, 83, 99, 115, 131, 163, 195, 227, 258};
@@ -549,29 +557,28 @@ void inflate_decode(const uint8_t* p, size_t n, uint8_t* out, size_t want) {
                                          4097, 6145, 8193, 12289, 16385, 24577};
   static const uint8_t kDistExtra[30] = {0, 0, 0, 0, 1, 1, 2, 2,  3,  3,  4,  4,  5,  5,  6,
                                          6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
-  if (n < 2 || (p[0] & 15) != 8 || ((p[0] << 8) | p[1]) % 31 != 0 || (p[1] & 0x20)) {
-    fail("TIFF: deflate data without a zlib header");
-  }
-  Inflate in{p + 2, n - 2};
+  Inflate in{p, n, fmt};
   Huffman lit, dist;
-  size_t o = 0;
+  const size_t base = out.size();
   bool last = false;
-  while (o < want) {
-    if (last) fail("TIFF: deflate data ends early");
+  // Bytes of p consumed: to the byte that holds the last bit read.
+  const auto used = [&in] { return in.pos - static_cast<size_t>(in.have / 8); };
+  while (out.size() - base < want) {
+    if (last) return used();
     last = in.bits(1) != 0;
     const uint32_t type = in.bits(2);
     if (type == 0) {
       in.acc >>= in.have & 7;  // to a byte boundary
       in.have -= in.have & 7;
       const uint32_t len = in.bits(16), nlen = in.bits(16);
-      if ((len ^ 0xffff) != nlen) fail("TIFF: bad stored deflate block");
+      if ((len ^ 0xffff) != nlen) in.error("bad stored deflate block");
       for (uint32_t i = 0; i < len; ++i) {
         const uint8_t v = static_cast<uint8_t>(in.bits(8));
-        if (o < want) out[o++] = v;
+        if (out.size() - base < want) out.push_back(v);
       }
       continue;
     }
-    if (type == 3) fail("TIFF: bad deflate block type");
+    if (type == 3) in.error("bad deflate block type");
     uint8_t lengths[320];
     if (type == 1) {
       int i = 0;
@@ -579,20 +586,20 @@ void inflate_decode(const uint8_t* p, size_t n, uint8_t* out, size_t want) {
       for (; i < 256; ++i) lengths[i] = 9;
       for (; i < 280; ++i) lengths[i] = 7;
       for (; i < 288; ++i) lengths[i] = 8;
-      lit.build(lengths, 288);
+      lit.build(lengths, 288, in);
       for (i = 0; i < 30; ++i) lengths[i] = 5;
-      dist.build(lengths, 30);
+      dist.build(lengths, 30, in);
     } else {
       static const uint8_t kOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5,
                                          11, 4, 12, 3, 13, 2, 14, 1, 15};
       const int nlit = static_cast<int>(in.bits(5)) + 257;
       const int ndist = static_cast<int>(in.bits(5)) + 1;
       const int ncode = static_cast<int>(in.bits(4)) + 4;
-      if (nlit > 286 || ndist > 30) fail("TIFF: bad deflate code counts");
+      if (nlit > 286 || ndist > 30) in.error("bad deflate code counts");
       uint8_t cl[19] = {};
       for (int i = 0; i < ncode; ++i) cl[kOrder[i]] = static_cast<uint8_t>(in.bits(3));
       Huffman code;
-      code.build(cl, 19);
+      code.build(cl, 19, in);
       int i = 0;
       while (i < nlit + ndist) {
         const int sym = code.decode(in);
@@ -603,7 +610,7 @@ void inflate_decode(const uint8_t* p, size_t n, uint8_t* out, size_t want) {
         int rep = 0;
         uint8_t v = 0;
         if (sym == 16) {
-          if (i == 0) fail("TIFF: bad deflate code lengths");
+          if (i == 0) in.error("bad deflate code lengths");
           v = lengths[i - 1];
           rep = 3 + static_cast<int>(in.bits(2));
         } else if (sym == 17) {
@@ -611,32 +618,50 @@ void inflate_decode(const uint8_t* p, size_t n, uint8_t* out, size_t want) {
         } else {
           rep = 11 + static_cast<int>(in.bits(7));
         }
-        if (i + rep > nlit + ndist) fail("TIFF: bad deflate code lengths");
+        if (i + rep > nlit + ndist) in.error("bad deflate code lengths");
         while (rep--) lengths[i++] = v;
       }
-      lit.build(lengths, nlit);
-      dist.build(lengths + nlit, ndist);
+      lit.build(lengths, nlit, in);
+      dist.build(lengths + nlit, ndist, in);
     }
     for (;;) {
       const int sym = lit.decode(in);
       if (sym < 256) {
-        if (o < want) out[o++] = static_cast<uint8_t>(sym);
-        if (o == want) return;
+        out.push_back(static_cast<uint8_t>(sym));
+        if (out.size() - base == want) return used();
         continue;
       }
       if (sym == 256) break;
       const int li = sym - 257;
-      if (li >= 29) fail("TIFF: bad deflate length code");
+      if (li >= 29) in.error("bad deflate length code");
       const size_t len = kLenBase[li] + in.bits(kLenExtra[li]);
       const int di = dist.decode(in);
-      if (di >= 30) fail("TIFF: bad deflate distance code");
+      if (di >= 30) in.error("bad deflate distance code");
       const size_t d = kDistBase[di] + in.bits(kDistExtra[di]);
-      if (d > o) fail("TIFF: deflate distance before the start of the chunk");
-      const size_t m = std::min(len, want - o);
-      for (size_t k = 0; k < m; ++k, ++o) out[o] = out[o - d];
-      if (o == want) return;
+      if (d > out.size() - base) in.error("deflate distance before the start of the chunk");
+      const size_t m = std::min(len, want - (out.size() - base));
+      for (size_t k = 0; k < m; ++k) out.push_back(out[out.size() - d]);
+      if (out.size() - base == want) return used();
     }
   }
+  return used();
+}
+
+}  // namespace tracy_image
+
+namespace {
+
+// Inflate (RFC 1950/1951) of a zlib stream, until `want` bytes are out, as
+// libtiff's ZIPDecode stops (the Adler-32 after them is not read).
+void inflate_decode(const uint8_t* p, size_t n, uint8_t* out, size_t want) {
+  if (n < 2 || (p[0] & 15) != 8 || ((p[0] << 8) | p[1]) % 31 != 0 || (p[1] & 0x20)) {
+    fail("TIFF: deflate data without a zlib header");
+  }
+  std::vector<uint8_t> v;
+  v.reserve(want);
+  tracy_image::inflate(p + 2, n - 2, v, want, "TIFF");
+  if (v.size() < want) fail("TIFF: deflate data ends early");
+  std::memcpy(out, v.data(), want);
 }
 
 // ---------------------------------------------------------------- pixels

@@ -6,15 +6,18 @@ through, optional sRGB -> linear; src/texture.h:93-108). All textures of a
 scene live in ONE flat `[P, 4]` float32 atlas plus an int table
 `[K, 4] = (offset, width, height, 0)`.
 
-Radiance .hdr files go through the own decoder below (numpy only); PNG,
-JPEG, BMP, GIF, PNM (P1-P6), PSD and TGA files (every 8-bit format that
-stb_image, the C++ reference's loader, and PIL, tracy_tpu's, both read)
-and TIFF, DDS, QOI, WebP, DIB, ICO, CUR, FTEX, BLP and ICNS files (which
-PIL reads) through csrc/image_decode.cpp, image_formats.cpp,
-image_tiff.cpp, image_blocks.cpp, image_webp.cpp and image_containers.cpp
-(utils/image_io.py),
-told apart by their first bytes, whatever their name says. Nothing here
-imports PIL, which the GPU machine lacks.
+Files named .hdr go through the own Radiance decoder below (numpy only)
+and .exr through imageio, by name, as tracy_tpu decides them; every other
+file by its content: PNG, JPEG, BMP, GIF, PNM (P1-P6), PSD and TGA files
+(every 8-bit format that stb_image, the C++ reference's loader, and PIL,
+tracy_tpu's, both read) and TIFF, DDS, QOI, WebP, DIB, ICO, CUR, FTEX,
+BLP, ICNS, PCX, DCX, SGI, SUN, MSP, IM, XBM, XPM, PIXAR, SPIDER, FITS,
+GBR, MCIDAS, XVTHUMB, IMT, IPTC, PCD and FLI files (which PIL reads)
+through csrc/image_decode.cpp, image_formats.cpp, image_tiff.cpp,
+image_blocks.cpp, image_webp.cpp, image_containers.cpp and
+image_legacy.cpp (utils/image_io.py), told apart by their first bytes,
+whatever their name says. Nothing here imports PIL, which the GPU machine
+lacks.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from tracy_tpu_torch.utils.image_io import READ_FORMATS, decode_image_rgba, image_format
+from tracy_tpu_torch.utils.image_io import decode_image_rgba
 from tracy_tpu_torch.utils.log import log
 
 
@@ -39,10 +42,8 @@ def load_image_rgba(path: str) -> Optional[np.ndarray]:
     must not turn a texture grey.
     """
     try:
-        with open(path, "rb") as f:
-            data = f.read()
-        if image_format(data) is not None:
-            return decode_image_rgba(data).astype(np.float32) / 255.0
+        # .hdr and .exr by name first, whatever the file holds, as tracy_tpu
+        # decides them; every other file by its content.
         if path.lower().endswith(".hdr"):
             img = _load_radiance_hdr(path)
             return np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
@@ -55,7 +56,9 @@ def load_image_rgba(path: str) -> Optional[np.ndarray]:
             if img.shape[-1] == 3:
                 img = np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
             return img
-        raise ValueError(f"not a {READ_FORMATS} file, nor a Radiance .hdr or .exr file")
+        with open(path, "rb") as f:
+            data = f.read()
+        return decode_image_rgba(data).astype(np.float32) / 255.0
     except RuntimeError:
         raise
     except Exception as e:  # missing file, bad or refused format

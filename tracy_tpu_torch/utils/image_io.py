@@ -1,5 +1,6 @@
 """Image files: PNG and PPM written, every 8-bit format of stb_image,
-WebP and the icon and game-texture containers read, without PIL.
+WebP, the icon and game-texture containers and the small raw and
+run-length formats of PIL's plugins read, without PIL.
 
 Port of tracy_tpu/utils/image_io.py. The JAX package writes PNG through
 PIL; the GPU machine has no PIL, and the command-line default output is
@@ -8,11 +9,13 @@ struct: 8-bit RGB, one IDAT chunk, filter 0 on every row). Files are read
 by the decoders of csrc/image_decode.cpp (PNG, JPEG; Python's zlib
 inflates PNG data), csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD, QOI),
 csrc/image_tiff.cpp (TIFF), csrc/image_blocks.cpp (DDS),
-csrc/image_webp.cpp (WebP) and csrc/image_containers.cpp (DIB, ICO, CUR,
+csrc/image_webp.cpp (WebP), csrc/image_containers.cpp (DIB, ICO, CUR,
 FTEX, BLP, ICNS; their PNG and JPEG entries go to the PNG and JPEG
-decoders), built by g++ at first use (utils/native.py::get_image_lib),
-never by PIL; `image_format` tells them apart by their first bytes, as PIL
-does.
+decoders) and csrc/image_legacy.cpp (PCX, DCX, SGI, SUN, MSP, IM, XBM,
+XPM, PIXAR, SPIDER, FITS, GBR, MCIDAS, XVTHUMB, IMT, IPTC, PCD, FLI; IPTC's
+embedded stream goes to the PNM or JPEG decoder), built by g++ at first
+use (utils/native.py::get_image_lib), never by PIL; `image_format` tells
+them apart by their first bytes, in the order PIL tries its plugins.
 `read_image` reads back what the inverse-rendering CLI takes as a target:
 .npy and .hdr (scene/textures.py's Radiance decoder) by name, any of those
 formats by content.
@@ -26,14 +29,15 @@ import zlib
 
 import numpy as np
 
-from tracy_tpu_torch.utils.native import STREAM_FORMATS, get_image_lib
+from tracy_tpu_torch.utils.native import LEGACY_FORMATS, STREAM_FORMATS, get_image_lib
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
 # Classic TIFF and BigTIFF, little- and big-endian.
 TIFF_SIGNATURES = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
 READ_FORMATS = ("PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA, TIFF, DDS, QOI, WebP, ICO, CUR, "
-                "FTEX, BLP or ICNS")
+                "FTEX, BLP, ICNS, PCX, DCX, SGI, SUN, MSP, IM, XBM, XPM, PIXAR, SPIDER, FITS, "
+                "GBR, MCIDAS, XVTHUMB, IMT, IPTC, PCD or FLI")
 # The first u32 (little-endian) of a DIB: its info header's size, as PIL's
 # _dib_accept takes it.
 DIB_HEADER_SIZES = (12, 40, 52, 56, 64, 108, 124)
@@ -120,12 +124,12 @@ def _png_chunks(data: bytes):
 
 
 def _decode_error(lib, what: str, code: int):
-    """Raise for a decoder's return code: 1 is the file's fault
-    (ValueError), anything else a failure inside the decoder
-    (RuntimeError)."""
+    """Raise for a decoder's return code: 1 (the file's fault) and 3 (not a
+    file of the format) as ValueError, 2 (a failure inside the decoder) as
+    RuntimeError."""
     if code != 0:
         msg = f"{what}: {lib.tracy_decode_error().decode(errors='replace')}"
-        raise ValueError(msg) if code == 1 else RuntimeError(msg)
+        raise RuntimeError(msg) if code == 2 else ValueError(msg)
 
 
 def _png_rgba(data: bytes):
@@ -174,16 +178,22 @@ def decode_jpeg(data: bytes, four_as_cmyk: bool = False) -> np.ndarray:
     read, naming what it refuses (arithmetic coding, lossless, 12-bit,
     non-integral sampling ratios)."""
     lib = get_image_lib()
+    w, h, _ = _jpeg_info(lib, data)
+    if w * h > MAX_PIXELS:
+        raise ValueError(f"JPEG: {w}x{h} pixels not read")
+    out = np.empty((h, w, 4), np.uint8)
+    _decode_error(lib, "JPEG", lib.tracy_jpeg_decode(data, len(data), out.ctypes.data, w, h,
+                                                     int(four_as_cmyk)))
+    return out
+
+
+def _jpeg_info(lib, data: bytes):
+    """(width, height, components) of a JPEG file."""
     w, h, comps, prog = (ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int())
     _decode_error(lib, "JPEG", lib.tracy_jpeg_info(data, len(data), ctypes.byref(w),
                                                    ctypes.byref(h), ctypes.byref(comps),
                                                    ctypes.byref(prog)))
-    if w.value * h.value > MAX_PIXELS:
-        raise ValueError(f"JPEG: {w.value}x{h.value} pixels not read")
-    out = np.empty((h.value, w.value, 4), np.uint8)
-    _decode_error(lib, "JPEG", lib.tracy_jpeg_decode(data, len(data), out.ctypes.data,
-                                                     w.value, h.value, int(four_as_cmyk)))
-    return out
+    return w.value, h.value, comps.value
 
 
 def _tga_header_ok(data: bytes) -> bool:
@@ -207,41 +217,79 @@ def _icon_directory_ok(data: bytes) -> bool:
     return n > 0 and len(data) >= 6 + 16 * n
 
 
+def _be32(data: bytes, at: int) -> int:
+    return struct.unpack(">I", data[at:at + 4])[0] if len(data) >= at + 4 else -1
+
+
+# The formats the port reads, in the order PIL's Image.open tries them: the
+# formats it loads first (BMP, DIB, GIF, JPEG, PPM, PNG), then its plugins
+# by name (Image.ID), each with its plugin's _accept test on the first 16
+# bytes. IM, IMT, IPTC, PCD and SPIDER have none: PIL tries their _open on
+# every file that reaches them.
+FORMAT_ORDER = (
+    ("bmp", lambda d: d[:2] == b"BM"),
+    ("dib", lambda d: len(d) >= 4 and struct.unpack("<I", d[:4])[0] in DIB_HEADER_SIZES),
+    ("gif", lambda d: d[:6] in (b"GIF87a", b"GIF89a")),
+    ("jpeg", lambda d: d[:3] == JPEG_SIGNATURE),
+    ("pnm", lambda d: d[:1] == b"P" and len(d) > 1 and d[1] in b"0123456fy"),
+    ("png", lambda d: d[:8] == PNG_SIGNATURE),
+    ("blp", lambda d: d[:4] in (b"BLP1", b"BLP2")),
+    ("cur", lambda d: d[:4] == b"\0\0\2\0" and _icon_directory_ok(d)),
+    ("pcx", lambda d: len(d) >= 2 and d[0] == 10 and d[1] in (0, 2, 3, 5)),
+    ("dcx", lambda d: d[:4] == struct.pack("<I", 987654321)),
+    ("dds", lambda d: d[:4] == b"DDS "),
+    ("fits", lambda d: d[:6] == b"SIMPLE"),
+    ("fli", lambda d: len(d) >= 16 and d[4:6] in (b"\x11\xaf", b"\x12\xaf")
+     and d[14:16] in (b"\0\0", b"\3\0")),
+    ("ftex", lambda d: d[:4] == b"FTEX"),
+    ("gbr", lambda d: _be32(d, 0) >= 20 and _be32(d, 4) in (1, 2)),
+    ("icns", lambda d: d[:4] == b"icns"),
+    ("ico", lambda d: d[:4] == b"\0\0\1\0" and _icon_directory_ok(d)),
+    ("im", None),
+    ("imt", None),
+    ("iptc", None),
+    ("mcidas", lambda d: d[:8] == b"\0\0\0\0\0\0\0\4"),
+    ("tiff", lambda d: d[:4] in TIFF_SIGNATURES),
+    ("msp", lambda d: d[:4] in (b"DanM", b"LinS")),
+    ("pcd", None),
+    ("pixar", lambda d: d[:4] == b"\x80\xe8\0\0"),
+    ("psd", lambda d: d[:4] == b"8BPS"),
+    ("qoi", lambda d: d[:4] == b"qoif"),
+    ("sgi", lambda d: d[:2] == b"\x01\xda"),
+    ("spider", None),
+    ("sun", lambda d: d[:4] == b"\x59\xa6\x6a\x95"),
+    ("tga", _tga_header_ok),
+    ("webp", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP" and d[12:16] in WEBP_CHUNKS),
+    ("xbm", lambda d: d[:16].lstrip().startswith(b"#define")),
+    ("xpm", lambda d: d[:9] == b"/* XPM */"),
+    ("xvthumb", lambda d: d[:6] == b"P7 332"),
+)
+
+
+def _plugin_opens(fmt: str, data: bytes) -> bool:
+    """Whether PIL's plugin for one of csrc/image_legacy.cpp's formats
+    keeps the file past its _open checks (tracy_<fmt>_info does not answer
+    3, "not this format"): else Image.open tries its next plugin."""
+    lib = get_image_lib()
+    w, h = ctypes.c_int(), ctypes.c_int()
+    return getattr(lib, f"tracy_{fmt}_info")(data, len(data), ctypes.byref(w),
+                                              ctypes.byref(h)) != 3
+
+
 def image_format(data: bytes):
     """The format of an image file by its first bytes, as PIL tells them
-    apart, in PIL's order (the formats it loads first, then its plugins by
-    name): "bmp" (BM), "dib" (a first u32 that is a BMP info header's size),
-    "gif" (GIF87a/GIF89a), "jpeg", "pnm" (P and a kind), "png", "blp" (BLP1,
-    BLP2), "cur" (0 0 2 0), "dds" (DDS and a space), "ftex" (FTEX), "icns",
-    "ico" (0 0 1 0; "cur" and "ico" with a whole directory of at least one
-    entry, else PIL's plugins give way), "psd" (8BPS), "qoi" (qoif), "tiff"
-    (II*, MM*, and BigTIFF's II+, MM+), "webp" (RIFF, WEBP at byte 8 and a
-    VP8, VP8L or VP8X chunk at 12), else "tga" if the header passes TGA's
-    checks (it has no magic, so it comes last), else None. The decoders may
-    still refuse a kind they do not read."""
-    head4 = data[:4]
-    if data[:2] == b"BM":
-        return "bmp"
-    if len(data) >= 4 and struct.unpack("<I", head4)[0] in DIB_HEADER_SIZES:
-        return "dib"
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return "gif"
-    if data[:3] == JPEG_SIGNATURE:
-        return "jpeg"
-    if data[:1] == b"P" and len(data) > 1 and data[1] in b"0123456fy":
-        return "pnm"
-    if data[:8] == PNG_SIGNATURE:
-        return "png"
-    magic = {b"BLP1": "blp", b"BLP2": "blp", b"\0\0\2\0": "cur", b"DDS ": "dds",
-             b"FTEX": "ftex", b"icns": "icns", b"\0\0\1\0": "ico", b"8BPS": "psd",
-             b"qoif": "qoi"}.get(head4)
-    if magic and (magic not in ("cur", "ico") or _icon_directory_ok(data)):
-        return magic
-    if head4 in TIFF_SIGNATURES:
-        return "tiff"
-    if head4 == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in WEBP_CHUNKS:
-        return "webp"
-    return "tga" if _tga_header_ok(data) else None
+    apart: the first of FORMAT_ORDER whose test passes, PIL's order ("cur"
+    and "ico" with a whole directory of at least one entry, else PIL's
+    plugins give way; "tga" by its header's checks, as the port reads it).
+    For the formats of csrc/image_legacy.cpp the header must also pass the
+    checks of the plugin's _open (which decide alone for IM, IMT, IPTC, PCD
+    and SPIDER, which have no magic number). None for any other file. The
+    decoders may still refuse a kind they do not read."""
+    for fmt, accept in FORMAT_ORDER:
+        if (accept is None or accept(data)) and (fmt not in LEGACY_FORMATS
+                                                 or _plugin_opens(fmt, data)):
+            return fmt
+    return None
 
 
 def _native_size(lib, fmt: str, data: bytes):
@@ -255,8 +303,8 @@ def _native_size(lib, fmt: str, data: bytes):
 
 def _decode_native(fmt: str, data: bytes) -> np.ndarray:
     """uint8 RGBA [H, W, 4] from tracy_<fmt>_info and tracy_<fmt>_decode of
-    csrc/image_formats.cpp, image_tiff.cpp, image_blocks.cpp, image_webp.cpp
-    or image_containers.cpp."""
+    csrc/image_formats.cpp, image_tiff.cpp, image_blocks.cpp, image_webp.cpp,
+    image_containers.cpp or image_legacy.cpp."""
     lib = get_image_lib()
     w, h = _native_size(lib, fmt, data)
     out = np.empty((h, w, 4), np.uint8)
@@ -290,10 +338,51 @@ def _blp_jpeg(data: bytes, stream: bytes) -> np.ndarray:
     return out
 
 
+def _iptc_rgba(data: bytes) -> np.ndarray:
+    """An IPTC/NAA image as IptcImageFile.load reads it: the (8, 10) fields'
+    data joined (behind a P5 header for compression "raw") and opened as an
+    image of its own, which is the picture (mode L) or fills one band of an
+    RGB or CMYK image whose other bands are 0 (then it must be grey, as
+    Image.merge requires)."""
+    lib = get_image_lib()
+    meta = (ctypes.c_int64 * 4)()
+    cap = len(data) // 5 + 1
+    spans = (ctypes.c_int64 * (2 * cap))()
+    count = ctypes.c_int64()
+    _decode_error(lib, "IPTC", lib.tracy_iptc_stream(data, len(data), meta, spans, cap,
+                                                     ctypes.byref(count)))
+    compression, bands, band, has_data = meta
+    if not has_data:
+        return _decode_native("iptc", data)  # no image data: PIL's image stays black
+    stream = b"".join(data[spans[2 * k]:spans[2 * k] + spans[2 * k + 1]]
+                      for k in range(count.value))
+    if compression == 1:
+        stream = b"P5\n%d %d\n255\n" % _native_size(lib, "iptc", data) + stream
+        grey = True
+    else:
+        kind = image_format(stream)
+        grey = kind == "jpeg" and _jpeg_info(lib, stream)[2] == 1
+        if kind not in ("jpeg", "pnm"):
+            raise ValueError(f"IPTC: the embedded {kind or 'unknown'} stream is not read "
+                             "(the port reads JPEG and PNM streams)")
+    img = decode_image_rgba(stream)
+    if band == -1:
+        return img
+    if not grey:
+        raise ValueError("IPTC: a band filled by an image that is not grey (PIL cannot merge it)")
+    if not -bands <= band < bands:
+        raise ValueError(f"IPTC: band {band + 1} of a {bands}-band image")
+    planes = np.zeros(img.shape[:2] + (bands,), np.int64)
+    planes[..., band] = img[..., 0]
+    out = np.full(img.shape[:2] + (4,), 255, np.uint8)
+    # PIL's cmyk2rgb with one band set: 255 - C (M, Y), or 255 - K in all three.
+    out[..., :3] = planes if bands == 3 else 255 - planes[..., :3] - planes[..., 3:]
+    return out
+
+
 def decode_image_rgba(data: bytes) -> np.ndarray:
-    """uint8 RGBA [H, W, 4] of a PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA,
-    TIFF, DDS, QOI, WebP, ICO, CUR, FTEX, BLP or ICNS file, told apart by its
-    first bytes (not its name; `image_format`), as PIL's
+    """uint8 RGBA [H, W, 4] of a file of any of READ_FORMATS, told apart by
+    its first bytes (not its name; `image_format`), as PIL's
     open(...).convert("RGBA") gives it but for ROADMAP's hazards. Raises
     ValueError for anything else, or for a kind the decoders refuse, named."""
     fmt = image_format(data)
@@ -303,6 +392,8 @@ def decode_image_rgba(data: bytes) -> np.ndarray:
         return decode_jpeg(data)
     if fmt is None:
         raise ValueError(f"not a {READ_FORMATS} file")
+    if fmt == "iptc":
+        return _iptc_rgba(data)
     if fmt in STREAM_FORMATS:
         stream = _embedded_stream(fmt, data)
         if stream is not None:

@@ -8,9 +8,10 @@ the callers take their numpy versions.
 
 `get_image_lib`: the image decoders of csrc/image_decode.cpp (PNG, JPEG),
 csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD, QOI), image_tiff.cpp
-(TIFF), image_blocks.cpp (DDS), image_webp.cpp (WebP) and
-image_containers.cpp (DIB, ICO, CUR, FTEX, BLP, ICNS), in
-build/native/<hash>/libtracy_image.so. g++ (not nvcc), so that the CPU
+(TIFF), image_blocks.cpp (DDS), image_webp.cpp (WebP),
+image_containers.cpp (DIB, ICO, CUR, FTEX, BLP, ICNS) and image_legacy.cpp
+(PCX, DCX, SGI, SUN, MSP, IM, XBM, XPM, PIXAR, SPIDER, FITS, GBR, MCIDAS,
+XVTHUMB, IMT, IPTC, PCD, FLI), in build/native/<hash>/libtracy_image.so. g++ (not nvcc), so that the CPU
 tests run the same code as the card's host. They have no other version:
 if the library cannot be built, `get_image_lib` raises
 ImageDecoderUnavailable with the compiler's output.
@@ -47,13 +48,19 @@ IMAGE_SOURCES = tuple(os.path.join(CSRC_DIR, s) for s in ("image_decode.cpp",
                                                           "image_tiff.cpp",
                                                           "image_blocks.cpp",
                                                           "image_webp.cpp",
-                                                          "image_containers.cpp"))
+                                                          "image_containers.cpp",
+                                                          "image_legacy.cpp"))
 # Included by the sources: part of the library's hash, not of the command.
 IMAGE_HEADERS = (os.path.join(CSRC_DIR, "image_common.h"),)
+# Formats of csrc/image_legacy.cpp, whose tracy_<fmt>_info also says (code
+# 3) that a file is not of the format, as PIL's plugin decides it.
+LEGACY_FORMATS = ("pcx", "dcx", "sgi", "sun", "msp", "im", "xbm", "xpm", "pixar", "spider", "fits",
+                  "gbr", "mcidas", "xvthumb", "imt", "iptc", "pcd", "fli")
 # Formats of csrc/image_formats.cpp, image_tiff.cpp, image_blocks.cpp,
-# image_webp.cpp and image_containers.cpp, each with tracy_<fmt>_info/_decode.
+# image_webp.cpp, image_containers.cpp and image_legacy.cpp, each with
+# tracy_<fmt>_info/_decode.
 IMAGE_FORMATS = ("tga", "bmp", "gif", "pnm", "psd", "qoi", "tiff", "dds", "webp", "dib", "ico",
-                 "cur", "ftex", "blp", "icns")
+                 "cur", "ftex", "blp", "icns") + LEGACY_FORMATS
 # Containers whose opened entry may be a PNG or JPEG stream, each with
 # tracy_<fmt>_stream (csrc/image_containers.cpp).
 STREAM_FORMATS = ("ico", "icns", "blp")
@@ -176,5 +183,8 @@ def get_image_lib() -> ctypes.CDLL:
             stream = getattr(lib, f"tracy_{fmt}_stream")
             stream.restype = i32
             stream.argtypes = [u8p, i64, ctypes.POINTER(ctypes.c_int64)]
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.tracy_iptc_stream.restype = i32
+        lib.tracy_iptc_stream.argtypes = [u8p, i64, i64p, i64p, i64, i64p]
         _image_lib = lib
         return _image_lib
