@@ -126,7 +126,12 @@ Phases, each fatal on failure:
    progressive JPEG, 4:1:1 JPEG, ICO, BLP1 JPEG of four components, ICNS
    it32; csrc/image_decode.cpp, image_containers.cpp) and containers.scn,
    with the decode seconds of its 2048x2048 Adobe CMYK JPEG and of a YCCK
-   JPEG, a CUR, a DIB, an FTEX and two BLP2 files; grid64x28 with the JPEG/PNG maps in place of
+   JPEG, a CUR, a DIB, an FTEX and two BLP2 files, and for
+   tests/goldens/legacy/ and legacy.scn, and tests/goldens/jpeg2000/ (9/7
+   ICT JP2 in tiles, 5/3 RCT codestream in RPCL, grey JP2, signed
+   codestream in PCRL, RGBA JP2 in CPRL with PLT; csrc/image_jpeg2000.cpp)
+   and jpeg2000.scn, with the decode seconds of its 2048x2048 9/7 JP2;
+   grid64x28 with the JPEG/PNG maps in place of
    the numpy maps at 1080p, compacted, 4 frames, timed (no gain claimed), and
    grid64x28-dds, the same with 2048x2048 DDS maps made here from random
    blocks (BC7 basecolor and emissive, BC5 normal, BC4 roughness and
@@ -1000,6 +1005,14 @@ LEGACY_MAPS = ("basecolor.pcx", "normal.sgi", "roughness.im", "metalness.ras", "
 LEGACY_EXTRA = ("pages.dcx", "paint.msp", "mask.xbm", "image.pxr", "density.spi", "plate8.fits",
                 "plate16.fits", "brush.gbr", "area.mcidas", "thumb.xv", "tools.imt", "photo.iim",
                 "anim.flc")
+# And as JPEG 2000 (csrc/image_jpeg2000.cpp): a 9/7 ICT JP2 in 128-px tiles
+# with 3 layers, a 5/3 RCT raw codestream in RPCL with precincts, a grey
+# JP2, a signed raw codestream in PCRL, an RGBA JP2 in CPRL with PLT;
+# besides, decode timing only: a 2048x2048 9/7 JP2 of 3 layers and 5
+# resolution levels (tools/make_jpeg2000_fixtures.py).
+JPEG2000_DIR = os.path.join(REPO, "tests", "goldens", "jpeg2000")
+JPEG2000_MAPS = ("basecolor.jp2", "normal.j2k", "roughness.jp2", "metalness.j2k", "emissive.jp2")
+JPEG2000_BIG = ("big.jp2",)
 # grid64x28-dds's maps: slot name, DXGI block format, sRGB.
 DDS_GRID_MAPS = (("B", "BC7", True), ("N", "BC5", False), ("R", "BC4", False),
                  ("M", "BC4", False), ("E", "BC7", True))
@@ -1135,14 +1148,15 @@ def image_phase(ccfg, counts, dev, card):
     """16. Image textures on the card's machine, with PIL blocked (main()
     blocks it before any phase): each map's decode seconds on the host
     (csrc/image_decode.cpp, image_formats.cpp, image_tiff.cpp,
-    image_blocks.cpp, image_webp.cpp, image_containers.cpp and
-    image_legacy.cpp, built by g++), the JPEG/PNG fixture's, the
-    TGA/BMP/GIF/PGM/PSD fixture's, the DDS/TIFF/QOI fixture's, the WebP
-    fixture's and the two 2048x2048 WebP maps', the CMYK/4:1:1 JPEG, ICO,
-    BLP and ICNS fixture's with the 2048x2048 CMYK JPEG and the YCCK, CUR,
-    DIB, FTEX and BLP2 files, and the PCX/SGI/IM/Sun/XPM fixture's with its
-    thirteen files of PIL's other small formats, a 2048x2048 PCX and a
-    Photo CD image (`legacy_big`);
+    image_blocks.cpp, image_webp.cpp, image_containers.cpp,
+    image_legacy.cpp and image_jpeg2000.cpp, built by g++), the JPEG/PNG
+    fixture's, the TGA/BMP/GIF/PGM/PSD fixture's, the DDS/TIFF/QOI
+    fixture's, the WebP fixture's and the two 2048x2048 WebP maps', the
+    CMYK/4:1:1 JPEG, ICO, BLP and ICNS fixture's with the 2048x2048 CMYK
+    JPEG and the YCCK, CUR, DIB, FTEX and BLP2 files, the
+    PCX/SGI/IM/Sun/XPM fixture's with its thirteen files of PIL's other
+    small formats, a 2048x2048 PCX and a Photo CD image (`legacy_big`), and
+    the JPEG 2000 fixture's with its 2048x2048 9/7 JP2;
     each fixture scene through `fixture_gate` (K1 + K4 against tracy_tpu's
     CPU render, its basecolor AOV through K1 + K3 against the plain
     versions);
@@ -1164,7 +1178,8 @@ def image_phase(ccfg, counts, dev, card):
                             + [(WEBP_DIR, name) for name in WEBP_MAPS + WEBP_BIG]
                             + [(CONTAINERS_DIR, name)
                                for name in CONTAINER_MAPS + CONTAINER_EXTRA]
-                            + [(LEGACY_DIR, name) for name in LEGACY_MAPS + LEGACY_EXTRA]):
+                            + [(LEGACY_DIR, name) for name in LEGACY_MAPS + LEGACY_EXTRA]
+                            + [(JPEG2000_DIR, name) for name in JPEG2000_MAPS + JPEG2000_BIG]):
         t0 = time.perf_counter()
         img = load_image_rgba(os.path.join(directory, name))
         secs = time.perf_counter() - t0
@@ -1178,7 +1193,8 @@ def image_phase(ccfg, counts, dev, card):
 
     for directory, scn in ((FIXTURE_DIR, "textured.scn"), (FORMATS_DIR, "formats.scn"),
                            (TIFFDDS_DIR, "tiffdds.scn"), (WEBP_DIR, "webp.scn"),
-                           (CONTAINERS_DIR, "containers.scn"), (LEGACY_DIR, "legacy.scn")):
+                           (CONTAINERS_DIR, "containers.scn"), (LEGACY_DIR, "legacy.scn"),
+                           (JPEG2000_DIR, "jpeg2000.scn")):
         more, gate = fixture_gate(directory, scn, counts, dev, card)
         launches.update(more)
         res[scn] = gate

@@ -1,7 +1,7 @@
 """The icon and game-texture containers (DIB, ICO, CUR, FTEX, BLP, ICNS)
-decoded without PIL (csrc/image_containers.cpp, their PNG and JPEG entries
-through the PNG and JPEG decoders) against PIL's open(...).convert("RGBA"),
-which tracy_tpu's texture loader runs.
+decoded without PIL (csrc/image_containers.cpp, their PNG, JPEG and JPEG
+2000 entries through those decoders) against PIL's
+open(...).convert("RGBA"), which tracy_tpu's texture loader runs.
 
 Each file is made from a seeded numpy array, written by PIL where PIL
 writes the kind (ICO with PNG and BMP entries, DIB, BLP palettes, ICNS
@@ -15,15 +15,15 @@ writers never produce). Contracts:
   entry rule and its alpha at byte 22; DIB with 12-, 40- and 124-byte
   headers; FTEX BC1 and raw RGB; BLP1 JPEG (RGB, CMYK and YCCK streams)
   and palette kinds; BLP2 palette at alpha depths 0, 1, 4 and 8 and DXT1,
-  DXT3 and DXT5; ICNS RLE, raw and PNG entries and PIL's best size. A few
+  DXT3 and DXT5; ICNS RLE, raw, PNG and JPEG 2000 entries and PIL's best
+  size. A few
   cases also through tracy_tpu's load_image_rgba: the float arrays equal.
 * Where PIL's rows go astray (ROADMAP, hazards) the port reads the format:
   BLP2 DXT at a width that is not a multiple of 4, and DXT3/DXT5 with an
   alpha depth of 0; each case is held against the picture the format
   defines and shown to differ from PIL's.
 * Refused kinds raise ValueError naming them and fall back (None) in both
-  packages, but ICNS JPEG 2000 entries, which PIL reads and the port
-  refuses by name; truncated files fall back in both packages.
+  packages; truncated files fall back in both packages.
 """
 
 import io
@@ -350,15 +350,18 @@ def test_blp2_dxt3_dxt5_without_alpha_reads_the_format(alpha_encoding):
     assert not np.array_equal(got, pil_rgba(blp2(8, 8, 2, 0, alpha_encoding, blocks)))
 
 
-def test_icns_jpeg2000_entry_is_refused_by_name(tmp_path, monkeypatch):
-    """PIL reads a JPEG 2000 entry through OpenJPEG; the port refuses it by
-    name (ROADMAP, queue 3) and the texture falls back."""
-    j2k = pil_bytes(Image.fromarray(smooth(256, 256, 3, 39)), format="JPEG2000")
-    data = icns([(b"ic08", j2k), (b"is32", icns_rgb(flat_rgb(16, 40)))])
-    assert pil_rgba(data).shape == (256, 256, 4)
-    with pytest.raises(ValueError, match="JPEG 2000 entry 'ic08'"):
-        image_io.decode_image_rgba(data)
-    assert port_load(write(tmp_path, "a.icns", data), monkeypatch) is None
+@pytest.mark.parametrize("kind", ["JP2", "raw codestream"])
+def test_icns_jpeg2000_entry_matches_pil(tmp_path, monkeypatch, kind):
+    """An ic08 entry in JPEG 2000, which PIL reads through OpenJPEG and
+    converts to RGBA (csrc/image_jpeg2000.cpp in the port), at the entry's
+    own size: equal through both packages' load_image_rgba."""
+    entry = pil_bytes(Image.fromarray(smooth(64, 64, 4 if kind == "JP2" else 3, 39)),
+                      format="JPEG2000", no_jp2=kind != "JP2")
+    data = icns([(b"ic08", entry), (b"is32", icns_rgb(flat_rgb(16, 40)))])
+    path = write(tmp_path, "a.icns", data)
+    ref = jax_load(path)
+    assert ref is not None and ref.shape == (64, 64, 4)
+    np.testing.assert_array_equal(port_load(path, monkeypatch), ref)
 
 
 # --- refusals and truncation

@@ -634,6 +634,6 @@ def test_optimize_cli_names_the_formats_it_reads(tmp_path, capsys):
     path = write(tmp_path, "target.avif", struct.pack(">I", 28) + b"ftypavif" + bytes(16))
     with pytest.raises(SystemExit):
         optimize_cli.main(["-cpu", "-width", "8", "-height", "6", "-target", path])
-    assert ("PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA, TIFF, DDS, QOI, WebP, ICO, CUR, FTEX, BLP, "
-            "ICNS, PCX, DCX, SGI, SUN, MSP, IM, XBM, XPM, PIXAR, SPIDER, FITS, GBR, MCIDAS, XVTHUMB, "
-            "IMT, IPTC, PCD or FLI" in capsys.readouterr().err)
+    assert ("PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA, TIFF, DDS, QOI, WebP, JPEG 2000, ICO, CUR, "
+            "FTEX, BLP, ICNS, PCX, DCX, SGI, SUN, MSP, IM, XBM, XPM, PIXAR, SPIDER, FITS, GBR, "
+            "MCIDAS, XVTHUMB, IMT, IPTC, PCD or FLI" in capsys.readouterr().err)

@@ -15,8 +15,8 @@ positions) so that a re-render matches a target image.
 -target reads .npy and .hdr by name (linear radiance as stored; 8-bit
 .npy as display values, taken to linear radiance through the sRGB curve)
 and any file of utils/image_io.py's READ_FORMATS (PNG, JPEG, BMP, TIFF,
-WebP, the icon and game-texture containers, and PIL's small raw and
-run-length formats, PCX to FLI) by its content, as display values the same
+WebP, JPEG 2000, the icon and game-texture containers, and PIL's small raw
+and run-length formats, PCX to FLI) by its content, as display values the same
 way, without PIL (utils/image_io.py::read_image).
 The scene renders on the card; -cpu asks for the CPU. A self-test exits 0
 when the largest error of the observable entries is under 0.1, else 1.

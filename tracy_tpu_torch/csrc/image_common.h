@@ -1,10 +1,10 @@
 // What the host image decoders share (image_formats.cpp, image_tiff.cpp,
 // image_blocks.cpp, image_webp.cpp, image_containers.cpp,
-// image_legacy.cpp): bounds-checked reads of the file, the size limit, the
-// fault types, and the guard that turns a fault into the return codes of
-// the extern "C" entry points (0; 1, a fault of the file; 2, a failure
-// inside the decoder; 3, not a file of the format asked for), the message
-// going to tracy_decode_error().
+// image_legacy.cpp, image_jpeg2000.cpp): bounds-checked reads of the file,
+// the size limit, the fault types, and the guard that turns a fault into
+// the return codes of the extern "C" entry points (0; 1, a fault of the
+// file; 2, a failure inside the decoder; 3, not a file of the format asked
+// for), the message going to tracy_decode_error().
 
 #pragma once
 
@@ -34,7 +34,8 @@ struct NotFormat : DecodeError {
 };
 
 // What one source lends another (image_containers.cpp reads the bitmaps of
-// ICO, CUR and DIB files and FTEX's BC1 blocks with these).
+// ICO, CUR and DIB files, FTEX's BC1 blocks and the size of ICNS's JPEG 2000
+// entries with these).
 //
 // The DIB whose info header starts at `at` of p[0, n) (a BMP without its
 // 14-byte file header): its width and height as the header gives them.
@@ -58,6 +59,9 @@ void bc1_decode(const uint8_t* p, int64_t w, int64_t h, uint8_t* out);
 // format in errors.
 size_t inflate(const uint8_t* p, size_t n, std::vector<uint8_t>& out, size_t want,
                const char* fmt);
+// The size PIL gives a JPEG 2000 file (a raw codestream or JP2) of p[0, n)
+// (image_jpeg2000.cpp; throws DecodeError where the decoder refuses it).
+bool jpeg2000_size(const uint8_t* p, size_t n, int64_t* w, int64_t* h);
 }  // namespace tracy_image
 
 namespace {
@@ -111,6 +115,14 @@ void check_size(const char* fmt, int64_t w, int64_t h) {
 
 void check_out(const char* fmt, int64_t w, int64_t h, int out_w, int out_h) {
   if (w != out_w || h != out_h) fail(std::string(fmt) + ": size changed between calls");
+}
+
+// Pillow's cmyk2rgb (Convert.c): one of R, G, B from its CMYK channel v and
+// nk = 255 - K, with MULDIV255's rounding.
+inline uint8_t cmyk_channel(int v, int nk) {
+  const int t = v * nk + 128;
+  const int c = nk - (((t >> 8) + t) >> 8);
+  return static_cast<uint8_t>(c < 0 ? 0 : c > 255 ? 255 : c);
 }
 
 inline void put(uint8_t* o, int r, int g, int b, int a) {

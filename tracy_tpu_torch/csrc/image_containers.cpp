@@ -27,14 +27,17 @@
 //   own Python decoders compute them (565 endpoints by shifts, not bit
 //   replication), read by the format where PIL's rows go astray (a width
 //   that is not a multiple of 4, DXT3/DXT5 without alpha).
-// ICNS: the best size's entries: PNG (a stream), or the RLE (or raw) RGB of
-//   is32, il32, ih32 and it32 with its s8mk, l8mk, h8mk or t8mk alpha.
+// ICNS: the best size's entries: PNG (a stream to the file's end) or JPEG
+//   2000 (a stream of the entry's length, a raw codestream or a JP2 file,
+//   for image_jpeg2000.cpp), either at a size PIL's IcnsImageFile takes for
+//   the icon (one of its sizes, or a whole fraction of one); or the RLE (or
+//   raw) RGB of is32, il32, ih32 and it32 with its s8mk, l8mk, h8mk or t8mk
+//   alpha.
 //
 // Refused by name, as PIL refuses them: FTEX formats other than 0 and 1,
 // FTEX with several formats, BLP1 encodings other than 4 and 5, BLP2
 // encodings other than 1 and 2 (raw BGRA among them), unknown BLP
-// compressions and DXT alpha encodings. ICNS JPEG 2000 entries, which PIL
-// reads through OpenJPEG, are refused by name too.
+// compressions and DXT alpha encodings.
 
 #include <cmath>
 #include <tuple>
@@ -442,8 +445,9 @@ struct Icns {
 };
 
 // IcnsFile: the blocks (the last of a signature wins), then bestsize, the
-// largest (w, h, scale) any of whose entries is present.
-Icns icns_scan(const Bytes& b) {
+// largest (w, h, scale) any of whose entries is present; `present` lists
+// every size with an entry (PIL's info["sizes"]).
+Icns icns_scan(const Bytes& b, std::vector<const IcnsSize*>* present = nullptr) {
   b.need(0, 8);
   if (std::memcmp(b.p, "icns", 4) != 0) fail("not an ICNS file");
   const uint64_t filesize = b.be32(4);
@@ -474,6 +478,7 @@ Icns icns_scan(const Bytes& b) {
       any = any || c.blocks[k].found;
     }
     if (!any) continue;
+    if (present) present->push_back(&z);
     const IcnsSize* t = best.size;
     if (!t || std::make_tuple(z.w, z.h, z.scale) > std::make_tuple(t->w, t->h, t->scale)) best = c;
   }
@@ -513,13 +518,36 @@ void icns_rgb(const Bytes& b, size_t start, size_t length, int64_t n, uint8_t* o
   }
 }
 
+// Whether PIL's IcnsImageFile takes an embedded image of w x h for the icon
+// (its size setter, run when load() sets the entry's size): one of the
+// present sizes is a whole multiple of it on both sides.
+bool icns_size_ok(const std::vector<const IcnsSize*>& present, int64_t w, int64_t h) {
+  if (w <= 0 || h <= 0) return false;
+  for (const IcnsSize* z : present) {
+    const int64_t sw = int64_t(z->w) * z->scale, sh = int64_t(z->h) * z->scale;
+    if (sh == (sw / w) * h) return true;
+  }
+  return false;
+}
+
+struct IcnsStream {
+  size_t start = 0, length = 0;  // 0, 0: the pixels are the container's own
+};
+
+bool is_jpeg2000(const uint8_t* s) {
+  return std::memcmp(s, "\xff\x4f\xff\x51", 4) == 0 ||
+         std::memcmp(s, "\x0d\x0a\x87\x0a", 4) == 0 ||
+         std::memcmp(s, "\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", 12) == 0;
+}
+
 // Every entry of the best size read in PIL's order (so that a bad one fails
-// as in PIL). Returns the start of a PNG entry, which PIL returns in place
-// of the rest, else 0 with the RGB (and the mask's alpha, else 255) in out.
-size_t icns_read(const Bytes& b, const Icns& m, uint8_t* out) {
+// as in PIL). Returns the PNG or JPEG 2000 entry, which PIL returns in place
+// of the rest, else none with the RGB (and the mask's alpha, else 255) in out.
+IcnsStream icns_read(const Bytes& b, const Icns& m, const std::vector<const IcnsSize*>& present,
+                     uint8_t* out) {
   const int64_t w = int64_t(m.size->w) * m.size->scale, h = int64_t(m.size->h) * m.size->scale;
   const int64_t n = w * h;
-  size_t png = 0;
+  IcnsStream stream;
   bool mask = false;
   for (int k = 0; k < m.size->n; ++k) {
     const IcnsBlock& blk = m.blocks[k];
@@ -529,14 +557,21 @@ size_t icns_read(const Bytes& b, const Icns& m, uint8_t* out) {
       case kPng: {
         b.need(blk.start, 12);
         const uint8_t* s = b.p + blk.start;
+        int64_t ew, eh;
         if (is_png(b, blk.start)) {
-          png = blk.start;
-        } else if (std::memcmp(s, "\xff\x4f\xff\x51", 4) == 0 ||
-                   std::memcmp(s, "\x0d\x0a\x87\x0a", 4) == 0 ||
-                   std::memcmp(s, "\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", 12) == 0) {
-          fail(std::string("ICNS: JPEG 2000 entry '") + sig + "' is not read");
+          stream = {blk.start, b.n - blk.start};
+          ew = b.be32(blk.start + 16);
+          eh = b.be32(blk.start + 20);
+        } else if (is_jpeg2000(s)) {
+          b.need(blk.start, blk.length);
+          stream = {blk.start, blk.length};
+          tracy_image::jpeg2000_size(s, blk.length, &ew, &eh);
         } else {
           fail(std::string("ICNS: entry '") + sig + "' is neither PNG nor JPEG 2000");
+        }
+        if (!icns_size_ok(present, ew, eh)) {
+          fail("ICNS: entry '" + std::string(sig) + "' of " + std::to_string(ew) + "x" +
+               std::to_string(eh) + " is not one of the allowed sizes of this image");
         }
         break;
       }
@@ -554,10 +589,10 @@ size_t icns_read(const Bytes& b, const Icns& m, uint8_t* out) {
         break;
     }
   }
-  if (!png && !mask) {
+  if (!stream.length && !mask) {
     for (int64_t i = 0; i < n; ++i) out[4 * i + 3] = 255;
   }
-  return png;
+  return stream;
 }
 
 Size icns_header(const Bytes& b) {
@@ -566,20 +601,22 @@ Size icns_header(const Bytes& b) {
 }
 
 void icns_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
-  const Icns m = icns_scan(b);
+  std::vector<const IcnsSize*> present;
+  const Icns m = icns_scan(b, &present);
   const Size s = icns_header(b);
   check_out("ICNS", s.w, s.h, out_w, out_h);
-  if (icns_read(b, m, out)) fail("ICNS: a PNG entry is read as a stream");
+  if (icns_read(b, m, present, out).length) fail("ICNS: a PNG or JPEG 2000 entry is read as a stream");
 }
 
 void icns_stream(const Bytes& b, int64_t* parts) {
-  const Icns m = icns_scan(b);
+  std::vector<const IcnsSize*> present;
+  const Icns m = icns_scan(b, &present);
   const Size s = icns_header(b);
   std::vector<uint8_t> scratch(static_cast<size_t>(4 * s.w * s.h));
-  const size_t png = icns_read(b, m, scratch.data());
-  if (png) {
-    parts[0] = static_cast<int64_t>(png);
-    parts[1] = static_cast<int64_t>(b.n - png);
+  const IcnsStream stream = icns_read(b, m, present, scratch.data());
+  if (stream.length) {
+    parts[0] = static_cast<int64_t>(stream.start);
+    parts[1] = static_cast<int64_t>(stream.length);
   }
 }
 
@@ -619,10 +656,11 @@ TRACY_CONTAINER(ftex, "FTEX")
 TRACY_CONTAINER(icns, "ICNS")
 TRACY_CONTAINER(blp, "BLP")
 
-// Where the opened entry is a PNG or JPEG stream: parts[0..3] = (start,
-// length) of its first and second pieces (BLP1: the JPEG header, then mip
-// 0; ICO and ICNS: the PNG to the file's end, no second piece); all 0 when
-// the entry is pixels that tracy_<fmt>_decode reads.
+// Where the opened entry is a PNG, JPEG or JPEG 2000 stream: parts[0..3] =
+// (start, length) of its first and second pieces (BLP1: the JPEG header,
+// then mip 0; ICO and ICNS: a PNG to the file's end, an ICNS JPEG 2000 entry
+// of its own length, no second piece); all 0 when the entry is pixels that
+// tracy_<fmt>_decode reads.
 int tracy_ico_stream(const uint8_t* data, int64_t len, int64_t* parts) {
   return stream("ICO", data, len, parts, ico_stream);
 }

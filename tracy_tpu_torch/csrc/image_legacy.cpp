@@ -751,12 +751,6 @@ Size im_header(const Bytes& b) {
   return {m.w, m.h};
 }
 
-// Pillow's cmyk2rgb (Convert.c): MULDIV255 rounding.
-inline int cmyk_channel(int v, int nk) {
-  const int t = v * nk + 128;
-  const int c = nk - (((t >> 8) + t) >> 8);
-  return c < 0 ? 0 : c > 255 ? 255 : c;
-}
 
 // PIL's "bit" decoder (BitDecode.c) as ImImagePlugin sets it up for the
 // L*n types: n-bit unsigned samples taken from the low end of a bit

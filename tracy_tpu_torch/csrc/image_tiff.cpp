@@ -800,12 +800,7 @@ void tiff_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
         break;
       case kCmyk: {
         const int nk = 255 - v[3];
-        auto muldiv255 = [](int x, int y) {
-          const int m = x * y + 128;
-          return ((m >> 8) + m) >> 8;
-        };
-        put(o, clip8(nk - muldiv255(v[0], nk)), clip8(nk - muldiv255(v[1], nk)),
-            clip8(nk - muldiv255(v[2], nk)), 255);
+        put(o, cmyk_channel(v[0], nk), cmyk_channel(v[1], nk), cmyk_channel(v[2], nk), 255);
         break;
       }
     }

@@ -1,6 +1,6 @@
 """Image files: PNG and PPM written, every 8-bit format of stb_image,
-WebP, the icon and game-texture containers and the small raw and
-run-length formats of PIL's plugins read, without PIL.
+WebP, JPEG 2000, the icon and game-texture containers and the small raw
+and run-length formats of PIL's plugins read, without PIL.
 
 Port of tracy_tpu/utils/image_io.py. The JAX package writes PNG through
 PIL; the GPU machine has no PIL, and the command-line default output is
@@ -9,11 +9,12 @@ struct: 8-bit RGB, one IDAT chunk, filter 0 on every row). Files are read
 by the decoders of csrc/image_decode.cpp (PNG, JPEG; Python's zlib
 inflates PNG data), csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD, QOI),
 csrc/image_tiff.cpp (TIFF), csrc/image_blocks.cpp (DDS),
-csrc/image_webp.cpp (WebP), csrc/image_containers.cpp (DIB, ICO, CUR,
-FTEX, BLP, ICNS; their PNG and JPEG entries go to the PNG and JPEG
-decoders) and csrc/image_legacy.cpp (PCX, DCX, SGI, SUN, MSP, IM, XBM,
-XPM, PIXAR, SPIDER, FITS, GBR, MCIDAS, XVTHUMB, IMT, IPTC, PCD, FLI; IPTC's
-embedded stream goes to the PNM or JPEG decoder), built by g++ at first
+csrc/image_webp.cpp (WebP), csrc/image_jpeg2000.cpp (JP2 and raw J2K
+codestreams), csrc/image_containers.cpp (DIB, ICO, CUR, FTEX, BLP, ICNS;
+their PNG, JPEG and JPEG 2000 entries go to those decoders) and
+csrc/image_legacy.cpp (PCX, DCX, SGI, SUN, MSP, IM, XBM, XPM, PIXAR,
+SPIDER, FITS, GBR, MCIDAS, XVTHUMB, IMT, IPTC, PCD, FLI; IPTC's embedded
+stream goes to the PNM or JPEG decoder), built by g++ at first
 use (utils/native.py::get_image_lib), never by PIL; `image_format` tells
 them apart by their first bytes, in the order PIL tries its plugins.
 `read_image` reads back what the inverse-rendering CLI takes as a target:
@@ -35,14 +36,17 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
 # Classic TIFF and BigTIFF, little- and big-endian.
 TIFF_SIGNATURES = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
-READ_FORMATS = ("PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA, TIFF, DDS, QOI, WebP, ICO, CUR, "
-                "FTEX, BLP, ICNS, PCX, DCX, SGI, SUN, MSP, IM, XBM, XPM, PIXAR, SPIDER, FITS, "
+READ_FORMATS = ("PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA, TIFF, DDS, QOI, WebP, JPEG 2000, ICO, "
+                "CUR, FTEX, BLP, ICNS, PCX, DCX, SGI, SUN, MSP, IM, XBM, XPM, PIXAR, SPIDER, FITS, "
                 "GBR, MCIDAS, XVTHUMB, IMT, IPTC, PCD or FLI")
 # The first u32 (little-endian) of a DIB: its info header's size, as PIL's
 # _dib_accept takes it.
 DIB_HEADER_SIZES = (12, 40, 52, 56, 64, 108, 124)
 # The chunks after RIFF....WEBP that PIL's WebP plugin accepts.
 WEBP_CHUNKS = (b"VP8 ", b"VP8X", b"VP8L")
+# A raw JPEG 2000 codestream (SOC, SIZ) and a JP2 file's signature box, as
+# PIL's Jpeg2KImagePlugin._accept takes them.
+JPEG2000_SIGNATURES = (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a")
 # Larger images are refused as corrupt headers (PIL's decompression-bomb
 # error starts at twice its 89.5 M-pixel warning); csrc/image_common.h
 # holds the other formats to the same limit (kMaxPixels).
@@ -223,9 +227,10 @@ def _be32(data: bytes, at: int) -> int:
 
 # The formats the port reads, in the order PIL's Image.open tries them: the
 # formats it loads first (BMP, DIB, GIF, JPEG, PPM, PNG), then its plugins
-# by name (Image.ID), each with its plugin's _accept test on the first 16
-# bytes. IM, IMT, IPTC, PCD and SPIDER have none: PIL tries their _open on
-# every file that reaches them.
+# in the order they register (Image.ID: by name, but JPEG2000 ahead of ICNS,
+# whose plugin imports it), each with its plugin's _accept test on the
+# first 16 bytes. IM, IMT, IPTC, PCD and SPIDER have none: PIL tries their
+# _open on every file that reaches them.
 FORMAT_ORDER = (
     ("bmp", lambda d: d[:2] == b"BM"),
     ("dib", lambda d: len(d) >= 4 and struct.unpack("<I", d[:4])[0] in DIB_HEADER_SIZES),
@@ -243,6 +248,7 @@ FORMAT_ORDER = (
      and d[14:16] in (b"\0\0", b"\3\0")),
     ("ftex", lambda d: d[:4] == b"FTEX"),
     ("gbr", lambda d: _be32(d, 0) >= 20 and _be32(d, 4) in (1, 2)),
+    ("jpeg2000", lambda d: d.startswith(JPEG2000_SIGNATURES)),
     ("icns", lambda d: d[:4] == b"icns"),
     ("ico", lambda d: d[:4] == b"\0\0\1\0" and _icon_directory_ok(d)),
     ("im", None),
@@ -304,7 +310,7 @@ def _native_size(lib, fmt: str, data: bytes):
 def _decode_native(fmt: str, data: bytes) -> np.ndarray:
     """uint8 RGBA [H, W, 4] from tracy_<fmt>_info and tracy_<fmt>_decode of
     csrc/image_formats.cpp, image_tiff.cpp, image_blocks.cpp, image_webp.cpp,
-    image_containers.cpp or image_legacy.cpp."""
+    image_jpeg2000.cpp, image_containers.cpp or image_legacy.cpp."""
     lib = get_image_lib()
     w, h = _native_size(lib, fmt, data)
     out = np.empty((h, w, 4), np.uint8)
@@ -314,9 +320,9 @@ def _decode_native(fmt: str, data: bytes) -> np.ndarray:
 
 
 def _embedded_stream(fmt: str, data: bytes):
-    """The PNG or JPEG stream that the ICO, ICNS or BLP entry PIL opens is
-    (csrc/image_containers.cpp's tracy_<fmt>_stream), or None when that
-    entry is pixels of the container's own."""
+    """The PNG, JPEG or JPEG 2000 stream that the ICO, ICNS or BLP entry
+    PIL opens is (csrc/image_containers.cpp's tracy_<fmt>_stream), or None
+    when that entry is pixels of the container's own."""
     lib = get_image_lib()
     parts = (ctypes.c_int64 * 4)()
     _decode_error(lib, fmt.upper(), getattr(lib, f"tracy_{fmt}_stream")(data, len(data), parts))
@@ -397,7 +403,11 @@ def decode_image_rgba(data: bytes) -> np.ndarray:
     if fmt in STREAM_FORMATS:
         stream = _embedded_stream(fmt, data)
         if stream is not None:
-            return _blp_jpeg(data, stream) if fmt == "blp" else _png_rgba(stream)[0]
+            if fmt == "blp":
+                return _blp_jpeg(data, stream)
+            if stream.startswith(JPEG2000_SIGNATURES):  # an ICNS entry
+                return _decode_native("jpeg2000", stream)
+            return _png_rgba(stream)[0]
     return _decode_native(fmt, data)
 
 

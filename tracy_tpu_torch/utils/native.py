@@ -9,10 +9,12 @@ the callers take their numpy versions.
 `get_image_lib`: the image decoders of csrc/image_decode.cpp (PNG, JPEG),
 csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD, QOI), image_tiff.cpp
 (TIFF), image_blocks.cpp (DDS), image_webp.cpp (WebP),
-image_containers.cpp (DIB, ICO, CUR, FTEX, BLP, ICNS) and image_legacy.cpp
+image_containers.cpp (DIB, ICO, CUR, FTEX, BLP, ICNS), image_legacy.cpp
 (PCX, DCX, SGI, SUN, MSP, IM, XBM, XPM, PIXAR, SPIDER, FITS, GBR, MCIDAS,
-XVTHUMB, IMT, IPTC, PCD, FLI), in build/native/<hash>/libtracy_image.so. g++ (not nvcc), so that the CPU
-tests run the same code as the card's host. They have no other version:
+XVTHUMB, IMT, IPTC, PCD, FLI) and image_jpeg2000.cpp (JP2, J2K), in
+build/native/<hash>/libtracy_image.so. g++ (not nvcc), so that the CPU
+tests run the same code as the card's host; `-ffp-contract=off` keeps
+the 9/7 wavelet's float32 lifting unfused, as OpenJPEG computes it. They have no other version:
 if the library cannot be built, `get_image_lib` raises
 ImageDecoderUnavailable with the compiler's output.
 
@@ -49,7 +51,8 @@ IMAGE_SOURCES = tuple(os.path.join(CSRC_DIR, s) for s in ("image_decode.cpp",
                                                           "image_blocks.cpp",
                                                           "image_webp.cpp",
                                                           "image_containers.cpp",
-                                                          "image_legacy.cpp"))
+                                                          "image_legacy.cpp",
+                                                          "image_jpeg2000.cpp"))
 # Included by the sources: part of the library's hash, not of the command.
 IMAGE_HEADERS = (os.path.join(CSRC_DIR, "image_common.h"),)
 # Formats of csrc/image_legacy.cpp, whose tracy_<fmt>_info also says (code
@@ -57,15 +60,15 @@ IMAGE_HEADERS = (os.path.join(CSRC_DIR, "image_common.h"),)
 LEGACY_FORMATS = ("pcx", "dcx", "sgi", "sun", "msp", "im", "xbm", "xpm", "pixar", "spider", "fits",
                   "gbr", "mcidas", "xvthumb", "imt", "iptc", "pcd", "fli")
 # Formats of csrc/image_formats.cpp, image_tiff.cpp, image_blocks.cpp,
-# image_webp.cpp, image_containers.cpp and image_legacy.cpp, each with
-# tracy_<fmt>_info/_decode.
+# image_webp.cpp, image_containers.cpp, image_legacy.cpp and
+# image_jpeg2000.cpp, each with tracy_<fmt>_info/_decode.
 IMAGE_FORMATS = ("tga", "bmp", "gif", "pnm", "psd", "qoi", "tiff", "dds", "webp", "dib", "ico",
-                 "cur", "ftex", "blp", "icns") + LEGACY_FORMATS
-# Containers whose opened entry may be a PNG or JPEG stream, each with
-# tracy_<fmt>_stream (csrc/image_containers.cpp).
+                 "cur", "ftex", "blp", "icns", "jpeg2000") + LEGACY_FORMATS
+# Containers whose opened entry may be a PNG, JPEG or JPEG 2000 stream,
+# each with tracy_<fmt>_stream (csrc/image_containers.cpp).
 STREAM_FORMATS = ("ico", "icns", "blp")
 # No -march=native: the same code on this machine and on the card's host.
-IMAGE_CXXFLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17", "-Wall"]
+IMAGE_CXXFLAGS = ["-O2", "-ffp-contract=off", "-fPIC", "-shared", "-std=c++17", "-Wall"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
