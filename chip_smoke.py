@@ -130,7 +130,12 @@ Phases, each fatal on failure:
    tests/goldens/legacy/ and legacy.scn, and tests/goldens/jpeg2000/ (9/7
    ICT JP2 in tiles, 5/3 RCT codestream in RPCL, grey JP2, signed
    codestream in PCRL, RGBA JP2 in CPRL with PLT; csrc/image_jpeg2000.cpp)
-   and jpeg2000.scn, with the decode seconds of its 2048x2048 9/7 JP2;
+   and jpeg2000.scn, with the decode seconds of its 2048x2048 9/7 JP2, and
+   tests/goldens/avif/ (4:2:0 at PIL's defaults, 4:4:4 in 2x2 tiles with
+   CDEF and loop restoration, screen content with palettes and intra block
+   copy, quantizer matrices with delta q, RGBA with an alpha item;
+   csrc/image_avif.cpp, av1_decode.cpp, av1_recon.cpp) and avif.scn, with
+   the decode seconds of its 2048x2048 4:2:0 map;
    grid64x28 with the JPEG/PNG maps in place of
    the numpy maps at 1080p, compacted, 4 frames, timed (no gain claimed), and
    grid64x28-dds, the same with 2048x2048 DDS maps made here from random
@@ -1013,6 +1018,14 @@ LEGACY_EXTRA = ("pages.dcx", "paint.msp", "mask.xbm", "image.pxr", "density.spi"
 JPEG2000_DIR = os.path.join(REPO, "tests", "goldens", "jpeg2000")
 JPEG2000_MAPS = ("basecolor.jp2", "normal.j2k", "roughness.jp2", "metalness.j2k", "emissive.jp2")
 JPEG2000_BIG = ("big.jp2",)
+# And as AVIF (csrc/image_avif.cpp, av1_decode.cpp, av1_recon.cpp): 4:2:0 at
+# PIL's defaults, 4:4:4 in 2x2 tiles with CDEF and loop restoration, screen
+# content with palettes and intra block copy, quantizer matrices with delta
+# q, RGBA with an alpha item; besides, decode timing only: a 2048x2048
+# 4:2:0 map at quality 75 (tools/make_avif_fixtures.py).
+AVIF_DIR = os.path.join(REPO, "tests", "goldens", "avif")
+AVIF_MAPS = ("basecolor.avif", "normal.avif", "roughness.avif", "metalness.avif", "emissive.avif")
+AVIF_BIG = ("big.avif",)
 # grid64x28-dds's maps: slot name, DXGI block format, sRGB.
 DDS_GRID_MAPS = (("B", "BC7", True), ("N", "BC5", False), ("R", "BC4", False),
                  ("M", "BC4", False), ("E", "BC7", True))
@@ -1149,14 +1162,16 @@ def image_phase(ccfg, counts, dev, card):
     blocks it before any phase): each map's decode seconds on the host
     (csrc/image_decode.cpp, image_formats.cpp, image_tiff.cpp,
     image_blocks.cpp, image_webp.cpp, image_containers.cpp,
-    image_legacy.cpp and image_jpeg2000.cpp, built by g++), the JPEG/PNG
+    image_legacy.cpp, image_jpeg2000.cpp and image_avif.cpp with
+    av1_decode.cpp and av1_recon.cpp, built by g++), the JPEG/PNG
     fixture's, the TGA/BMP/GIF/PGM/PSD fixture's, the DDS/TIFF/QOI
     fixture's, the WebP fixture's and the two 2048x2048 WebP maps', the
     CMYK/4:1:1 JPEG, ICO, BLP and ICNS fixture's with the 2048x2048 CMYK
     JPEG and the YCCK, CUR, DIB, FTEX and BLP2 files, the
     PCX/SGI/IM/Sun/XPM fixture's with its thirteen files of PIL's other
-    small formats, a 2048x2048 PCX and a Photo CD image (`legacy_big`), and
-    the JPEG 2000 fixture's with its 2048x2048 9/7 JP2;
+    small formats, a 2048x2048 PCX and a Photo CD image (`legacy_big`), the
+    JPEG 2000 fixture's with its 2048x2048 9/7 JP2, and the AVIF fixture's
+    with its 2048x2048 4:2:0 map;
     each fixture scene through `fixture_gate` (K1 + K4 against tracy_tpu's
     CPU render, its basecolor AOV through K1 + K3 against the plain
     versions);
@@ -1179,7 +1194,8 @@ def image_phase(ccfg, counts, dev, card):
                             + [(CONTAINERS_DIR, name)
                                for name in CONTAINER_MAPS + CONTAINER_EXTRA]
                             + [(LEGACY_DIR, name) for name in LEGACY_MAPS + LEGACY_EXTRA]
-                            + [(JPEG2000_DIR, name) for name in JPEG2000_MAPS + JPEG2000_BIG]):
+                            + [(JPEG2000_DIR, name) for name in JPEG2000_MAPS + JPEG2000_BIG]
+                            + [(AVIF_DIR, name) for name in AVIF_MAPS + AVIF_BIG]):
         t0 = time.perf_counter()
         img = load_image_rgba(os.path.join(directory, name))
         secs = time.perf_counter() - t0
@@ -1194,7 +1210,7 @@ def image_phase(ccfg, counts, dev, card):
     for directory, scn in ((FIXTURE_DIR, "textured.scn"), (FORMATS_DIR, "formats.scn"),
                            (TIFFDDS_DIR, "tiffdds.scn"), (WEBP_DIR, "webp.scn"),
                            (CONTAINERS_DIR, "containers.scn"), (LEGACY_DIR, "legacy.scn"),
-                           (JPEG2000_DIR, "jpeg2000.scn")):
+                           (JPEG2000_DIR, "jpeg2000.scn"), (AVIF_DIR, "avif.scn")):
         more, gate = fixture_gate(directory, scn, counts, dev, card)
         launches.update(more)
         res[scn] = gate

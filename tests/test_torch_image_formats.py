@@ -631,9 +631,9 @@ def test_read_image_and_optimize_cli_target(tmp_path, monkeypatch, caplog, name)
 def test_optimize_cli_names_the_formats_it_reads(tmp_path, capsys):
     from tracy_tpu_torch.apps import optimize_cli
 
-    path = write(tmp_path, "target.avif", struct.pack(">I", 28) + b"ftypavif" + bytes(16))
+    path = write(tmp_path, "target.heic", struct.pack(">I", 28) + b"ftypheic" + bytes(16))
     with pytest.raises(SystemExit):
         optimize_cli.main(["-cpu", "-width", "8", "-height", "6", "-target", path])
-    assert ("PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA, TIFF, DDS, QOI, WebP, JPEG 2000, ICO, CUR, "
-            "FTEX, BLP, ICNS, PCX, DCX, SGI, SUN, MSP, IM, XBM, XPM, PIXAR, SPIDER, FITS, GBR, "
-            "MCIDAS, XVTHUMB, IMT, IPTC, PCD or FLI" in capsys.readouterr().err)
+    assert ("PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA, TIFF, DDS, QOI, WebP, JPEG 2000, AVIF, ICO, "
+            "CUR, FTEX, BLP, ICNS, PCX, DCX, SGI, SUN, MSP, IM, XBM, XPM, PIXAR, SPIDER, FITS, "
+            "GBR, MCIDAS, XVTHUMB, IMT, IPTC, PCD or FLI" in capsys.readouterr().err)

@@ -106,14 +106,14 @@ struct Bytes {
   }
 };
 
-void check_size(const char* fmt, int64_t w, int64_t h) {
+inline void check_size(const char* fmt, int64_t w, int64_t h) {
   if (w <= 0 || h <= 0 || w * h > kMaxPixels) {
     fail(std::string(fmt) + ": " + std::to_string(w) + "x" + std::to_string(h) +
          " pixels not read");
   }
 }
 
-void check_out(const char* fmt, int64_t w, int64_t h, int out_w, int out_h) {
+inline void check_out(const char* fmt, int64_t w, int64_t h, int out_w, int out_h) {
   if (w != out_w || h != out_h) fail(std::string(fmt) + ": size changed between calls");
 }
 

@@ -1,6 +1,6 @@
 """Image files: PNG and PPM written, every 8-bit format of stb_image,
-WebP, JPEG 2000, the icon and game-texture containers and the small raw
-and run-length formats of PIL's plugins read, without PIL.
+WebP, JPEG 2000, AVIF, the icon and game-texture containers and the small
+raw and run-length formats of PIL's plugins read, without PIL.
 
 Port of tracy_tpu/utils/image_io.py. The JAX package writes PNG through
 PIL; the GPU machine has no PIL, and the command-line default output is
@@ -10,7 +10,9 @@ by the decoders of csrc/image_decode.cpp (PNG, JPEG; Python's zlib
 inflates PNG data), csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD, QOI),
 csrc/image_tiff.cpp (TIFF), csrc/image_blocks.cpp (DDS),
 csrc/image_webp.cpp (WebP), csrc/image_jpeg2000.cpp (JP2 and raw J2K
-codestreams), csrc/image_containers.cpp (DIB, ICO, CUR, FTEX, BLP, ICNS;
+codestreams), csrc/image_avif.cpp (AVIF, its AV1 decoder in
+csrc/av1_decode.cpp and av1_recon.cpp), csrc/image_containers.cpp (DIB,
+ICO, CUR, FTEX, BLP, ICNS;
 their PNG, JPEG and JPEG 2000 entries go to those decoders) and
 csrc/image_legacy.cpp (PCX, DCX, SGI, SUN, MSP, IM, XBM, XPM, PIXAR,
 SPIDER, FITS, GBR, MCIDAS, XVTHUMB, IMT, IPTC, PCD, FLI; IPTC's embedded
@@ -36,7 +38,8 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
 # Classic TIFF and BigTIFF, little- and big-endian.
 TIFF_SIGNATURES = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
-READ_FORMATS = ("PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA, TIFF, DDS, QOI, WebP, JPEG 2000, ICO, "
+READ_FORMATS = ("PNG, JPEG, BMP, DIB, GIF, PNM, PSD, TGA, TIFF, DDS, QOI, WebP, JPEG 2000, AVIF, "
+                "ICO, "
                 "CUR, FTEX, BLP, ICNS, PCX, DCX, SGI, SUN, MSP, IM, XBM, XPM, PIXAR, SPIDER, FITS, "
                 "GBR, MCIDAS, XVTHUMB, IMT, IPTC, PCD or FLI")
 # The first u32 (little-endian) of a DIB: its info header's size, as PIL's
@@ -47,6 +50,9 @@ WEBP_CHUNKS = (b"VP8 ", b"VP8X", b"VP8L")
 # A raw JPEG 2000 codestream (SOC, SIZ) and a JP2 file's signature box, as
 # PIL's Jpeg2KImagePlugin._accept takes them.
 JPEG2000_SIGNATURES = (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a")
+# The major brands of an AVIF file's ftyp box that PIL's AvifImagePlugin
+# accepts (a mif1 or msf1 file that holds no AV1 image is given up).
+AVIF_BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
 # Larger images are refused as corrupt headers (PIL's decompression-bomb
 # error starts at twice its 89.5 M-pixel warning); csrc/image_common.h
 # holds the other formats to the same limit (kMaxPixels).
@@ -227,9 +233,9 @@ def _be32(data: bytes, at: int) -> int:
 
 # The formats the port reads, in the order PIL's Image.open tries them: the
 # formats it loads first (BMP, DIB, GIF, JPEG, PPM, PNG), then its plugins
-# in the order they register (Image.ID: by name, but JPEG2000 ahead of ICNS,
-# whose plugin imports it), each with its plugin's _accept test on the
-# first 16 bytes. IM, IMT, IPTC, PCD and SPIDER have none: PIL tries their
+# in the order they register (Image.ID: AVIF first, then by name, but
+# JPEG2000 ahead of ICNS, whose plugin imports it), each with its plugin's
+# _accept test on the first 16 bytes. IM, IMT, IPTC, PCD and SPIDER have none: PIL tries their
 # _open on every file that reaches them.
 FORMAT_ORDER = (
     ("bmp", lambda d: d[:2] == b"BM"),
@@ -238,6 +244,7 @@ FORMAT_ORDER = (
     ("jpeg", lambda d: d[:3] == JPEG_SIGNATURE),
     ("pnm", lambda d: d[:1] == b"P" and len(d) > 1 and d[1] in b"0123456fy"),
     ("png", lambda d: d[:8] == PNG_SIGNATURE),
+    ("avif", lambda d: d[4:8] == b"ftyp" and d[8:12] in AVIF_BRANDS),
     ("blp", lambda d: d[:4] in (b"BLP1", b"BLP2")),
     ("cur", lambda d: d[:4] == b"\0\0\2\0" and _icon_directory_ok(d)),
     ("pcx", lambda d: len(d) >= 2 and d[0] == 10 and d[1] in (0, 2, 3, 5)),
@@ -272,9 +279,16 @@ FORMAT_ORDER = (
 )
 
 
+# Formats whose plugin's _open may give the file up to the next plugin
+# (tracy_<fmt>_info answers 3): csrc/image_legacy.cpp's, and AVIF, where
+# libavif's parser fails on a file type without the avif or avis brand, a
+# malformed box or no AV1 primary item (PIL's SyntaxError).
+GIVE_WAY_FORMATS = LEGACY_FORMATS + ("avif",)
+
+
 def _plugin_opens(fmt: str, data: bytes) -> bool:
-    """Whether PIL's plugin for one of csrc/image_legacy.cpp's formats
-    keeps the file past its _open checks (tracy_<fmt>_info does not answer
+    """Whether PIL's plugin for one of GIVE_WAY_FORMATS keeps the file
+    past its _open checks (tracy_<fmt>_info does not answer
     3, "not this format"): else Image.open tries its next plugin."""
     lib = get_image_lib()
     w, h = ctypes.c_int(), ctypes.c_int()
@@ -287,12 +301,12 @@ def image_format(data: bytes):
     apart: the first of FORMAT_ORDER whose test passes, PIL's order ("cur"
     and "ico" with a whole directory of at least one entry, else PIL's
     plugins give way; "tga" by its header's checks, as the port reads it).
-    For the formats of csrc/image_legacy.cpp the header must also pass the
-    checks of the plugin's _open (which decide alone for IM, IMT, IPTC, PCD
-    and SPIDER, which have no magic number). None for any other file. The
-    decoders may still refuse a kind they do not read."""
+    For GIVE_WAY_FORMATS the header must also pass the checks of the
+    plugin's _open (which decide alone for IM, IMT, IPTC, PCD and SPIDER,
+    which have no magic number). None for any other file. The decoders may
+    still refuse a kind they do not read."""
     for fmt, accept in FORMAT_ORDER:
-        if (accept is None or accept(data)) and (fmt not in LEGACY_FORMATS
+        if (accept is None or accept(data)) and (fmt not in GIVE_WAY_FORMATS
                                                  or _plugin_opens(fmt, data)):
             return fmt
     return None
