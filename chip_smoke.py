@@ -135,7 +135,15 @@ Phases, each fatal on failure:
    CDEF and loop restoration, screen content with palettes and intra block
    copy, quantizer matrices with delta q, RGBA with an alpha item;
    csrc/image_avif.cpp, av1_decode.cpp, av1_recon.cpp) and avif.scn, with
-   the decode seconds of its 2048x2048 4:2:0 map;
+   the decode seconds of its 2048x2048 4:2:0 map, and tests/goldens/avif/
+   deep/ (the same slots at 10 and 12 bits: 4:2:0, 4:4:4 in tiles with
+   CDEF, screen content, grey, RGBA) and avif10.scn, with the decode
+   seconds of its 2048x2048 10-bit 4:2:0 map, and tests/goldens/tiffkinds/
+   (JPEG YCbCr 2x2, ZSTD with predictor 2, float LZMA with the
+   floating-point predictor, CCITT Group 4, YCbCr 2x1 TIFFs;
+   csrc/image_tiff.cpp, image_xz.cpp, image_zstd.cpp) and tiffkinds.scn,
+   with the decode seconds of its 2048x2048 float, JPEG, LZMA and ZSTD
+   TIFFs;
    grid64x28 with the JPEG/PNG maps in place of
    the numpy maps at 1080p, compacted, 4 frames, timed (no gain claimed), and
    grid64x28-dds, the same with 2048x2048 DDS maps made here from random
@@ -1026,6 +1034,21 @@ JPEG2000_BIG = ("big.jp2",)
 AVIF_DIR = os.path.join(REPO, "tests", "goldens", "avif")
 AVIF_MAPS = ("basecolor.avif", "normal.avif", "roughness.avif", "metalness.avif", "emissive.avif")
 AVIF_BIG = ("big.avif",)
+# And at 10 and 12 bits (tests/goldens/avif/deep/, written through OpenCV's
+# libavif): 4:2:0 at 10 bits, 4:4:4 at 12 in 2x2 tiles with CDEF, screen
+# content at 10, grey at 12, RGBA at 10 with an alpha item; besides, decode
+# timing only: a 2048x2048 10-bit 4:2:0 map at quality 75.
+AVIF10_MAPS = tuple("deep/" + name for name in AVIF_MAPS)
+AVIF10_BIG = ("deep/big10.avif",)
+# And as TIFF kinds (csrc/image_tiff.cpp, image_xz.cpp, image_zstd.cpp):
+# JPEG YCbCr 2x2, ZSTD with predictor 2, float LZMA with the floating-point
+# predictor, CCITT Group 4, YCbCr 2x1; besides, decode timing only:
+# 2048x2048 float (deflate, floating-point predictor), JPEG, LZMA and ZSTD
+# TIFFs (tools/make_tiffkinds_fixtures.py).
+TIFFKINDS_DIR = os.path.join(REPO, "tests", "goldens", "tiffkinds")
+TIFFKINDS_MAPS = ("basecolor.tif", "normal.tif", "roughness.tif", "metalness.tif",
+                  "emissive.tif")
+TIFFKINDS_BIG = ("big_float.tif", "big_jpeg.tif", "big_lzma.tif", "big_zstd.tif")
 # grid64x28-dds's maps: slot name, DXGI block format, sRGB.
 DDS_GRID_MAPS = (("B", "BC7", True), ("N", "BC5", False), ("R", "BC4", False),
                  ("M", "BC4", False), ("E", "BC7", True))
@@ -1163,15 +1186,19 @@ def image_phase(ccfg, counts, dev, card):
     (csrc/image_decode.cpp, image_formats.cpp, image_tiff.cpp,
     image_blocks.cpp, image_webp.cpp, image_containers.cpp,
     image_legacy.cpp, image_jpeg2000.cpp and image_avif.cpp with
-    av1_decode.cpp and av1_recon.cpp, built by g++), the JPEG/PNG
+    av1_decode.cpp and av1_recon.cpp, image_xz.cpp and image_zstd.cpp,
+    built by g++), the JPEG/PNG
     fixture's, the TGA/BMP/GIF/PGM/PSD fixture's, the DDS/TIFF/QOI
     fixture's, the WebP fixture's and the two 2048x2048 WebP maps', the
     CMYK/4:1:1 JPEG, ICO, BLP and ICNS fixture's with the 2048x2048 CMYK
     JPEG and the YCCK, CUR, DIB, FTEX and BLP2 files, the
     PCX/SGI/IM/Sun/XPM fixture's with its thirteen files of PIL's other
     small formats, a 2048x2048 PCX and a Photo CD image (`legacy_big`), the
-    JPEG 2000 fixture's with its 2048x2048 9/7 JP2, and the AVIF fixture's
-    with its 2048x2048 4:2:0 map;
+    JPEG 2000 fixture's with its 2048x2048 9/7 JP2, the AVIF fixture's
+    with its 2048x2048 4:2:0 map, the 10- and 12-bit AVIF fixture's with
+    its 2048x2048 10-bit map, and the TIFF-kind fixture's (image_tiff.cpp
+    with image_xz.cpp and image_zstd.cpp) with its 2048x2048 float, JPEG,
+    LZMA and ZSTD TIFFs;
     each fixture scene through `fixture_gate` (K1 + K4 against tracy_tpu's
     CPU render, its basecolor AOV through K1 + K3 against the plain
     versions);
@@ -1195,7 +1222,9 @@ def image_phase(ccfg, counts, dev, card):
                                for name in CONTAINER_MAPS + CONTAINER_EXTRA]
                             + [(LEGACY_DIR, name) for name in LEGACY_MAPS + LEGACY_EXTRA]
                             + [(JPEG2000_DIR, name) for name in JPEG2000_MAPS + JPEG2000_BIG]
-                            + [(AVIF_DIR, name) for name in AVIF_MAPS + AVIF_BIG]):
+                            + [(AVIF_DIR, name) for name in AVIF_MAPS + AVIF_BIG]
+                            + [(AVIF_DIR, name) for name in AVIF10_MAPS + AVIF10_BIG]
+                            + [(TIFFKINDS_DIR, name) for name in TIFFKINDS_MAPS + TIFFKINDS_BIG]):
         t0 = time.perf_counter()
         img = load_image_rgba(os.path.join(directory, name))
         secs = time.perf_counter() - t0
@@ -1210,7 +1239,9 @@ def image_phase(ccfg, counts, dev, card):
     for directory, scn in ((FIXTURE_DIR, "textured.scn"), (FORMATS_DIR, "formats.scn"),
                            (TIFFDDS_DIR, "tiffdds.scn"), (WEBP_DIR, "webp.scn"),
                            (CONTAINERS_DIR, "containers.scn"), (LEGACY_DIR, "legacy.scn"),
-                           (JPEG2000_DIR, "jpeg2000.scn"), (AVIF_DIR, "avif.scn")):
+                           (JPEG2000_DIR, "jpeg2000.scn"), (AVIF_DIR, "avif.scn"),
+                           (os.path.join(AVIF_DIR, "deep"), "avif10.scn"),
+                           (TIFFKINDS_DIR, "tiffkinds.scn")):
         more, gate = fixture_gate(directory, scn, counts, dev, card)
         launches.update(more)
         res[scn] = gate

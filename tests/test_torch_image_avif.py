@@ -25,8 +25,8 @@ Contracts:
   one without pixi or colr reads, as PIL sets libavif's checks.
 * A mif1 file without the avif brand, or an avis file without tracks,
   gives way to the next formats, as PIL's plugin does; an avis file is read
-  as its first frame; what the port does not read (samples above 8 bits,
-  superres) is refused by name and the texture falls back, as do truncated
+  as its first frame; what the port does not read (superres) is refused by
+  name and the texture falls back, as do truncated
   files in both packages.
 """
 
@@ -67,10 +67,11 @@ def _libavif():
     return lib
 
 
-def dav1d_planes(data: bytes):
-    """dav1d's planes (uint16) of an AVIF file, read through libavif: the
-    avifImage of libavif 1.3 has width, height, depth and format at 0-12,
-    the plane pointers at 24, their row bytes at 48, alpha at 64 and 72."""
+def dav1d_image(data: bytes):
+    """(depth, dav1d's planes, alpha or None) of an AVIF file, read through
+    libavif: the avifImage of libavif 1.3 has width, height, depth and
+    format at 0-12, the plane pointers at 24, their row bytes at 48, alpha
+    at 64 and 72; samples of 8 bits, or of 16 above 8 bits."""
     lib = _libavif()
     dec, im = lib.avifDecoderCreate(), lib.avifImageCreateEmpty()
     try:
@@ -80,18 +81,24 @@ def dav1d_planes(data: bytes):
         rows = struct.unpack("<3I", C.string_at(im + 48, 12))
         aptr, arow = struct.unpack("<QI", C.string_at(im + 64, 12))
         sx, sy = {1: (0, 0), 2: (1, 0), 3: (1, 1), 4: (1, 1)}[fmt]
+        dtype = np.uint8 if depth == 8 else np.uint16
         planes = []
         for k in range(1 if fmt == 4 else 3):
             pw, ph = (w, h) if k == 0 else ((w + sx) >> sx, (h + sy) >> sy)
-            raw = np.frombuffer(C.string_at(ptr[k], rows[k] * ph), np.uint8)
+            raw = np.frombuffer(C.string_at(ptr[k], rows[k] * ph), dtype)
             planes.append(raw.reshape(ph, -1)[:, :pw])
         alpha = None
         if aptr:
-            alpha = np.frombuffer(C.string_at(aptr, arow * h), np.uint8).reshape(h, -1)[:, :w]
-        return planes, alpha
+            alpha = np.frombuffer(C.string_at(aptr, arow * h), dtype).reshape(h, -1)[:, :w]
+        return depth, planes, alpha
     finally:
         lib.avifImageDestroy(im)
         lib.avifDecoderDestroy(dec)
+
+
+def dav1d_planes(data: bytes):
+    """dav1d's planes and alpha (or None) of an AVIF file."""
+    return dav1d_image(data)[1:]
 
 
 def port_planes(data: bytes):
@@ -338,7 +345,9 @@ def test_gives_way_as_pil_does(tmp_path, monkeypatch, major, compatible):
 def _sequence_header_bits(data: bytes):
     """(offset of the payload, bit index of high_bitdepth, bit index of
     enable_superres) of the reduced still-picture sequence header OBU at
-    the start of the item data (after libavif's temporal delimiter)."""
+    the start of the item data (after libavif's temporal delimiter). The
+    10- and 12-bit samples this file once refused are decoded now
+    (tests/test_torch_image_avif_deep.py)."""
     at = data.index(b"\x0a", data.index(b"mdat") + 4)
     assert data[at + 2] >> 3 & 3 == 3  # still_picture and reduced_still_picture_header
     bits = np.unpackbits(np.frombuffer(data[at + 2:at + 2 + data[at + 1]], np.uint8))
@@ -358,9 +367,7 @@ def _set_bits(data: bytes, at: int, values: dict) -> bytes:
 
 def _refused():
     base = golden("q50.avif")
-    at, high, superres = _sequence_header_bits(base)
-    ten = _set_bits(base, at, {high: 1})
-    twelve = _set_bits(base, at, {0: 0, 1: 1, 2: 0, high: 1, high + 1: 1})  # profile 2
+    at, _, superres = _sequence_header_bits(base)
     sres = _set_bits(base, at, {superres: 1})
     frame = at + base[at - 1]  # the frame OBU after the sequence header
     assert base[frame] == 0x32
@@ -369,9 +376,7 @@ def _refused():
         payload += 1
     screen = base[payload] >> 6 & 1
     sres = _set_bits(sres, payload, {2 + screen: 1})  # use_superres
-    return {"10-bit": (ten, "10-bit samples not read"),
-            "12-bit": (twelve, "12-bit samples not read"),
-            "superres": (sres, "superres not read")}
+    return {"superres": (sres, "superres not read")}
 
 
 REFUSED = _refused()
@@ -381,7 +386,9 @@ REFUSED = _refused()
 def test_refused_by_name(tmp_path, monkeypatch, name):
     """What no encoder here writes, so that no decode of it could be
     checked, is refused by name (ROADMAP, queue 3) and the texture falls
-    back."""
+    back: superres, which aom refuses to write ("superres-mode" answers
+    AVIF_RESULT_INVALID_CODEC_SPECIFIC_OPTION, in Pillow's libavif and in
+    OpenCV's 1.4.2 alike)."""
     data, what = REFUSED[name]
     with pytest.raises(ValueError, match=what):
         image_io.decode_image_rgba(data)

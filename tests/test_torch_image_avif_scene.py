@@ -26,3 +26,17 @@ def test_avif_fixture_loads_without_pil():
 
 def test_avif_fixture_render_matches_tracy_tpu():
     render_matches_tracy_tpu(SCN)
+
+
+# The same slots as 10- and 12-bit files (tests/goldens/avif/deep/: 4:2:0 at
+# 10 bits, 4:4:4 at 12 in 2x2 tiles with CDEF, screen content at 10 bits,
+# grey at 12, RGBA at 10 with an alpha item).
+SCN10 = os.path.join(REPO, "tests", "goldens", "avif", "deep", "avif10.scn")
+
+
+def test_avif10_fixture_loads_without_pil():
+    loads_without_pil(SCN10, MAPS)
+
+
+def test_avif10_fixture_render_matches_tracy_tpu():
+    render_matches_tracy_tpu(SCN10)

@@ -189,11 +189,13 @@ def packbits(row: bytes) -> bytes:
     return bytes(out)
 
 
-def psd(planes, mode, rle=True, palette=b"", depth=8, version=1):
-    """A PSD file of planes [c, h, w] (mode 1 grey, 2 indexed, 3 RGB, 4 CMYK)
-    with one image resource and no layers."""
+def psd(planes, mode, rle=True, palette=b"", depth=8, version=1, width=None):
+    """A PSD file of planes [c, h, w] (mode 0 bitmap, 1 grey, 2 indexed, 3
+    RGB, 4 CMYK, 9 Lab) with one image resource and no layers; `width` the
+    pixels of a 1-bit row of w bytes."""
     planes = np.asarray(planes, np.uint8)
     c, h, w = planes.shape
+    w = width or w
     res = b"8BIM" + struct.pack(">HHI", 1005, 0, 4) + b"abcd"
     out = (b"8BPS" + struct.pack(">H6xHIIHH", version, c, h, w, depth, mode)
            + struct.pack(">I", len(palette)) + palette + struct.pack(">I", len(res)) + res
@@ -349,11 +351,46 @@ def _psd_cases(rng):
     }
 
 
+def _kind_cases(rng):
+    """1-bit TGA, PFM and Pillow's own PNM kinds, CMYK, Lab and 1-bit PSD
+    (Lab through PIL's LittleCMS transform, every input checked by
+    tools/make_lab_table.py)."""
+    grey = u8(rng, 13, 21)
+    bits = Image.fromarray(grey).convert("1")
+    packed = np.packbits(grey > 127, axis=1)
+    f = (rng.normal(100, 120, (7, 9)) * rng.choice([1, 0.01], (7, 9))).astype(np.float32)
+    f.ravel()[:4] = [np.nan, np.inf, -np.inf, 254.99]
+    cmyk = u8(rng, 7, 9, 4)
+    planes = u8(rng, 5, 11, 17)
+    planes[:, :, 3:9] = 77  # runs for PackBits
+    bitmap = np.packbits(u8(rng, 11, 17) > 127, axis=1)
+    return {
+        "TGA 1-bit written by PIL": pil_bytes(bits, format="TGA"),
+        "TGA 1-bit top-down, right to left": tga(21, 13, 3, 1, packed.tobytes(), desc=0x30),
+        "PNM Pf written by PIL": pil_bytes(Image.fromarray(f, "F"), format="PPM"),
+        "PNM Pf big-endian, scale 2.5": b"Pf\n9 7\n2.5\n" + f[::-1].astype(">f4").tobytes(),
+        "PNM P0CMYK": b"P0CMYK 9 7 255\n" + cmyk.tobytes(),
+        "PNM PyCMYK maxval 1000": (b"PyCMYK\n9 7\n1000\n"
+                                   + rng.integers(0, 1001, (7, 9, 4)).astype(">u2").tobytes()),
+        "PNM PyRGBA": b"PyRGBA 9 7 255\n" + cmyk.tobytes(),
+        "PNM PyRGBA maxval 100": b"PyRGBA 9 7 100\n" + (cmyk % 101).tobytes(),
+        "PNM PyP, a P image without a palette": b"PyP 9 7 255\n" + cmyk[..., 0].tobytes(),
+        "PSD CMYK raw": psd(planes[:4], 4, rle=False),
+        "PSD CMYK PackBits": psd(planes[:4], 4),
+        "PSD CMYK and alpha, raw": psd(planes, 4, rle=False),
+        "PSD 1-bit bitmap raw": psd(bitmap[None], 0, rle=False, depth=1, width=17),
+        "PSD 1-bit bitmap PackBits": psd(bitmap[None], 0, depth=1, width=17),
+        "PSD Lab raw": psd(planes[:3], 9, rle=False),
+        "PSD Lab PackBits": psd(planes[:3], 9),
+    }
+
+
 def _cases():
     rng = np.random.default_rng(2026)
     out = {}
     for make in (_tga_cases, _bmp_cases, _gif_cases, _pnm_cases, _psd_cases):
         out.update(make(rng))
+    out.update(_kind_cases(np.random.default_rng(2020)))
     return out
 
 
@@ -500,17 +537,27 @@ def test_psd_packbits_with_extra_channels(tmp_path, monkeypatch, mode, channels)
     _pil_differs(path, want)
 
 
+def test_psd_lab_every_input_equals_pil():
+    """Every 8-bit (L, a, b) in one 4096x4096 Lab PSD: the port's LittleCMS
+    table and tetrahedra against PIL's own transform (ties and rounding
+    included)."""
+    L, a, b = np.meshgrid(np.arange(256), np.arange(256), np.arange(256), indexing="ij")
+    data = psd(np.stack([v.reshape(4096, 4096) for v in (L, a, b)]), 9, rle=False)
+    np.testing.assert_array_equal(image_io.decode_image_rgba(data),
+                                  np.asarray(Image.open(io.BytesIO(data)).convert("RGBA")))
+
+
 # --- refusals, truncation, the library, speed
 
 REFUSED = {
-    "TGA 1-bit": (tga(8, 1, 3, 1, b"\xaa"), "1-bit"),
+    "TGA 1-bit RLE": (tga(8, 1, 11, 1, b"\x80\xaa"), "run-length 1-bit"),
+    "TGA 1-bit colour-mapped": (tga(8, 1, 1, 1, b"\xaa", bytes(6), 0, 2, 24), "1-bit image"),
     "TGA colour-mapped without a map": (tga(8, 1, 1, 8, bytes(8)), "without a colour map"),
     "BMP JPEG compression": (bmp(2, 2, 24, bytes(16), comp=4), "compression 4"),
     "BMP 4-4-4-4 bitfields": (bmp(2, 2, 16, bytes(8), comp=3, hsize=56,
                                   masks=(0xF00, 0xF0, 0xF, 0xF000)), "bitfields layout"),
-    "PNM PFM": (b"Pf\n2 1\n-1.0\n" + bytes(8), "PFM"),
+    "PNM PFM scale 0": (b"Pf\n2 1\n0.0\n" + bytes(8), "scale"),
     "PSD 16-bit": (psd(np.zeros((3, 2, 2)), 3, depth=16), "16-bit"),
-    "PSD CMYK": (psd(np.zeros((4, 2, 2)), 4), "CMYK"),
     "PSD PSB": (psd(np.zeros((3, 2, 2)), 3, version=2), "PSB"),
     "GIF without an image": (b"GIF89a" + struct.pack("<HHBBB", 2, 2, 0, 0, 0) + b";",
                              "no image"),

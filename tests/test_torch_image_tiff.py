@@ -22,7 +22,11 @@ Contracts:
   big-endian BigTIFF, FillOrder 2 in uncompressed files PIL has no raw
   mode for, and PlanarConfiguration 2 where PIL's band unpacking breaks.
 * Kinds the decoder refuses raise ValueError naming them and fall back
-  (None); truncated files fall back in both packages (test_torch_image_dds.py
+  (None); the kinds it once refused and now reads (JPEG, old-style JPEG
+  with JPEGInterchangeFormat, CCITT, LZMA, ZSTD, ThunderScan, YCbCr,
+  CIELab, signed, 12-bit, 32-bit and float samples) are
+  held to PIL's decode in test_torch_image_tiff_kinds.py; truncated files
+  fall back in both packages (test_torch_image_dds.py
   lists both kinds of map in builder.fallbacks); a decoder library that
   cannot be built raises.
 * A 2048x2048 LZW TIFF decodes in under a second; read_image takes a TIFF
@@ -119,7 +123,9 @@ def pack_rows(block: np.ndarray, bits: int, order: str) -> bytes:
     if bits == 8:
         return block.astype(np.uint8).tobytes()
     if bits == 16:
-        return block.astype(order + "u2").tobytes()
+        return block.astype(order + ("i2" if block.dtype.kind == "i" else "u2")).tobytes()
+    if bits == 32:
+        return block.astype(order + {"f": "f4", "i": "i4"}.get(block.dtype.kind, "u4")).tobytes()
     out = bytearray()
     for r in block.reshape(rows, cols * spp):
         acc = n = 0
@@ -137,15 +143,16 @@ def pack_rows(block: np.ndarray, bits: int, order: str) -> bytes:
 
 def tiff(samples, bits=8, photometric=1, order="<", big=False, compression=1, predictor=None,
          fillorder=None, tile=None, rows_per_strip=None, planar=1, extra=None, colormap=None,
-         sampleformat=None, more=None, ifd_first=False):
+         sampleformat=None, more=None, ifd_first=False, codec=None):
     """A TIFF file of samples [H, W, S] (or [H, W]) in one IFD: strips of
     rows_per_strip rows (default all) or tiles (tw, th) padded with zeros;
     PlanarConfiguration 1 or 2; compression 1, 5 (LZW), 8 or 32946
     (deflate), 32773 (PackBits) or any other number (the data then left
-    raw); Predictor 2 differences each row of a strip or tile before LZW or
-    deflate; FillOrder 2 bit-reverses the stored bytes. `more`: {tag: (type,
-    [values])} added to the IFD or replacing a tag. The IFD follows the
-    data, or comes first with ifd_first."""
+    raw, or passed through `codec(bytes, samples) -> bytes`); Predictor 2
+    differences each row of a strip or tile before LZW or deflate (or
+    `codec`); FillOrder 2 bit-reverses the stored bytes. `more`: {tag:
+    (type, [values])} added to the IFD or replacing a tag. The IFD follows
+    the data, or comes first with ifd_first."""
     s = np.asarray(samples)
     if s.ndim == 2:
         s = s[..., None]
@@ -153,11 +160,13 @@ def tiff(samples, bits=8, photometric=1, order="<", big=False, compression=1, pr
     mask = (1 << bits) - 1
 
     def encode(block):
-        if predictor == 2 and compression in (5, 8, 32946):
+        if predictor == 2 and (compression in (5, 8, 32946) or codec):
             block = block.astype(np.int64)
             block[:, 1:] = (block[:, 1:] - block[:, :-1]) & mask
         raw = pack_rows(block, bits, order)
-        if compression == 5:
+        if codec:
+            raw = codec(raw, block)
+        elif compression == 5:
             raw = lzw(raw)
         elif compression in (8, 32946):
             raw = zlib.compress(raw, 6)
@@ -432,21 +441,9 @@ def test_tiff_read_as_the_format_where_pil_loses_it(tmp_path, monkeypatch, name)
 
 GREY = np.zeros((4, 6), np.uint8)
 REFUSED = {
-    "JPEG": (tiff(GREY, compression=7), "JPEG in TIFF"),
     "old-style JPEG": (tiff(GREY, compression=6), "old-style JPEG"),
-    "CCITT G3": (tiff(GREY > 0, 1, compression=3), "CCITT Group 3"),
-    "CCITT G4": (tiff(GREY > 0, 1, compression=4), "CCITT Group 4"),
     "SGILog": (tiff(GREY, compression=34676), "SGILog"),
-    "LZMA": (tiff(GREY, compression=34925), "LZMA"),
-    "ZSTD": (tiff(GREY, compression=50000), "ZSTD"),
     "WebP": (tiff(GREY, compression=50001), "WebP"),
-    "ThunderScan": (tiff(GREY, compression=32809), "ThunderScan"),
-    "YCbCr": (tiff(np.zeros((4, 6, 3)), 8, 6), "YCbCr"),
-    "CIELab": (tiff(np.zeros((4, 6, 3)), 8, 8), "CIELab"),
-    "float": (tiff(np.zeros((4, 6)), 32, sampleformat=3), "floating-point samples"),
-    "32-bit integer": (tiff(np.zeros((4, 6)), 32), "32-bit samples"),
-    "signed": (tiff(GREY, sampleformat=2), "signed integer samples"),
-    "12-bit": (tiff(np.zeros((4, 6)), 12, more={258: (3, [12])}), "12-bit samples"),
     "floating-point predictor": (tiff(GREY, compression=5, predictor=3), "floating-point predictor"),
     "no mode in PIL": (tiff(np.zeros((4, 6, 2)), 8, 0, extra=(2,)), "photometric 0"),
 }

@@ -5,8 +5,8 @@
 // Bitstream & Decoding Process Specification defines them. Reconstruction
 // and the loop filters are av1_recon.cpp's; the tables, av1_tables.h's.
 //
-// What is refused, by name: samples above 8 bits, inter frames, superres,
-// show_existing_frame, large scale tile and more than one frame.
+// Samples of 8, 10 and 12 bits. What is refused, by name: inter frames,
+// superres, show_existing_frame, large scale tile and more than one frame.
 
 #include "av1_decode.h"
 
@@ -1534,7 +1534,9 @@ struct TileDecoder {
       const int v = quant[pos];
       if (!v) continue;
       int qv = pos == 0 ? dcq : acq;
-      if (qm) qv = (qm[pos] * qv + 16) >> 5;
+      // aom's matrices (av1_tables.h) run down the columns of this
+      // coefficient layout: a rectangular transform's weight is transposed.
+      if (qm) qv = (qm[(pos % aw) * ah + pos / aw] * qv + 16) >> 5;
       int64_t d = int64_t(std::abs(v)) * qv;
       d &= 0xFFFFFF;
       d >>= shift;
@@ -1617,8 +1619,6 @@ void sequence_header(Frame& f, Bits& b) {
   const int high = int(b.f(1));
   if (f.profile == 2 && high) f.bit_depth = b.f(1) ? 12 : 10;
   else f.bit_depth = high ? 10 : 8;
-  if (f.bit_depth > 8)  // no encoder at hand writes them, so no decode of them is checked
-    refuse("AV1 " + std::to_string(f.bit_depth) + "-bit samples not read");
   f.mono = f.profile == 1 ? 0 : int(b.f(1));
   if (b.f(1)) {
     f.color_primaries = int(b.f(8));
@@ -1741,6 +1741,9 @@ void frame_header(Frame& f, Bits& b, int temporal_id, int spatial_id) {
     f.width = f.max_w;
     f.height = f.max_h;
   }
+  // No encoder here writes superres: aom answers "superres-mode" with
+  // AVIF_RESULT_INVALID_CODEC_SPECIFIC_OPTION, in Pillow's libavif and in
+  // OpenCV's alike, so no decode of it could be checked.
   if (f.enable_superres && b.f(1)) refuse("AV1 superres not read");
   if (b.f(1)) b.f(16), b.f(16);  // render size
   f.mi_cols = 2 * ((f.width + 7) >> 3);

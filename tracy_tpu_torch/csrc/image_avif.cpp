@@ -12,7 +12,7 @@
 // format", so that image_format tries the formats after it, as PIL does.
 // A grid item's cells are decoded one by one and laid out; an image
 // sequence (avis) is read as its first frame, from the first sample of its
-// tracks. Refused by name: superres and samples above 8 bits.
+// tracks. Refused by name: superres.
 
 #include <array>
 
@@ -470,10 +470,11 @@ Image load(const Bytes& b, bool pixels) {
 }
 
 // libyuv's YUV -> RGB in fixed point (row_common.cc, YuvPixel), for the
-// matrices libavif hands to libyuv: y1 = (y * 0x0101 * yg >> 16) + yb, then
-// each channel (y1 +- chroma terms) >> 6, clamped. The constants are
+// matrices libavif hands to libyuv: y1 = (y16 * yg >> 16) + yb with luma's
+// bits repeated to 16 (y * 0x0101 at 8 bits), then each channel (y1 +-
+// chroma terms) >> 6, clamped. The constants are
 // libyuv's kYuv{JPEG,F709,V2020,I601,H709,2020}Constants, fitted to
-// avifImageYUVToRGB's output for every (y, u, v) and checked there by
+// avifImageYUVToRGB's output for every 8-bit (y, u, v) and checked there by
 // tools/check_avif_colour.py.
 struct Yuv {
   int yg, yb, vr, ub, ug, vg;
@@ -507,28 +508,36 @@ bool float_matrix(int mc, float& kr, float& kb) {
   }
 }
 
-// libavif's own conversion (avifImageYUVAnyToRGBAnySlow) for what it does
-// not hand to libyuv: samples to floats ((v - bias) / range), chroma
+// The RGB of libavif's own conversion, as floats before they are stored:
+// samples to floats ((v - bias) / range at the image's depth), chroma
 // upsampled bilinearly in float (9/16, 3/16, 3/16, 1/16 of the nearest, the
 // adjacent column, the adjacent row and the diagonal sample; 4:2:2 by rows
-// alone), then each channel (uint8)(0.5 + clamp(c, 0, 1) * 255). The
+// alone), the identity matrix as G, B, R over the largest sample. The
 // library builds with -ffp-contract=off, as this source does.
-void float_rgb(const Image& img, std::vector<std::array<int, 3>>& rgb) {
+std::vector<std::array<float, 3>> float_rgb(const Image& img) {
   const av1::Picture& pc = img.color;
-  const int w = pc.width, h = pc.height;
-  const float bias_y = img.full ? 0.0f : 16.0f, range_y = img.full ? 255.0f : 219.0f;
-  const float range_uv = img.full ? 255.0f : 224.0f;
+  const int w = pc.width, h = pc.height, s = pc.bit_depth - 8;
+  const float top = float((1 << pc.bit_depth) - 1);
+  const float bias_y = img.full ? 0.0f : float(16 << s), range_y = img.full ? top : float(219 << s);
+  const float range_uv = img.full ? top : float(224 << s), bias_uv = float(128 << s);
+  const bool identity = img.mc == 0 && pc.planes == 3;
   float kr = 0, kb = 0;
-  const bool ycgco = pc.planes == 3 && !float_matrix(img.mc, kr, kb);
+  const bool ycgco = pc.planes == 3 && !identity && !float_matrix(img.mc, kr, kb);
   const float kg = 1.0f - kr - kb;
-  auto uv = [&](int v) { return (float(v) - 128.0f) / range_uv; };
-  rgb.resize(size_t(w) * h);
+  auto uv = [&](int v) { return (float(v) - bias_uv) / range_uv; };
+  std::vector<std::array<float, 3>> rgb(size_t(w) * h);
   for (int j = 0; j < h; j++)
     for (int i = 0; i < w; i++) {
-      const float y = (float(pc.plane[0][size_t(j) * w + i]) - bias_y) / range_y;
+      const int yv = pc.plane[0][size_t(j) * w + i];
+      const float y = (float(yv) - bias_y) / range_y;
+      const int sx = pc.sub_x, sy = pc.sub_y, cw = pc.pw[1];
+      if (identity) {
+        const size_t ci = size_t(j >> sy) * cw + (i >> sx);
+        rgb[size_t(j) * w + i] = {pc.plane[2][ci] / top, yv / top, pc.plane[1][ci] / top};
+        continue;
+      }
       float cb = 0.0f, cr = 0.0f;
       if (pc.planes == 3) {
-        const int sx = pc.sub_x, sy = pc.sub_y, cw = pc.pw[1];
         const int ui = i >> sx, uj = j >> sy;
         auto at = [&](int p, int jj, int ii) { return uv(pc.plane[p][size_t(jj) * cw + ii]); };
         if (!sx && !sy) {
@@ -555,19 +564,23 @@ void float_rgb(const Image& img, std::vector<std::array<int, 3>>& rgb) {
         b = y + (2 * (1 - kb)) * cb;
         g = y - ((2 * ((kr * (1 - kr) * cr) + (kb * (1 - kb) * cb))) / kg);
       }
-      auto u8 = [](float c) { return int(0.5f + std::clamp(c, 0.0f, 1.0f) * 255.0f); };
-      rgb[size_t(j) * w + i] = {u8(r), u8(g), u8(b)};
+      rgb[size_t(j) * w + i] = {r, g, b};
     }
+  return rgb;
 }
 
+int unorm8(float c) { return int(0.5f + std::clamp(c, 0.0f, 1.0f) * 255.0f); }
+
 // Chroma upsampled to the luma grid as libyuv's bilinear filters do it
-// (ScaleRowUp2_Linear and _Bilinear: 3:1 and 9:3:3:1 toward the nearer
-// sample, edges repeated).
-std::vector<int> upsample(const av1::Picture& pc, int p) {
+// (ScaleRowUp2_Linear and _Bilinear, and their _16 rows: 3:1 and 9:3:3:1
+// toward the nearer sample, edges repeated), of the samples >> shift; by
+// repetition where `nearest`.
+std::vector<int> upsample(const av1::Picture& pc, int p, int shift, bool nearest) {
   const int w = pc.width, h = pc.height, sx = pc.sub_x, sy = pc.sub_y, cw = pc.pw[p], ch = pc.ph[p];
   std::vector<int> out(size_t(w) * h);
   auto c = [&](int y, int x) {
-    return int(pc.plane[p][size_t(std::clamp(y, 0, ch - 1)) * cw + std::clamp(x, 0, cw - 1)]);
+    return int(pc.plane[p][size_t(std::clamp(y, 0, ch - 1)) * cw + std::clamp(x, 0, cw - 1)]) >>
+           shift;
   };
   for (int y = 0; y < h; y++)
     for (int x = 0; x < w; x++) {
@@ -576,7 +589,9 @@ std::vector<int> upsample(const av1::Picture& pc, int p) {
       const bool last = sx && (w & 1) && x == w - 1;
       const int cx = !sx ? x : last ? x >> 1 : (x - 1) >> 1, cy = sy ? (y - 1) >> 1 : y;
       const int wx1 = sx && !last ? ((x & 1) ? 1 : 3) : 0, wy1 = sy ? ((y & 1) ? 1 : 3) : 0;
-      if (sx && sy)
+      if (nearest)
+        v = c(y >> sy, x >> sx);
+      else if (sx && sy)
         v = (c(cy, cx) * (4 - wx1) * (4 - wy1) + c(cy, cx + 1) * wx1 * (4 - wy1) +
              c(cy + 1, cx) * (4 - wx1) * wy1 + c(cy + 1, cx + 1) * wx1 * wy1 + 8) >> 4;
       else if (sx)
@@ -588,55 +603,84 @@ std::vector<int> upsample(const av1::Picture& pc, int p) {
   return out;
 }
 
+// libyuv's ARGBUnattenuate (its x86 rows), as libavif unpremultiplies
+// 8-bit RGBA: c * 257 * (65536 / a) >> 16 in 16 bits, packed with signed
+// saturation (a = 1 gives 65535).
+int unattenuate(int v, int a) {
+  if (a == 255) return v;
+  const uint32_t ia = a == 0 ? 0 : a == 1 ? 0xffff : 0x10000 / a;
+  const uint32_t x = (uint32_t(v) * 257u * ia) >> 16;
+  return x > 32767 ? 0 : int(std::min<uint32_t>(x, 255));
+}
+
+// avifImageYUVToRGB into 8-bit RGB (an image without alpha) or RGBA, as PIL
+// asks for it; tools/check_avif_colour.py holds each route to it:
+// - libyuv takes the matrices it has constants for, into RGB from colour
+//   images and into RGBA from grey ones too (I400ToARGB, chroma 128).
+//   Samples above 8 bits go down to 8 (Convert16To8Plane: v >> (depth - 8)),
+//   but for RGBA from 10-bit colour (I010/I210/I410AlphaToARGB) and from
+//   12-bit 4:2:0 (I012ToARGB, chroma repeated): chroma filtered at the
+//   depth, then >> (depth - 8); luma's bits repeated to 16. The alpha of a
+//   grey or I012 image is libavif's, not libyuv's.
+// - libavif's float code takes the rest: its fast rows (grey and 4:4:4 of
+//   a YUV matrix, and 8-bit full-range identity) store each channel, then
+//   unpremultiply through libyuv; its slow rows unpremultiply in float,
+//   min(c / a, 1).
+// - libavif's own alpha: (uint8)(0.5 + a / max * 255).
 void to_rgba(const Image& img, uint8_t* out) {
   const av1::Picture& pc = img.color;
-  if (pc.bit_depth != 8)
-    throw DecodeError("" + std::to_string(pc.bit_depth) + "-bit colour conversion not read");
-  const int w = pc.width, h = pc.height;
+  const int w = pc.width, h = pc.height, bd = pc.bit_depth, s = bd - 8;
   const size_t n = size_t(w) * h;
-  Yuv c{};
   const bool identity = img.mc == 0 && pc.planes == 3;
   if (identity && !img.full) throw DecodeError("limited-range identity matrix not read");
   if (img.mc == 12) throw DecodeError("chroma-derived matrix coefficients (12) not read");
-  // Grey images and the matrices libyuv does not take go libavif's float way.
-  const bool fixed = !identity && pc.planes == 3 && libyuv_constants(img.mc, img.full, c);
+  const bool alpha = img.has_alpha;
+  if (alpha && img.alpha.bit_depth != bd)
+    throw DecodeError("an alpha item of another bit depth than the image not read");
+  const float top = float((1 << bd) - 1);
+  Yuv c{};
+  const bool fixed = !identity && (pc.planes == 3 || alpha) && libyuv_constants(img.mc, img.full, c);
+  const bool deep = fixed && alpha && pc.planes == 3 && (bd == 10 || (bd == 12 && pc.sub_x && pc.sub_y));
+  const bool libyuv_alpha = fixed && pc.planes == 3 && !(bd == 12 && deep);
   std::vector<int> u, v;
-  std::vector<std::array<int, 3>> frgb;
-  if (fixed) u = upsample(pc, 1), v = upsample(pc, 2);
-  else if (!identity) float_rgb(img, frgb);
+  std::vector<std::array<float, 3>> frgb;
+  bool slow = false;
+  if (fixed && pc.planes == 3) {
+    const int shift = deep ? 0 : s;
+    const bool nearest = deep && bd == 12;
+    u = upsample(pc, 1, shift, nearest), v = upsample(pc, 2, shift, nearest);
+  } else if (!fixed) {
+    frgb = float_rgb(img);
+    slow = identity ? bd != 8 : img.mc == 8 || (pc.planes == 3 && (pc.sub_x || pc.sub_y));
+  }
   for (size_t i = 0; i < n; i++) {
     const int yy = pc.plane[0][i];
-    int r, g, b;
-    if (identity) {
-      const int sx = pc.sub_x, sy = pc.sub_y;
-      const size_t ci = size_t((int(i) / w) >> sy) * pc.pw[1] + ((int(i) % w) >> sx);
-      r = pc.plane[2][ci], g = yy, b = pc.plane[1][ci];
-    } else if (fixed) {
-      const int uu = u[i], vv = v[i];
-      const int y1 = int((uint32_t(yy * 0x0101) * uint32_t(c.yg)) >> 16) + c.yb;
-      b = (y1 + (uu - 128) * c.ub) >> 6;
-      g = (y1 - ((uu - 128) * c.ug + (vv - 128) * c.vg)) >> 6;
-      r = (y1 + (vv - 128) * c.vr) >> 6;
-    } else {
-      r = frgb[i][0], g = frgb[i][1], b = frgb[i][2];
-    }
-    r = std::clamp(r, 0, 255), g = std::clamp(g, 0, 255), b = std::clamp(b, 0, 255);
     int a = 255;
-    if (img.has_alpha) {
-      a = img.alpha.plane[0][i];
-      if (img.alpha.bit_depth != 8) a = a >> (img.alpha.bit_depth - 8);
-      if (img.premultiplied && a != 255) {
-        // libavif's unpremultiply through libyuv's ARGBUnattenuate (its x86
-        // rows): c * 257 * (65536 / a) >> 16 in 16 bits, packed with
-        // signed saturation (a = 1 gives 65535).
-        const uint32_t ia = a == 0 ? 0 : a == 1 ? 0xffff : 0x10000 / a;
-        auto un = [&](int v) {
-          const uint32_t x = (uint32_t(v) * 257u * ia) >> 16;
-          return x > 32767 ? 0 : int(std::min<uint32_t>(x, 255));
-        };
-        r = un(r), g = un(g), b = un(b);
-      }
+    if (alpha) {
+      const int av = img.alpha.plane[0][i];
+      a = libyuv_alpha ? std::min(av >> s, 255) : unorm8(av / top);
     }
+    int r, g, b;
+    if (fixed) {
+      const int uu = pc.planes == 3 ? std::min(u[i] >> (deep ? s : 0), 255) : 128;
+      const int vv = pc.planes == 3 ? std::min(v[i] >> (deep ? s : 0), 255) : 128;
+      const uint32_t y16 = deep ? uint32_t(yy << (16 - bd) | yy >> (2 * bd - 16)) : uint32_t((yy >> s) * 0x0101);
+      const int y1 = int((y16 * uint32_t(c.yg)) >> 16) + c.yb;
+      b = std::clamp((y1 + (uu - 128) * c.ub) >> 6, 0, 255);
+      g = std::clamp((y1 - ((uu - 128) * c.ug + (vv - 128) * c.vg)) >> 6, 0, 255);
+      r = std::clamp((y1 + (vv - 128) * c.vr) >> 6, 0, 255);
+    } else if (slow && alpha && img.premultiplied) {
+      const float fa = img.alpha.plane[0][i] / top;
+      std::array<float, 3> px = frgb[i];
+      for (float& x : px) {
+        x = std::clamp(x, 0.0f, 1.0f);
+        x = fa >= 1.0f ? x : fa > 0.0f ? std::min(x / fa, 1.0f) : 0.0f;
+      }
+      r = unorm8(px[0]), g = unorm8(px[1]), b = unorm8(px[2]);
+    } else {
+      r = unorm8(frgb[i][0]), g = unorm8(frgb[i][1]), b = unorm8(frgb[i][2]);
+    }
+    if (alpha && img.premultiplied && !slow) r = unattenuate(r, a), g = unattenuate(g, a), b = unattenuate(b, a);
     put(out + 4 * i, r, g, b, a);
   }
 }

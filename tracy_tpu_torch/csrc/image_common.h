@@ -33,6 +33,30 @@ struct NotFormat : DecodeError {
   using DecodeError::DecodeError;
 };
 
+// Mode I to 8 bits, as PIL converts it: clipped.
+inline uint8_t i_to_u8(int64_t v) {
+  return static_cast<uint8_t>(v <= 0 ? 0 : v >= 255 ? 255 : v);
+}
+// Mode F to 8 bits, as PIL converts it: truncated toward zero and clipped,
+// NaN 0.
+inline uint8_t f_to_u8(float v) {
+  return v > 0 ? (v >= 255 ? 255 : static_cast<uint8_t>(v)) : 0;
+}
+
+inline uint32_t le16(const uint8_t* p) { return p[0] | p[1] << 8; }
+inline uint32_t le32(const uint8_t* p) {
+  return p[0] | p[1] << 8 | p[2] << 16 | uint32_t(p[3]) << 24;
+}
+inline uint32_t be16(const uint8_t* p) { return p[0] << 8 | p[1]; }
+inline uint32_t be32(const uint8_t* p) {
+  return uint32_t(p[0]) << 24 | p[1] << 16 | p[2] << 8 | p[3];
+}
+inline float f32(uint32_t u) {
+  float v;
+  std::memcpy(&v, &u, 4);
+  return v;
+}
+
 // What one source lends another (image_containers.cpp reads the bitmaps of
 // ICO, CUR and DIB files, FTEX's BC1 blocks and the size of ICNS's JPEG 2000
 // entries with these).
@@ -59,6 +83,27 @@ void bc1_decode(const uint8_t* p, int64_t w, int64_t h, uint8_t* out);
 // format in errors.
 size_t inflate(const uint8_t* p, size_t n, std::vector<uint8_t>& out, size_t want,
                const char* fmt);
+// An xz stream of LZMA2 (and delta) data at p[0, n), appended to `out`
+// until `want` bytes are out (image_xz.cpp); a run of zstd frames the same
+// way (image_zstd.cpp). `fmt` names the format in errors.
+void xz_decode(const uint8_t* p, size_t n, std::vector<uint8_t>& out, size_t want,
+               const char* fmt);
+void zstd_decode(const uint8_t* p, size_t n, std::vector<uint8_t>& out, size_t want,
+                 const char* fmt);
+// A JPEG datastream at p[0, n) (image_decode.cpp) as libjpeg gives it to
+// libtiff: `ycc_to_rgb` forces YCbCr -> RGB (libtiff's JPEGCOLORMODE_RGB),
+// else the components come out as they are (JCS_UNKNOWN). Writes w * h *
+// comps bytes to `out`; returns "" or the decoder's message.
+std::string jpeg_components(const uint8_t* p, size_t n, bool ycc_to_rgb,
+                            std::vector<uint8_t>& out, int* w, int* h, int* comps);
+// The same datastream's components after the IDCT, each at its own
+// sampling (libjpeg's raw data): `layout` holds each one's horizontal and
+// vertical subsampling and its row stride.
+std::string jpeg_planes(const uint8_t* p, size_t n, std::vector<std::vector<uint8_t>>& planes,
+                        std::vector<int>& layout, int* w, int* h);
+// PIL's LAB -> RGB of one pixel, `a` and `b` offset by 128 as PIL holds
+// them: LittleCMS's transform to sRGB (image_formats.cpp, lab_table.h).
+void lab_to_rgb(int L, int a, int b, uint8_t* rgb);
 // The size PIL gives a JPEG 2000 file (a raw codestream or JP2) of p[0, n)
 // (image_jpeg2000.cpp; throws DecodeError where the decoder refuses it).
 bool jpeg2000_size(const uint8_t* p, size_t n, int64_t* w, int64_t* h);

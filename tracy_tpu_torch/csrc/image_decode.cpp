@@ -940,15 +940,9 @@ inline uint8_t cmyk_channel(int v, int nk) {
   return clamp8(nk - (((t >> 8) + t) >> 8));
 }
 
-// `four_as_cmyk`: four components are CMYK whatever the Adobe marker says
-// (PIL's jpegmode "CMYK", which BLP1's JPEG reader sets).
-void jpeg_decode(const uint8_t* data, size_t len, uint8_t* out, int out_w, int out_h,
-                 bool four_as_cmyk) {
-  Jpeg j(data, len);
-  j.parse(false);
-  if (j.width != out_w || j.height != out_h) fail("JPEG: size changed between calls");
-  const int W = j.width, H = j.height;
-  // IDCT every block of every component.
+// IDCT every block of every component (libjpeg's raw data: each component at
+// its own sampling, MCU-padded).
+void idct_all(Jpeg& j) {
   for (int i = 0; i < j.ncomp; ++i) {
     Component& c = j.comp[i];
     const int stride = c.bw * 8;
@@ -961,6 +955,22 @@ void jpeg_decode(const uint8_t* data, size_t len, uint8_t* out, int out_w, int o
     }
     std::vector<int16_t>().swap(c.coef);
   }
+}
+
+// How the components reach the output: as libjpeg guesses the colour space
+// (kGuess), YCbCr forced (libtiff's JPEGCOLORMODE_RGB), or as they are
+// (libtiff's JCS_UNKNOWN: up to four, the fourth in the alpha byte).
+enum ColorMode { kGuess, kYcc, kRaw };
+
+// `four_as_cmyk`: four components are CMYK whatever the Adobe marker says
+// (PIL's jpegmode "CMYK", which BLP1's JPEG reader sets).
+void jpeg_decode(const uint8_t* data, size_t len, uint8_t* out, int out_w, int out_h,
+                 bool four_as_cmyk, ColorMode mode = kGuess) {
+  Jpeg j(data, len);
+  j.parse(false);
+  if (j.width != out_w || j.height != out_h) fail("JPEG: size changed between calls");
+  const int W = j.width, H = j.height;
+  idct_all(j);
   // Upsample row by row and convert.
   const int row_w = j.mcux * j.hmax * 8;  // >= W, room for every upsampled row
   std::vector<uint8_t> rows(static_cast<size_t>(4) * row_w);
@@ -972,10 +982,15 @@ void jpeg_decode(const uint8_t* data, size_t len, uint8_t* out, int out_w, int o
   // Three components are YCbCr unless an Adobe marker says transform 0 or
   // the component ids spell R, G, B (libjpeg's and stb_image's rules); four
   // are YCCK when an Adobe marker's transform is not 0 (jdapimin.c).
-  const bool rgb = j.ncomp == 3 && ((j.adobe && j.adobe_transform == 0) ||
-                                    (j.comp[0].id == 'R' && j.comp[1].id == 'G' &&
-                                     j.comp[2].id == 'B'));
-  const bool ycck = j.ncomp == 4 && j.adobe && j.adobe_transform != 0 && !four_as_cmyk;
+  const bool rgb = mode == kRaw ||
+                   (mode == kGuess && j.ncomp == 3 &&
+                    ((j.adobe && j.adobe_transform == 0) ||
+                     (j.comp[0].id == 'R' && j.comp[1].id == 'G' && j.comp[2].id == 'B')));
+  const bool ycck = mode == kGuess && j.ncomp == 4 && j.adobe && j.adobe_transform != 0 &&
+                    !four_as_cmyk;
+  if (mode == kYcc && j.ncomp != 3) {
+    fail("JPEG: YCbCr output of " + std::to_string(j.ncomp) + " components");
+  }
   for (int y = 0; y < H; ++y) {
     uint8_t* orow = out + static_cast<size_t>(y) * W * 4;
     if (j.ncomp == 1) {
@@ -1002,6 +1017,11 @@ void jpeg_decode(const uint8_t* data, size_t len, uint8_t* out, int out_w, int o
         r = clamp8(yy + YCC.cr_r[cr]);
         g = clamp8(yy + ((YCC.cb_g[cb] + YCC.cr_g[cr]) >> 16));
         b = clamp8(yy + YCC.cb_b[cb]);
+      }
+      if (j.ncomp == 4 && mode == kRaw) {
+        o[0] = static_cast<uint8_t>(r), o[1] = static_cast<uint8_t>(g);
+        o[2] = static_cast<uint8_t>(b), o[3] = c3[x];
+        continue;
       }
       if (j.ncomp == 4) {
         // libjpeg's CMYK (YCCK: 255 - R, 255 - G, 255 - B and K), inverted
@@ -1038,6 +1058,43 @@ namespace tracy_image {
 
 // Set the calling thread's message (image_formats.cpp's entry points).
 void set_error(const std::string& msg) { g_error = msg; }
+
+std::string jpeg_planes(const uint8_t* p, size_t n, std::vector<std::vector<uint8_t>>& planes,
+                        std::vector<int>& layout, int* w, int* h) {
+  try {
+    Jpeg j(p, n);
+    j.parse(false);
+    idct_all(j);
+    *w = j.width, *h = j.height;
+    planes.clear(), layout.clear();
+    for (int i = 0; i < j.ncomp; ++i) {
+      Component& c = j.comp[i];
+      planes.push_back(std::move(c.pix));
+      layout.insert(layout.end(), {j.hmax / c.h, j.vmax / c.v, c.bw * 8});
+    }
+    return "";
+  } catch (const std::exception& e) {
+    return e.what();
+  }
+}
+
+std::string jpeg_components(const uint8_t* p, size_t n, bool ycc_to_rgb,
+                            std::vector<uint8_t>& out, int* w, int* h, int* comps) {
+  try {
+    Jpeg j(p, n);
+    j.parse(true);
+    *w = j.width, *h = j.height, *comps = j.ncomp;
+    std::vector<uint8_t> rgba(size_t(4) * j.width * j.height);
+    jpeg_decode(p, n, rgba.data(), j.width, j.height, false, ycc_to_rgb ? kYcc : kRaw);
+    const int c = j.ncomp;
+    out.resize(size_t(c) * j.width * j.height);
+    for (size_t i = 0; i < size_t(j.width) * j.height; ++i)
+      for (int k = 0; k < c; ++k) out[i * c + k] = rgba[4 * i + k];
+    return "";
+  } catch (const std::exception& e) {
+    return e.what();
+  }
+}
 
 }  // namespace tracy_image
 

@@ -11,7 +11,8 @@
 // The output equals PIL's open(...).convert("RGBA") but where ROADMAP's
 // hazards say otherwise:
 //
-// TGA: image types 1, 2, 3 and their RLE forms 9, 10, 11; 8-bit indices
+// TGA: image types 1, 2, 3 and their RLE forms 9, 10, 11; 1-bit grey
+//   (type 3: PIL's mode "1", rows of packed bits, 1 white); 8-bit indices
 //   into 15-, 16-, 24- or 32-bit colour maps (a map's first index offsets
 //   the indices; others are black); 8-bit grey, grey + alpha at 16 bits;
 //   15-, 16-, 24- and 32-bit true colour; the image-ID field skipped; the
@@ -36,20 +37,68 @@
 // PNM: P1-P6, ASCII and binary, # comments, any maxval: samples scale as
 //   PIL scales them, round(v / maxval * 255) with Python's round, but grey
 //   above maxval 255, which PIL clips to white: that keeps the high byte of
-//   PIL's 16-bit sample (stb_image's high byte at maxval 65535).
-// PSD: version 1, 8-bit channels, bitmap (at 8 bits), grey, indexed, RGB,
-//   multichannel and duotone colour modes, raw or PackBits merged image
-//   data; RGB with exactly 4 channels keeps the fourth as alpha, as PIL
-//   does. PackBits counts are read for every channel of the file (PIL
+//   PIL's 16-bit sample (stb_image's high byte at maxval 65535). PFM's grey
+//   Pf (mode F: little-endian where the scale is negative, rows bottom-up,
+//   taken to 8 bits as PIL takes mode F), and Pillow's own binary kinds:
+//   P0CMYK and PyCMYK (through cmyk2rgb), PyRGBA, and PyP (a P image
+//   without a palette, which PIL's convert turns opaque black).
+// PSD: version 1, 8-bit channels, bitmap (at 8 bits, and at 1 bit as
+//   PIL's mode "1": a set bit white), grey, indexed, RGB, CMYK (PIL's
+//   inverted "C;I" channels, then cmyk2rgb), Lab (through PIL's LittleCMS
+//   transform, `tracy_image::lab_to_rgb`), multichannel and duotone
+//   colour modes, raw or PackBits merged image data; RGB with exactly 4
+//   channels keeps the fourth as alpha, as PIL does. PackBits counts are read for every channel of the file (PIL
 //   reads those of the channels it uses only).
 // QOI: RGB and RGBA, all six ops and the index hash, as PIL's QoiDecoder.
 //
-// Anything else is refused by name: TGA at 1 bit, BMP JPEG/PNG/other
-// compressions and bitfield layouts PIL refuses, PFM and PIL's own P0/Py
-// PNM kinds, PSB, 16- and 32-bit PSD, CMYK, Lab and 1-bit bitmap PSD. Only
-// a GIF's first frame is ever read.
+// Anything else is refused by name: run-length or colour 1-bit TGA, BMP
+// JPEG/PNG/other compressions and bitfield layouts PIL refuses, PSB, 16-
+// and 32-bit PSD. Only a GIF's first frame is ever read.
 
 #include "image_common.h"
+#include "lab_table.h"
+
+namespace tracy_image {
+
+// PIL's LAB -> RGB: LittleCMS's 8-bit evaluation (PrelinEval8) of its
+// optimized Lab2 (D50) -> sRGB transform, a 33^3 CLUT (lab_table.h,
+// tools/make_lab_table.py): each input x 257 into the fixed domain, the
+// tetrahedron of its cell by the order of the fractions, then the 16-bit
+// result to 8 bits as LittleCMS rounds it. `a` and `b` are offset by 128.
+void lab_to_rgb(int L, int a, int b, uint8_t* rgb) {
+  constexpr int kGrid = 33, kOz = 3, kOy = 3 * kGrid, kOx = 3 * kGrid * kGrid;
+  auto fixed = [](int v) {
+    const int x = v * 257 * (kGrid - 1);
+    return x + (x + 0x7fff) / 0xffff;  // _cmsToFixedDomain
+  };
+  const int fx = fixed(L), fy = fixed(a), fz = fixed(b);
+  const int rx = fx & 0xffff, ry = fy & 0xffff, rz = fz & 0xffff;
+  const int x0 = kOx * (fx >> 16), y0 = kOy * (fy >> 16), z0 = kOz * (fz >> 16);
+  const int x1 = x0 + (rx ? kOx : 0), y1 = y0 + (ry ? kOy : 0), z1 = z0 + (rz ? kOz : 0);
+  for (int ch = 0; ch < 3; ++ch) {
+    auto d = [&](int x, int y, int z) { return int64_t(kLabClut[x + y + z + ch]); };
+    const int64_t c0 = d(x0, y0, z0);
+    int64_t c1, c2, c3;
+    if (rx >= ry && ry >= rz) {
+      c1 = d(x1, y0, z0) - c0, c2 = d(x1, y1, z0) - d(x1, y0, z0), c3 = d(x1, y1, z1) - d(x1, y1, z0);
+    } else if (rx >= rz && rz >= ry) {
+      c1 = d(x1, y0, z0) - c0, c2 = d(x1, y1, z1) - d(x1, y0, z1), c3 = d(x1, y0, z1) - d(x1, y0, z0);
+    } else if (rz >= rx && rx >= ry) {
+      c1 = d(x1, y0, z1) - d(x0, y0, z1), c2 = d(x1, y1, z1) - d(x1, y0, z1), c3 = d(x0, y0, z1) - c0;
+    } else if (ry >= rx && rx >= rz) {
+      c1 = d(x1, y1, z0) - d(x0, y1, z0), c2 = d(x0, y1, z0) - c0, c3 = d(x1, y1, z1) - d(x1, y1, z0);
+    } else if (ry >= rz && rz >= rx) {
+      c1 = d(x1, y1, z1) - d(x0, y1, z1), c2 = d(x0, y1, z0) - c0, c3 = d(x0, y1, z1) - d(x0, y1, z0);
+    } else {
+      c1 = d(x1, y1, z1) - d(x0, y1, z1), c2 = d(x0, y1, z1) - d(x0, y0, z1), c3 = d(x0, y0, z1) - c0;
+    }
+    const int64_t rest = c1 * rx + c2 * ry + c3 * rz + 0x8001;
+    const uint32_t v16 = uint32_t(c0 + ((rest + (rest >> 16)) >> 16)) & 0xffff;
+    rgb[ch] = static_cast<uint8_t>((v16 * 65281u + 8388608u) >> 24);  // FROM_16_TO_8
+  }
+}
+
+}  // namespace tracy_image
 
 namespace {
 
@@ -81,8 +130,11 @@ Tga tga_header(const Bytes& b) {
   if (d != 1 && d != 8 && d != 15 && d != 16 && d != 24 && d != 32) {
     fail("TGA: " + std::to_string(d) + " bits a pixel not read");
   }
-  if (d == 1) fail("TGA: 1-bit images are not read");
   const int base = t.type & ~8;
+  // PIL reads 1 bit as grey (mode "1") only; its run-length reader takes
+  // 1 bit for 0 bytes a pixel and finds the file truncated.
+  if (d == 1 && base != 3) fail("TGA: 1-bit image of type " + std::to_string(t.type) + " not read");
+  if (d == 1 && (t.type & 8)) fail("TGA: run-length 1-bit images are not read");
   if (t.type > 11 || (base != 1 && base != 2 && base != 3)) {
     fail("TGA: image type " + std::to_string(t.type) + " not read");
   }
@@ -96,7 +148,7 @@ Tga tga_header(const Bytes& b) {
     }
   }
   if (base == 2 && d == 8) fail("TGA: true colour at 8 bits not read");
-  if (base == 3 && d != 8 && d != 16) {
+  if (base == 3 && d != 1 && d != 8 && d != 16) {
     fail("TGA: grey at " + std::to_string(d) + " bits not read");
   }
   t.map_at = 18 + static_cast<size_t>(id_len);
@@ -147,6 +199,19 @@ void tga_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
   };
   const bool top = t.desc & 0x20, right = t.desc & 0x10;
   const int64_t total = int64_t(t.w) * t.h;
+  if (t.depth == 1) {  // rows of (w + 7) / 8 bytes, the first pixel in the top bit, 1 white
+    const int64_t stride = (t.w + 7) / 8;
+    b.need(t.data_at, static_cast<size_t>(stride * t.h));
+    for (int64_t r = 0; r < t.h; ++r) {
+      const uint8_t* row = b.p + t.data_at + r * stride;
+      const int64_t y = top ? r : t.h - 1 - r;
+      for (int64_t c = 0; c < t.w; ++c) {
+        const int v = (row[c >> 3] >> (7 - (c & 7)) & 1) ? 255 : 0;
+        put(out + 4 * (y * t.w + (right ? t.w - 1 - c : c)), v, v, v, 255);
+      }
+    }
+    return;
+  }
   // Pixels come in file order: rows bottom-up unless `top`, each row
   // right-to-left if `right`.
   auto dest = [&](int64_t i) {
@@ -677,16 +742,17 @@ void gif_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
 inline bool pnm_space(int c) { return c == ' ' || c == '\t' || (c >= '\n' && c <= '\r'); }
 
 struct Pnm {
-  int kind;  // 1..6
+  int kind;  // 1..6; 0 Pf; 7 P0CMYK or PyCMYK; 8 PyRGBA; 9 PyP
   int64_t w, h;
   int maxval;
+  bool little;  // Pf: a negative scale
   size_t data_at;
 };
 
 // One header token as PIL's PpmImageFile._read_token reads it: whitespace
 // before it skipped, a # comment (to CR or LF) dropped wherever it starts,
 // ended by one whitespace byte, at most 10 bytes.
-int64_t pnm_token(const Bytes& b, size_t& pos) {
+std::string pnm_text(const Bytes& b, size_t& pos) {
   std::string tok;
   while (tok.size() <= 10) {
     if (pos >= b.n) break;
@@ -704,6 +770,11 @@ int64_t pnm_token(const Bytes& b, size_t& pos) {
   }
   if (tok.empty()) fail("PNM: header ends early");
   if (tok.size() > 10) fail("PNM: header token too long");
+  return tok;
+}
+
+int64_t pnm_token(const Bytes& b, size_t& pos) {
+  const std::string tok = pnm_text(b, pos);
   size_t i = tok[0] == '+' ? 1 : 0;
   if (i == tok.size()) fail("PNM: bad header token");
   int64_t v = 0;
@@ -737,11 +808,29 @@ Pnm pnm_header(const Bytes& b) {
     m.data_at = pos;
     return m;
   }
-  if (magic == "Pf" || magic == "PF") fail("PNM: PFM (float) files are not read");
-  if (magic == "P0CMYK" || magic == "PyP" || magic == "PyRGBA" || magic == "PyCMYK") {
-    fail("PNM: Pillow's own " + magic + " files are not read");
+  const int kind = magic == "Pf" ? 0 : magic == "P0CMYK" || magic == "PyCMYK" ? 7
+                 : magic == "PyRGBA" ? 8 : magic == "PyP" ? 9 : -1;
+  if (kind < 0) fail("not a PNM file");  // colour PFM (PF) too: PIL knows no such magic
+  Pnm m{};
+  m.kind = kind;
+  m.w = pnm_token(b, pos);
+  m.h = pnm_token(b, pos);
+  check_size("PNM", m.w, m.h);
+  if (kind == 0) {  // Python's float() of the scale token
+    const std::string tok = pnm_text(b, pos);
+    char* end = nullptr;
+    const double scale = std::strtod(tok.c_str(), &end);
+    if (end != tok.c_str() + tok.size()) fail("PNM: bad PFM scale '" + tok + "'");
+    if (scale == 0.0 || !std::isfinite(scale)) fail("PNM: PFM scale must be finite and non-zero");
+    m.little = scale < 0;
+    m.maxval = 255;
+  } else {
+    const int64_t mv = pnm_token(b, pos);
+    if (mv <= 0 || mv >= 65536) fail("PNM: maxval must be in 1..65535");
+    m.maxval = static_cast<int>(mv);
   }
-  fail("not a PNM file");
+  m.data_at = pos;
+  return m;
 }
 
 // A sample of maxval m to 8 bits: round(v / m * 255) with Python's round
@@ -759,9 +848,46 @@ struct PnmScale {
   }
 };
 
+// Pillow's binary kinds and PFM.
+void pnm_extension(const Bytes& b, const Pnm& m, uint8_t* out) {
+  const int64_t total = m.w * m.h;
+  if (m.kind == 0) {
+    b.need(m.data_at, static_cast<size_t>(total) * 4);
+    for (int64_t y = 0; y < m.h; ++y)
+      for (int64_t x = 0; x < m.w; ++x) {
+        const uint8_t* s = b.p + m.data_at + 4 * ((m.h - 1 - y) * m.w + x);
+        const uint32_t u = m.little ? tracy_image::le32(s) : tracy_image::be32(s);
+        const int v = tracy_image::f_to_u8(tracy_image::f32(u));
+        put(out + 4 * (y * m.w + x), v, v, v, 255);
+      }
+    return;
+  }
+  const int bands = m.kind == 9 ? 1 : 4, in = m.maxval < 256 ? 1 : 2;
+  b.need(m.data_at, static_cast<size_t>(total * bands) * in);
+  const uint8_t* s = b.p + m.data_at;
+  const PnmScale scale{m.maxval, false};
+  auto at = [&](int64_t i) {
+    const int x = in == 1 ? s[i] : s[2 * i] << 8 | s[2 * i + 1];
+    return m.maxval == 255 ? x : scale(x);
+  };
+  for (int64_t p = 0; p < total; ++p) {
+    uint8_t* o = out + 4 * p;
+    if (m.kind == 9) {
+      put(o, 0, 0, 0, 255);
+    } else if (m.kind == 8) {
+      put(o, at(4 * p), at(4 * p + 1), at(4 * p + 2), at(4 * p + 3));
+    } else {
+      const int nk = 255 - at(4 * p + 3);
+      put(o, cmyk_channel(at(4 * p), nk), cmyk_channel(at(4 * p + 1), nk),
+          cmyk_channel(at(4 * p + 2), nk), 255);
+    }
+  }
+}
+
 void pnm_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
   const Pnm m = pnm_header(b);
   check_out("PNM", m.w, m.h, out_w, out_h);
+  if (m.kind == 0 || m.kind > 6) return pnm_extension(b, m, out);
   const int64_t total = m.w * m.h;
   const bool colour = m.kind == 3 || m.kind == 6;
   const int bands = colour ? 3 : 1;
@@ -843,6 +969,7 @@ void pnm_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
 struct Psd {
   int64_t w, h;
   int channels, mode, used;  // used: channels read (1, 3 or 4)
+  bool bits;                 // 1-bit bitmap
   const uint8_t* palette;    // indexed: 768 bytes, planar R, G, B
   int comp;
   size_t data_at;
@@ -859,14 +986,12 @@ Psd psd_header(const Bytes& b) {
   m.w = b.be32(18);
   const int depth = static_cast<int>(b.be16(22));
   m.mode = static_cast<int>(b.be16(24));
-  if (m.mode == 4) fail("PSD: CMYK is not read");
-  if (m.mode == 9) fail("PSD: Lab is not read");
-  if (m.mode == 0 && depth == 1) fail("PSD: 1-bit bitmap is not read");
-  if (m.mode > 8 || m.mode == 5 || m.mode == 6) {
+  if (m.mode > 9 || m.mode == 5 || m.mode == 6) {
     fail("PSD: colour mode " + std::to_string(m.mode) + " not read");
   }
-  if (depth != 8) fail("PSD: " + std::to_string(depth) + "-bit channels are not read");
-  m.used = m.mode == 3 ? (m.channels == 4 ? 4 : 3) : 1;
+  m.bits = depth == 1 && m.mode == 0;
+  if (depth != 8 && !m.bits) fail("PSD: " + std::to_string(depth) + "-bit channels are not read");
+  m.used = m.mode == 3 ? (m.channels == 4 ? 4 : 3) : m.mode == 4 ? 4 : m.mode == 9 ? 3 : 1;
   if (m.channels < m.used) fail("PSD: not enough channels");
   check_size("PSD", m.w, m.h);
   size_t pos = 26;
@@ -917,7 +1042,8 @@ void psd_packbits(const Bytes& b, size_t pos, int64_t w, int64_t h, uint8_t* pla
 void psd_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
   const Psd m = psd_header(b);
   check_out("PSD", m.w, m.h, out_w, out_h);
-  const size_t plane = static_cast<size_t>(m.w * m.h);
+  const int64_t rw = m.bits ? (m.w + 7) / 8 : m.w;  // bytes a row
+  const size_t plane = static_cast<size_t>(rw * m.h);
   std::vector<uint8_t> planes(plane * m.used);
   if (m.comp == 0) {
     b.need(m.data_at, plane * m.used);
@@ -928,14 +1054,31 @@ void psd_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
     b.need(m.data_at, 2 * rows);
     size_t pos = m.data_at + 2 * rows;
     for (int c = 0; c < m.used; ++c) {
-      psd_packbits(b, pos, m.w, m.h, planes.data() + plane * c);
+      psd_packbits(b, pos, rw, m.h, planes.data() + plane * c);
       for (int64_t y = 0; y < m.h; ++y) pos += b.be16(m.data_at + 2 * (c * m.h + y));
     }
   }
-  for (size_t i = 0; i < plane; ++i) {
+  const size_t total = static_cast<size_t>(m.w * m.h);
+  for (size_t i = 0; i < total; ++i) {
     uint8_t* o = out + 4 * i;
+    if (m.bits) {
+      const int64_t y = int64_t(i) / m.w, x = int64_t(i) % m.w;
+      const int v = (planes[y * rw + (x >> 3)] >> (7 - (x & 7)) & 1) ? 255 : 0;
+      put(o, v, v, v, 255);
+      continue;
+    }
     const int v = planes[i];
-    if (m.mode == 3) {
+    if (m.mode == 9) {
+      // PIL's L, A, B bands as stored (a and b offset by 128); its LAB
+      // image's fourth byte, 0, comes through the transform as alpha.
+      uint8_t rgb[3];
+      tracy_image::lab_to_rgb(v, planes[plane + i], planes[2 * plane + i], rgb);
+      put(o, rgb[0], rgb[1], rgb[2], 0);
+    } else if (m.mode == 4) {  // "C;I" etc.: each channel inverted, then cmyk2rgb
+      const int nk = planes[3 * plane + i];
+      put(o, cmyk_channel(255 - v, nk), cmyk_channel(255 - planes[plane + i], nk),
+          cmyk_channel(255 - planes[2 * plane + i], nk), 255);
+    } else if (m.mode == 3) {
       const int a = m.used == 4 ? planes[3 * plane + i] : 255;
       put(o, v, planes[plane + i], planes[2 * plane + i], a);
     } else if (m.mode == 2) {

@@ -70,28 +70,13 @@ inline void put_grey(uint8_t* o, int v, int a = 255) { put(o, v, v, v, a); }
 
 inline int bit_msb(const uint8_t* row, int64_t x) { return (row[x >> 3] >> (7 - (x & 7))) & 1; }
 
-// Mode I (and I;16) to 8 bits, as PIL converts it: clipped.
-inline uint8_t i_to_u8(int64_t v) {
-  return static_cast<uint8_t>(v <= 0 ? 0 : v >= 255 ? 255 : v);
-}
-// Mode F to 8 bits: truncated toward zero and clipped, NaN 0.
-inline uint8_t f_to_u8(float v) {
-  return v > 0 ? (v >= 255 ? 255 : static_cast<uint8_t>(v)) : 0;
-}
-
-inline uint32_t le16(const uint8_t* p) { return p[0] | p[1] << 8; }
-inline uint32_t le32(const uint8_t* p) {
-  return p[0] | p[1] << 8 | p[2] << 16 | uint32_t(p[3]) << 24;
-}
-inline uint32_t be16(const uint8_t* p) { return p[0] << 8 | p[1]; }
-inline uint32_t be32(const uint8_t* p) {
-  return uint32_t(p[0]) << 24 | p[1] << 16 | p[2] << 8 | p[3];
-}
-inline float f32(uint32_t u) {
-  float v;
-  std::memcpy(&v, &u, 4);
-  return v;
-}
+using tracy_image::be16;
+using tracy_image::be32;
+using tracy_image::f32;
+using tracy_image::f_to_u8;
+using tracy_image::i_to_u8;
+using tracy_image::le16;
+using tracy_image::le32;
 
 // The image's own pixels from `at` on: `rows` rows of `row` bytes each
 // `stride` apart (the last one needs only its `row` bytes, as PIL's raw

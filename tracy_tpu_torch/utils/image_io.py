@@ -8,7 +8,9 @@ PIL; the GPU machine has no PIL, and the command-line default output is
 struct: 8-bit RGB, one IDAT chunk, filter 0 on every row). Files are read
 by the decoders of csrc/image_decode.cpp (PNG, JPEG; Python's zlib
 inflates PNG data), csrc/image_formats.cpp (TGA, BMP, GIF, PNM, PSD, QOI),
-csrc/image_tiff.cpp (TIFF), csrc/image_blocks.cpp (DDS),
+csrc/image_tiff.cpp (TIFF; its LZMA and ZSTD strips through
+csrc/image_xz.cpp and image_zstd.cpp, its JPEG strips through the JPEG
+decoder), csrc/image_blocks.cpp (DDS),
 csrc/image_webp.cpp (WebP), csrc/image_jpeg2000.cpp (JP2 and raw J2K
 codestreams), csrc/image_avif.cpp (AVIF, its AV1 decoder in
 csrc/av1_decode.cpp and av1_recon.cpp), csrc/image_containers.cpp (DIB,

@@ -59,10 +59,11 @@ IMAGE_SOURCES = tuple(os.path.join(CSRC_DIR, s) for s in ("image_decode.cpp",
                                                           "image_legacy.cpp",
                                                           "image_jpeg2000.cpp",
                                                           "image_avif.cpp", "av1_decode.cpp",
-                                                          "av1_recon.cpp"))
+                                                          "av1_recon.cpp", "image_xz.cpp",
+                                                          "image_zstd.cpp"))
 # Included by the sources: part of the library's hash, not of the command.
 IMAGE_HEADERS = tuple(os.path.join(CSRC_DIR, h) for h in ("image_common.h", "av1_decode.h",
-                                                         "av1_tables.h"))
+                                                         "av1_tables.h", "lab_table.h"))
 # Formats of csrc/image_legacy.cpp, whose tracy_<fmt>_info also says (code
 # 3) that a file is not of the format, as PIL's plugin decides it.
 LEGACY_FORMATS = ("pcx", "dcx", "sgi", "sun", "msp", "im", "xbm", "xpm", "pixar", "spider", "fits",
