@@ -52,7 +52,8 @@ Phases, each fatal on failure:
    'threefry') at 256x192 for 24 frames against the reference's own
    renders (tests/goldens/ref/*.npz), linear block means;
 6. K6: each variant of the leaf-visit microbenchmark against its plain
-   version, and its nanoseconds per iteration;
+   version, and its ms, nanoseconds per iteration and per ray-visit and
+   registers;
 7. AOVs: each of the six first-hit AOVs at 1920x1080 on grid64x28
    (compacted config) and grid64x28-tex, 4 frames timed 5 times: K1 once
    a frame, K3 once a frame on the textured scene, nothing else; frame 0
@@ -143,7 +144,10 @@ Phases, each fatal on failure:
    floating-point predictor, CCITT Group 4, YCbCr 2x1 TIFFs;
    csrc/image_tiff.cpp, image_xz.cpp, image_zstd.cpp) and tiffkinds.scn,
    with the decode seconds of its 2048x2048 float, JPEG, LZMA and ZSTD
-   TIFFs;
+   TIFFs; the small files of tests/goldens/kinds/ (IM YCC, RGB3, RYB3, B2
+   and B4, IPTC holding PNG, BMP, TIFF, GIF and WebP streams, JP2
+   palettes of one and two columns) each decoded equal to its recorded
+   RGBA;
    grid64x28 with the JPEG/PNG maps in place of
    the numpy maps at 1080p, compacted, 4 frames, timed (no gain claimed), and
    grid64x28-dds, the same with 2048x2048 DDS maps made here from random
@@ -1049,6 +1053,12 @@ TIFFKINDS_DIR = os.path.join(REPO, "tests", "goldens", "tiffkinds")
 TIFFKINDS_MAPS = ("basecolor.tif", "normal.tif", "roughness.tif", "metalness.tif",
                   "emissive.tif")
 TIFFKINDS_BIG = ("big_float.tif", "big_jpeg.tif", "big_lzma.tif", "big_zstd.tif")
+# And the kinds that the port once refused (tools/make_kind_fixtures.py):
+# IM YCC, RGB3, RYB3, B2 and B4, IPTC holding PNG, BMP, TIFF, GIF and WebP
+# streams (two in a band), JP2 palettes of one and two columns; each held
+# to its uint8 RGBA in expected.npz (tracy_tpu's, the format's for the
+# palettes, which tracy_tpu turns black).
+KINDS_DIR = os.path.join(REPO, "tests", "goldens", "kinds")
 # grid64x28-dds's maps: slot name, DXGI block format, sRGB.
 DDS_GRID_MAPS = (("B", "BC7", True), ("N", "BC5", False), ("R", "BC4", False),
                  ("M", "BC4", False), ("E", "BC7", True))
@@ -1094,6 +1104,27 @@ def random_pcd(seed: int, orientation: int) -> bytes:
     head[2048 + 1538] = orientation
     return bytes(head) + np.random.default_rng(seed).integers(0, 256, 256 * 2304,
                                                               dtype=np.uint8).tobytes()
+
+
+def kind_files(res, card):
+    """Each file of KINDS_DIR decoded on the host and held to its recorded
+    RGBA, bit for bit."""
+    from tracy_tpu_torch.utils.image_io import decode_image_rgba
+
+    expected = np.load(os.path.join(KINDS_DIR, "expected.npz"))
+    for name in sorted(expected.files):
+        with open(os.path.join(KINDS_DIR, name), "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        rgba = decode_image_rgba(data)
+        secs = time.perf_counter() - t0
+        if not np.array_equal(rgba, expected[name]):
+            raise RuntimeError(f"{name} decoded to another picture than its recorded RGBA")
+        res[f"decode_s {name}"] = secs
+    total = sum(res[f"decode_s {n}"] for n in expected.files)
+    print(f"decode the {len(expected.files)} files of tests/goldens/kinds "
+          f"({', '.join(sorted(expected.files))}) on this card's host {card}: each equal to its "
+          f"recorded RGBA, {total:.4f} s together")
 
 
 def legacy_big(res, card):
@@ -1194,6 +1225,8 @@ def image_phase(ccfg, counts, dev, card):
     JPEG and the YCCK, CUR, DIB, FTEX and BLP2 files, the
     PCX/SGI/IM/Sun/XPM fixture's with its thirteen files of PIL's other
     small formats, a 2048x2048 PCX and a Photo CD image (`legacy_big`), the
+    small files of the kinds the port once refused (`kind_files`, each
+    held to its recorded RGBA), the
     JPEG 2000 fixture's with its 2048x2048 9/7 JP2, the AVIF fixture's
     with its 2048x2048 4:2:0 map, the 10- and 12-bit AVIF fixture's with
     its 2048x2048 10-bit map, and the TIFF-kind fixture's (image_tiff.cpp
@@ -1235,6 +1268,7 @@ def image_phase(ccfg, counts, dev, card):
         print(f"decode {name} ({img.shape[1]}x{img.shape[0]}) on this card's host {card}: "
               f"{secs:.4f} s")
     legacy_big(res, card)
+    kind_files(res, card)
 
     for directory, scn in ((FIXTURE_DIR, "textured.scn"), (FORMATS_DIR, "formats.scn"),
                            (TIFFDDS_DIR, "tiffdds.scn"), (WEBP_DIR, "webp.scn"),
@@ -2396,15 +2430,22 @@ def main() -> int:
     c6 = {v: k6.check_variant(v, mrays, leaves) for v in k6.VARIANTS}
     t_p6 = compare.cuda_ms(lambda: k6.micro_plain("vres", mrays, leaves), 1)
     b6 = k6.bound(mrays, leaves)
+    regs6 = k6.kernel_resources(build.LIBRARY.build_log.get("micro.cu", ""))
+
+    def k6_line(label, t):
+        r = regs6.get(label, {})
+        return (f"  {label:5s} {t['ms']:.4f} ms a launch, {t['ns_per_iter']:.3f} ns/iter, "
+                f"{t['ns_per_ray_visit']:.6f} ns per ray-visit; {r.get('registers', '?')} "
+                f"registers, {r.get('spill_stores', '?')} B spilled {card}")
+
     print(f"K6 vs plain, {mrays.shape[0]} rays x {k6.ITERS} visits of {k6.NUM_LEAVES} leaves of "
           f"{k6.LEAF_SIZE} triangles (hit fraction {c6['vres']['hit_fraction']:.3f}, "
           f"improving warp-visits {c6['vred']['improving_warp_visits']}): every variant equal "
-          f"to its plain version; {k6_launches} timed launches {card}:")
+          f"to its plain version bit for bit; {k6_launches} timed launches {card}:")
     for v in k6.VARIANTS:
-        print(f"  {v:5s} {t6[v]['ns_per_iter']:.3f} ns/iter, {t6[v]['ns_per_ray_visit']:.6f} ns "
-              f"per ray-visit, {t6[v]['ms']:.3f} ms a launch")
+        print(k6_line(v, t6[v]))
     print(f"  vres bound {b6['bound_ms']:.4f} ms ({b6['bound_by']}: {b6['ops']:.4g} ops), "
-          f"plain {t_p6:.1f} ms")
+          f"{b6['bound_ms'] / t6['vres']['ms']:.1%} of it reached; plain {t_p6:.1f} ms {card}")
     launches["tools.micro"] = {k: 0 for k in counts}
     launches["tools.micro"]["K6"] = k6_launches
 
@@ -2522,6 +2563,7 @@ def main() -> int:
         kernels.append(e)
     kernels[-1]["compacted_equal_to_k1_k2"] = all(tf5c["equal_to_k1_k2"])
     kernels[5]["ns_per_iter"] = {v: t6[v]["ns_per_iter"] for v in k6.VARIANTS}
+    kernels[5]["registers"] = {k: r["registers"] for k, r in regs6.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

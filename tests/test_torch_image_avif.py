@@ -395,6 +395,17 @@ def test_refused_by_name(tmp_path, monkeypatch, name):
     assert port_load(write(tmp_path, "a.avif", data), monkeypatch) is None
 
 
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_refusal_names_its_format_once(name):
+    """The message starts with "AVIF: " once: the AV1 decoder's refusals
+    are named as the AVIF file's."""
+    fmt = "AVIF"
+    with pytest.raises(ValueError) as e:
+        image_io.decode_image_rgba(REFUSED[name][0])
+    assert str(e.value).startswith(f"{fmt}: ")
+    assert not str(e.value).startswith(f"{fmt}: {fmt}: ")
+
+
 @pytest.mark.parametrize("cut", [0.1, 0.5, 0.9])
 def test_truncated_file_falls_back_in_both_packages(tmp_path, monkeypatch, cut):
     data = golden("q50.avif")

@@ -16,7 +16,8 @@ with PIL blocked in sys.modules. Contracts:
   BC4S FourCC; ROADMAP, hazards), the port reads it as its UNORM form.
 * QOI: RGB and RGBA files that use all six ops, written by PIL and by
   hand, equal to PIL's.
-* Refused kinds raise ValueError naming them and fall back; truncated
+* Refused kinds raise ValueError naming them and fall back in both
+  packages; truncated
   files fall back in both packages; refused and truncated maps of a scene
   are listed in builder.fallbacks; a decoder library that cannot be built
   raises. A 2048x2048 BC7 DDS and a 2048x2048 QOI each decode in under a
@@ -227,7 +228,9 @@ def test_refused_dds_falls_back_by_name(tmp_path, monkeypatch, name):
     data, what = REFUSED[name]
     with pytest.raises(ValueError, match=what):
         image_io.decode_image_rgba(data)
-    assert port_load(write(tmp_path, "a.dds", data), monkeypatch) is None
+    path = write(tmp_path, "a.dds", data)
+    assert port_load(path, monkeypatch) is None
+    assert jax_load(path) is None  # grey in tracy_tpu too
 
 
 TRUNCATED = ["DX10 BC7", "FourCC DXT5", "DX10 BC6H SF16", "QOI RGBA written by PIL",

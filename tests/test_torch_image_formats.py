@@ -17,7 +17,7 @@ sys.modules. Contracts:
   and a colour map on a grey image, BMP RLE deltas and odd RLE4 absolute
   runs, and PSD PackBits with more channels than the colour mode uses.
 * Kinds the decoders refuse raise ValueError naming them and fall back
-  (None); truncated files fall back and are listed in builder.fallbacks; a
+  (None) in both packages; truncated files fall back and are listed in builder.fallbacks; a
   decoder library that cannot be built raises for every format.
 * A TGA is found by its header, whatever its name; a 2048x2048 TGA, BMP
   and GIF each decode in under a second; read_image and optimize_cli
@@ -569,7 +569,9 @@ def test_refused_kind_falls_back_by_name(tmp_path, monkeypatch, name):
     data, what = REFUSED[name]
     with pytest.raises(ValueError, match=what):
         image_io.decode_image_rgba(data)
-    assert port_load(write(tmp_path, "a" + SUFFIX[name[:3]], data), monkeypatch) is None
+    path = write(tmp_path, "a" + SUFFIX[name[:3]], data)
+    assert port_load(path, monkeypatch) is None
+    assert jax_load(path) is None  # grey in tracy_tpu too
 
 
 TRUNCATED = {

@@ -24,8 +24,8 @@ PLM, CRG, PPM/PPT, COC/QCC, tile-part COD/QCD/COC/QCC/RGN/POC, 4- and
   with a repeated entry, which PIL's palette folds, maps each index to
   its entry.
 * Kinds PIL refuses fall back (None) in both packages, named by the
-  port; HTJ2K (and a pclr of one column, which PIL maps to black) is
-  refused by name by the port alone.
+  port; HTJ2K is refused by name by the port alone. A pclr of one or two
+  columns, which PIL maps to black, reads as the format defines it.
 """
 
 import io
@@ -324,6 +324,17 @@ def test_refused_kind_falls_back_in_both_packages(tmp_path, monkeypatch, name):
     assert jax_load(path) is None
 
 
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_refusal_names_its_format_once(name):
+    """The message starts with "JPEG 2000: " once, as the C source writes
+    it."""
+    fmt = "JPEG 2000"
+    with pytest.raises(ValueError) as e:
+        image_io.decode_image_rgba(REFUSED[name][0])
+    assert str(e.value).startswith(f"{fmt}: ")
+    assert not str(e.value).startswith(f"{fmt}: {fmt}: ")
+
+
 def _htj2k():
     cs = j2k(smooth(16, 16, 3, 17), no_jp2=True)
     rsiz = cs[:6] + struct.pack(">H", 0x4000) + cs[8:]
@@ -349,13 +360,33 @@ def test_htj2k_is_refused_by_name(tmp_path, monkeypatch, name):
 
 def test_one_column_palette_is_refused_by_name(tmp_path, monkeypatch):
     """PIL builds a broken palette from one-column pclr entries and maps
-    every index to black; the port refuses the file by name."""
-    grey = j2k(smooth(12, 12, 1, 18)[..., 0] // 32, no_jp2=True)
-    data = jp2(grey, 1, extra=pclr([(k,) for k in range(8)], (7,)) + cmap(1))
-    assert (np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))[..., :3] == 0).all()
-    with pytest.raises(ValueError, match="palette of 1 columns"):
-        image_io.decode_image_rgba(data)
-    assert port_load(write(tmp_path, "a.jp2", data), monkeypatch) is None
+    every index to black (ROADMAP, hazards); the port, which once refused
+    the file by name, reads the palette as the format defines it: each
+    index to its entry's grey."""
+    idx = smooth(12, 12, 1, 18)[..., 0] // 32
+    entries = [(31 * k + 11,) for k in range(8)]
+    data = jp2(j2k(idx, no_jp2=True), 1, extra=pclr(entries, (7,)) + cmap(1))
+    path = write(tmp_path, "a.jp2", data)
+    ref = jax_load(path)
+    assert (ref[..., :3] == 0).all()
+    want = np.full(idx.shape + (4,), 255, np.uint8)
+    want[..., :3] = np.asarray(entries, np.uint8)[idx]
+    np.testing.assert_array_equal(image_io.decode_image_rgba(data), want)
+    np.testing.assert_array_equal(port_load(path, monkeypatch), want / np.float32(255.0))
+    assert not np.array_equal(port_load(path, monkeypatch), ref)
+
+
+def test_two_column_palette_reads_grey_and_alpha(tmp_path, monkeypatch):
+    """Two pclr columns, which PIL maps to black too, are each index's grey
+    and alpha, as a file of two components is read."""
+    idx = smooth(12, 14, 1, 19)[..., 0] // 32
+    entries = [(29 * k + 5, 255 - 31 * k) for k in range(8)]
+    data = jp2(j2k(idx, no_jp2=True), 1, extra=pclr(entries, (7, 7)) + cmap(2))
+    path = write(tmp_path, "a.jp2", data)
+    assert (jax_load(path)[..., :3] == 0).all()
+    pal = np.asarray(entries, np.uint8)[idx]
+    want = np.stack([pal[..., 0]] * 3 + [pal[..., 1]], axis=-1)
+    np.testing.assert_array_equal(image_io.decode_image_rgba(data), want)
 
 
 @pytest.mark.parametrize("cut", [0.3, 0.7, 0.97])

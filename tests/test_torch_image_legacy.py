@@ -18,7 +18,8 @@ and row ends. Contracts:
   held against the picture the format defines and shown to differ from
   PIL's.
 * Kinds PIL refuses raise ValueError naming them and fall back (None) in
-  both packages; truncated files fall back in both packages.
+  both packages (IM's RLB among them); truncated files fall back in both
+  packages.
 
 tests/test_torch_image_legacy_kinds.py holds the formats' recognition,
 IPTC, Photo CD and FLI; tools/make_legacy_fixtures.py reuses the writers.
@@ -257,7 +258,8 @@ def hex_colours(rgb):
 
 IM_TYPES = ("0 1", "L 1", "B1", "Greyscale", "Grayscale", "X 24", "RGB", "RGBA", "RGBX", "LA",
             "PA", "CMYK", "L 8", "L 8S", "L 16", "L 16S", "L 16L", "L 16B", "L 32", "L 32S",
-            "L 32F", "L 32 S", "L 32 F", "L*8", "L*16", "L*32", "L*8S", "L*16B", "L*32S")
+            "L 32F", "L 32 S", "L 32 F", "L*8", "L*16", "L*32", "L*8S", "L*16B", "L*32S",
+            "YCC", "RGB3", "RYB3", "B2", "B4")
 
 
 def im_file(kind, w, h, body, lut=False):
@@ -391,6 +393,12 @@ def _cases():
         for lut in (False, True) if kind != "PA" else (True,):  # PA needs a palette
             body = rand(90 + 2 * k + lut, 768 * lut + 7 * 5 * 8).tobytes()
             c[f"IM '{kind} image'{' with a Lut' if lut else ''}"] = im_file(kind, 7, 5, body, lut)
+    # YCC through PIL's YCbCr tables over many samples; B2/B4 with a grey
+    # Lut keep PIL's empty palette (black), as they do without one.
+    c["IM 'YCC image' over random samples"] = im_file("YCC", 64, 48,
+                                                      rand(99, 3 * 64 * 48).tobytes())
+    grey = np.repeat(rand(98, 1, 256), 3, axis=0).tobytes()
+    c["IM 'B4 image' with a grey Lut"] = im_file("B4", 7, 5, grey + rand(97, 20).tobytes(), True)
     for n in (2, 5, 12, 24, 31):  # PIL's bit decoder; mostly zero bytes, so small samples too
         body = rand(110 + n, 7 * 5 * 4 + 8)
         body[rand(111 + n, body.size) > 60] = 0
@@ -551,13 +559,24 @@ def test_pcx_rgb_of_width_3_reads_the_format():
 
 
 def test_im_ycc_is_refused_by_name(tmp_path, monkeypatch):
-    """PIL reads IM's YCC kind through its own YCbCr tables; the port
-    refuses it by name (ROADMAP, queue 3) and the texture falls back."""
+    """IM's YCC kind, which the port once refused by name, reads through
+    PIL's YCbCr tables (csrc/image_jpeg2000.cpp's, shared): PIL's own IM
+    file of a YCbCr image loads in both packages alike."""
     data = pil_bytes(Image.fromarray(smooth(6, 9, 3, 56)).convert("YCbCr"), format="IM")
-    assert pil_rgba(data).shape == (6, 9, 4)
-    with pytest.raises(ValueError, match="PIL mode YCbCr"):
-        image_io.decode_image_rgba(data)
-    assert port_load(write(tmp_path, "a.im", data), monkeypatch) is None
+    np.testing.assert_array_equal(image_io.decode_image_rgba(data), pil_rgba(data))
+    path = write(tmp_path, "a.im", data)
+    np.testing.assert_array_equal(port_load(path, monkeypatch), jax_load(path))
+
+
+@pytest.mark.parametrize("kind", ["YCC", "RGB3", "RYB3", "B2", "B4"])
+def test_im_kind_loads_in_both_packages(tmp_path, monkeypatch, kind):
+    """IM's YCC, RGB3 and RYB3 kinds (three whole planes, green first) and
+    B2/B4 without a Lut (PIL's empty palette: black) through both
+    packages' load_image_rgba: the float32 arrays are equal."""
+    path = write(tmp_path, "a.im", CASES[f"IM '{kind} image'"])
+    ref = jax_load(path)
+    assert ref is not None and ref.shape == (5, 7, 4)
+    np.testing.assert_array_equal(port_load(path, monkeypatch), ref)
 
 
 def test_sun_rle_rows_are_padded_as_the_format_says():
@@ -616,6 +635,7 @@ REFUSED = {
     "PCX RGB of width 1 (PIL)": (pil_bytes(Image.fromarray(rand(57, 6, 1, 3)), format="PCX"),
                                  "truncated"),
     "IM PA without a palette": (im_file("PA", 7, 5, bytes(70)), "raw mode PA;L"),
+    "IM RLB": (im_file("RLB", 7, 5, bytes(105)), "raw mode RLB"),
     "SUN 1-bit with a palette": (sun(16, 4, 1, rand(27, 4, 2), 1, rand(28, 2, 3)),
                                  "1-bit image with a palette"),
     "PCX 8-bit shorter than a palette": (pcx(4, 4, 8, 1, np.zeros((4, 4), np.uint8)),
@@ -637,6 +657,17 @@ def test_refused_kind_falls_back_in_both_packages(tmp_path, monkeypatch, name):
     assert jax_load(path) is None
 
 
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_refusal_names_its_format_once(name):
+    """The message starts with the format's name once: the C source names
+    it and nothing names it again ("IM: IM: ..." before)."""
+    fmt = {"SUN": "Sun raster", "XVTHUMB": "XV thumbnail"}.get(name.split()[0], name.split()[0])
+    with pytest.raises(ValueError) as e:
+        image_io.decode_image_rgba(REFUSED[name][0])
+    assert str(e.value).startswith(f"{fmt}: ")
+    assert not str(e.value).startswith(f"{fmt}: {fmt}: ")
+
+
 TRUNCATED = ("PCX RGB 37x23 (PIL)", "PCX 4 planes", "DCX of two pages", "SGI RLE RGB",
              "SGI L 37x23 (PIL)", "SGI verbatim RGB 16-bit", "SUN 24-bit type 2 24x13",
              "SUN 8-bit palette type 1 24x13", "MSP v1 37x23 (PIL)", "MSP v2 37x9", "IM RGB (PIL)",
@@ -656,5 +687,17 @@ def test_truncated_file_falls_back_in_both_packages(tmp_path, monkeypatch, name)
     with pytest.raises(ValueError, match="truncated|not enough|overrun|ends early"):
         image_io.decode_image_rgba(cut)
     path = write(tmp_path, "a" + SUFFIX[FORMATS[name.split()[0]]], cut)
+    assert port_load(path, monkeypatch) is None
+    assert jax_load(path) is None
+
+
+@pytest.mark.parametrize("kind, keep", [("RGB3", 2 * 35 + 9), ("YCC", 3 * 7 * 4 + 5)])
+def test_truncated_im_planes_fall_back_in_both_packages(tmp_path, monkeypatch, kind, keep):
+    """RGB3 cut inside its blue plane, YCC inside its top row (the last
+    stored): both packages give up."""
+    cut = CASES[f"IM '{kind} image'"][:512 + keep]
+    with pytest.raises(ValueError, match="truncated"):
+        image_io.decode_image_rgba(cut)
+    path = write(tmp_path, "a.im", cut)
     assert port_load(path, monkeypatch) is None
     assert jax_load(path) is None

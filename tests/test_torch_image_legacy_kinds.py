@@ -1,7 +1,9 @@
 """The rest of the small PIL formats decoded without PIL
 (csrc/image_legacy.cpp) against PIL's open(...).convert("RGBA"): IPTC/NAA
-(its embedded raw or JPEG stream through the port's PNM and JPEG
-decoders, placed in its band), Kodak Photo CD (the PhotoYCC tables held
+(its embedded raw, JPEG, PNG, BMP, TIFF, GIF or WebP stream through the
+port's decoders, placed in its band where PIL's mode of it allows, the
+rest refused in both packages but for PIL's raw first band, a hazard),
+Kodak Photo CD (the PhotoYCC tables held
 over a seeded sample of every (Y, C1, C2) kind, each orientation) and
 FLI/FLC (each chunk kind of a first frame). Then how the formats are told
 apart: PIL's plugin order (a TGA still reads as TGA; a file that one
@@ -18,6 +20,7 @@ import pytest
 from PIL import Image
 
 from test_torch_image_decode import REPO, pil_bytes, port_load, smooth, write
+from test_torch_image_formats import gif
 from test_torch_image_legacy import CASES as LEGACY_CASES
 from test_torch_image_legacy import FORMATS, pil_rgba, rand, runs
 from tracy_tpu.scene.textures import load_image_rgba as jax_load
@@ -157,6 +160,47 @@ def ss2(img, skip_first=1):
 
 # --- the corpus
 
+def _iptc_streams():
+    """(name, stream, (layers, component, band)) of IPTC's embedded PNG, BMP,
+    TIFF, GIF and WebP streams, each as the picture or in a band where PIL
+    takes it: a grey image (PIL's mode L), or mode 1 in the first band."""
+    rgb, rgba = smooth(13, 19, 3, 66), smooth(13, 19, 4, 67)
+    grey = rgb[..., 0]
+    pal = Image.fromarray(rgb).convert("P")
+    small = runs(68, 13, 19, high=4)
+    whole, g2, c4, one = (1, 0, None), (3, 1, 2), (4, 1, 4), (3, 1, 1)
+    return [
+        ("PNG RGBA", pil_bytes(Image.fromarray(rgba), format="PNG"), whole),
+        ("PNG palette with tRNS", pil_bytes(pal, format="PNG", transparency=3), whole),
+        ("PNG 1-bit", pil_bytes(Image.fromarray(grey).convert("1"), format="PNG"), whole),
+        ("PNG grey, band 2 of RGB", pil_bytes(Image.fromarray(grey), format="PNG"), g2),
+        ("PNG 4-bit grey, band 4 of CMYK", pil_bytes(Image.fromarray(grey // 16 * 17), format="PNG",
+                                                     bits=4), c4),
+        ("PNG 1-bit, band 1 of RGB", pil_bytes(Image.fromarray(grey).convert("1"), format="PNG"),
+         one),
+        ("BMP RGB", pil_bytes(Image.fromarray(rgb), format="BMP"), whole),
+        ("BMP palette", pil_bytes(pal, format="BMP"), whole),
+        ("BMP grey ramp, band 2 of RGB", pil_bytes(Image.fromarray(grey), format="BMP"), g2),
+        ("BMP 1-bit, band 1 of RGB", pil_bytes(Image.fromarray(grey).convert("1"), format="BMP"),
+         one),
+        ("TIFF RGBA", pil_bytes(Image.fromarray(rgba), format="TIFF"), whole),
+        ("TIFF palette, LZW", pil_bytes(pal, format="TIFF", compression="tiff_lzw"), whole),
+        ("TIFF 32-bit grey", pil_bytes(Image.fromarray(grey.astype(np.int32) * 3 - 90),
+                                       format="TIFF"), whole),
+        ("TIFF grey, band 4 of CMYK", pil_bytes(Image.fromarray(grey), format="TIFF"), c4),
+        ("GIF palette", pil_bytes(pal, format="GIF"), whole),
+        ("GIF transparency", pil_bytes(pal, format="GIF", transparency=2), whole),
+        ("GIF without a colour table, band 2 of RGB", gif((19, 13), [dict(idx=small, min_bits=2)]),
+         g2),
+        ("GIF without a colour table, extensions first, band 4 of CMYK",
+         gif((19, 13), [dict(idx=small, min_bits=2)],
+             prefix=b"!\xfe\x05hello\x00!\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"), c4),
+        ("WebP lossless RGBA", pil_bytes(Image.fromarray(rgba), format="WEBP", lossless=True),
+         whole),
+        ("WebP lossy", pil_bytes(Image.fromarray(rgb), format="WEBP", quality=80), whole),
+    ]
+
+
 def _cases():
     c = {}
     grey = smooth(13, 19, 1, 60)[..., 0]
@@ -177,6 +221,8 @@ def _cases():
     c["IPTC RGB band 2 JPEG"] = iptc(19, 13, jpg, 3, 1, 2, compression=5)
     c["IPTC L colour JPEG"] = iptc(19, 13, pil_bytes(Image.fromarray(smooth(13, 19, 3, 61)),
                                                      format="JPEG"), compression=5)
+    for name, stream, bands in _iptc_streams():
+        c[f"IPTC {name}"] = iptc(19, 13, stream, *bands, compression=5)
     pal = rand(62, 256, 3)
     img = runs(63, 12, 26)
     c["FLI COLOR_256 + BRUN"] = fli(26, 12, [colour_chunk(pal[:200], skip=7), brun(img)])
@@ -213,6 +259,34 @@ def test_pcd_equals_pil(orientation):
     np.testing.assert_array_equal(image_io.decode_image_rgba(data), pil_rgba(data))
 
 
+@pytest.mark.parametrize("name", [n for n, _, _ in _iptc_streams()])
+def test_iptc_stream_loads_in_both_packages(tmp_path, monkeypatch, name):
+    """IPTC's embedded PNG, BMP, TIFF, GIF and WebP streams through both
+    packages' load_image_rgba: the float32 arrays are equal."""
+    path = write(tmp_path, "a.iim", CASES[f"IPTC {name}"])
+    ref = jax_load(path)
+    assert ref is not None and ref.shape == (13, 19, 4)
+    np.testing.assert_array_equal(port_load(path, monkeypatch), ref)
+
+
+@pytest.mark.parametrize("mode", ["P", "I;16"])
+def test_iptc_band_1_of_raw_samples_is_refused_by_name(tmp_path, monkeypatch, mode):
+    """Image.merge checks every band's mode but the first's, and there
+    copies the embedded image's raw samples: a palette's indices, the bytes
+    of a 16-bit image's rows (and crashes the process on I and F). PIL
+    loses the picture; the port refuses every mode but L and 1 there, by
+    name (ROADMAP, hazards)."""
+    grey = smooth(13, 19, 1, 69)[..., 0]
+    img = (Image.fromarray(smooth(13, 19, 3, 69)).convert("P") if mode == "P"
+           else Image.fromarray(grey.astype(np.uint16) * 251))
+    data = iptc(19, 13, pil_bytes(img, format="PNG"), 3, 1, 1, compression=5)
+    with pytest.raises(ValueError, match=f"band 1 filled by an image of PIL mode {mode}"):
+        image_io.decode_image_rgba(data)
+    path = write(tmp_path, "a.iim", data)
+    assert port_load(path, monkeypatch) is None
+    assert jax_load(path) is not None
+
+
 def test_pcd_loads_in_both_packages(tmp_path, monkeypatch):
     path = write(tmp_path, "photo.pcd", pcd(*pcd_sample(75)))
     np.testing.assert_array_equal(port_load(path, monkeypatch), jax_load(path))
@@ -226,6 +300,22 @@ REFUSED = {
                                                                 format="JPEG"), 3, 1, 2, compression=5),
                                          "not grey"),
     "IPTC band 5 of RGB": (iptc(4, 4, bytes(16), 3, 1, 5), "band 5"),
+    "IPTC compression 2": (iptc(4, 4, bytes(16), compression=2), "compression 2"),
+    "IPTC RGB band 2 of a palette PNG": (iptc(19, 13, pil_bytes(
+        Image.fromarray(smooth(13, 19, 3, 70)).convert("P"), format="PNG"), 3, 1, 2,
+        compression=5), "not grey"),
+    "IPTC CMYK band 3 of a WebP": (iptc(19, 13, pil_bytes(Image.fromarray(smooth(13, 19, 3, 71)),
+                                                          format="WEBP"), 4, 1, 3, compression=5),
+                                   "not grey"),
+    "IPTC PNG cut inside its header": (iptc(4, 4, pil_bytes(Image.fromarray(rand(74, 4, 4)),
+                                                           format="PNG")[:20], 3, 1, 2,
+                                            compression=5), "header is truncated"),
+    "IPTC 16-bit grey TIFF": (iptc(19, 13, pil_bytes(Image.fromarray(
+        smooth(13, 19, 1, 72)[..., 0].astype(np.uint16) * 257), format="TIFF"), compression=5),
+        "PIL mode I;16"),
+    "IPTC float TIFF": (iptc(19, 13, pil_bytes(Image.fromarray(
+        smooth(13, 19, 1, 73)[..., 0].astype(np.float32) * 0.5), format="TIFF"), compression=5),
+        "PIL mode F"),
     "IPTC trailing garbage": (iptc(4, 4, bytes(16)) + b"\x1dxyzw", "invalid IPTC"),
     "FLI unknown chunk": (fli(8, 4, [fli_chunk(99, bytes(8))]), "chunk type 99"),
     "FLI BRUN short of a line": (fli(8, 2, [fli_chunk(15, b"\1\4\7" + b"\1\4\7")]), "overruns"),
@@ -240,6 +330,17 @@ def test_refused_kind_falls_back_in_both_packages(tmp_path, monkeypatch, name):
     path = write(tmp_path, "a." + name.split()[0].lower(), data)
     assert port_load(path, monkeypatch) is None
     assert jax_load(path) is None
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_refusal_names_its_format_once(name):
+    """The message starts with the format's name once: the C source names
+    it and nothing names it again ("IPTC: IPTC: ..." before)."""
+    fmt = name.split()[0]
+    with pytest.raises(ValueError) as e:
+        image_io.decode_image_rgba(REFUSED[name][0])
+    assert str(e.value).startswith(f"{fmt}: ")
+    assert not str(e.value).startswith(f"{fmt}: {fmt}: ")
 
 
 @pytest.mark.parametrize("name", ["IPTC L raw", "IPTC L JPEG", "FLI COLOR_256 + BRUN", "FLI SS2",
@@ -332,3 +433,22 @@ def test_radiance_sky_still_loads_by_name(monkeypatch):
     ref = jax_load(path)
     assert ref is not None and ref.shape[-1] == 4
     np.testing.assert_array_equal(port_load(path, monkeypatch), ref)
+
+
+KIND_FIXTURES = os.path.join(REPO, "tests", "goldens", "kinds")
+
+
+@pytest.mark.parametrize("name", sorted(np.load(os.path.join(KIND_FIXTURES, "expected.npz")).files))
+def test_kind_fixture_equals_its_recorded_rgba(tmp_path, monkeypatch, name):
+    """tests/goldens/kinds (tools/make_kind_fixtures.py), which chip_smoke.py
+    decodes on the card's host: each file decodes to its recorded RGBA, and
+    loads as tracy_tpu loads it but for the palettes (black in tracy_tpu)."""
+    want = np.load(os.path.join(KIND_FIXTURES, "expected.npz"))[name]
+    path = os.path.join(KIND_FIXTURES, name)
+    with open(path, "rb") as f:
+        np.testing.assert_array_equal(image_io.decode_image_rgba(f.read()), want)
+    ref = jax_load(path)
+    if name.startswith("pclr"):
+        assert (ref[..., :3] == 0).all()
+    else:
+        np.testing.assert_array_equal(port_load(path, monkeypatch), ref)

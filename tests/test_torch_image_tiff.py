@@ -22,7 +22,7 @@ Contracts:
   big-endian BigTIFF, FillOrder 2 in uncompressed files PIL has no raw
   mode for, and PlanarConfiguration 2 where PIL's band unpacking breaks.
 * Kinds the decoder refuses raise ValueError naming them and fall back
-  (None); the kinds it once refused and now reads (JPEG, old-style JPEG
+  (None) in both packages; the kinds it once refused and now reads (JPEG, old-style JPEG
   with JPEGInterchangeFormat, CCITT, LZMA, ZSTD, ThunderScan, YCbCr,
   CIELab, signed, 12-bit, 32-bit and float samples) are
   held to PIL's decode in test_torch_image_tiff_kinds.py; truncated files
@@ -454,7 +454,9 @@ def test_refused_tiff_falls_back_by_name(tmp_path, monkeypatch, name):
     data, what = REFUSED[name]
     with pytest.raises(ValueError, match=what):
         image_io.decode_image_rgba(data)
-    assert port_load(write(tmp_path, "a.tif", data), monkeypatch) is None
+    path = write(tmp_path, "a.tif", data)
+    assert port_load(path, monkeypatch) is None
+    assert jax_load(path) is None  # grey in tracy_tpu too
 
 
 TRUNCATED = {"LZW + predictor strips": dict(compression=5, predictor=2, rows_per_strip=5),

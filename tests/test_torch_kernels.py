@@ -271,3 +271,8 @@ def test_micro_kernel_variants_match_plain(cuda):
     for v in k6.VARIANTS:
         res = k6.check_variant(v, rays, leaves, iters=100)
         assert res["outputs_equal"] and res["counts_equal"]
+    # 8192 + 32 rays: the last hardware warp of two rays a thread holds one
+    # warp of rays, and its second ray is not written.
+    odd = k6.make_rays(8192 + 32, device=cuda)
+    res = k6.check_variant("vred", odd, leaves, iters=100)
+    assert res["outputs_equal"] and res["counts_equal"]

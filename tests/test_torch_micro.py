@@ -15,8 +15,12 @@ another order of operations):
   interpolated normal agrees to rtol 1e-5 / atol 1e-6 and the material id
   exactly.
 
-The other variants' outputs are held to what they share with vres.
+The other variants' outputs are held to what they share with vres, and
+core/math.py::fma, which rounds the kernel's fused product-sums in the
+plain version, to exact arithmetic.
 """
+
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +28,7 @@ import pytest
 import torch
 
 from tracy_tpu.render.intersect import intersect_bruteforce as j_bruteforce
+from tracy_tpu_torch.core.math import fma
 from tracy_tpu_torch.tools import micro as k6
 
 torch.set_num_threads(2)
@@ -94,3 +99,66 @@ def test_inputs_default_to_the_card():
         for make in (lambda: k6.make_rays(64), lambda: k6.make_leaves(num_leaves=2)):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 make()
+
+
+def _round_f32(x: Fraction) -> float:
+    """x rounded to the nearest float32, ties to even (subnormals, and
+    infinity past the largest float32, as IEEE rounds)."""
+    if x == 0:
+        return 0.0
+    sign, x = (-1.0 if x < 0 else 1.0), abs(x)
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    e += (Fraction(2) ** (e + 1) <= x) - (Fraction(2) ** e > x)
+    q = x / Fraction(2) ** (max(e, -126) - 23)
+    n, rem = divmod(q.numerator, q.denominator)
+    n += 2 * rem > q.denominator or (2 * rem == q.denominator and n % 2 == 1)
+    v = n * Fraction(2) ** (max(e, -126) - 23)
+    return sign * (float("inf") if v >= Fraction(2) ** 128 else float(v))
+
+
+def _fma_cases():
+    """Seeded float32 triples: random magnitudes (subnormal and overflowing
+    results among them), ties of a * b that a tiny c must break (double
+    rounding through float64 gets these wrong), and cancellation (c the
+    negated rounded product, so the result is the product's rounding
+    error, and that plus a tiny c)."""
+    rng = np.random.default_rng(21)
+    n = 3000
+    a = rng.standard_normal(n) * 2.0 ** rng.integers(-75, 65, n)
+    b = rng.standard_normal(n) * 2.0 ** rng.integers(-75, 65, n)
+    c = rng.standard_normal(n) * 2.0 ** rng.integers(-150, 120, n)
+    k, m = (2 * rng.integers(0, 512, (2, 600)) + 1) / 4096.0
+    tie_c = rng.choice([0.0, 2.0 ** -80, -(2.0 ** -80), 2.0 ** -40, -(2.0 ** -40),
+                        2.0 ** -24, -(2.0 ** -24)], 600)
+    a32, b32 = np.float32(a), np.float32(b)
+    canc = -(a32[:600].astype(np.float64) * b32[:600]).astype(np.float32)
+    tiny = rng.choice([0.0, 2.0 ** -100, -(2.0 ** -100)], 600)
+    # Past the largest float32, and into the subnormals.
+    edge = np.array([[1.5 * 2.0 ** 64, 1.5 * 2.0 ** 64, 0.0],
+                     [-1.9 * 2.0 ** 64, 2.0 ** 64, -(2.0 ** 127)],
+                     [2.0 ** -70, 1.25 * 2.0 ** -70, 2.0 ** -140],
+                     [3.0 * 2.0 ** -75, -(2.0 ** -70), 2.0 ** -126]]).T
+    return [np.concatenate(v).astype(np.float32) for v in (
+        (a, 1 + k, a32[:600], edge[0]), (b, 1 + m, b32[:600], edge[1]),
+        (c, tie_c, canc + np.float32(tiny), edge[2]))]
+
+
+def test_fma_is_exact_against_fractions():
+    """core/math.py::fma, K6's plain version of the card's fmaf: every
+    result equals a * b + c computed exactly and rounded once to float32,
+    bit for bit; the same triples through float64 then float32 (two
+    roundings) miss some ties, so the cases do test the rounding to odd."""
+    a, b, c = _fma_cases()
+    want = np.array([_round_f32(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    got = fma(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    with np.errstate(over="ignore"):
+        twice = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert (twice.view(np.int32) != want.view(np.int32)).sum() > 100
+    assert np.isinf(want).any() and (np.abs(want[want != 0]) < 2.0 ** -126).any()
+    # IEEE's signed zeros: a zero sum is -0 only where both terms are -0.
+    signs = torch.signbit(fma(torch.tensor([-0.0, 0.0, -0.0, 0.0]),
+                              torch.tensor([1.0, -1.0, -1.0, -1.0]),
+                              torch.tensor([-0.0, 0.0, -0.0, -0.0])))
+    assert signs.tolist() == [True, False, False, True]

@@ -64,6 +64,26 @@ def sqrt(x):
     return torch.where(ok, r.float(), s.detach())
 
 
+def fma(a, b, c):
+    """a * b + c on float32 tensors, rounded once, as the card's fmaf
+    (`__fmaf_rn`) rounds it, on every device: the product is exact in
+    float64, TwoSum gives the sum's exact error, and a sum that is not
+    exact is rounded to odd (stepped one ulp toward the error where its
+    last bit is even) before the cast to float32, so that the two
+    roundings give the one correctly rounded result. Separate tensor ops
+    (no addcmul), so that no device contracts them again."""
+    a, b, c = a.double(), b.double(), c.double()
+    p = a * b
+    s = p + c
+    pv = s - c
+    err = (p - pv) + (c - (s - pv))
+    even = (s.view(torch.int64) & 1) == 0
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=s.device)
+    toward = torch.where(err > 0, inf, -inf)
+    s = torch.where(even & (err != 0) & torch.isfinite(err), torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def gather_rows(table, idx):
     """table[idx] along the first axis, through
     torch.nn.functional.embedding: the values of indexing, but under

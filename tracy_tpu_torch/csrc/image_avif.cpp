@@ -36,18 +36,18 @@ struct Box {
 std::vector<Box> boxes(const Bytes& b, size_t at, size_t end) {
   std::vector<Box> out;
   while (at < end) {
-    if (end - at < 8) not_format("box header is truncated");
+    if (end - at < 8) not_format("AVIF: box header is truncated");
     uint64_t size = b.be32(at);
     const uint32_t type = b.be32(at + 4);
     size_t body = at + 8;
     if (size == 1) {
-      if (end - at < 16) not_format("box header is truncated");
+      if (end - at < 16) not_format("AVIF: box header is truncated");
       size = uint64_t(b.be32(at + 8)) << 32 | b.be32(at + 12);
       body = at + 16;
     } else if (size == 0) {
       size = end - at;
     }
-    if (size < body - at || size > end - at) not_format("box size is out of range");
+    if (size < body - at || size > end - at) not_format("AVIF: box size is out of range");
     out.push_back({type, body, at + size_t(size)});
     at += size_t(size);
   }
@@ -102,7 +102,7 @@ struct Container {
   Properties properties(const Item& it) {
     Properties p;
     for (uint32_t idx : it.props) {
-      if (idx == 0 || idx > props.size()) not_format("property index out of range");
+      if (idx == 0 || idx > props.size()) not_format("AVIF: property index out of range");
       const Box& x = props[idx - 1];
       if (x.type == fourcc("ispe")) {
         b.need(x.body, 12);
@@ -136,10 +136,10 @@ struct Container {
       uint64_t start = it.base + off;
       if (it.method == 1) {
         if (start > idat_end - idat || len > idat_end - idat - start)
-          not_format("item data outside its idat box");
+          not_format("AVIF: item data outside its idat box");
         start += idat;
       } else if (start > b.n || len > b.n - start) {
-        not_format("item data is truncated");
+        not_format("AVIF: item data is truncated");
       }
       out.insert(out.end(), b.p + start, b.p + start + len);
     }
@@ -173,19 +173,19 @@ void parse_tracks(Container& c, const Box& moov) {
       for (const Box& r : boxes(b, tref->body, tref->end))
         if (r.type == fourcc("auxl") && r.end >= r.body + 4) t.auxl_to = b.be32(r.body);
     const Box* mdia = find(tk, "mdia");
-    if (!mdia) not_format("track without mdia box");
+    if (!mdia) not_format("AVIF: track without mdia box");
     const std::vector<Box> md = boxes(b, mdia->body, mdia->end);
     const Box* hdlr = find(md, "hdlr");
     t.pict = hdlr && (b.be32(hdlr->body + 8) == fourcc("pict") || b.be32(hdlr->body + 8) == fourcc("auxv"));
     const Box* minf = find(md, "minf");
     const Box* stbl = minf ? find(boxes(b, minf->body, minf->end), "stbl") : nullptr;
-    if (!stbl) not_format("track without sample table");
+    if (!stbl) not_format("AVIF: track without sample table");
     const std::vector<Box> st = boxes(b, stbl->body, stbl->end);
     const Box* stsd = find(st, "stsd");
     const Box* stsz = find(st, "stsz");
     const Box* stco = find(st, "stco");
     const Box* co64 = find(st, "co64");
-    if (!stsd || !stsz || !(stco || co64)) not_format("track sample table is incomplete");
+    if (!stsd || !stsz || !(stco || co64)) not_format("AVIF: track sample table is incomplete");
     const std::vector<Box> entries = boxes(b, stsd->body + 8, stsd->end);
     if (!entries.empty() && entries[0].type == fourcc("av01")) {
       t.av01 = true;
@@ -197,9 +197,9 @@ void parse_tracks(Container& c, const Box& moov) {
         }
     }
     const uint32_t fixed = b.be32(stsz->body + 4), count = b.be32(stsz->body + 8);
-    if (count == 0) not_format("track without samples");
+    if (count == 0) not_format("AVIF: track without samples");
     t.size = fixed ? fixed : b.be32(stsz->body + 12);
-    if (b.be32((stco ? stco : co64)->body + 4) == 0) not_format("track without chunks");
+    if (b.be32((stco ? stco : co64)->body + 4) == 0) not_format("AVIF: track without chunks");
     t.offset = stco ? b.be32(stco->body + 8)
                     : uint64_t(b.be32(co64->body + 8)) << 32 | b.be32(co64->body + 12);
     c.tracks.push_back(t);
@@ -210,27 +210,27 @@ Container parse(const Bytes& b) {
   Container c{b};
   const std::vector<Box> top = boxes(b, 0, b.n);
   const Box* ftyp = top.empty() || top[0].type != fourcc("ftyp") ? nullptr : &top[0];
-  if (!ftyp) not_format("no ftyp box");
+  if (!ftyp) not_format("AVIF: no ftyp box");
   bool brand = false;
   c.major = b.be32(ftyp->body);
   for (size_t at = ftyp->body; at + 4 <= ftyp->end; at += at == ftyp->body ? 8 : 4) {
     const uint32_t t = b.be32(at);
     if (t == fourcc("avif") || t == fourcc("avis")) brand = true;
   }
-  if (!brand) not_format("the file type has neither the avif nor the avis brand");
+  if (!brand) not_format("AVIF: the file type has neither the avif nor the avis brand");
   if (const Box* moov = find(top, "moov")) parse_tracks(c, *moov);
   const Box* meta = find(top, "meta");
   if (!meta) return c;
   const std::vector<Box> m = boxes(b, meta->body + 4, meta->end);
   const Box* hdlr = find(m, "hdlr");
-  if (!hdlr || b.be32(hdlr->body + 8) != fourcc("pict")) not_format("no pict handler");
+  if (!hdlr || b.be32(hdlr->body + 8) != fourcc("pict")) not_format("AVIF: no pict handler");
   const Box* pitm = find(m, "pitm");
-  if (!pitm) not_format("no primary item");
+  if (!pitm) not_format("AVIF: no primary item");
   c.primary = b.u8(pitm->body) == 0 ? b.be16(pitm->body + 4) : b.be32(pitm->body + 4);
   if (const Box* idat = find(m, "idat")) c.idat = idat->body, c.idat_end = idat->end;
   const Box* iloc = find(m, "iloc");
   const Box* iinf = find(m, "iinf");
-  if (!iloc || !iinf) not_format("no iloc or iinf box");
+  if (!iloc || !iinf) not_format("AVIF: no iloc or iinf box");
   {
     const int version = b.u8(iloc->body);
     size_t at = iloc->body + 4;
@@ -251,8 +251,8 @@ Container parse(const Bytes& b) {
         const uint64_t off = uint_n(b, at, off_size), len = uint_n(b, at, len_size);
         it.extents.push_back({off, len});
       }
-      if (it.method > 1) throw DecodeError("item construction method " + std::to_string(it.method) + " not read");
-      if (at > iloc->end) not_format("iloc box is truncated");
+      if (it.method > 1) throw DecodeError("AVIF: item construction method " + std::to_string(it.method) + " not read");
+      if (at > iloc->end) not_format("AVIF: iloc box is truncated");
       c.items.push_back(it);
     }
   }
@@ -284,7 +284,7 @@ Container parse(const Bytes& b) {
       const uint32_t from = uint32_t(uint_n(b, at, n));
       const int count = int(uint_n(b, at, 2));
       for (int i = 0; i < count; i++) c.refs.push_back({r.type, from, uint32_t(uint_n(b, at, n))});
-      if (at > r.end) not_format("iref box is truncated");
+      if (at > r.end) not_format("AVIF: iref box is truncated");
     }
   }
   if (const Box* iprp = find(m, "iprp")) {
@@ -311,30 +311,41 @@ Container parse(const Bytes& b) {
 
 av1::Picture decode_item(Container& c, const Item& it, const Properties& p);
 
+// av1::decode, its refusals named as the AVIF file's.
+av1::Picture decode_av1(const uint8_t* data, size_t n) {
+  av1::Picture pic;
+  try {
+    av1::decode(data, n, pic);
+  } catch (const DecodeError& e) {
+    throw DecodeError(std::string("AVIF: ") + e.what());
+  }
+  return pic;
+}
+
 // A grid item (ISO/IEC 23008-12 ImageGrid): its cells, each an AV1 item of
 // one size and kind, laid out row by row and cropped to the output size.
 av1::Picture decode_grid(Container& c, const Item& grid, const Properties& p) {
   const std::vector<uint8_t> data = c.data(grid);
   const Bytes g{data.data(), data.size(), kFmt};
-  if (g.u8(0) != 0) throw DecodeError("grid version " + std::to_string(g.u8(0)) + " not read");
+  if (g.u8(0) != 0) throw DecodeError("AVIF: grid version " + std::to_string(g.u8(0)) + " not read");
   const int rows = g.u8(2) + 1, cols = g.u8(3) + 1;
   const bool wide = g.u8(1) & 1;
   const uint32_t ow = wide ? g.be32(4) : g.be16(4), oh = wide ? g.be32(8) : g.be16(6);
   std::vector<uint32_t> cells;
   for (const auto& r : c.refs)
     if (r[0] == fourcc("dimg") && r[1] == grid.id) cells.push_back(r[2]);
-  if (int(cells.size()) != rows * cols) throw DecodeError("grid cell count differs from its layout");
-  if (ow != p.w || oh != p.h) throw DecodeError("grid size differs from its ispe property");
+  if (int(cells.size()) != rows * cols) throw DecodeError("AVIF: grid cell count differs from its layout");
+  if (ow != p.w || oh != p.h) throw DecodeError("AVIF: grid size differs from its ispe property");
   av1::Picture out;
   int cell_w = 0, cell_h = 0;
   for (int k = 0; k < rows * cols; k++) {
     const Item* cell = c.item(cells[k]);
-    if (!cell || cell->type != fourcc("av01")) throw DecodeError("a grid cell is not an AV1 item");
+    if (!cell || cell->type != fourcc("av01")) throw DecodeError("AVIF: a grid cell is not an AV1 item");
     const av1::Picture pic = decode_item(c, *cell, c.properties(*cell));
     if (k == 0) {
       if (int64_t(cols - 1) * pic.width >= ow || int64_t(cols) * pic.width < ow ||
           int64_t(rows - 1) * pic.height >= oh || int64_t(rows) * pic.height < oh)
-        throw DecodeError("grid cells do not cover its output size");
+        throw DecodeError("AVIF: grid cells do not cover its output size");
       out = pic;
       cell_w = pic.width, cell_h = pic.height;
       out.width = int(ow), out.height = int(oh);
@@ -346,7 +357,7 @@ av1::Picture decode_grid(Container& c, const Item& grid, const Properties& p) {
     } else if (pic.pw[0] != cell_w || pic.ph[0] != cell_h || pic.bit_depth != out.bit_depth ||
                pic.sub_x != out.sub_x ||
                pic.sub_y != out.sub_y || pic.planes != out.planes) {
-      throw DecodeError("grid cells of different kinds");
+      throw DecodeError("AVIF: grid cells of different kinds");
     }
     const int cr = k / cols, cc = k % cols;
     for (int q = 0; q < pic.planes; q++) {
@@ -363,12 +374,11 @@ av1::Picture decode_grid(Container& c, const Item& grid, const Properties& p) {
 // The planes of one AV1 (or grid) item, with its ispe size checked.
 av1::Picture decode_item(Container& c, const Item& it, const Properties& p) {
   if (it.type == fourcc("grid")) return decode_grid(c, it, p);
-  if (!p.av1c) not_format("the AV1 item has no av1C property");
+  if (!p.av1c) not_format("AVIF: the AV1 item has no av1C property");
   const std::vector<uint8_t> data = c.data(it);
-  av1::Picture pic;
-  av1::decode(data.data(), data.size(), pic);
+  const av1::Picture pic = decode_av1(data.data(), data.size());
   if (uint32_t(pic.width) != p.w || uint32_t(pic.height) != p.h)
-    throw DecodeError("the AV1 frame's size differs from its ispe property");
+    throw DecodeError("AVIF: the AV1 frame's size differs from its ispe property");
   return pic;
 }
 
@@ -380,11 +390,9 @@ struct Image {
 
 // The first sample of a track, decoded.
 av1::Picture decode_sample(Container& c, const Track& t) {
-  if (!t.av01) throw DecodeError("a track whose samples are not AV1 not read");
-  if (t.offset > c.b.n || t.size > c.b.n - t.offset) not_format("track sample is truncated");
-  av1::Picture pic;
-  av1::decode(c.b.p + t.offset, size_t(t.size), pic);
-  return pic;
+  if (!t.av01) throw DecodeError("AVIF: a track whose samples are not AV1 not read");
+  if (t.offset > c.b.n || t.size > c.b.n - t.offset) not_format("AVIF: track sample is truncated");
+  return decode_av1(c.b.p + t.offset, size_t(t.size));
 }
 
 // An image sequence as libavif reads it for PIL: the first frame of the
@@ -397,7 +405,7 @@ Image load_tracks(Container& c, bool pixels) {
       color = &t;
       break;
     }
-  if (!color) not_format("no colour track");
+  if (!color) not_format("AVIF: no colour track");
   const Track* alpha = nullptr;
   for (const Track& t : c.tracks)
     if (t.auxl_to && t.auxl_to == color->id) alpha = &t;
@@ -413,7 +421,7 @@ Image load_tracks(Container& c, bool pixels) {
   if (alpha) {
     img.alpha = decode_sample(c, *alpha);
     if (img.alpha.width != img.color.width || img.alpha.height != img.color.height)
-      throw DecodeError("the alpha track's size differs from the image's");
+      throw DecodeError("AVIF: the alpha track's size differs from the image's");
   }
   return img;
 }
@@ -425,17 +433,17 @@ Image load(const Bytes& b, bool pixels) {
   // primary item.
   const bool tracks = c.major == fourcc("avis") || (c.major != fourcc("avif") && !c.tracks.empty());
   if (tracks) {
-    if (c.tracks.empty()) not_format("an avis file without tracks");
+    if (c.tracks.empty()) not_format("AVIF: an avis file without tracks");
     return load_tracks(c, pixels);
   }
-  if (!c.primary) not_format("no meta box");
+  if (!c.primary) not_format("AVIF: no meta box");
   Item* primary = c.item(c.primary);
-  if (!primary) not_format("the primary item is not in the file");
+  if (!primary) not_format("AVIF: the primary item is not in the file");
   if (primary->type != fourcc("av01") && primary->type != fourcc("grid"))
-    not_format("the primary item is not an AV1 image");
+    not_format("AVIF: the primary item is not an AV1 image");
   const Properties p = c.properties(*primary);
-  if (primary->type == fourcc("av01") && !p.av1c) not_format("the AV1 item has no av1C property");
-  if (!p.ispe) not_format("the AV1 item has no ispe property");
+  if (primary->type == fourcc("av01") && !p.av1c) not_format("AVIF: the AV1 item has no av1C property");
+  if (!p.ispe) not_format("AVIF: the AV1 item has no ispe property");
   check_size(kFmt, p.w, p.h);
   Image img;
   img.color.width = int(p.w), img.color.height = int(p.h);
@@ -447,8 +455,8 @@ Image load(const Bytes& b, bool pixels) {
       if (!it || (it->type != fourcc("av01") && it->type != fourcc("grid"))) continue;
       const Properties q = c.properties(*it);
       if (!q.alpha) continue;
-      if (!q.ispe) not_format("the alpha item has no ispe property");
-      if (it->type == fourcc("av01") && !q.av1c) not_format("the alpha item has no av1C property");
+      if (!q.ispe) not_format("AVIF: the alpha item has no ispe property");
+      if (it->type == fourcc("av01") && !q.av1c) not_format("AVIF: the alpha item has no av1C property");
       alpha = it, ap = q;
       break;
     }
@@ -464,7 +472,7 @@ Image load(const Bytes& b, bool pixels) {
   if (alpha) {
     img.alpha = decode_item(c, *alpha, ap);
     if (img.alpha.width != img.color.width || img.alpha.height != img.color.height)
-      throw DecodeError("the alpha item's size differs from the image's");
+      throw DecodeError("AVIF: the alpha item's size differs from the image's");
   }
   return img;
 }
@@ -504,7 +512,7 @@ bool float_matrix(int mc, float& kr, float& kb) {
     case 7: kr = 0.212f, kb = 0.087f; return true;
     case 9: kr = 0.2627f, kb = 0.0593f; return true;
     case 8: return false;
-    default: throw DecodeError("matrix coefficients " + std::to_string(mc) + " not read");
+    default: throw DecodeError("AVIF: matrix coefficients " + std::to_string(mc) + " not read");
   }
 }
 
@@ -632,11 +640,11 @@ void to_rgba(const Image& img, uint8_t* out) {
   const int w = pc.width, h = pc.height, bd = pc.bit_depth, s = bd - 8;
   const size_t n = size_t(w) * h;
   const bool identity = img.mc == 0 && pc.planes == 3;
-  if (identity && !img.full) throw DecodeError("limited-range identity matrix not read");
-  if (img.mc == 12) throw DecodeError("chroma-derived matrix coefficients (12) not read");
+  if (identity && !img.full) throw DecodeError("AVIF: limited-range identity matrix not read");
+  if (img.mc == 12) throw DecodeError("AVIF: chroma-derived matrix coefficients (12) not read");
   const bool alpha = img.has_alpha;
   if (alpha && img.alpha.bit_depth != bd)
-    throw DecodeError("an alpha item of another bit depth than the image not read");
+    throw DecodeError("AVIF: an alpha item of another bit depth than the image not read");
   const float top = float((1 << bd) - 1);
   Yuv c{};
   const bool fixed = !identity && (pc.planes == 3 || alpha) && libyuv_constants(img.mc, img.full, c);
@@ -693,7 +701,7 @@ extern "C" {
 // it; 3 where PIL's plugin gives the file up to the next one); then
 // tracy_avif_decode writes RGBA8 [h, w, 4].
 int tracy_avif_info(const uint8_t* data, int64_t len, int* w, int* h) {
-  return guarded([&] {
+  return guarded(kFmt, [&] {
     const Image img = load({data, size_t(len), kFmt}, false);
     *w = img.color.width;
     *h = img.color.height;
@@ -701,7 +709,7 @@ int tracy_avif_info(const uint8_t* data, int64_t len, int* w, int* h) {
 }
 
 int tracy_avif_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) {
-  return guarded([&] {
+  return guarded(kFmt, [&] {
     const Image img = load({data, size_t(len), kFmt}, true);
     check_out(kFmt, img.color.width, img.color.height, w, h);
     to_rgba(img, out);
@@ -715,7 +723,7 @@ int tracy_avif_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int
 // chroma size).
 int tracy_avif_planes(const uint8_t* data, int64_t len, int* meta, uint16_t* y, uint16_t* u,
                       uint16_t* v, uint16_t* a) {
-  return guarded([&] {
+  return guarded(kFmt, [&] {
     const Image img = load({data, size_t(len), kFmt}, true);
     const av1::Picture& p = img.color;
     const int m[10] = {p.width, p.height, p.bit_depth, p.sub_x, p.sub_y, p.planes,

@@ -684,7 +684,7 @@ int tracy_dds_info(const uint8_t* data, int64_t len, int* w, int* h) {
   return info("DDS", data, len, w, h, dds_header);
 }
 int tracy_dds_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) {
-  return guarded([&] { dds_decode({data, static_cast<size_t>(len), "DDS"}, out, w, h); });
+  return guarded("DDS", [&] { dds_decode({data, static_cast<size_t>(len), "DDS"}, out, w, h); });
 }
 
 }  // extern "C"

@@ -104,6 +104,9 @@ std::string jpeg_planes(const uint8_t* p, size_t n, std::vector<std::vector<uint
 // PIL's LAB -> RGB of one pixel, `a` and `b` offset by 128 as PIL holds
 // them: LittleCMS's transform to sRGB (image_formats.cpp, lab_table.h).
 void lab_to_rgb(int L, int a, int b, uint8_t* rgb);
+// PIL's YCbCr -> RGB of one pixel (ConvertYCbCr.c's integer tables, which
+// image_jpeg2000.cpp holds for sYCC; IM's YCC kind reads through them too).
+void ycbcr_to_rgb(int y, int cb, int cr, uint8_t* rgb);
 // The size PIL gives a JPEG 2000 file (a raw codestream or JP2) of p[0, n)
 // (image_jpeg2000.cpp; throws DecodeError where the decoder refuses it).
 bool jpeg2000_size(const uint8_t* p, size_t n, int64_t* w, int64_t* h);
@@ -178,8 +181,10 @@ inline void put(uint8_t* o, int r, int g, int b, int a) {
 }
 
 
+// `fmt` names the format in a failure inside the decoder; a fault's message
+// names it already.
 template <class F>
-int guarded(F&& f) {
+int guarded(const char* fmt, F&& f) {
   try {
     f();
     return 0;
@@ -190,14 +195,14 @@ int guarded(F&& f) {
     tracy_image::set_error(e.what());
     return 1;
   } catch (const std::exception& e) {
-    tracy_image::set_error(std::string("decoder failure: ") + e.what());
+    tracy_image::set_error(std::string(fmt) + ": decoder failure: " + e.what());
     return 2;
   }
 }
 
 template <class H>
 int info(const char* fmt, const uint8_t* data, int64_t len, int* w, int* h, H&& header) {
-  return guarded([&] {
+  return guarded(fmt, [&] {
     const Bytes b{data, static_cast<size_t>(len), fmt};
     const auto m = header(b);
     *w = static_cast<int>(m.w);

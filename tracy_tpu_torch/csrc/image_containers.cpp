@@ -87,7 +87,7 @@ int ico_depth(int bpp, int colours) {
 // (largest first), both stable, and opens the first.
 IcoEntry ico_entry(const Bytes& b) {
   b.need(0, 6);
-  if (b.le32(0) != 0x10000) fail("not an ICO file");
+  if (b.le32(0) != 0x10000) fail("ICO: not an ICO file");
   const int n = static_cast<int>(b.le16(4));
   if (n == 0) fail("ICO: no images");
   IcoEntry best{};
@@ -163,7 +163,7 @@ void ico_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
 // the entry's offset (0: right after the directory, where the file stands).
 size_t cur_bitmap(const Bytes& b) {
   b.need(0, 6);
-  if (b.le32(0) != 0x20000) fail("not a CUR file");
+  if (b.le32(0) != 0x20000) fail("CUR: not a CUR file");
   const int n = static_cast<int>(b.le16(4));
   if (n == 0) fail("CUR: no cursors");
   size_t best = 6;
@@ -201,7 +201,7 @@ int32_t i32(const Bytes& b, size_t at) { return static_cast<int32_t>(b.le32(at))
 
 Ftex ftex_header(const Bytes& b) {
   b.need(0, 32);
-  if (std::memcmp(b.p, "FTEX", 4) != 0) fail("not an FTEX file");
+  if (std::memcmp(b.p, "FTEX", 4) != 0) fail("FTEX: not an FTEX file");
   Ftex f{};
   f.w = i32(b, 8);
   f.h = i32(b, 12);
@@ -255,7 +255,7 @@ Blp blp_header(const Bytes& b) {
   } else if (std::memcmp(b.p, "BLP2", 4) == 0) {
     m.v2 = true;
   } else {
-    fail("not a BLP file");
+    fail("BLP: not a BLP file");
   }
   b.need(0, m.v2 ? 20 : 28);
   m.compression = i32(b, 4);
@@ -449,7 +449,7 @@ struct Icns {
 // every size with an entry (PIL's info["sizes"]).
 Icns icns_scan(const Bytes& b, std::vector<const IcnsSize*>* present = nullptr) {
   b.need(0, 8);
-  if (std::memcmp(b.p, "icns", 4) != 0) fail("not an ICNS file");
+  if (std::memcmp(b.p, "icns", 4) != 0) fail("ICNS: not an ICNS file");
   const uint64_t filesize = b.be32(4);
   struct Seen {
     char sig[4];
@@ -630,7 +630,7 @@ void ico_stream(const Bytes& b, int64_t* parts) {
 
 template <class F>
 int stream(const char* fmt, const uint8_t* data, int64_t len, int64_t* parts, F&& f) {
-  return guarded([&] {
+  return guarded(fmt, [&] {
     for (int k = 0; k < 4; ++k) parts[k] = 0;
     f(Bytes{data, static_cast<size_t>(len), fmt}, parts);
   });
@@ -645,7 +645,7 @@ extern "C" {
     return info(NAME, data, len, w, h, fmt##_header);                                \
   }                                                                                  \
   int tracy_##fmt##_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) { \
-    return guarded([&] { fmt##_decode({data, static_cast<size_t>(len), NAME}, out, w, h); }); \
+    return guarded(NAME, [&] { fmt##_decode({data, static_cast<size_t>(len), NAME}, out, w, h); }); \
   }
 
 // Width and height of the image each container opens, then its RGBA8.

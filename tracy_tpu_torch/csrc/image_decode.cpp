@@ -691,7 +691,7 @@ struct Jpeg {
 
   // Parse up to the frame header (info) or through EOI (decode).
   void parse(bool headers_only) {
-    if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) fail("not a JPEG file");
+    if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) fail("JPEG: not a JPEG file");
     pos = 2;
     bool scanned = false;
     for (;;) {
@@ -1038,8 +1038,10 @@ void jpeg_decode(const uint8_t* data, size_t len, uint8_t* out, int out_w, int o
   }
 }
 
+// `fmt` names the format in a failure inside the decoder; a fault's message
+// names it already.
 template <class F>
-int guarded(F&& f) {
+int guarded(const char* fmt, F&& f) {
   try {
     f();
     return 0;
@@ -1047,7 +1049,7 @@ int guarded(F&& f) {
     g_error = e.what();
     return 1;
   } catch (const std::exception& e) {
-    g_error = std::string("decoder failure: ") + e.what();
+    g_error = std::string(fmt) + ": decoder failure: " + e.what();
     return 2;
   }
 }
@@ -1109,7 +1111,7 @@ const char* tracy_decode_error() { return g_error.c_str(); }
 int tracy_png_decode(uint8_t* raw, int64_t raw_len, int w, int h, int depth, int ctype,
                      int interlace, const uint8_t* plte, int plte_len, const uint8_t* trns,
                      int trns_len, uint8_t* out) {
-  return guarded([&] {
+  return guarded("PNG", [&] {
     const PngInfo p{w, h, depth, ctype, plte, plte_len, trns, trns_len};
     png_decode(p, raw, raw_len, interlace, out);
   });
@@ -1119,7 +1121,7 @@ int tracy_png_decode(uint8_t* raw, int64_t raw_len, int w, int h, int depth, int
 // from the frame header.
 int tracy_jpeg_info(const uint8_t* data, int64_t len, int* w, int* h, int* comps,
                     int* progressive) {
-  return guarded([&] {
+  return guarded("JPEG", [&] {
     Jpeg j(data, static_cast<size_t>(len));
     j.parse(true);
     *w = j.width;
@@ -1135,7 +1137,7 @@ int tracy_jpeg_info(const uint8_t* data, int64_t len, int* w, int* h, int* comps
 int tracy_jpeg_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h,
                       int four_as_cmyk) {
   return guarded(
-      [&] { jpeg_decode(data, static_cast<size_t>(len), out, w, h, four_as_cmyk != 0); });
+      "JPEG", [&] { jpeg_decode(data, static_cast<size_t>(len), out, w, h, four_as_cmyk != 0); });
 }
 
 }  // extern "C"

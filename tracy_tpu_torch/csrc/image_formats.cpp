@@ -358,7 +358,7 @@ Bmp bmp_info(const Bytes& b, size_t at, uint32_t off) {
 }
 
 Bmp bmp_header(const Bytes& b) {
-  if (b.n < 2 || b.p[0] != 'B' || b.p[1] != 'M') fail("not a BMP file");
+  if (b.n < 2 || b.p[0] != 'B' || b.p[1] != 'M') fail("BMP: not a BMP file");
   return bmp_info(b, 14, b.le32(10));
 }
 
@@ -532,7 +532,7 @@ size_t gif_table_bytes(const Bytes& b, size_t at, int bits) {
 
 Gif gif_header(const Bytes& b) {
   if (b.n < 13 || (std::memcmp(b.p, "GIF87a", 6) != 0 && std::memcmp(b.p, "GIF89a", 6) != 0)) {
-    fail("not a GIF file");
+    fail("GIF: not a GIF file");
   }
   Gif g{};
   g.w = b.le16(6);
@@ -810,7 +810,7 @@ Pnm pnm_header(const Bytes& b) {
   }
   const int kind = magic == "Pf" ? 0 : magic == "P0CMYK" || magic == "PyCMYK" ? 7
                  : magic == "PyRGBA" ? 8 : magic == "PyP" ? 9 : -1;
-  if (kind < 0) fail("not a PNM file");  // colour PFM (PF) too: PIL knows no such magic
+  if (kind < 0) fail("PNM: not a PNM file");  // colour PFM (PF) too: PIL knows no such magic
   Pnm m{};
   m.kind = kind;
   m.w = pnm_token(b, pos);
@@ -976,10 +976,10 @@ struct Psd {
 };
 
 Psd psd_header(const Bytes& b) {
-  if (b.n < 4 || std::memcmp(b.p, "8BPS", 4) != 0) fail("not a PSD file");
+  if (b.n < 4 || std::memcmp(b.p, "8BPS", 4) != 0) fail("PSD: not a PSD file");
   const uint32_t version = b.be16(4);
   if (version == 2) fail("PSD: PSB (large document) files are not read");
-  if (version != 1) fail("not a PSD file");
+  if (version != 1) fail("PSD: not a PSD file");
   Psd m{};
   m.channels = static_cast<int>(b.be16(12));
   m.h = b.be32(14);
@@ -1158,37 +1158,37 @@ int tracy_tga_info(const uint8_t* data, int64_t len, int* w, int* h) {
   return info("TGA", data, len, w, h, tga_header);
 }
 int tracy_tga_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) {
-  return guarded([&] { tga_decode({data, static_cast<size_t>(len), "TGA"}, out, w, h); });
+  return guarded("TGA", [&] { tga_decode({data, static_cast<size_t>(len), "TGA"}, out, w, h); });
 }
 int tracy_bmp_info(const uint8_t* data, int64_t len, int* w, int* h) {
   return info("BMP", data, len, w, h, bmp_header);
 }
 int tracy_bmp_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) {
-  return guarded([&] { bmp_decode({data, static_cast<size_t>(len), "BMP"}, out, w, h); });
+  return guarded("BMP", [&] { bmp_decode({data, static_cast<size_t>(len), "BMP"}, out, w, h); });
 }
 int tracy_gif_info(const uint8_t* data, int64_t len, int* w, int* h) {
   return info("GIF", data, len, w, h, gif_header);
 }
 int tracy_gif_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) {
-  return guarded([&] { gif_decode({data, static_cast<size_t>(len), "GIF"}, out, w, h); });
+  return guarded("GIF", [&] { gif_decode({data, static_cast<size_t>(len), "GIF"}, out, w, h); });
 }
 int tracy_pnm_info(const uint8_t* data, int64_t len, int* w, int* h) {
   return info("PNM", data, len, w, h, pnm_header);
 }
 int tracy_pnm_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) {
-  return guarded([&] { pnm_decode({data, static_cast<size_t>(len), "PNM"}, out, w, h); });
+  return guarded("PNM", [&] { pnm_decode({data, static_cast<size_t>(len), "PNM"}, out, w, h); });
 }
 int tracy_psd_info(const uint8_t* data, int64_t len, int* w, int* h) {
   return info("PSD", data, len, w, h, psd_header);
 }
 int tracy_psd_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) {
-  return guarded([&] { psd_decode({data, static_cast<size_t>(len), "PSD"}, out, w, h); });
+  return guarded("PSD", [&] { psd_decode({data, static_cast<size_t>(len), "PSD"}, out, w, h); });
 }
 int tracy_qoi_info(const uint8_t* data, int64_t len, int* w, int* h) {
   return info("QOI", data, len, w, h, qoi_header);
 }
 int tracy_qoi_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) {
-  return guarded([&] { qoi_decode({data, static_cast<size_t>(len), "QOI"}, out, w, h); });
+  return guarded("QOI", [&] { qoi_decode({data, static_cast<size_t>(len), "QOI"}, out, w, h); });
 }
 
 }  // extern "C"

@@ -57,12 +57,13 @@
 //   8 bits (PIL's I;16, which convert clips to 255) keeps the high byte
 //   (ROADMAP, hazards); a pclr palette with a repeated entry, which PIL
 //   folds and so maps later indices to other colours, is read as the file
-//   says.
+//   says, and so is one of one or two columns (grey, grey + alpha), which
+//   PIL maps to black.
 //
 // Refused by name: HTJ2K (Part 15: the CAP or CPF marker, Rsiz bit 14,
 // code-block style bit 6), Part 2 extensions (the MCT, MCC, MCO, CBD, DFS,
-// ADS, ATK and NLT markers), a pclr of other than 3 or 4 columns (PIL maps
-// it to black), and what PIL or OpenJPEG refuse: more than four components,
+// ADS, ATK and NLT markers), a pclr of more than 4 columns, and what PIL
+// or OpenJPEG refuse: more than four components,
 // a mode and colour space without PIL's unpacker, precision above 31 bits,
 // truncated data, a JP2 header whose size is not the codestream's, sizes
 // beyond kMaxPixels.
@@ -150,7 +151,7 @@ struct Reader {
   const uint8_t* p;
   size_t at, end;
   void need(size_t k) const {
-    if (k > end - at) fail("marker segment is truncated");
+    if (k > end - at) fail("JPEG 2000: marker segment is truncated");
   }
   uint32_t u8() {
     need(1);
@@ -173,9 +174,9 @@ struct Reader {
   char buf[8];
   std::snprintf(buf, sizeof buf, "%04X", m);
   if (m == 0xFF50 || m == 0xFF59) {
-    fail(std::string("HTJ2K (Part 15) is not read (marker ") + buf + ")");
+    fail(std::string("JPEG 2000: HTJ2K (Part 15) is not read (marker ") + buf + ")");
   }
-  fail(std::string("Part 2 extension marker ") + buf + " is not read");
+  fail(std::string("JPEG 2000: Part 2 extension marker ") + buf + " is not read");
 }
 
 bool is_part2_marker(uint32_t m) {
@@ -185,23 +186,23 @@ bool is_part2_marker(uint32_t m) {
 
 void read_spcod(Reader& r, Tccp& t, bool precincts) {
   const int levels = static_cast<int>(r.u8());
-  if (levels + 1 > kMaxRes) fail(std::to_string(levels) + " decomposition levels");
+  if (levels + 1 > kMaxRes) fail(std::string("JPEG 2000: ") + std::to_string(levels) + " decomposition levels");
   t.numres = levels + 1;
   t.cbw = static_cast<int>(r.u8()) + 2;
   t.cbh = static_cast<int>(r.u8()) + 2;
-  if (t.cbw > 10 || t.cbh > 10 || t.cbw + t.cbh > 12) fail("code-block size out of range");
+  if (t.cbw > 10 || t.cbh > 10 || t.cbw + t.cbh > 12) fail("JPEG 2000: code-block size out of range");
   t.cblksty = static_cast<int>(r.u8());
-  if (t.cblksty & 0x40) fail("HTJ2K (Part 15) code-blocks are not read");
-  if (t.cblksty & 0x80) fail("code-block style bit 7 is not read");
+  if (t.cblksty & 0x40) fail("JPEG 2000: HTJ2K (Part 15) code-blocks are not read");
+  if (t.cblksty & 0x80) fail("JPEG 2000: code-block style bit 7 is not read");
   t.qmfbid = static_cast<int>(r.u8());
-  if (t.qmfbid > 1) fail("wavelet " + std::to_string(t.qmfbid) + " (Part 2) is not read");
+  if (t.qmfbid > 1) fail("JPEG 2000: wavelet " + std::to_string(t.qmfbid) + " (Part 2) is not read");
   for (int k = 0; k < kMaxRes; ++k) t.prcw[k] = t.prch[k] = 15;
   if (precincts) {
     for (int k = 0; k < t.numres; ++k) {
       const uint32_t v = r.u8();
       t.prcw[k] = v & 0xF;
       t.prch[k] = v >> 4;
-      if (k > 0 && (t.prcw[k] == 0 || t.prch[k] == 0)) fail("invalid precinct size");
+      if (k > 0 && (t.prcw[k] == 0 || t.prch[k] == 0)) fail("JPEG 2000: invalid precinct size");
     }
   }
 }
@@ -220,7 +221,7 @@ void read_sqcd(Reader& r, Tccp& t) {
   const uint32_t s = r.u8();
   t.qntsty = s & 0x1F;
   t.guard = static_cast<int>(s >> 5);
-  if (t.qntsty > 2) fail("quantisation style " + std::to_string(t.qntsty));
+  if (t.qntsty > 2) fail("JPEG 2000: quantisation style " + std::to_string(t.qntsty));
   const size_t left = r.end - r.at;
   const size_t nb = t.qntsty == 0 ? left : t.qntsty == 1 ? 1 : left / 2;
   for (size_t k = 0; k < nb; ++k) {
@@ -261,18 +262,18 @@ void read_segment(Codestream& cs, Tcp& tcp, bool main, uint32_t m, Reader r) {
       const uint32_t scod = r.u8();
       tcp.csty = static_cast<int>(scod);
       tcp.prg = static_cast<int>(r.u8());
-      if (tcp.prg > 4) fail("progression order " + std::to_string(tcp.prg));
+      if (tcp.prg > 4) fail("JPEG 2000: progression order " + std::to_string(tcp.prg));
       tcp.layers = static_cast<int>(r.u16());
-      if (tcp.layers == 0) fail("no quality layers");
+      if (tcp.layers == 0) fail("JPEG 2000: no quality layers");
       tcp.mct = static_cast<int>(r.u8());
-      if (tcp.mct > 1) fail("multiple component transform " + std::to_string(tcp.mct));
+      if (tcp.mct > 1) fail("JPEG 2000: multiple component transform " + std::to_string(tcp.mct));
       read_spcod(r, tcp.tccps[0], scod & 1);
       for (size_t c = 1; c < nc; ++c) copy_coding(tcp.tccps[c], tcp.tccps[0]);
       break;
     }
     case 0xFF53: {  // COC
       const uint32_t c = r.comp_index(nc);
-      if (c >= nc) fail("COC of component " + std::to_string(c));
+      if (c >= nc) fail("JPEG 2000: COC of component " + std::to_string(c));
       const uint32_t scoc = r.u8();
       read_spcod(r, tcp.tccps[c], scoc & 1);
       break;
@@ -283,21 +284,21 @@ void read_segment(Codestream& cs, Tcp& tcp, bool main, uint32_t m, Reader r) {
       break;
     case 0xFF5D: {  // QCC
       const uint32_t c = r.comp_index(nc);
-      if (c >= nc) fail("QCC of component " + std::to_string(c));
+      if (c >= nc) fail("JPEG 2000: QCC of component " + std::to_string(c));
       read_sqcd(r, tcp.tccps[c]);
       break;
     }
     case 0xFF5E: {  // RGN
       const uint32_t c = r.comp_index(nc);
-      if (c >= nc) fail("RGN of component " + std::to_string(c));
-      if (r.u8() != 0) fail("RGN style other than max-shift");
+      if (c >= nc) fail("JPEG 2000: RGN of component " + std::to_string(c));
+      if (r.u8() != 0) fail("JPEG 2000: RGN style other than max-shift");
       tcp.tccps[c].roishift = static_cast<int>(r.u8());
       break;
     }
     case 0xFF5F: {  // POC
       const size_t entry = nc <= 256 ? 7 : 9;
       const size_t count = (r.end - r.at) / entry;
-      if (count == 0) fail("empty POC marker");
+      if (count == 0) fail("JPEG 2000: empty POC marker");
       for (size_t k = 0; k < count; ++k) {
         Poc p;
         p.res0 = static_cast<int>(r.u8());
@@ -306,25 +307,25 @@ void read_segment(Codestream& cs, Tcp& tcp, bool main, uint32_t m, Reader r) {
         p.res1 = static_cast<int>(r.u8());
         p.comp1 = static_cast<int>(std::min<uint32_t>(r.comp_index(nc), uint32_t(nc)));
         p.prg = static_cast<int>(r.u8());
-        if (p.prg > 4) fail("POC progression order " + std::to_string(p.prg));
+        if (p.prg > 4) fail("JPEG 2000: POC progression order " + std::to_string(p.prg));
         tcp.pocs.push_back(p);
       }
       break;
     }
     case 0xFF60: {  // PPM
-      if (!main) fail("PPM in a tile-part header");
+      if (!main) fail("JPEG 2000: PPM in a tile-part header");
       const uint32_t z = r.u8();
       if (cs.ppm.size() <= z) cs.ppm.resize(z + 1);
-      if (!cs.ppm[z].empty()) fail("PPM marker " + std::to_string(z) + " read twice");
+      if (!cs.ppm[z].empty()) fail("JPEG 2000: PPM marker " + std::to_string(z) + " read twice");
       cs.ppm[z].assign(r.p + r.at, r.p + r.end);
       cs.has_ppm = true;
       break;
     }
     case 0xFF61: {  // PPT
-      if (main) fail("PPT in the main header");
+      if (main) fail("JPEG 2000: PPT in the main header");
       const uint32_t z = r.u8();
       if (tcp.ppt.size() <= z) tcp.ppt.resize(z + 1);
-      if (!tcp.ppt[z].empty()) fail("PPT marker " + std::to_string(z) + " read twice");
+      if (!tcp.ppt[z].empty()) fail("JPEG 2000: PPT marker " + std::to_string(z) + " read twice");
       tcp.ppt[z].assign(r.p + r.at, r.p + r.end);
       break;
     }
@@ -341,13 +342,13 @@ void read_segment(Codestream& cs, Tcp& tcp, bool main, uint32_t m, Reader r) {
 // with `at` on it). Each segment goes to read_segment.
 uint32_t read_markers(Codestream& cs, Tcp& tcp, bool main, size_t& at, size_t end) {
   for (;;) {
-    if (at + 2 > end) fail("codestream is truncated");
+    if (at + 2 > end) fail("JPEG 2000: codestream is truncated");
     const uint32_t m = uint32_t(cs.p[at]) << 8 | cs.p[at + 1];
     if (m == 0xFF90 || m == 0xFF93 || m == 0xFFD9) return m;
-    if (m < 0xFF00) fail("expected a marker in the header");
-    if (at + 4 > end) fail("codestream is truncated");
+    if (m < 0xFF00) fail("JPEG 2000: expected a marker in the header");
+    if (at + 4 > end) fail("JPEG 2000: codestream is truncated");
     const uint32_t len = uint32_t(cs.p[at + 2]) << 8 | cs.p[at + 3];
-    if (len < 2 || at + 2 + len > end) fail("marker segment is truncated");
+    if (len < 2 || at + 2 + len > end) fail("JPEG 2000: marker segment is truncated");
     read_segment(cs, tcp, main, m, Reader{cs.p, at + 4, at + 2 + len});
     at += 2 + len;
   }
@@ -355,13 +356,13 @@ uint32_t read_markers(Codestream& cs, Tcp& tcp, bool main, size_t& at, size_t en
 
 void read_siz(Codestream& cs, size_t& at) {
   if (cs.n < 4 || cs.p[0] != 0xFF || cs.p[1] != 0x4F || cs.p[2] != 0xFF || cs.p[3] != 0x51) {
-    fail("codestream does not start with SOC and SIZ");
+    fail("JPEG 2000: codestream does not start with SOC and SIZ");
   }
-  if (cs.n < 6) fail("codestream is truncated");
+  if (cs.n < 6) fail("JPEG 2000: codestream is truncated");
   const uint32_t len = uint32_t(cs.p[4]) << 8 | cs.p[5];
-  if (len < 41 || 4 + len > cs.n) fail("SIZ is truncated");
+  if (len < 41 || 4 + len > cs.n) fail("JPEG 2000: SIZ is truncated");
   Reader r{cs.p, 6, 4 + len};
-  if (r.u16() & 0x4000) fail("HTJ2K (Part 15) is not read (Rsiz bit 14)");
+  if (r.u16() & 0x4000) fail("JPEG 2000: HTJ2K (Part 15) is not read (Rsiz bit 14)");
   cs.x1 = r.u32();
   cs.y1 = r.u32();
   cs.x0 = r.u32();
@@ -371,11 +372,11 @@ void read_siz(Codestream& cs, size_t& at) {
   cs.tx0 = r.u32();
   cs.ty0 = r.u32();
   const uint32_t ncomp = r.u16();
-  if (ncomp == 0 || ncomp > 16384) fail("SIZ with " + std::to_string(ncomp) + " components");
-  if (len != 38 + 3 * ncomp) fail("SIZ length does not match its components");
+  if (ncomp == 0 || ncomp > 16384) fail("JPEG 2000: SIZ with " + std::to_string(ncomp) + " components");
+  if (len != 38 + 3 * ncomp) fail("JPEG 2000: SIZ length does not match its components");
   if (cs.x0 >= cs.x1 || cs.y0 >= cs.y1 || cs.tdx == 0 || cs.tdy == 0 || cs.tx0 > cs.x0 ||
       cs.ty0 > cs.y0 || uint64_t(cs.tx0) + cs.tdx <= cs.x0 || uint64_t(cs.ty0) + cs.tdy <= cs.y0) {
-    fail("SIZ with an invalid image or tile grid");
+    fail("JPEG 2000: SIZ with an invalid image or tile grid");
   }
   for (uint32_t c = 0; c < ncomp; ++c) {
     const uint32_t s = r.u8();
@@ -384,13 +385,13 @@ void read_siz(Codestream& cs, size_t& at) {
     k.sgnd = s & 0x80;
     k.dx = static_cast<int>(r.u8());
     k.dy = static_cast<int>(r.u8());
-    if (k.dx == 0 || k.dy == 0) fail("component subsampling of 0");
-    if (k.prec > 31) fail(std::to_string(k.prec) + "-bit components (OpenJPEG reads up to 31)");
+    if (k.dx == 0 || k.dy == 0) fail("JPEG 2000: component subsampling of 0");
+    if (k.prec > 31) fail(std::string("JPEG 2000: ") + std::to_string(k.prec) + "-bit components (OpenJPEG reads up to 31)");
     cs.comps.push_back(k);
   }
   const int64_t ntx = ceildiv(int64_t(cs.x1) - cs.tx0, cs.tdx);
   const int64_t nty = ceildiv(int64_t(cs.y1) - cs.ty0, cs.tdy);
-  if (ntx * nty > 65535) fail(std::to_string(ntx * nty) + " tiles");
+  if (ntx * nty > 65535) fail(std::string("JPEG 2000: ") + std::to_string(ntx * nty) + " tiles");
   cs.ntx = static_cast<int>(ntx);
   cs.nty = static_cast<int>(nty);
   cs.deflt.tccps.assign(ncomp, Tccp());
@@ -407,32 +408,32 @@ void read_codestream(Codestream& cs) {
     const size_t sot = at;
     Reader r{cs.p, at + 2, cs.n};
     const uint32_t lsot = r.u16();
-    if (lsot != 10) fail("SOT of length " + std::to_string(lsot));
+    if (lsot != 10) fail("JPEG 2000: SOT of length " + std::to_string(lsot));
     const uint32_t isot = r.u16();
     const uint32_t psot = r.u32();
     r.u8();  // TPsot
     r.u8();  // TNsot
-    if (isot >= cs.parts.size()) fail("tile " + std::to_string(isot) + " beyond the grid");
+    if (isot >= cs.parts.size()) fail("JPEG 2000: tile " + std::to_string(isot) + " beyond the grid");
     // Psot 0: the last tile-part, up to the EOC marker (OpenJPEG).
     const size_t end = psot == 0 ? std::max(cs.n, size_t(2)) - 2 : sot + psot;
-    if (psot != 0 && psot < 14) fail("tile-part of " + std::to_string(psot) + " bytes");
-    if (end > cs.n || end < sot + 14) fail("codestream is truncated");
+    if (psot != 0 && psot < 14) fail("JPEG 2000: tile-part of " + std::to_string(psot) + " bytes");
+    if (end > cs.n || end < sot + 14) fail("JPEG 2000: codestream is truncated");
     TilePart tp;
     tp.header = sot + 12;
     size_t hat = tp.header;
     Tcp scratch;  // only the marker walk: each tile's markers are read again in decode
     scratch.tccps.assign(cs.comps.size(), Tccp());
-    if (read_markers(cs, scratch, false, hat, end) != 0xFF93) fail("tile-part without SOD");
+    if (read_markers(cs, scratch, false, hat, end) != 0xFF93) fail("JPEG 2000: tile-part without SOD");
     tp.header_end = hat;
     tp.data = hat + 2;
     tp.data_end = end;
     if (cs.parts[isot].empty()) cs.order.push_back(static_cast<int>(isot));
     cs.parts[isot].push_back(tp);
     at = end;
-    if (at + 2 > cs.n) fail("codestream does not end with EOC");
+    if (at + 2 > cs.n) fail("JPEG 2000: codestream does not end with EOC");
     m = uint32_t(cs.p[at]) << 8 | cs.p[at + 1];
   }
-  if (m != 0xFFD9) fail("expected SOT or EOC");
+  if (m != 0xFFD9) fail("JPEG 2000: expected SOT or EOC");
 }
 
 // ---------------------------------------------------------------- tier 2
@@ -656,7 +657,7 @@ struct TileDecoder {
       const int64_t py1 = ceildivpow2(R.y1, R.pdy) << R.pdy;
       R.pw = R.x0 == R.x1 ? 0 : static_cast<int>((px1 - px0) >> R.pdx);
       R.ph = R.y0 == R.y1 ? 0 : static_cast<int>((py1 - py0) >> R.pdy);
-      if (int64_t(R.pw) * R.ph > (int64_t(1) << 26)) fail("too many precincts");
+      if (int64_t(R.pw) * R.ph > (int64_t(1) << 26)) fail("JPEG 2000: too many precincts");
       int64_t cbgx0, cbgy0;
       int cbgw, cbgh;
       if (r == 0) {
@@ -749,7 +750,7 @@ struct TileDecoder {
       const int comp1 = std::min(poc.comp1, nc);
       auto visit = [&](int lay, int res, int comp, int prec) {
         const size_t i = include_index(lay, res, comp, prec);
-        if (i >= include.size()) fail("packet iterator out of range");
+        if (i >= include.size()) fail("JPEG 2000: packet iterator out of range");
         if (include[i]) return;
         include[i] = 1;
         packet(lay, res, comp, prec);
@@ -911,7 +912,7 @@ struct TileDecoder {
           if (cb.numsegs == 0) {
             int i = 0;
             while (!P.imsb.decode(bio, cno, i)) {
-              if (++i > 31) fail("too many zero bit-planes");
+              if (++i > 31) fail("JPEG 2000: too many zero bit-planes");
             }
             cb.numbps = B.numbps + 1 - i;
             cb.numlenbits = 3;
@@ -935,7 +936,7 @@ struct TileDecoder {
             Seg& s = cb.segs[segno];
             s.newpasses = std::min(s.maxpasses - s.numpasses, n);
             const int nbits = cb.numlenbits + floorlog2(static_cast<uint32_t>(s.newpasses));
-            if (nbits > 32) fail("code-block length of more than 32 bits");
+            if (nbits > 32) fail("JPEG 2000: code-block length of more than 32 bits");
             s.newlen = bio.bits(nbits);
             n -= s.newpasses;
             if (n > 0) {
@@ -947,7 +948,7 @@ struct TileDecoder {
         }
       }
     }
-    if (!bio.align() && present) fail("packet header is truncated");
+    if (!bio.align() && present) fail("JPEG 2000: packet header is truncated");
     size_t hat = bio.at;
     if (tcp.csty & 4) {  // EPH
       if (hdr.end - hat >= 2 && hdr.p[hat] == 0xFF && hdr.p[hat + 1] == 0x92) hat += 2;
@@ -972,7 +973,7 @@ struct TileDecoder {
       }
       for (;;) {
         Seg& sg = cb->segs[s];
-        if (sg.newlen > end - at) fail("code-block data is truncated");
+        if (sg.newlen > end - at) fail("JPEG 2000: code-block data is truncated");
         cb->data.insert(cb->data.end(), body + at, body + at + sg.newlen);
         at += sg.newlen;
         sg.len += sg.newlen;
@@ -1335,7 +1336,7 @@ struct T1 {
   // opj_t1_decode_cblk.
   void decode(const Cblk& cb, int roishift, int cblksty) {
     int bpno_plus_one = roishift + cb.numbps;
-    if (bpno_plus_one >= 31) fail("code-block of " + std::to_string(bpno_plus_one) + " bit-planes");
+    if (bpno_plus_one >= 31) fail("JPEG 2000: code-block of " + std::to_string(bpno_plus_one) + " bit-planes");
     int passtype = 2;
     mq.reset_states();
     size_t off = 0;
@@ -1554,7 +1555,7 @@ void TileDecoder::mct_and_shift() {
       const TileComp& b = comps[k];
       if (b.numres != a.numres || b.resno_decoded != a.resno_decoded ||
           size_t(b.x1 - b.x0) * size_t(b.y1 - b.y0) != n) {
-        fail("a colour transform over components of different sizes");
+        fail("JPEG 2000: a colour transform over components of different sizes");
       }
     }
     Px *c0 = comps[0].data.data(), *c1 = comps[1].data.data(), *c2 = comps[2].data.data();
@@ -1650,7 +1651,7 @@ std::vector<uint8_t> merged_ppm(const Codestream& cs) {
     out.insert(out.end(), m.begin(), m.begin() + at);
     remaining -= at;
     while (at < m.size()) {
-      if (m.size() - at < 4) fail("PPM marker without room for Nppm");
+      if (m.size() - at < 4) fail("JPEG 2000: PPM marker without room for Nppm");
       const uint32_t n = uint32_t(m[at]) << 24 | m[at + 1] << 16 | m[at + 2] << 8 | m[at + 3];
       at += 4;
       const size_t take = std::min<size_t>(n, m.size() - at);
@@ -1746,7 +1747,7 @@ bool next_box(const Bytes& b, size_t at, size_t end, Box& box) {
   } else if (len == 0) {
     full = end - at;
   }
-  if (full < hlen || full > end - at) fail("invalid box length");
+  if (full < hlen || full > end - at) fail("JPEG 2000: invalid box length");
   box.body = at + hlen;
   box.end = at + size_t(full);
   return true;
@@ -1780,7 +1781,7 @@ void codestream_mode(const Bytes& b, size_t at, Jp2& j) {
   } else if (nc == 4) {
     j.mode = "RGBA";
   } else {
-    fail("unable to determine J2K image mode (" + std::to_string(nc) + " components)");
+    fail("JPEG 2000: unable to determine J2K image mode (" + std::to_string(nc) + " components)");
   }
 }
 
@@ -1793,29 +1794,29 @@ struct Jp2Checks {
     const size_t len = sub.end - sub.body;
     if (sub.type == fourcc("ihdr")) {
       if (ihdr) return;  // later ihdr boxes are ignored
-      if (len != 14) fail("bad ihdr box size");
+      if (len != 14) fail("JPEG 2000: bad ihdr box size");
       if (b.be32(sub.body) == 0 || b.be32(sub.body + 4) == 0 || b.be16(sub.body + 8) == 0) {
-        fail("ihdr with a zero size or no components");
+        fail("JPEG 2000: ihdr with a zero size or no components");
       }
       ihdr = true;
     } else if (sub.type == fourcc("colr")) {
-      if (len < 3 || (b.u8(sub.body) == 1 && len < 7)) fail("bad colr box size");
+      if (len < 3 || (b.u8(sub.body) == 1 && len < 7)) fail("JPEG 2000: bad colr box size");
     } else if (sub.type == fourcc("pclr")) {
-      if (pclr || len < 3) fail("bad pclr box");
+      if (pclr || len < 3) fail("JPEG 2000: bad pclr box");
       const uint32_t ne = b.be16(sub.body), npc = b.u8(sub.body + 2);
-      if (ne == 0 || ne > 1024 || npc == 0) fail("pclr box with " + std::to_string(ne) +
+      if (ne == 0 || ne > 1024 || npc == 0) fail("JPEG 2000: pclr box with " + std::to_string(ne) +
                                                    " entries of " + std::to_string(npc) + " columns");
-      if (len < 3 + npc) fail("bad pclr box");
+      if (len < 3 + npc) fail("JPEG 2000: bad pclr box");
       size_t need = 3 + npc;
       for (uint32_t k = 0; k < npc; ++k) {
         need += size_t(ne) * std::min<size_t>(4, ((b.u8(sub.body + 3 + k) & 0x7F) + 8) >> 3);
       }
-      if (len < need) fail("pclr box is truncated");
+      if (len < need) fail("JPEG 2000: pclr box is truncated");
       pclr = true;
       pclr_columns = npc;
     } else if (sub.type == fourcc("cmap")) {
-      if (!pclr) fail("cmap box before its pclr box");
-      if (cmap || len != 4 * pclr_columns) fail("bad cmap box");
+      if (!pclr) fail("JPEG 2000: cmap box before its pclr box");
+      if (cmap || len != 4 * pclr_columns) fail("JPEG 2000: bad cmap box");
       cmap = true;
     }
   }
@@ -1829,7 +1830,7 @@ Jp2 read_container(const Bytes& b) {
     j.cs_len = b.n;
     return j;
   }
-  if (b.n < 12 || std::memcmp(b.p, kJp2Signature, 12) != 0) fail("not a JPEG 2000 file");
+  if (b.n < 12 || std::memcmp(b.p, kJp2Signature, 12) != 0) fail("JPEG 2000: not a JPEG 2000 file");
   // PIL: the boxes up to jp2h, whose ihdr, colr and pclr give the mode.
   size_t at = 12;
   Box box;
@@ -1849,7 +1850,7 @@ Jp2 read_container(const Bytes& b) {
       while (next_box(b, hat, box.end, sub)) {
         checks.box(b, sub);
         if (sub.type == fourcc("ihdr")) {
-          if (sub.end - sub.body < 11) fail("Not enough data in header");
+          if (sub.end - sub.body < 11) fail("JPEG 2000: Not enough data in header");
           j.h = b.be32(sub.body);
           j.w = b.be32(sub.body + 4);
           nc = static_cast<int>(b.be16(sub.body + 8));
@@ -1882,14 +1883,17 @@ Jp2 read_container(const Bytes& b) {
           for (uint32_t k = 0; k < npc; ++k) maxbits = std::max(maxbits, int(b.p[sub.body + 3 + k]));
           if (maxbits <= 8) {
             // PIL reads each entry's npc bytes into a palette of getcolor
-            // calls; the port reads the entries as the file gives them.
-            if (npc != 3 && npc != 4) {
-              fail("palette of " + std::to_string(npc) + " columns (PIL maps it to black)");
-            }
-            if (sub.end - pat < size_t(ne) * npc) fail("Not enough data in header");
+            // calls; the port reads the entries as the file gives them. One
+            // or two columns, which PIL maps to black (ROADMAP, hazards),
+            // are grey and grey + alpha, as the file's one or two
+            // components would be.
+            if (npc > 4) fail("JPEG 2000: palette of " + std::to_string(npc) + " columns");
+            if (sub.end - pat < size_t(ne) * npc) fail("JPEG 2000: Not enough data in header");
             for (uint32_t e = 0; e < ne; ++e) {
-              std::array<uint8_t, 4> col{0, 0, 0, 255};
-              for (uint32_t k = 0; k < npc; ++k) col[k] = b.p[pat + size_t(e) * npc + k];
+              const uint8_t* c = b.p + pat + size_t(e) * npc;
+              std::array<uint8_t, 4> col{c[0], c[0], c[0], 255};
+              if (npc == 2) col[3] = c[1];
+              for (uint32_t k = 0; k < npc && npc >= 3; ++k) col[k] = c[k];
               j.palette.push_back(col);
             }
             std::vector<std::array<uint8_t, 4>> distinct;
@@ -1898,21 +1902,21 @@ Jp2 read_container(const Bytes& b) {
                 distinct.push_back(col);
               }
             }
-            if (distinct.size() > 256) fail("cannot allocate more than 256 colors");
+            if (npc >= 3 && distinct.size() > 256) fail("JPEG 2000: cannot allocate more than 256 colors");
             j.mode = j.mode == "L" ? "P" : "PA";
           }
         }
         hat = sub.end;
       }
-      if (!size_seen || j.mode.empty()) fail("Malformed JP2 header");
+      if (!size_seen || j.mode.empty()) fail("JPEG 2000: Malformed JP2 header");
       break;
     }
     at = box.end;
   }
-  if (!have_header) fail("no jp2h box");
-  if (!checks.ihdr) fail("no ihdr box");
+  if (!have_header) fail("JPEG 2000: no jp2h box");
+  if (!checks.ihdr) fail("JPEG 2000: no ihdr box");
   // OpenJPEG: ftyp second, then the codestream box after jp2h.
-  if (!ftyp_second) fail("the ftyp box must be the second box in the file");
+  if (!ftyp_second) fail("JPEG 2000: the ftyp box must be the second box in the file");
   at = box.end;
   bool found = false;
   while (next_box(b, at, b.n, box)) {
@@ -1924,7 +1928,7 @@ Jp2 read_container(const Bytes& b) {
     }
     at = box.end;
   }
-  if (!found) fail("no jp2c box");
+  if (!found) fail("JPEG 2000: no jp2c box");
   // OpenJPEG's colour space from the first colr box; any other value
   // leaves it unspecified.
   switch (enumcs) {
@@ -2037,7 +2041,7 @@ void unpack(const Codestream& cs, const Unpacker& u, const TileOut& t, int64_t i
   const int64_t w = t.x1 - t.x0, h = t.y1 - t.y0;
   if (t.x0 >= t.x1 || t.y0 >= t.y1 || x0 < 0 || y0 < 0 || t.x1 - img_x0 > im.w ||
       t.y1 - img_y0 > im.h) {
-    fail("a tile lies outside the image");
+    fail("JPEG 2000: a tile lies outside the image");
   }
   uint32_t* out = im.px.data();
   auto pix = [&](int64_t x, int64_t y) -> uint32_t& { return out[size_t((y0 + y) * im.w + x0 + x)]; };
@@ -2101,10 +2105,11 @@ void unpack(const Codestream& cs, const Unpacker& u, const TileOut& t, int64_t i
                              chs[k].shift) & 0xFF;
           }
           if (u.kind == 5 || u.kind == 7) {
-            const int yy = int(v[0]), cb = int(v[1]), cr = int(v[2]);
-            v[0] = clip8(yy + (kYcc.r_cr[cr] >> 6));
-            v[1] = clip8(yy + ((kYcc.g_cb[cb] + kYcc.g_cr[cr]) >> 6));
-            v[2] = clip8(yy + (kYcc.b_cb[cb] >> 6));
+            uint8_t rgb[3];
+            tracy_image::ycbcr_to_rgb(int(v[0]), int(v[1]), int(v[2]), rgb);
+            v[0] = rgb[0];
+            v[1] = rgb[1];
+            v[2] = rgb[2];
           }
           pix(x, y) = v[0] | v[1] << 8 | v[2] << 16 | v[3] << 24;
         }
@@ -2184,9 +2189,9 @@ void jpeg2000_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
     auto sub = [&](int c) { return cs.comps[c].dx != 1 || cs.comps[c].dy != 1; };
     space = nc <= 2 ? kGray : (!sub(0) && (sub(1) || sub(2))) ? kSycc : kSrgb;
   }
-  if (nc > 4) fail(std::to_string(nc) + " components");
+  if (nc > 4) fail(std::string("JPEG 2000: ") + std::to_string(nc) + " components");
   if (int64_t(cs.x1) - cs.x0 != j.w || int64_t(cs.y1) - cs.y0 != j.h) {
-    fail("the JP2 header's size differs from the codestream's");
+    fail("JPEG 2000: the JP2 header's size differs from the codestream's");
   }
   bool subsampled = false;
   for (const CompSiz& k : cs.comps) subsampled = subsampled || k.dx != 1 || k.dy != 1;
@@ -2198,7 +2203,7 @@ void jpeg2000_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
       break;
     }
   }
-  if (!u) fail("no unpacker for mode " + j.mode + " with " + std::to_string(nc) + " components");
+  if (!u) fail("JPEG 2000: no unpacker for mode " + j.mode + " with " + std::to_string(nc) + " components");
   PilImage im{j.w, j.h, j.mode, std::vector<uint32_t>(size_t(j.w) * size_t(j.h), 0)};
   std::vector<uint8_t> ppm = cs.has_ppm ? merged_ppm(cs) : std::vector<uint8_t>();
   size_t ppm_at = 0;
@@ -2212,6 +2217,12 @@ void jpeg2000_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
 }  // namespace
 
 namespace tracy_image {
+void ycbcr_to_rgb(int y, int cb, int cr, uint8_t* rgb) {
+  rgb[0] = clip8(y + (kYcc.r_cr[cr] >> 6));
+  rgb[1] = clip8(y + ((kYcc.g_cb[cb] + kYcc.g_cr[cr]) >> 6));
+  rgb[2] = clip8(y + (kYcc.b_cb[cb] >> 6));
+}
+
 bool jpeg2000_size(const uint8_t* p, size_t n, int64_t* w, int64_t* h) {
   const Size s = jpeg2000_header(Bytes{p, n, kFmt});
   *w = s.w;
@@ -2228,7 +2239,7 @@ int tracy_jpeg2000_info(const uint8_t* data, int64_t len, int* w, int* h) {
   return info(kFmt, data, len, w, h, jpeg2000_header);
 }
 int tracy_jpeg2000_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) {
-  return guarded([&] { jpeg2000_decode({data, static_cast<size_t>(len), kFmt}, out, w, h); });
+  return guarded(kFmt, [&] { jpeg2000_decode({data, static_cast<size_t>(len), kFmt}, out, w, h); });
 }
 
 }  // extern "C"

@@ -236,7 +236,7 @@ void pcx_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
 // DCX: u32 987654321, then page offsets up to a 0 (at most 1024); PIL opens
 // the first page.
 size_t dcx_page(const Bytes& b) {
-  if (b.n < 4 || le32(b.p) != 987654321u) not_format("not a DCX file");
+  if (b.n < 4 || le32(b.p) != 987654321u) not_format("DCX: not a DCX file");
   size_t first = 0;
   for (size_t i = 0; i < 1024; ++i) {
     const size_t at = 4 + 4 * i;
@@ -270,7 +270,7 @@ struct Sgi {
 
 Sgi sgi_head(const Bytes& b) {
   if (b.n < 12) not_format("SGI: header is truncated");
-  if (be16(b.p) != 474) not_format("not an SGI file");
+  if (be16(b.p) != 474) not_format("SGI: not an SGI file");
   const int compression = b.p[2], bpc = b.p[3];
   const int dimension = static_cast<int>(be16(b.p + 4)), zsize = static_cast<int>(be16(b.p + 10));
   Sgi m{static_cast<int64_t>(be16(b.p + 6)), static_cast<int64_t>(be16(b.p + 8)), bpc, 0,
@@ -388,7 +388,7 @@ struct Sun {
 };
 
 Sun sun_head(const Bytes& b) {
-  if (b.n < 32 || be32(b.p) != 0x59a66a95u) not_format("not a Sun raster file");
+  if (b.n < 32 || be32(b.p) != 0x59a66a95u) not_format("Sun raster: not a Sun raster file");
   Sun m{};
   m.w = be32(b.p + 4);
   m.h = be32(b.p + 8);
@@ -494,7 +494,7 @@ struct Msp {
 
 Msp msp_head(const Bytes& b) {
   if (b.n < 4 || !(std::memcmp(b.p, "DanM", 4) == 0 || std::memcmp(b.p, "LinS", 4) == 0)) {
-    not_format("not an MSP file");
+    not_format("MSP: not an MSP file");
   }
   if (b.n < 32) not_format("MSP: header is truncated");
   uint32_t sum = 0;
@@ -556,7 +556,7 @@ void msp_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
 // ---------------------------------------------------------------- IM
 
 // ImImagePlugin's OPEN table: image type -> (mode, rawmode). The port
-// refuses RGB;T, RYB;T, RLB, YCC and B2/B4 without a Lut by name.
+// refuses RLB by name, as PIL does (it has no unpacker for it).
 const std::map<std::string, std::pair<std::string, std::string>>& im_types() {
   static const std::map<std::string, std::pair<std::string, std::string>> t = [] {
     std::map<std::string, std::pair<std::string, std::string>> m = {
@@ -610,7 +610,8 @@ int im_raw_bits(const std::string& raw) {
       {"RGBA;L", 32},  {"RGBX;L", 32},  {"LA;L", 16},    {"PA;L", 16},    {"CMYK;L", 32},
       {"F;8", 8},      {"F;8S", 8},     {"F;16", 16},    {"F;16S", 16},   {"F;32", 32},
       {"F;32F", 32},   {"I;16", 16},    {"I;16L", 16},   {"I;16B", 16},   {"I;32S", 32},
-      {"I;32", 32}};
+      {"I;32", 32},    {"YCbCr;L", 24}, {"P;2", 2},      {"P;4", 4},      {"RGB;T", 24},
+      {"RYB;T", 24}};
   const auto it = bits.find(raw);
   return it == bits.end() ? 0 : it->second;
 }
@@ -623,7 +624,7 @@ struct Im {
 };
 
 Im im_head(const Bytes& b) {
-  if (std::memchr(b.p, '\n', std::min<size_t>(b.n, 100)) == nullptr) not_format("not an IM file");
+  if (std::memchr(b.p, '\n', std::min<size_t>(b.n, 100)) == nullptr) not_format("IM: not an IM file");
   std::string mode = "L", raw = "L";
   std::string size_text;  // the "Image size (x*y)" value, if any
   bool lut = false;
@@ -690,7 +691,7 @@ Im im_head(const Bytes& b) {
                                   "Image size (x*y)", "Image type"};
     for (const char* t : kTags) tags += k == t;
   }
-  if (!tags) not_format("not an IM file");
+  if (!tags) not_format("IM: not an IM file");
   Im m{512, 512, mode, raw, Palette{}, 0};
   if (!size_text.empty()) {
     std::vector<std::pair<bool, int64_t>> nums;
@@ -773,8 +774,19 @@ void im_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
   const int bits = im_raw_bits(m.raw);
   if (m.raw[0] == 'F' && bits != 8 && bits != 16 && bits != 32) return im_bit_rows(b, m, bits, out);
   const int64_t w = m.w, h = m.h, row = (w * bits + 7) / 8;
-  const uint8_t* rows = raw_rows(b, m.data, h, row, row);
   const std::string& r = m.raw;
+  if (r == "RGB;T" || r == "RYB;T") {
+    // Old LabEye/3PC files: three whole planes, green, red, blue, each
+    // bottom row first (RYB;T read as RGB;T, as PIL reads it).
+    const uint8_t* g = raw_rows(b, m.data, 3 * h, w, w);
+    const uint8_t *red = g + w * h, *blue = red + w * h;
+    for (int64_t y = 0; y < h; ++y) {
+      const int64_t s = (h - 1 - y) * w;
+      for (int64_t x = 0; x < w; ++x) put(out + 4 * (y * w + x), red[s + x], g[s + x], blue[s + x], 255);
+    }
+    return;
+  }
+  const uint8_t* rows = raw_rows(b, m.data, h, row, row);
   for (int64_t y = 0; y < h; ++y) {
     const uint8_t* s = rows + (h - 1 - y) * row;  // PIL reads IM bottom row first
     uint8_t* o = out + 4 * y * w;
@@ -782,6 +794,12 @@ void im_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
       if (r == "1") put_grey(o, bit_msb(s, x) ? 255 : 0);
       else if (r == "L") put_grey(o, s[x]);
       else if (r == "P") m.pal.put(o, s[x]);
+      else if (r == "P;2" || r == "P;4") put(o, 0, 0, 0, 255);  // PIL's empty palette: black
+      else if (r == "YCbCr;L") {
+        uint8_t rgb[3];
+        tracy_image::ycbcr_to_rgb(s[x], s[w + x], s[2 * w + x], rgb);
+        put(o, rgb[0], rgb[1], rgb[2], 255);
+      }
       else if (r == "RGB;L") put(o, s[x], s[w + x], s[2 * w + x], 255);
       else if (r == "RGB") put(o, s[3 * x], s[3 * x + 1], s[3 * x + 2], 255);
       else if (r == "RGBA;L") put(o, s[x], s[w + x], s[2 * w + x], s[3 * w + x]);
@@ -844,7 +862,7 @@ size_t after_define(const std::string& s, size_t i) {
 Xbm xbm_head(const Bytes& b) {
   const std::string head = str(b.p, std::min<size_t>(b.n, 512));
   const size_t lead = head.find_first_not_of(" \t\n\r\x0b\x0c");
-  if (lead == std::string::npos || head.compare(lead, 7, "#define") != 0) not_format("not an XBM file");
+  if (lead == std::string::npos || head.compare(lead, 7, "#define") != 0) not_format("XBM: not an XBM file");
   const size_t bits = head.rfind("_bits[]");
   // (value, end) of each match of "#define[ \t]+.*<key>[ \t]+([0-9]+)[\r\n]+"
   // at i, the last key on the line first.
@@ -956,7 +974,7 @@ struct Xpm {
 };
 
 Xpm xpm_head(const Bytes& b) {
-  if (b.n < 9 || std::memcmp(b.p, "/* XPM */", 9) != 0) not_format("not an XPM file");
+  if (b.n < 9 || std::memcmp(b.p, "/* XPM */", 9) != 0) not_format("XPM: not an XPM file");
   size_t pos = 9;
   // The first line that starts as "([0-9]*) ([0-9]*) ([0-9]*) ([0-9]*)
   std::string line, fields[4];
@@ -1069,7 +1087,7 @@ void xpm_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
 // ---------------------------------------------------------------- PIXAR
 
 Size pixar_header(const Bytes& b) {
-  if (b.n < 4 || std::memcmp(b.p, "\x80\xe8\0\0", 4) != 0) not_format("not a PIXAR file");
+  if (b.n < 4 || std::memcmp(b.p, "\x80\xe8\0\0", 4) != 0) not_format("PIXAR: not a PIXAR file");
   if (b.n < 428) not_format("PIXAR: header is truncated");
   const Size s{le16(b.p + 418), le16(b.p + 416)};
   const uint32_t a = le16(b.p + 424), c = le16(b.p + 426);
@@ -1120,7 +1138,7 @@ Spider spider_head(const Bytes& b) {
     for (int i = 0; i < 27; ++i) h[i + 1] = f32(big ? be32(b.p + 4 * i) : le32(b.p + 4 * i));
     label = spider_label(h);
   }
-  if (label == 0) not_format("not a SPIDER file");
+  if (label == 0) not_format("SPIDER: not a SPIDER file");
   if (static_cast<int64_t>(h[5]) != 1) not_format("SPIDER: not a 2D image");
   for (int i : {24, 27}) {
     if (!std::isfinite(h[i])) fail("SPIDER: header value " + std::to_string(i) + " is not a number");
@@ -1178,7 +1196,7 @@ int64_t fits_int(const std::map<std::string, std::string>& hd, const std::string
 // FitsImageFile._open: 80-byte cards, headers merged across HDUs until one
 // gives an image size (a GZIP_1 tile-compressed BINTABLE gives its ZNAXIS).
 Fits fits_head(const Bytes& b) {
-  if (b.n < 6 || std::memcmp(b.p, "SIMPLE", 6) != 0) not_format("not a FITS file");
+  if (b.n < 6 || std::memcmp(b.p, "SIMPLE", 6) != 0) not_format("FITS: not a FITS file");
   std::map<std::string, std::string> hd;
   bool in_progress = false, found = false;
   Fits m{0, 0, 0, false, 0, 1.0, 0.0};
@@ -1246,7 +1264,7 @@ Fits fits_head(const Bytes& b) {
     value = strip(value.substr(0, value.find('/')));
     if (!value.empty() && value[0] == '=') value = strip(value.substr(1));
     if (hd.empty() && (keyword.compare(0, 6, "SIMPLE") != 0 || value != "T")) {
-      not_format("not a FITS file");
+      not_format("FITS: not a FITS file");
     }
     hd[keyword] = value;
   }
@@ -1392,7 +1410,7 @@ struct Gbr {
 
 Gbr gbr_head(const Bytes& b) {
   if (b.n < 8 || be32(b.p) < 20 || !(be32(b.p + 4) == 1 || be32(b.p + 4) == 2)) {
-    not_format("not a GIMP brush");
+    not_format("GBR: not a GIMP brush");
   }
   if (b.n < 20) not_format("GBR: header is truncated");
   const uint32_t header = be32(b.p), version = be32(b.p + 4);
@@ -1436,7 +1454,7 @@ struct McIdas {
 
 McIdas mcidas_head(const Bytes& b) {
   static const uint8_t magic[8] = {0, 0, 0, 0, 0, 0, 0, 4};
-  if (b.n < 8 || std::memcmp(b.p, magic, 8) != 0) not_format("not a McIdas area file");
+  if (b.n < 8 || std::memcmp(b.p, magic, 8) != 0) not_format("McIdas: not a McIdas area file");
   if (b.n < 256) not_format("McIdas: area directory is truncated");
   const auto word = [&](int i) { return static_cast<int64_t>(static_cast<int32_t>(be32(b.p + 4 * (i - 1)))); };
   const int64_t bytes = word(11);
@@ -1477,7 +1495,7 @@ struct XvThumb {
 };
 
 XvThumb xvthumb_head(const Bytes& b) {
-  if (b.n < 6 || std::memcmp(b.p, "P7 332", 6) != 0) not_format("not an XV thumbnail");
+  if (b.n < 6 || std::memcmp(b.p, "P7 332", 6) != 0) not_format("XV thumbnail: not an XV thumbnail");
   size_t pos = 6;
   read_line(b, &pos);  // the rest of the first line
   std::string s;
@@ -1524,7 +1542,7 @@ struct Imt {
 // "pixel n8" gives a mode (L).
 Imt imt_head(const Bytes& b) {
   size_t fp = std::min<size_t>(b.n, 100);  // what has been read
-  if (std::memchr(b.p, '\n', fp) == nullptr) not_format("not an IM Tools file");
+  if (std::memchr(b.p, '\n', fp) == nullptr) not_format("IM Tools: not an IM Tools file");
   size_t pos = 0;  // the start of the unread buffer
   Imt m{0, 0, false, 0};
   bool grey = false;
@@ -1836,7 +1854,7 @@ const int16_t kYccGR[256] = {
     -94, -95, -96, -97, -98, -99, -100, -101, -102, -103, -104, -105, -106, -107, -107, -108};
 
 Size pcd_header(const Bytes& b) {
-  if (b.n < 2048 + 4 || std::memcmp(b.p + 2048, "PCD_", 4) != 0) not_format("not a Photo CD file");
+  if (b.n < 2048 + 4 || std::memcmp(b.p + 2048, "PCD_", 4) != 0) not_format("PCD: not a Photo CD file");
   if (b.n < 2048 + 1539) not_format("PCD: header is truncated");
   const int orientation = b.p[2048 + 1538] & 3;
   return orientation == 1 || orientation == 3 ? Size{512, 768} : Size{768, 512};
@@ -1886,7 +1904,7 @@ Fli fli_head(const Bytes& b) {
   const uint8_t* s = b.p;
   if (b.n < 16 || !(le16(s + 4) == 0xAF11 || le16(s + 4) == 0xAF12) ||
       !(le16(s + 14) == 0 || le16(s + 14) == 3)) {
-    not_format("not an FLI/FLC file");
+    not_format("FLI: not an FLI/FLC file");
   }
   if (b.n < 128) not_format("FLI: header is truncated");
   const auto zeros = [&](size_t a, size_t e) {
@@ -1895,7 +1913,7 @@ Fli fli_head(const Bytes& b) {
     }
     return true;
   };
-  if (!zeros(20, 22) || !zeros(42, 80) || !zeros(88, 128)) not_format("not an FLI/FLC file");
+  if (!zeros(20, 22) || !zeros(42, 80) || !zeros(88, 128)) not_format("FLI: not an FLI/FLC file");
   Fli m{le16(s + 8), le16(s + 10), Palette::grey()};
   if (le16(s + 6) == 0) not_format("FLI: no frame");
   // The palette (struct and index errors make Image.open try its next
@@ -2114,7 +2132,7 @@ extern "C" {
     return info(NAME, data, len, w, h, fmt##_header);                                \
   }                                                                                  \
   int tracy_##fmt##_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) { \
-    return guarded([&] { fmt##_decode({data, static_cast<size_t>(len), NAME}, out, w, h); }); \
+    return guarded(NAME, [&] { fmt##_decode({data, static_cast<size_t>(len), NAME}, out, w, h); }); \
   }
 
 // Width and height of each format's image (3: not a file of the format, as
@@ -2144,7 +2162,7 @@ TRACY_LEGACY(fli, "FLI")
 // start and length of the k-th (8, 10) field's data, *count of them.
 int tracy_iptc_stream(const uint8_t* data, int64_t len, int64_t* meta, int64_t* spans,
                       int64_t cap, int64_t* count) {
-  return guarded([&] { iptc_stream({data, static_cast<size_t>(len), "IPTC"}, meta, spans, cap, count); });
+  return guarded("IPTC", [&] { iptc_stream({data, static_cast<size_t>(len), "IPTC"}, meta, spans, cap, count); });
 }
 
 }  // extern "C"

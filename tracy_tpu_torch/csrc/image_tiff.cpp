@@ -67,6 +67,7 @@
 
 #include "image_common.h"
 
+#include <cstdio>
 #include <map>
 
 namespace {
@@ -1355,7 +1356,26 @@ int tracy_tiff_info(const uint8_t* data, int64_t len, int* w, int* h) {
   return info("TIFF", data, len, w, h, tiff_header);
 }
 int tracy_tiff_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) {
-  return guarded([&] { tiff_decode({data, static_cast<size_t>(len), "TIFF"}, out, w, h); });
+  return guarded("TIFF", [&] { tiff_decode({data, static_cast<size_t>(len), "TIFF"}, out, w, h); });
+}
+// The mode PIL opens the first image in ("L", "I;16", "F", "RGB", ...; at
+// most cap - 1 characters), for IPTC's embedded streams, whose band and
+// conversion follow it (utils/image_io.py::_pil_mode).
+int tracy_tiff_mode(const uint8_t* data, int64_t len, char* mode, int cap) {
+  return guarded("TIFF", [&] {
+    const Tiff t = tiff_header({data, static_cast<size_t>(len), "TIFF"});
+    std::string m;
+    switch (t.kind) {
+      case kGrey: m = t.bits == 1 ? "1" : t.bits == 16 ? (t.le ? "I;16" : "I;16B") : "L"; break;
+      case kGreyAlpha: m = "LA"; break;
+      case kValue: m = t.format == 3 ? "F" : t.bits == 12 ? "I;16" : "I"; break;
+      case kRgb: m = t.alpha >= 0 ? "RGBA" : "RGB"; break;
+      case kPalette: m = t.alpha >= 0 ? "PA" : "P"; break;
+      case kCmyk: m = "CMYK"; break;
+      case kLab: m = "LAB"; break;
+    }
+    std::snprintf(mode, static_cast<size_t>(cap), "%s", m.c_str());
+  });
 }
 
 }  // extern "C"

@@ -1961,7 +1961,7 @@ int tracy_webp_info(const uint8_t* data, int64_t len, int* w, int* h) {
   return info("WebP", data, len, w, h, webp_header);
 }
 int tracy_webp_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int h) {
-  return guarded([&] { webp_decode({data, static_cast<size_t>(len), "WebP"}, out, w, h); });
+  return guarded("WebP", [&] { webp_decode({data, static_cast<size_t>(len), "WebP"}, out, w, h); });
 }
 
 }  // extern "C"

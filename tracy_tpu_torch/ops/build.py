@@ -10,8 +10,10 @@ never at import.
 
 Flags: no FMA contraction (--fmad=false) and IEEE division and square root
 (nvcc's defaults, no fast math), so that a kernel and its plain PyTorch
-version round alike; `-Xptxas -v`, so that each kernel's registers and
-spills are kept in `LIBRARY.build_log`.
+version round alike (K6 asks for fmaf explicitly, and its plain version
+rounds each as the card does); `-Xptxas -v`, so that each kernel's
+registers and spills are kept in `LIBRARY.build_log` (and in
+`<source>.log` beside the library, for a cached build).
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ class KernelLibrary:
         self._lib: Optional[ctypes.CDLL] = None
         self.path = ""
         self.build_seconds: Dict[str, float] = {}  # per source; empty if cached
-        self.build_log: Dict[str, str] = {}  # per source: nvcc's output
+        self.build_log: Dict[str, str] = {}  # per source: nvcc's output, kept beside the library
 
     def get(self) -> ctypes.CDLL:
         with self._lock:
@@ -87,6 +89,11 @@ class KernelLibrary:
         self.path = os.path.join(out_dir, "libtracy_kernels.so")
         if not os.path.exists(self.path):
             self._build(out_dir)
+        for name in SOURCES:
+            log = os.path.join(out_dir, name + ".log")
+            if name not in self.build_log and os.path.exists(log):
+                with open(log) as f:
+                    self.build_log[name] = f.read()
         lib = ctypes.CDLL(self.path)
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
@@ -115,6 +122,10 @@ class KernelLibrary:
                 raise RuntimeError("\n".join(failed))
             so = os.path.join(tmp, "libtracy_kernels.so")
             _run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs])
+            for name in SOURCES:
+                with open(os.path.join(tmp, name + ".log"), "w") as f:
+                    f.write(self.build_log[name])
+                os.replace(os.path.join(tmp, name + ".log"), os.path.join(out_dir, name + ".log"))
             os.replace(so, self.path)
 
 

@@ -2,34 +2,41 @@
 
     python -m tracy_tpu_torch.tools.micro [--iters 2000] [--variants v0,vd,...]
 
-The Hopper counterpart of tools/tpu_micro.py. One thread per ray, for
-enough rays to fill an H100 (132 SMs x 2048 threads = 270,336), does
-`iters` visits of leaf (iteration % 31), drawn from 31 random 8-triangle
-leaves in K1's tri / tri_meta layout, made from a seed with numpy. The
-variants (csrc/micro.cu) add one building block each: v0 the empty loop,
-vd the triangle loads, vmt K1's Möller–Trumbore, vacc the winner's
-(t, slot, u, v), vred a warp vote on improvement feeding a per-warp
-counter, vres vacc plus resolving the winner's material and normal.
+The Hopper counterpart of tools/tpu_micro.py. Each of enough rays to fill
+an H100 (132 SMs x 2048 threads = 270,336) does `iters` visits of leaf
+(iteration % 31), drawn from 31 random 8-triangle leaves in K1's tri /
+tri_meta layout, made from a seed with numpy. The variants (csrc/micro.cu)
+add one building block each: v0 the empty loop, vd the triangle loads, vmt
+K1's Möller–Trumbore, vacc the winner's (t, slot, u, v), vred a warp vote
+on improvement feeding a per-warp counter, vres vacc plus resolving the
+winner's material and normal.
+
+The kernel's test contracts each product-sum into fmaf; `micro_plain`
+rounds each of them as the card does (core/math.py::fma).
 
 Each variant is checked against `micro_plain`, its PyTorch version, and
 timed with CUDA events; the module prints nanoseconds per iteration (all
-rays together) and per ray-visit. `micro` is the wrapper: on CUDA tensors
-it launches the kernel, on CPU tensors, and only there, it runs
+rays together) and per ray-visit, and each kernel's registers and spills
+from nvcc's -Xptxas -v. `micro` is the wrapper: on CUDA tensors it
+launches the kernel, on CPU tensors, and only there, it runs
 `micro_plain`.
 """
 
 from __future__ import annotations
 
 import argparse
+import re
+import subprocess
 import sys
+import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from tracy_tpu_torch.core.math import EPS, fma
 from tracy_tpu_torch.ops.build import LIBRARY
 from tracy_tpu_torch.ops.compare import OPS_TRI_TEST, bound_ms, nbytes
-from tracy_tpu_torch.ops.intersect import moller_trumbore
 from tracy_tpu_torch.ops.launch import LaunchCount, check, raise_on_error
 from tracy_tpu_torch.render.intersect import FLT_MAX
 from tracy_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
@@ -135,6 +142,37 @@ def micro(variant: str, rays, leaves: Leaves, iters: int = ITERS):
     return out, count
 
 
+def _front(o, d, tri):
+    """csrc/micro.cu::front of ray k against slot k (tri rows of 12), each
+    fmaf rounded once (`fma`): (det, u, v, q)."""
+    ox, oy, oz = o.unbind(1)
+    dx, dy, dz = d.unbind(1)
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = (tri[:, k] for k in (0, 1, 2, 4, 5, 6, 8, 9, 10))
+    px = fma(dy, e2z, -(dz * e2y))
+    py = fma(dz, e2x, -(dx * e2z))
+    pz = fma(dx, e2y, -(dy * e2x))
+    det = fma(e1x, px, fma(e1y, py, e1z * pz))
+    tx, ty, tz = ox - p0x, oy - p0y, oz - p0z
+    u = fma(tx, px, fma(ty, py, tz * pz))
+    qx = fma(ty, e1z, -(tz * e1y))
+    qy = fma(tz, e1x, -(tx * e1z))
+    qz = fma(tx, e1y, -(ty * e1x))
+    v = fma(dx, qx, fma(dy, qy, dz * qz))
+    return det, u, v, (qx, qy, qz)
+
+
+def moller_trumbore_fma(o, d, tri, best_t):
+    """csrc/micro.cu's test (front, then back) of ray k against slot k:
+    ops/intersect.py::moller_trumbore with each product-sum fused as the
+    kernel fuses it, every fmaf rounded once. Returns (valid, t, u, v)."""
+    det, u, v, (qx, qy, qz) = _front(o, d, tri)
+    inv_det = 1.0 / det
+    t = fma(tri[:, 8], qx, fma(tri[:, 9], qy, tri[:, 10] * qz)) * inv_det
+    valid = ((det > EPS) & (u >= EPS) & (u <= det) & (v >= EPS) & (u + v <= det)
+             & (t > EPS) & (t < best_t))
+    return valid, t, u * inv_det, v * inv_det
+
+
 def micro_plain(variant: str, rays, leaves: Leaves, iters: int = ITERS):
     """The kernel's outputs in PyTorch. A strict-< winner cannot change when
     a leaf comes round again, so one pass over the leaves in visit order
@@ -166,7 +204,7 @@ def micro_plain(variant: str, rays, leaves: Leaves, iters: int = ITERS):
     improved = torch.zeros((n, visits), dtype=torch.bool, device=dev)
     for leaf in range(visits):
         for s in range(leaf * LEAF_SIZE, (leaf + 1) * LEAF_SIZE):
-            ok, t, u, v = moller_trumbore(o, d, leaves.tri[s].expand(n, 12), best_t)
+            ok, t, u, v = moller_trumbore_fma(o, d, leaves.tri[s].expand(n, 12), best_t)
             best_t = torch.where(ok, t, best_t)
             best = torch.where(ok, s, best)
             bu = torch.where(ok, u, bu)
@@ -208,6 +246,21 @@ def check_variant(variant: str, rays, leaves: Leaves, iters: int = ITERS) -> Dic
     return res
 
 
+def kernel_resources(log: str) -> Dict[str, Dict[str, int]]:
+    """Registers, stack frame and spill-store bytes of each instance of
+    csrc/micro.cu's kernel in nvcc's -Xptxas -v output (ops/build.py's
+    LIBRARY.build_log["micro.cu"]), by variant."""
+    out = {}
+    for fn, stack, spill, regs in re.findall(
+            r"Function properties for (\S*micro_kernel\S*)\s+(\d+) bytes stack frame, (\d+) "
+            r"bytes spill stores.*?Used (\d+) registers", log, re.S):
+        m = re.search(r"micro_kernelILi(\d+)EE", fn)
+        if m:
+            out[VARIANTS[int(m.group(1))]] = {
+                "registers": int(regs), "stack": int(stack), "spill_stores": int(spill)}
+    return out
+
+
 def bound(rays, leaves: Leaves, iters: int = ITERS) -> Dict[str, object]:
     """vres' least time on an H100 (ops/compare.py::bound_ms): every visit
     tests LEAF_SIZE triangles, each at least OPS_TRI_TEST operations; the
@@ -218,9 +271,9 @@ def bound(rays, leaves: Leaves, iters: int = ITERS) -> Dict[str, object]:
 
 
 def time_variant(variant: str, rays, leaves: Leaves, iters: int = ITERS,
-                 reps: int = 3) -> Dict[str, float]:
-    """CUDA-event time of one launch (after a warm-up), and ns per
-    iteration (all rays together) and per ray-visit."""
+                 reps: int = 10) -> Dict[str, float]:
+    """CUDA-event time of one launch (the mean of `reps` after a warm-up),
+    and ns per iteration (all rays together) and per ray-visit."""
     fn = lambda: micro(variant, rays, leaves, iters)  # noqa: E731
     fn()
     torch.cuda.synchronize()
@@ -235,6 +288,57 @@ def time_variant(variant: str, rays, leaves: Leaves, iters: int = ITERS,
             "ns_per_ray_visit": ms * 1e6 / (iters * rays.shape[0])}
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    try:
+        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=30).stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError):
+        return f"{torch.cuda.get_device_name(0)}, power limit not read"
+
+
+def inside_share(rays, leaves: Leaves) -> float:
+    """The share of warp-wide triangle tests in which some ray of the warp
+    lies inside the triangle (u >= eps, v >= eps, u + v <= det, rounded as
+    the kernel rounds them): how often a warp takes the test's branch."""
+    n = rays.shape[0]
+    o, d = rays[:, 0:3], rays[:, 3:6]
+    taken = 0
+    for s in range(leaves.tri.shape[0]):
+        det, u, v, _ = _front(o, d, leaves.tri[s].expand(n, 12))
+        inside = (u >= EPS) & (v >= EPS) & (u + v <= det)
+        taken += int(inside.view(n // WARP, WARP).any(dim=1).sum())
+    return taken / (n // WARP * leaves.tri.shape[0])
+
+
+def sm_clock(fn, seconds: float = 2.0) -> Dict[str, float]:
+    """The card's SM clock (MHz, nvidia-smi sampled every 50 ms) while fn()
+    runs back to back for about `seconds`: the clock a time is to be read
+    against, in issue slots."""
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                            "-lms", "50"], stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    mhz = [float(v) for v in out.split() if v.replace(".", "").isdigit()]
+    mhz = mhz[len(mhz) // 4:] or [float("nan")]  # the samples after the clock settles
+    return {"mhz_median": float(np.median(mhz)), "mhz_min": min(mhz), "mhz_max": max(mhz)}
+
+
+def issue_slots(ms: float, mhz: float, rays: int, iters: int = ITERS) -> float:
+    """Warp-instruction issue slots of an H100 (132 SMs x 4 schedulers, one
+    a clock each) in `ms` at `mhz`, per warp-wide triangle test."""
+    return ms * 1e-3 * mhz * 1e6 * 132 * 4 / (rays / WARP * iters * LEAF_SIZE)
+
+
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=ITERS)
@@ -247,14 +351,26 @@ def main(argv: Optional[list] = None) -> int:
     dev = torch.device("cuda", 0)
     leaves = make_leaves(device=dev)
     rays = make_rays(args.rays, device=dev)
-    print(f"micro: {torch.cuda.get_device_name(0)}, {args.rays} rays x {args.iters} "
-          f"visits of {NUM_LEAVES} leaves of {LEAF_SIZE} triangles")
+    print(f"micro: {card()}; {args.rays} rays x {args.iters} visits of {NUM_LEAVES} leaves "
+          f"of {LEAF_SIZE} triangles")
     for v in args.variants.split(","):
         c = check_variant(v, rays, leaves, args.iters)
         t = time_variant(v, rays, leaves, args.iters)
-        print(f"  {v:5s} {t['ns_per_iter']:10.3f} ns/iter ({t['ns_per_ray_visit']:.5f} ns per "
-              f"ray-visit, {t['ms']:.3f} ms a launch); equal to plain: "
+        print(f"  {v:5s} {t['ns_per_iter']:10.3f} ns/iter ({t['ns_per_ray_visit']:.6f} "
+              f"ns per ray-visit, {t['ms']:.4f} ms a launch); equal to plain: "
               f"{c['outputs_equal'] and c['counts_equal']}")
+    b = bound(rays, leaves, args.iters)
+    print(f"  vres bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    clock = sm_clock(lambda: micro("vres", rays, leaves, args.iters))
+    t = time_variant("vres", rays, leaves, args.iters)
+    print(f"  vres {t['ms']:.4f} ms at SM clock {clock['mhz_median']:.0f} MHz (median of "
+          f"nvidia-smi's samples, {clock['mhz_min']:.0f}-{clock['mhz_max']:.0f}) over 2 s: "
+          f"{issue_slots(t['ms'], clock['mhz_median'], args.rays, args.iters):.1f} issue slots "
+          f"per warp-wide triangle test; {inside_share(rays, leaves):.4f} of those tests have a "
+          f"ray inside the triangle")
+    for name, r in kernel_resources(LIBRARY.build_log.get("micro.cu", "")).items():
+        print(f"  {name}: {r['registers']} registers, {r['stack']} B stack, "
+              f"{r['spill_stores']} B spilled")
     return 0
 
 

@@ -135,12 +135,13 @@ def _png_chunks(data: bytes):
     return header, plte, trns, b"".join(idat)
 
 
-def _decode_error(lib, what: str, code: int):
+def _decode_error(lib, code: int):
     """Raise for a decoder's return code: 1 (the file's fault) and 3 (not a
     file of the format) as ValueError, 2 (a failure inside the decoder) as
-    RuntimeError."""
+    RuntimeError, with the C source's message, which starts with the format
+    ("IM: ...", "Sun raster: ...")."""
     if code != 0:
-        msg = f"{what}: {lib.tracy_decode_error().decode(errors='replace')}"
+        msg = lib.tracy_decode_error().decode(errors="replace")
         raise RuntimeError(msg) if code == 2 else ValueError(msg)
 
 
@@ -164,7 +165,7 @@ def _png_rgba(data: bytes):
                                 plte or None, len(plte), trns or None, len(trns),
                                 out.ctypes.data)
     del buf
-    _decode_error(lib, "PNG", code)
+    _decode_error(lib, code)
     return out, ctype, bool(trns)
 
 
@@ -194,17 +195,16 @@ def decode_jpeg(data: bytes, four_as_cmyk: bool = False) -> np.ndarray:
     if w * h > MAX_PIXELS:
         raise ValueError(f"JPEG: {w}x{h} pixels not read")
     out = np.empty((h, w, 4), np.uint8)
-    _decode_error(lib, "JPEG", lib.tracy_jpeg_decode(data, len(data), out.ctypes.data, w, h,
-                                                     int(four_as_cmyk)))
+    _decode_error(lib, lib.tracy_jpeg_decode(data, len(data), out.ctypes.data, w, h,
+                                             int(four_as_cmyk)))
     return out
 
 
 def _jpeg_info(lib, data: bytes):
     """(width, height, components) of a JPEG file."""
     w, h, comps, prog = (ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int())
-    _decode_error(lib, "JPEG", lib.tracy_jpeg_info(data, len(data), ctypes.byref(w),
-                                                   ctypes.byref(h), ctypes.byref(comps),
-                                                   ctypes.byref(prog)))
+    _decode_error(lib, lib.tracy_jpeg_info(data, len(data), ctypes.byref(w), ctypes.byref(h),
+                                           ctypes.byref(comps), ctypes.byref(prog)))
     return w.value, h.value, comps.value
 
 
@@ -319,7 +319,7 @@ def _native_size(lib, fmt: str, data: bytes):
     MAX_PIXELS."""
     w, h = ctypes.c_int(), ctypes.c_int()
     info = getattr(lib, f"tracy_{fmt}_info")
-    _decode_error(lib, fmt.upper(), info(data, len(data), ctypes.byref(w), ctypes.byref(h)))
+    _decode_error(lib, info(data, len(data), ctypes.byref(w), ctypes.byref(h)))
     return w.value, h.value
 
 
@@ -331,7 +331,7 @@ def _decode_native(fmt: str, data: bytes) -> np.ndarray:
     w, h = _native_size(lib, fmt, data)
     out = np.empty((h, w, 4), np.uint8)
     decode = getattr(lib, f"tracy_{fmt}_decode")
-    _decode_error(lib, fmt.upper(), decode(data, len(data), out.ctypes.data, w, h))
+    _decode_error(lib, decode(data, len(data), out.ctypes.data, w, h))
     return out
 
 
@@ -341,7 +341,7 @@ def _embedded_stream(fmt: str, data: bytes):
     when that entry is pixels of the container's own."""
     lib = get_image_lib()
     parts = (ctypes.c_int64 * 4)()
-    _decode_error(lib, fmt.upper(), getattr(lib, f"tracy_{fmt}_stream")(data, len(data), parts))
+    _decode_error(lib, getattr(lib, f"tracy_{fmt}_stream")(data, len(data), parts))
     if parts[1] == 0:
         return None
     return data[parts[0]:parts[0] + parts[1]] + data[parts[2]:parts[2] + parts[3]]
@@ -360,18 +360,104 @@ def _blp_jpeg(data: bytes, stream: bytes) -> np.ndarray:
     return out
 
 
+# The formats of an IPTC image's embedded stream that the port reads, and
+# the mode PIL opens each in (`_pil_mode`).
+IPTC_STREAMS = ("jpeg", "pnm", "png", "bmp", "tiff", "gif", "webp")
+# PNM magic -> PIL's mode where it is not colour (PpmImagePlugin; P2/P5
+# above maxval 255 are I).
+_PNM_MODES = {b"P1": "1", b"P4": "1", b"P2": "L", b"P5": "L", b"Pf": "F"}
+
+
+def _pnm_maxval(data: bytes) -> int:
+    """The third number of a PNM header (its maxval), comments skipped."""
+    words = []
+    at = 2
+    while len(words) < 3 and at < len(data):
+        c = data[at:at + 1]
+        if c == b"#":
+            at = data.find(b"\n", at)
+            at = len(data) if at < 0 else at + 1
+        elif c.isspace():
+            at += 1
+        else:
+            end = at
+            while end < len(data) and not data[end:end + 1].isspace() and data[end] != 0x23:
+                end += 1
+            words.append(data[at:end])
+            at = end
+    return int(words[2]) if len(words) == 3 and words[2].isdigit() else 255
+
+
+def _pil_mode(kind: str, data: bytes) -> str:
+    """The mode PIL opens a file of one of IPTC_STREAMS in, from its header
+    ("L" for PNG grey at 2-8 bits, BMP whose palette is the grey ramp, GIF
+    without a colour table, ...)."""
+    try:
+        return _header_mode(kind, data)
+    except (IndexError, struct.error) as e:
+        raise ValueError(f"IPTC: the embedded {kind} stream's header is truncated") from e
+
+
+def _header_mode(kind: str, data: bytes) -> str:
+    lib = get_image_lib()
+    if kind == "jpeg":
+        return {1: "L", 3: "RGB"}.get(_jpeg_info(lib, data)[2], "CMYK")
+    if kind == "pnm":
+        mode = _PNM_MODES.get(data[:2], "RGB")
+        return "I" if mode == "L" and _pnm_maxval(data) > 255 else mode
+    if kind == "png":
+        depth, ctype = data[24], data[25]
+        if ctype == 0:
+            return {1: "1", 16: "I;16"}.get(depth, "L")
+        return {2: "RGB", 3: "P", 4: "LA"}.get(ctype, "RGBA")
+    if kind == "bmp":
+        # BmpImagePlugin: a 1-, 4- or 8-bit palette whose entries are the
+        # ramp (0 and 255 for two colours) is "1" or "L", else "P".
+        hsize = struct.unpack_from("<I", data, 14)[0]
+        core = hsize == 12
+        bits = struct.unpack_from("<H", data, 24 if core else 28)[0]
+        if bits not in (1, 4, 8):
+            return "RGB"
+        colors = struct.unpack_from("<I", data, 46)[0] if hsize >= 40 else 0
+        colors = colors or 1 << bits
+        pad = 3 if core else 4
+        pal = data[14 + hsize:14 + hsize + pad * colors]
+        ramp = (0, 255) if colors == 2 else range(colors)
+        grey = all(pal[k * pad:k * pad + 3] == bytes([v]) * 3 for k, v in enumerate(ramp))
+        return ("1" if colors == 2 else "L") if grey else "P"
+    if kind == "gif":
+        # GifImagePlugin: "L" where the first frame has no colour table.
+        if data[10] & 0x80:
+            return "P"
+        at = 13
+        while at < len(data) and data[at] == 0x21:  # extensions: skip their sub-blocks
+            at += 2
+            while at < len(data) and data[at]:
+                at += data[at] + 1
+            at += 1
+        return "P" if at + 9 < len(data) and data[at] == 0x2C and data[at + 9] & 0x80 else "L"
+    if kind == "tiff":
+        mode = ctypes.create_string_buffer(16)
+        _decode_error(lib, lib.tracy_tiff_mode(data, len(data), mode, 16))
+        return mode.value.decode()
+    return "RGB"  # webp: RGB or RGBA, never grey
+
+
 def _iptc_rgba(data: bytes) -> np.ndarray:
     """An IPTC/NAA image as IptcImageFile.load reads it: the (8, 10) fields'
     data joined (behind a P5 header for compression "raw") and opened as an
-    image of its own, which is the picture (mode L) or fills one band of an
-    RGB or CMYK image whose other bands are 0 (then it must be grey, as
-    Image.merge requires)."""
+    image of its own (any of IPTC_STREAMS), which is the picture or fills
+    one band of an RGB or CMYK image whose other bands are 0 (then PIL's
+    mode of it must be L, as Image.merge requires, or 1 in the first band,
+    where merge gives the same). As the picture it is
+    converted from the IPTC image's mode, L, not its own: PIL has no such
+    conversion from I;16 or F."""
     lib = get_image_lib()
     meta = (ctypes.c_int64 * 4)()
     cap = len(data) // 5 + 1
     spans = (ctypes.c_int64 * (2 * cap))()
     count = ctypes.c_int64()
-    _decode_error(lib, "IPTC", lib.tracy_iptc_stream(data, len(data), meta, spans, cap,
+    _decode_error(lib, lib.tracy_iptc_stream(data, len(data), meta, spans, cap,
                                                      ctypes.byref(count)))
     compression, bands, band, has_data = meta
     if not has_data:
@@ -380,18 +466,25 @@ def _iptc_rgba(data: bytes) -> np.ndarray:
                       for k in range(count.value))
     if compression == 1:
         stream = b"P5\n%d %d\n255\n" % _native_size(lib, "iptc", data) + stream
-        grey = True
+        mode = "L"
     else:
         kind = image_format(stream)
-        grey = kind == "jpeg" and _jpeg_info(lib, stream)[2] == 1
-        if kind not in ("jpeg", "pnm"):
+        if kind not in IPTC_STREAMS:
             raise ValueError(f"IPTC: the embedded {kind or 'unknown'} stream is not read "
-                             "(the port reads JPEG and PNM streams)")
+                             f"(the port reads {', '.join(IPTC_STREAMS)} streams)")
+        mode = _pil_mode(kind, stream)
+    if band == -1 and (mode == "F" or mode.startswith("I;16")):
+        raise ValueError(f"IPTC: an embedded image of PIL mode {mode} (PIL cannot convert it "
+                         "from the IPTC image's mode)")
     img = decode_image_rgba(stream)
     if band == -1:
         return img
-    if not grey:
-        raise ValueError("IPTC: a band filled by an image that is not grey (PIL cannot merge it)")
+    if mode != "L" and not (band == 0 and mode == "1"):
+        # Image.merge checks the mode of every band but the first, where
+        # PIL copies the raw samples of any one-band image: a palette's
+        # indices, a 16-bit image's row bytes, and crashes on I and F.
+        raise ValueError(f"IPTC: band {band + 1} filled by an image of PIL mode {mode}, not "
+                         "grey (PIL cannot merge it, or merges its raw samples)")
     if not -bands <= band < bands:
         raise ValueError(f"IPTC: band {band + 1} of a {bands}-band image")
     planes = np.zeros(img.shape[:2] + (bands,), np.int64)

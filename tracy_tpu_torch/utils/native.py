@@ -230,6 +230,8 @@ def get_image_lib() -> ctypes.CDLL:
         lib.tracy_avif_planes.restype = i32
         lib.tracy_avif_planes.argtypes = [u8p, i64, ip] + [u8p] * 4
         lib.tracy_iptc_stream.restype = i32
+        lib.tracy_tiff_mode.restype = i32
+        lib.tracy_tiff_mode.argtypes = [u8p, i64, ctypes.c_char_p, i32]
         lib.tracy_iptc_stream.argtypes = [u8p, i64, i64p, i64p, i64, i64p]
         _image_lib = lib
         return _image_lib
