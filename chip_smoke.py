@@ -144,10 +144,13 @@ Phases, each fatal on failure:
    floating-point predictor, CCITT Group 4, YCbCr 2x1 TIFFs;
    csrc/image_tiff.cpp, image_xz.cpp, image_zstd.cpp) and tiffkinds.scn,
    with the decode seconds of its 2048x2048 float, JPEG, LZMA and ZSTD
-   TIFFs; the small files of tests/goldens/kinds/ (IM YCC, RGB3, RYB3, B2
-   and B4, IPTC holding PNG, BMP, TIFF, GIF and WebP streams, JP2
-   palettes of one and two columns) each decoded equal to its recorded
-   RGBA;
+   TIFFs, and tests/goldens/iptc/ (IPTC images holding a TGA, a QOI, a
+   grey SGI in band field 0 of CMYK, a grey JP2 in band 1 of RGB and an
+   AVIF; utils/image_io.py over the decoders) and iptc.scn; the small
+   files of tests/goldens/kinds/ (IM YCC, RGB3, RYB3, B2 and B4, IPTC
+   holding PNG, BMP, TIFF, GIF, WebP, TGA, DDS, JP2 and PCX streams and
+   band fields of 0, JP2 palettes of one and two columns) each decoded
+   equal to its recorded RGBA;
    grid64x28 with the JPEG/PNG maps in place of
    the numpy maps at 1080p, compacted, 4 frames, timed (no gain claimed), and
    grid64x28-dds, the same with 2048x2048 DDS maps made here from random
@@ -1053,11 +1056,19 @@ TIFFKINDS_DIR = os.path.join(REPO, "tests", "goldens", "tiffkinds")
 TIFFKINDS_MAPS = ("basecolor.tif", "normal.tif", "roughness.tif", "metalness.tif",
                   "emissive.tif")
 TIFFKINDS_BIG = ("big_float.tif", "big_jpeg.tif", "big_lzma.tif", "big_zstd.tif")
-# And the kinds that the port once refused (tools/make_kind_fixtures.py):
-# IM YCC, RGB3, RYB3, B2 and B4, IPTC holding PNG, BMP, TIFF, GIF and WebP
-# streams (two in a band), JP2 palettes of one and two columns; each held
-# to its uint8 RGBA in expected.npz (tracy_tpu's, the format's for the
-# palettes, which tracy_tpu turns black).
+# And as IPTC/NAA images whose embedded streams are other formats
+# (utils/image_io.py::_iptc_rgba): a TGA, a QOI, a grey SGI in band field
+# 0 of CMYK, a grey JP2 in band 1 of RGB, an AVIF
+# (tools/make_iptc_fixtures.py).
+IPTC_DIR = os.path.join(REPO, "tests", "goldens", "iptc")
+IPTC_MAPS = ("basecolor.iim", "normal.iim", "roughness.iim", "metalness.iim", "emissive.iim")
+# And the kinds that the port once refused or misread
+# (tools/make_kind_fixtures.py): IM YCC, RGB3, RYB3, B2 and B4, IPTC
+# holding PNG, BMP, TIFF, GIF, WebP, TGA, DDS, JP2 and PCX streams (three
+# in a band), IPTC band fields of 0 on RGB and CMYK, JP2 palettes of one
+# and two columns; each held to its uint8 RGBA in expected.npz
+# (tracy_tpu's, the format's for the palettes, which tracy_tpu turns
+# black).
 KINDS_DIR = os.path.join(REPO, "tests", "goldens", "kinds")
 # grid64x28-dds's maps: slot name, DXGI block format, sRGB.
 DDS_GRID_MAPS = (("B", "BC7", True), ("N", "BC5", False), ("R", "BC4", False),
@@ -1229,9 +1240,10 @@ def image_phase(ccfg, counts, dev, card):
     held to its recorded RGBA), the
     JPEG 2000 fixture's with its 2048x2048 9/7 JP2, the AVIF fixture's
     with its 2048x2048 4:2:0 map, the 10- and 12-bit AVIF fixture's with
-    its 2048x2048 10-bit map, and the TIFF-kind fixture's (image_tiff.cpp
+    its 2048x2048 10-bit map, the TIFF-kind fixture's (image_tiff.cpp
     with image_xz.cpp and image_zstd.cpp) with its 2048x2048 float, JPEG,
-    LZMA and ZSTD TIFFs;
+    LZMA and ZSTD TIFFs, and the IPTC fixture's (TGA, QOI, SGI, JP2 and
+    AVIF streams);
     each fixture scene through `fixture_gate` (K1 + K4 against tracy_tpu's
     CPU render, its basecolor AOV through K1 + K3 against the plain
     versions);
@@ -1257,7 +1269,8 @@ def image_phase(ccfg, counts, dev, card):
                             + [(JPEG2000_DIR, name) for name in JPEG2000_MAPS + JPEG2000_BIG]
                             + [(AVIF_DIR, name) for name in AVIF_MAPS + AVIF_BIG]
                             + [(AVIF_DIR, name) for name in AVIF10_MAPS + AVIF10_BIG]
-                            + [(TIFFKINDS_DIR, name) for name in TIFFKINDS_MAPS + TIFFKINDS_BIG]):
+                            + [(TIFFKINDS_DIR, name) for name in TIFFKINDS_MAPS + TIFFKINDS_BIG]
+                            + [(IPTC_DIR, name) for name in IPTC_MAPS]):
         t0 = time.perf_counter()
         img = load_image_rgba(os.path.join(directory, name))
         secs = time.perf_counter() - t0
@@ -1275,7 +1288,7 @@ def image_phase(ccfg, counts, dev, card):
                            (CONTAINERS_DIR, "containers.scn"), (LEGACY_DIR, "legacy.scn"),
                            (JPEG2000_DIR, "jpeg2000.scn"), (AVIF_DIR, "avif.scn"),
                            (os.path.join(AVIF_DIR, "deep"), "avif10.scn"),
-                           (TIFFKINDS_DIR, "tiffkinds.scn")):
+                           (TIFFKINDS_DIR, "tiffkinds.scn"), (IPTC_DIR, "iptc.scn")):
         more, gate = fixture_gate(directory, scn, counts, dev, card)
         launches.update(more)
         res[scn] = gate

@@ -1,6 +1,6 @@
 """The rest of the small PIL formats decoded without PIL
 (csrc/image_legacy.cpp) against PIL's open(...).convert("RGBA"): IPTC/NAA
-(its embedded raw, JPEG, PNG, BMP, TIFF, GIF or WebP stream through the
+(its embedded raw stream, or a stream of any format PIL opens, through the
 port's decoders, placed in its band where PIL's mode of it allows, the
 rest refused in both packages but for PIL's raw first band, a hazard),
 Kodak Photo CD (the PhotoYCC tables held
@@ -13,16 +13,20 @@ plugin's _open gives up on goes to the next), files without a suffix, and
 
 import io
 import os
+import re
 import struct
 
 import numpy as np
 import pytest
 from PIL import Image
 
+from test_torch_image_containers import dib, ftex, icon_dir, icon_entry
+from test_torch_image_dds import dds
 from test_torch_image_decode import REPO, pil_bytes, port_load, smooth, write
-from test_torch_image_formats import gif
+from test_torch_image_formats import gif, psd
 from test_torch_image_legacy import CASES as LEGACY_CASES
-from test_torch_image_legacy import FORMATS, pil_rgba, rand, runs
+from test_torch_image_legacy import (FORMATS, dcx, fits, gbr, hex_colours, imt, mcidas, pcx,
+                                     pil_rgba, pixar, rand, runs, sgi, sun, xpm, xvthumb)
 from tracy_tpu.scene.textures import load_image_rgba as jax_load
 from tracy_tpu_torch.utils import image_io
 
@@ -198,6 +202,67 @@ def _iptc_streams():
         ("WebP lossless RGBA", pil_bytes(Image.fromarray(rgba), format="WEBP", lossless=True),
          whole),
         ("WebP lossy", pil_bytes(Image.fromarray(rgb), format="WEBP", quality=80), whole),
+    ] + _iptc_other_streams()
+
+
+def _iptc_other_streams():
+    """(name, stream, (layers, component, band)) of one stream of each
+    other format family PIL opens there: as the picture, and grey (PIL's
+    mode L, or 1 in the first band) in a band, a field of 0 (the last band)
+    among them."""
+    rgb, rgba = smooth(13, 19, 3, 80), smooth(13, 19, 4, 81)
+    grey = rgb[..., 1]
+    pal = Image.fromarray(rgb).quantize(40)
+    idx, colours = np.asarray(pal), np.asarray(pal.getpalette()[:120], np.uint8).reshape(-1, 3)
+    whole, g2, c4, one, last = (1, 0, None), (3, 1, 2), (4, 1, 4), (3, 1, 1), (3, 1, 0)
+
+    def pil(img, fmt, **kw):
+        return pil_bytes(img if isinstance(img, Image.Image) else Image.fromarray(img), format=fmt,
+                         **kw)
+
+    return [
+        ("TGA RGB", pil(rgb, "TGA"), whole),
+        ("TGA grey, band 3 of RGB", pil(grey, "TGA"), (3, 1, 3)),
+        ("PSD RGB", psd(rgb.transpose(2, 0, 1), 3), whole),
+        ("PSD grey, band field 0 of CMYK", psd(grey[None], 1), (4, 1, 0)),
+        ("QOI RGBA", pil(rgba, "QOI"), whole),
+        ("DDS RGBA", pil(rgba, "DDS"), whole),
+        ("DDS grey, band 2 of RGB", pil(grey, "DDS"), g2),
+        ("JPEG 2000 codestream RGB", pil(rgb, "JPEG2000", no_jp2=True), whole),
+        ("JP2 grey, band 4 of CMYK", pil(grey, "JPEG2000"), c4),
+        ("AVIF", pil(rgb, "AVIF", quality=90), whole),
+        ("DIB palette", dib(19, 13, 8, idx, colours, colours=len(colours)), whole),
+        ("DIB grey, band field 0 of RGB", pil(grey, "DIB"), last),
+        ("ICO 24-bit", icon_dir(1, [icon_entry(19, 13, 24, 82)]), whole),
+        ("CUR 8-bit", icon_dir(2, [icon_entry(19, 13, 8, 83)]), whole),
+        ("BLP palette", pil(pal, "BLP"), whole),
+        ("FTEX", ftex(19, 13, 1, rgb.tobytes()), whole),
+        ("PCX RGB", pil(rgb, "PCX"), whole),
+        ("PCX grey, band 1 of RGB", pil(grey, "PCX"), one),
+        ("DCX", dcx([pil(rgb, "PCX")]), whole),
+        ("SGI RGB", pil(rgb, "SGI"), whole),
+        ("SGI 16-bit grey, band field 0 of RGB", sgi(grey[..., None].astype(np.uint16) * 257 + 3,
+                                                    bpc=2), last),
+        ("SUN palette", sun(19, 13, 8, idx, palette=colours), whole),
+        ("SUN grey, band 4 of CMYK", sun(19, 13, 8, grey), c4),
+        ("MSP", pil(Image.fromarray(grey).convert("1"), "MSP"), whole),
+        ("MSP, band 1 of CMYK", pil(Image.fromarray(grey).convert("1"), "MSP"), (4, 1, 1)),
+        ("IM RGB", pil(rgb, "IM"), whole),
+        ("IM grey, band 2 of RGB", pil(grey, "IM"), g2),
+        ("XBM", pil(Image.fromarray(grey).convert("1"), "XBM"), whole),
+        ("XPM", xpm(idx, hex_colours(colours)), whole),
+        ("PIXAR", pixar(rgb), whole),
+        ("FITS 8-bit", fits(grey, 8), whole),
+        ("FITS 8-bit, band 2 of RGB", fits(grey, 8), g2),
+        ("GBR RGBA", gbr(rgba), whole),
+        ("GBR grey, band field 0 of CMYK", gbr(grey), (4, 1, 0)),
+        ("McIdas 4-byte", mcidas(grey.astype(np.int64) * 2 - 60, 4), whole),
+        ("McIdas 1-byte, band 3 of RGB", mcidas(grey, 1), (3, 1, 3)),
+        ("XV thumbnail", xvthumb(idx), whole),
+        ("IMT, band 2 of RGB", imt(grey), g2),
+        ("FLI", fli(19, 13, [colour_chunk(colours), brun(idx)]), whole),
+        ("IPTC in IPTC, PNG RGB", iptc(19, 13, pil(rgb, "PNG"), compression=5), whole),
+        ("IPTC in IPTC, raw grey, band 4 of CMYK", iptc(19, 13, grey.tobytes()), c4),
     ]
 
 
@@ -269,18 +334,33 @@ def test_iptc_stream_loads_in_both_packages(tmp_path, monkeypatch, name):
     np.testing.assert_array_equal(port_load(path, monkeypatch), ref)
 
 
-@pytest.mark.parametrize("mode", ["P", "I;16"])
+def _raw_first_bands():
+    """{case: (stream, PIL's mode as the refusal names it)} of one-band
+    images other than L and 1: PNG's palette and 16-bit grey, a PCX
+    palette, and an IPTC image whose picture is a palette PNG (its mode L,
+    its loaded image P)."""
+    grey = smooth(13, 19, 1, 69)[..., 0]
+    pal = Image.fromarray(smooth(13, 19, 3, 69)).convert("P")
+    png = pil_bytes(pal, format="PNG")
+    return {"P": (png, "P"),
+            "I;16": (pil_bytes(Image.fromarray(grey.astype(np.uint16) * 251), format="PNG"), "I;16"),
+            "PCX P": (pil_bytes(pal, format="PCX"), "P"),
+            "IPTC of a palette PNG": (iptc(19, 13, png, compression=5), "L (its loaded image P)")}
+
+
+RAW_FIRST_BANDS = _raw_first_bands()
+
+
+@pytest.mark.parametrize("mode", sorted(RAW_FIRST_BANDS))
 def test_iptc_band_1_of_raw_samples_is_refused_by_name(tmp_path, monkeypatch, mode):
     """Image.merge checks every band's mode but the first's, and there
     copies the embedded image's raw samples: a palette's indices, the bytes
     of a 16-bit image's rows (and crashes the process on I and F). PIL
     loses the picture; the port refuses every mode but L and 1 there, by
-    name (ROADMAP, hazards)."""
-    grey = smooth(13, 19, 1, 69)[..., 0]
-    img = (Image.fromarray(smooth(13, 19, 3, 69)).convert("P") if mode == "P"
-           else Image.fromarray(grey.astype(np.uint16) * 251))
-    data = iptc(19, 13, pil_bytes(img, format="PNG"), 3, 1, 1, compression=5)
-    with pytest.raises(ValueError, match=f"band 1 filled by an image of PIL mode {mode}"):
+    name (ROADMAP, hazards), whatever the stream's format."""
+    stream, named = RAW_FIRST_BANDS[mode]
+    data = iptc(19, 13, stream, 3, 1, 1, compression=5)
+    with pytest.raises(ValueError, match=re.escape(f"band 1 filled by an image of PIL mode {named}")):
         image_io.decode_image_rgba(data)
     path = write(tmp_path, "a.iim", data)
     assert port_load(path, monkeypatch) is None
@@ -317,6 +397,19 @@ REFUSED = {
         smooth(13, 19, 1, 73)[..., 0].astype(np.float32) * 0.5), format="TIFF"), compression=5),
         "PIL mode F"),
     "IPTC trailing garbage": (iptc(4, 4, bytes(16)) + b"\x1dxyzw", "invalid IPTC"),
+    "IPTC CIELab TIFF": (iptc(19, 13, pil_bytes(Image.fromarray(smooth(13, 19, 3, 74), "LAB"),
+                                                format="TIFF"), compression=5), "PIL mode LAB"),
+    # PIL's ICO writer keeps no entry of a 19x13 image: PIL cannot identify it.
+    "IPTC ICO of no entry": (iptc(19, 13, pil_bytes(Image.fromarray(smooth(13, 19, 3, 75)),
+                                                    format="ICO"), compression=5), "no format"),
+    "IPTC EPS": (iptc(19, 13, b"%!PS-Adobe-3.0 EPSF-3.0\n%%BoundingBox: 0 0 19 13\n",
+                      compression=5), "no format"),
+    # Streams the port reads alone (ROADMAP, hazards) but PIL's plugin
+    # refuses at its header: refused inside IPTC too.
+    "IPTC 15-bit TGA": (iptc(4, 4, struct.pack("<BBBHHBHHHHBB", 0, 0, 2, 0, 0, 0, 0, 0, 4, 4, 15,
+                                               0x20) + bytes(32), compression=5), "depth 15"),
+    "IPTC DDS BC1 SRGB": (iptc(4, 4, dds(4, 4, bytes(8), dxgi=72), compression=5),
+                          "DXGI format 72"),
     "FLI unknown chunk": (fli(8, 4, [fli_chunk(99, bytes(8))]), "chunk type 99"),
     "FLI BRUN short of a line": (fli(8, 2, [fli_chunk(15, b"\1\4\7" + b"\1\4\7")]), "overruns"),
 }

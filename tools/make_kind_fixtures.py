@@ -3,7 +3,7 @@
     cd tools && JAX_PLATFORMS=cpu python make_kind_fixtures.py
 
 Writes, from seed 2121, one small file of each texture kind that tracy_tpu
-reads through PIL and the port once refused (csrc/image_legacy.cpp,
+reads through PIL and the port once refused or misread (csrc/image_legacy.cpp,
 utils/image_io.py's IPTC streams, csrc/image_jpeg2000.cpp's palettes):
 
 - IM of the YCC, RGB3, RYB3, B2 and B4 kinds (B2/B4 without a Lut);
@@ -11,6 +11,9 @@ utils/image_io.py's IPTC streams, csrc/image_jpeg2000.cpp's palettes):
   grey PNG in band 2 of an RGB image and a GIF without a colour table in
   band 4 of a CMYK image;
 - JP2 with a pclr palette of one column and of two;
+- IPTC with a band field of 0 (the last band, as PIL indexes it) on RGB
+  (a grey PNG) and on CMYK (raw), and IPTC holding a TGA, a DDS or a PCX
+  picture or a grey JP2 in band 2 of RGB;
 
 each a few hundred bytes, and expected.npz: the uint8 RGBA of each, as
 tracy_tpu's load_image_rgba gives it, but for the two palettes, which
@@ -75,6 +78,18 @@ def files(rng):
         p = np.asarray(entries, np.uint8)[idx]
         alpha = p[..., 1] if cols == 2 else np.full(idx.shape, 255, np.uint8)
         formats[name] = np.stack([p[..., 0]] * 3 + [alpha], axis=-1)
+    grey = u8(H, W)
+    png = pil_bytes(Image.fromarray(grey), format="PNG")
+    out["iptc_band0_rgb.iim"] = iptc(W, H, png, 3, 1, 0, compression=5)
+    out["iptc_band0_cmyk.iim"] = iptc(W, H, grey.tobytes(), 4, 1, 0)
+    out["iptc_tga.iim"] = iptc(W, H, pil_bytes(Image.fromarray(u8(H, W, 3)), format="TGA",
+                                               rle=True), compression=5)
+    out["iptc_dds.iim"] = iptc(W, H, pil_bytes(Image.fromarray(u8(H, W, 4)), format="DDS"),
+                               compression=5)
+    out["iptc_jp2_band2.iim"] = iptc(W, H, pil_bytes(Image.fromarray(u8(H, W)),
+                                                     format="JPEG2000"), 3, 1, 2, compression=5)
+    out["iptc_pcx.iim"] = iptc(W, H, pil_bytes(Image.fromarray(u8(H, W, 3)), format="PCX"),
+                               compression=5)
     return out, formats
 
 

@@ -15,6 +15,7 @@
 // tracks. Refused by name: superres.
 
 #include <array>
+#include <cstdio>
 
 #include "av1_decode.h"
 #include "image_common.h"
@@ -713,6 +714,15 @@ int tracy_avif_decode(const uint8_t* data, int64_t len, uint8_t* out, int w, int
     const Image img = load({data, size_t(len), kFmt}, true);
     check_out(kFmt, img.color.width, img.color.height, w, h);
     to_rgba(img, out);
+  });
+}
+
+// PIL's mode of the AVIF file (libavif's alphaPresent): RGBA where it has an
+// alpha item or track, else RGB; written into mode[0, cap).
+int tracy_avif_mode(const uint8_t* data, int64_t len, char* mode, int cap) {
+  return guarded(kFmt, [&] {
+    const Image img = load({data, size_t(len), kFmt}, false);
+    std::snprintf(mode, size_t(cap), "%s", img.has_alpha ? "RGBA" : "RGB");
   });
 }
 

@@ -10,9 +10,10 @@
 // too, named; 2 for a failure inside the decoder; or 3 where the plugin's
 // _open raises an error that Image.open takes for "not this format" and so
 // tries its next plugin (utils/image_io.py::image_format asks
-// tracy_<fmt>_info for that). IPTC's picture is an embedded PNM or JPEG
-// stream: `tracy_iptc_stream` lists its pieces, and utils/image_io.py hands
-// them to those decoders.
+// tracy_<fmt>_info for that); `tracy_legacy_mode` gives PIL's mode of each.
+// IPTC's picture is an embedded stream of any format PIL opens:
+// `tracy_iptc_stream` lists its pieces, and utils/image_io.py hands them to
+// the decoders.
 //
 // Pillow decodes PCX, SGI RLE, Sun RLE, XBM, FLI, PCD and IM's bit-packed
 // types in C that is not installed as source; these readers follow what
@@ -35,7 +36,9 @@
 // and floats truncated toward zero and clipped, NaN 0.
 
 #include <array>
+#include <cctype>
 #include <cmath>
+#include <cstdio>
 #include <cstdlib>
 #include <map>
 
@@ -1648,7 +1651,8 @@ IptcField iptc_field(const Bytes& b, size_t pos, bool opening) {
 struct Iptc {
   int64_t w, h;
   int bands;       // 1 (L), 3 (RGB) or 4 (CMYK)
-  int band;        // where the grey stream goes; -1 for the whole image (L)
+  bool whole;      // the stream is the picture (L), not one band of it
+  int band;        // PIL's band index, field (3, 65) - 1: -1 is the last band
   int compression; // 1 raw, 5 JPEG
   bool has_data;
   size_t data;     // the first (8, 10) field's header
@@ -1693,9 +1697,9 @@ Iptc iptc_head(const Bytes& b) {
   if (mode.len < 2) not_format("IPTC: short image mode");
   const int layers = b.p[mode.at], component = b.p[mode.at + 1];
   Iptc m{};
-  m.band = -1;
   if (layers == 1 && !component) {
     m.bands = 1;
+    m.whole = true;
   } else {
     m.bands = layers == 3 && component ? 3 : layers == 4 && component ? 4 : 0;
     const auto it = info.find(3 << 8 | 65);
@@ -1735,15 +1739,16 @@ void iptc_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
   for (int64_t i = 0; i < m.w * m.h; ++i) put_grey(out + 4 * i, 0);
 }
 
-// meta: compression, bands, band (-1: the whole image), whether there is
-// data; spans: (start, length) of each (8, 10) field's data, `count` of
-// them (at most `cap`).
+// meta: compression, bands, whether the stream is the whole image, the
+// band (PIL's index), whether there is data; spans: (start, length) of each
+// (8, 10) field's data, `count` of them (at most `cap`).
 void iptc_stream(const Bytes& b, int64_t* meta, int64_t* spans, int64_t cap, int64_t* count) {
   const Iptc m = iptc_head(b);
   meta[0] = m.compression;
   meta[1] = m.bands;
-  meta[2] = m.band;
-  meta[3] = m.has_data;
+  meta[2] = m.whole;
+  meta[3] = m.band;
+  meta[4] = m.has_data;
   *count = 0;
   if (!m.has_data) return;
   size_t pos = m.data;
@@ -2123,6 +2128,48 @@ void fli_decode(const Bytes& b, uint8_t* out, int out_w, int out_h) {
   for (int64_t i = 0; i < W * H; ++i) m.pal.put(out + 4 * i, img[i]);
 }
 
+// PIL's mode of each format's image, Image.open(...).mode, from the header
+// its plugin reads (utils/image_io.py::_pil_mode asks for it when such an
+// image is an IPTC image's embedded stream); IPTC's own is its header's.
+std::string legacy_mode(const std::string& fmt, const Bytes& b) {
+  if (fmt == "pcx" || fmt == "dcx") {
+    const Pcx m = fmt == "pcx" ? pcx_head(b, 0, "PCX") : pcx_head(b, dcx_page(b), "DCX");
+    switch (m.kind) {
+      case PcxKind::Bits1: return "1";
+      case PcxKind::Grey: return "L";
+      case PcxKind::Rgb: return "RGB";
+      default: return "P";
+    }
+  }
+  if (fmt == "sgi") return std::array<const char*, 5>{"", "L", "", "RGB", "RGBA"}[sgi_head(b).bands];
+  if (fmt == "sun") {
+    const Sun m = sun_head(b);
+    return m.depth == 1 ? "1" : m.palette ? "P" : m.depth <= 8 ? "L" : "RGB";
+  }
+  if (fmt == "im") return im_head(b).mode;
+  if (fmt == "xpm") return xpm_head(b).rgb ? "RGB" : "P";
+  if (fmt == "fits") {
+    const int bits = fits_head(b).bits;
+    return bits == 8 ? "L" : bits == 16 ? "I;16" : bits == 32 ? "I" : "F";
+  }
+  if (fmt == "gbr") return gbr_head(b).depth == 1 ? "L" : "RGBA";
+  if (fmt == "mcidas") {
+    const int bytes = mcidas_head(b).bytes;
+    return bytes == 1 ? "L" : bytes == 2 ? "I;16B" : "I";
+  }
+  if (fmt == "iptc") return std::array<const char*, 5>{"", "L", "", "RGB", "CMYK"}[iptc_head(b).bands];
+  // One mode a format: the header only checked.
+  static const std::map<std::string, std::pair<Size (*)(const Bytes&), const char*>> fixed = {
+      {"msp", {msp_header, "1"}},      {"xbm", {xbm_header, "1"}},
+      {"pixar", {pixar_header, "RGB"}}, {"pcd", {pcd_header, "RGB"}},
+      {"spider", {spider_header, "F"}}, {"xvthumb", {xvthumb_header, "P"}},
+      {"fli", {fli_header, "P"}},      {"imt", {imt_header, "L"}}};
+  const auto it = fixed.find(fmt);
+  if (it == fixed.end()) throw std::invalid_argument("no legacy format " + fmt);
+  it->second.first(b);
+  return it->second.second;
+}
+
 }  // namespace
 
 extern "C" {
@@ -2156,13 +2203,26 @@ TRACY_LEGACY(iptc, "IPTC")
 TRACY_LEGACY(pcd, "PCD")
 TRACY_LEGACY(fli, "FLI")
 
-// The IPTC image's embedded stream: meta[0..3] = (compression: 1 raw, 5
-// JPEG; bands: 1, 3 or 4; the band the grey stream fills, -1 for the whole
-// image; whether there is image data), and spans[2k], spans[2k + 1] the
+// The IPTC image's embedded stream: meta[0..4] = (compression: 1 raw, 5
+// JPEG; bands: 1, 3 or 4; 1 where the stream is the whole image; else the
+// band it fills, as PIL indexes it (a field of 0 gives -1, the last band);
+// whether there is image data), and spans[2k], spans[2k + 1] the
 // start and length of the k-th (8, 10) field's data, *count of them.
 int tracy_iptc_stream(const uint8_t* data, int64_t len, int64_t* meta, int64_t* spans,
                       int64_t cap, int64_t* count) {
   return guarded("IPTC", [&] { iptc_stream({data, static_cast<size_t>(len), "IPTC"}, meta, spans, cap, count); });
+}
+
+// PIL's mode of a file of one of the formats above (`fmt` its name in
+// lower case, as utils/native.py::LEGACY_FORMATS has it), written into
+// mode[0, cap).
+int tracy_legacy_mode(const char* fmt, const uint8_t* data, int64_t len, char* mode, int cap) {
+  std::string name(fmt);
+  for (char& c : name) c = static_cast<char>(std::toupper(static_cast<unsigned char>(c)));
+  return guarded(name.c_str(), [&] {
+    const std::string m = legacy_mode(fmt, {data, static_cast<size_t>(len), name.c_str()});
+    std::snprintf(mode, static_cast<size_t>(cap), "%s", m.c_str());
+  });
 }
 
 }  // extern "C"

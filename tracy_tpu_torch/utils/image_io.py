@@ -18,7 +18,7 @@ ICO, CUR, FTEX, BLP, ICNS;
 their PNG, JPEG and JPEG 2000 entries go to those decoders) and
 csrc/image_legacy.cpp (PCX, DCX, SGI, SUN, MSP, IM, XBM, XPM, PIXAR,
 SPIDER, FITS, GBR, MCIDAS, XVTHUMB, IMT, IPTC, PCD, FLI; IPTC's embedded
-stream goes to the PNM or JPEG decoder), built by g++ at first
+stream goes to the decoder of its format), built by g++ at first
 use (utils/native.py::get_image_lib), never by PIL; `image_format` tells
 them apart by their first bytes, in the order PIL tries its plugins.
 `read_image` reads back what the inverse-rendering CLI takes as a target:
@@ -360,12 +360,46 @@ def _blp_jpeg(data: bytes, stream: bytes) -> np.ndarray:
     return out
 
 
-# The formats of an IPTC image's embedded stream that the port reads, and
-# the mode PIL opens each in (`_pil_mode`).
-IPTC_STREAMS = ("jpeg", "pnm", "png", "bmp", "tiff", "gif", "webp")
-# PNM magic -> PIL's mode where it is not colour (PpmImagePlugin; P2/P5
-# above maxval 255 are I).
-_PNM_MODES = {b"P1": "1", b"P4": "1", b"P2": "L", b"P5": "L", b"Pf": "F"}
+# The formats of an IPTC image's embedded stream that the port reads: every
+# format PIL opens, as IptcImageFile.load opens the stream with Image.open
+# whatever it is, a nested IPTC image too. `_pil_mode` gives PIL's mode of
+# each, on which the band rule and the conversion depend.
+IPTC_STREAMS = tuple(fmt for fmt, _ in FORMAT_ORDER)
+# PIL's modes whose core conversion to RGBA Pillow lacks. The IPTC picture
+# takes the stream's core image as its own, and Image.convert then tries
+# the IPTC image's mode, L, not the stream's own routes: PIL loses such a
+# picture (tests/test_torch_image_iptc.py builds this set from Pillow).
+UNCONVERTIBLE_MODES = frozenset(("La", "RGBX", "YCbCr", "LAB", "HSV", "F", "I;16", "I;16L",
+                                 "I;16B", "I;16N"))
+# Formats whose alpha PIL takes from the file's info["transparency"] (PNG's
+# tRNS, GIF's transparent index), which the IPTC image does not carry: as
+# its picture they are opaque.
+INFO_TRANSPARENCY = ("png", "gif")
+# PNM magic -> PIL's mode (PpmImagePlugin's MODES; P2/P5 above maxval 255
+# are I).
+_PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB",
+              b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P", b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
+# TgaImagePlugin's raw modes: (image type & 7, depth) it reads.
+_TGA_KINDS = ((1, 8), (3, 1), (3, 8), (3, 16), (2, 16), (2, 24), (2, 32))
+# PsdImagePlugin's (colour mode, bits) -> (mode, channels it needs).
+_PSD_MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1), (2, 8): ("P", 1),
+              (3, 8): ("RGB", 3), (4, 8): ("CMYK", 4), (7, 8): ("L", 1), (8, 8): ("L", 1),
+              (9, 8): ("LAB", 3)}
+# DdsImagePlugin's FourCC and DXGI formats -> mode (the SRGB kinds of BC1-3
+# and every other format it does not implement are absent).
+_DDS_FOURCC = {b"DXT1": "RGBA", b"DXT3": "RGBA", b"DXT5": "RGBA", b"BC4U": "L", b"ATI1": "L",
+               b"BC5S": "RGB", b"BC5U": "RGB", b"ATI2": "RGB"}
+_DDS_DXGI = {70: "RGBA", 71: "RGBA", 73: "RGBA", 74: "RGBA", 76: "RGBA", 77: "RGBA", 79: "L",
+             80: "L", 82: "RGB", 83: "RGB", 84: "RGB", 95: "RGB", 96: "RGB", 97: "RGBA",
+             98: "RGBA", 99: "RGBA", 27: "RGBA", 28: "RGBA", 29: "RGBA"}
+# BmpImagePlugin's 32-bit bitfield masks (r, g, b, a) -> whether they hold
+# alpha, and its 24- and 16-bit masks (r, g, b).
+_BMP_MASKS32 = {(0xFF0000, 0xFF00, 0xFF, 0): False, (0xFF000000, 0xFF0000, 0xFF00, 0): False,
+                (0xFF000000, 0xFF00, 0xFF, 0): False, (0xFF000000, 0xFF0000, 0xFF00, 0xFF): True,
+                (0xFF, 0xFF00, 0xFF0000, 0xFF000000): True,
+                (0xFF0000, 0xFF00, 0xFF, 0xFF000000): True,
+                (0xFF000000, 0xFF00, 0xFF, 0xFF0000): True, (0, 0, 0, 0): True}
+_BMP_MASKS = {24: ((0xFF0000, 0xFF00, 0xFF),), 16: ((0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F))}
 
 
 def _pnm_maxval(data: bytes) -> int:
@@ -389,13 +423,217 @@ def _pnm_maxval(data: bytes) -> int:
 
 
 def _pil_mode(kind: str, data: bytes) -> str:
-    """The mode PIL opens a file of one of IPTC_STREAMS in, from its header
-    ("L" for PNG grey at 2-8 bits, BMP whose palette is the grey ramp, GIF
-    without a colour table, ...)."""
+    """The mode PIL opens a file of one of IPTC_STREAMS in,
+    Image.open(...).mode, from its header ("L" for PNG grey at 2-8 bits,
+    BMP whose palette is the grey ramp, GIF without a colour table, ...).
+    Raises ValueError where PIL's plugin cannot open the file."""
     try:
         return _header_mode(kind, data)
     except (IndexError, struct.error) as e:
         raise ValueError(f"IPTC: the embedded {kind} stream's header is truncated") from e
+
+
+def _unopened(kind: str, why: str):
+    raise ValueError(f"IPTC: the embedded {kind} stream {why} (PIL cannot open it)")
+
+
+def _bmp_mode(kind: str, data: bytes, at: int, raw_alpha: bool = False) -> str:
+    """BmpImagePlugin._bitmap's mode of the info header at `at` (14 in a BMP
+    file, 0 in a DIB; `raw_alpha` for a cursor's image at 22): a 1-, 4- or
+    8-bit palette whose entries are the ramp (0 and 255 for two colours) is
+    "1" or "L", else "P"; bitfields with an alpha mask, and a cursor's
+    32-bit image, "RGBA"."""
+    hsize = struct.unpack_from("<I", data, at)[0]
+    if hsize == 12:
+        bits, compression, colors, pad = struct.unpack_from("<H", data, at + 10)[0], 0, 0, 3
+    elif hsize in DIB_HEADER_SIZES:
+        bits, compression, colors = struct.unpack_from("<HI12xI", data, at + 14)
+        pad = 4
+    else:
+        _unopened(kind, f"has an info header of {hsize} bytes")
+    if bits not in (1, 4, 8, 16, 24, 32):
+        _unopened(kind, f"has {bits} bits a pixel")
+    mode = "P" if bits <= 8 else "RGB"
+    if compression == 3:
+        if bits == 32:
+            masks = struct.unpack_from("<4I" if hsize >= 56 else "<3I", data, at + 40) + (0,) * (
+                hsize < 56)
+            if masks not in _BMP_MASKS32:
+                _unopened(kind, "has bitfields PIL does not read")
+            mode = "RGBA" if _BMP_MASKS32[masks] else "RGB"
+        elif struct.unpack_from("<3I", data, at + 40) not in _BMP_MASKS.get(bits, ()):
+            _unopened(kind, "has bitfields PIL does not read")
+    elif compression == 0:
+        mode = "RGBA" if bits == 32 and raw_alpha else mode
+    elif compression not in (1, 2):
+        _unopened(kind, f"has compression {compression}")
+    if mode != "P":
+        return mode
+    colors = colors or 1 << bits
+    if not 0 < colors <= 65536:
+        _unopened(kind, f"has a palette of {colors} colours")
+    pal = data[at + hsize:at + hsize + pad * colors]
+    ramp = (0, 255) if colors == 2 else range(colors)
+    grey = all(pal[k * pad:k * pad + 3] == bytes([v]) * 3 for k, v in enumerate(ramp))
+    return ("1" if colors == 2 else "L") if grey else "P"
+
+
+def _gif_mode(data: bytes) -> str:
+    """GifImagePlugin's mode of the first frame: "P" where its colour table
+    (its own, else the global one) is not the grey ramp, else "L"."""
+    def needed(table):
+        return any(not k // 3 == table[k] == table[k + 1] == table[k + 2]
+                   for k in range(0, len(table), 3))
+
+    at, palette = 13, False
+    if data[10] & 0x80:
+        at += 3 << (data[10] & 7) + 1
+        palette = needed(data[13:at])
+    while at < len(data) and data[at] == 0x21:  # extensions: skip their sub-blocks
+        at += 2
+        while at < len(data) and data[at]:
+            at += data[at] + 1
+        at += 1
+    if data[at] == 0x2C and data[at + 9] & 0x80:
+        palette = needed(data[at + 10:at + 10 + (3 << (data[at + 9] & 7) + 1)])
+    return "P" if palette else "L"
+
+
+def _webp_mode(data: bytes) -> str:
+    """WebPImagePlugin's mode, "RGBA" where libwebp's WebPGetFeatures finds
+    alpha: an animation's VP8X flag; else a VP8L bitstream's alpha_is_used
+    bit, or a VP8 frame's VP8X flag or ALPH chunk."""
+    def vp8l_alpha(at):  # after the VP8L chunk's signature byte
+        return bool(struct.unpack_from("<I", data, at)[0] >> 28 & 1)
+
+    if data[12:16] == b"VP8L":
+        return "RGBA" if vp8l_alpha(21) else "RGB"
+    if data[12:16] != b"VP8X":
+        return "RGB"
+    alpha = bool(data[20] & 0x10)
+    if data[20] & 0x02:  # an animation
+        return "RGBA" if alpha else "RGB"
+    at = 30
+    while at + 8 <= len(data):
+        kind, size = data[at:at + 4], struct.unpack_from("<I", data, at + 4)[0]
+        if kind == b"VP8L":
+            alpha = vp8l_alpha(at + 9)
+            break
+        if kind == b"VP8 ":
+            break
+        alpha |= kind == b"ALPH"
+        at += 8 + size + (size & 1)
+    return "RGBA" if alpha else "RGB"
+
+
+def _dds_mode(data: bytes) -> str:
+    """DdsImagePlugin's mode, from the pixel format's flags, FourCC or DXGI
+    format."""
+    size, flags, fourcc, bits = struct.unpack_from("<I72xI4sI", data, 4)
+    if size != 124 or len(data) < 128:
+        _unopened("dds", "has a short or unknown header")
+    if flags & 0x40:  # RGB
+        return "RGBA" if flags & 0x1 else "RGB"
+    if flags & 0x20000:  # luminance
+        if bits == 8:
+            return "L"
+        if bits == 16 and flags & 0x1:
+            return "LA"
+        _unopened("dds", f"has {bits}-bit luminance")
+    if flags & 0x20:  # 8-bit palette
+        return "P"
+    if not flags & 0x4:
+        _unopened("dds", f"has pixel format flags {flags}")
+    if fourcc == b"DX10":
+        dxgi = struct.unpack_from("<I", data, 128)[0]
+        if dxgi not in _DDS_DXGI:
+            _unopened("dds", f"has DXGI format {dxgi}")
+        return _DDS_DXGI[dxgi]
+    if fourcc not in _DDS_FOURCC:
+        _unopened("dds", f"has FourCC {fourcc!r}")
+    return _DDS_FOURCC[fourcc]
+
+
+def _jp2_box(data: bytes, at: int, end: int):
+    """(type, body start, box end) of the box at `at`, which must end by
+    `end`, as Jpeg2KImagePlugin's BoxReader reads it."""
+    if at + 8 > end:
+        _unopened("jpeg2000", "has a box header cut short")
+    size, kind = struct.unpack_from(">I4s", data, at)
+    head = 8
+    if size == 1:
+        if at + 16 > end:
+            _unopened("jpeg2000", "has a box header cut short")
+        size, head = struct.unpack_from(">Q", data, at + 8)[0], 16
+    if size < head or at + size > end:
+        _unopened("jpeg2000", f"has a {kind!r} box of a bad length")
+    return kind, at + head, at + size
+
+
+def _jpeg2000_mode(data: bytes) -> str:
+    """Jpeg2KImagePlugin's mode: a codestream's by its SIZ component count
+    and first depth; a JP2 file's by its header box (ihdr; colr for CMYK;
+    pclr of at most 8-bit columns over L or LA for P or PA)."""
+    if data.startswith(JPEG2000_SIGNATURES[0]):
+        count, depth = struct.unpack_from(">HB", data, 40)
+        if count == 1:
+            return "I;16" if (depth & 0x7F) + 1 > 8 else "L"
+        if not 2 <= count <= 4:
+            _unopened("jpeg2000", f"has {count} components")
+        return ("LA", "RGB", "RGBA")[count - 2]
+    at = 12
+    while True:
+        kind, body, end = _jp2_box(data, at, len(data))
+        if kind == b"jp2h":
+            break
+        at = end
+    mode = count = None
+    at = body
+    while True:
+        kind, field, box_end = _jp2_box(data, at, end)
+        fields = data[field:box_end]
+        if kind == b"ihdr":
+            count, depth = struct.unpack_from(">HB", fields, 8)
+            mode = {1: "I;16" if (depth & 0x7F) > 8 else "L", 2: "LA", 3: "RGB",
+                    4: "RGBA"}.get(count, mode)
+        elif kind == b"colr" and count == 4:
+            meth, enumcs = struct.unpack_from(">B2xI", fields)
+            mode = "CMYK" if meth == 1 and enumcs == 12 else mode
+        elif kind == b"pclr" and mode in ("L", "LA"):
+            entries, columns = struct.unpack_from(">HB", fields)
+            if max(struct.unpack_from(f">{columns}B", fields, 3), default=0) <= 8:
+                if 3 + columns * (entries + 1) > len(fields):
+                    _unopened("jpeg2000", "has a pclr box cut short")
+                mode = "P" if mode == "L" else "PA"
+        if box_end >= end:
+            break
+        at = box_end
+    if mode is None:
+        _unopened("jpeg2000", "has a malformed header box")
+    return mode
+
+
+def _cur_mode(data: bytes) -> str:
+    """CurImagePlugin's mode: the bitmap of the largest cursor (the first
+    entry unless a later one is wider and taller)."""
+    pick = None
+    for k in range(struct.unpack_from("<H", data, 4)[0]):
+        entry = data[6 + 16 * k:22 + 16 * k]
+        if pick is None or entry[0] > pick[0] and entry[1] > pick[1]:
+            pick = entry
+    at = struct.unpack_from("<I", pick, 12)[0]
+    return _bmp_mode("cur", data, at, raw_alpha=at == 22)
+
+
+def _native_mode(lib, fmt: str, data: bytes) -> str:
+    """PIL's mode from a decoder's header reader (csrc/image_tiff.cpp,
+    image_avif.cpp, image_legacy.cpp)."""
+    mode = ctypes.create_string_buffer(16)
+    if fmt in LEGACY_FORMATS:
+        _decode_error(lib, lib.tracy_legacy_mode(fmt.encode(), data, len(data), mode, 16))
+    else:
+        _decode_error(lib, getattr(lib, f"tracy_{fmt}_mode")(data, len(data), mode, 16))
+    return mode.value.decode()
 
 
 def _header_mode(kind: str, data: bytes) -> str:
@@ -403,90 +641,147 @@ def _header_mode(kind: str, data: bytes) -> str:
     if kind == "jpeg":
         return {1: "L", 3: "RGB"}.get(_jpeg_info(lib, data)[2], "CMYK")
     if kind == "pnm":
-        mode = _PNM_MODES.get(data[:2], "RGB")
+        magic = data[:6].split()[0] if data[:6].strip() else b""
+        if magic not in _PNM_MODES:
+            _unopened("pnm", f"of magic {magic!r}")
+        mode = _PNM_MODES[magic]
         return "I" if mode == "L" and _pnm_maxval(data) > 255 else mode
     if kind == "png":
         depth, ctype = data[24], data[25]
         if ctype == 0:
             return {1: "1", 16: "I;16"}.get(depth, "L")
         return {2: "RGB", 3: "P", 4: "LA"}.get(ctype, "RGBA")
-    if kind == "bmp":
-        # BmpImagePlugin: a 1-, 4- or 8-bit palette whose entries are the
-        # ramp (0 and 255 for two colours) is "1" or "L", else "P".
-        hsize = struct.unpack_from("<I", data, 14)[0]
-        core = hsize == 12
-        bits = struct.unpack_from("<H", data, 24 if core else 28)[0]
-        if bits not in (1, 4, 8):
-            return "RGB"
-        colors = struct.unpack_from("<I", data, 46)[0] if hsize >= 40 else 0
-        colors = colors or 1 << bits
-        pad = 3 if core else 4
-        pal = data[14 + hsize:14 + hsize + pad * colors]
-        ramp = (0, 255) if colors == 2 else range(colors)
-        grey = all(pal[k * pad:k * pad + 3] == bytes([v]) * 3 for k, v in enumerate(ramp))
-        return ("1" if colors == 2 else "L") if grey else "P"
+    if kind in ("bmp", "dib"):
+        return _bmp_mode(kind, data, 14 if kind == "bmp" else 0)
     if kind == "gif":
-        # GifImagePlugin: "L" where the first frame has no colour table.
-        if data[10] & 0x80:
-            return "P"
-        at = 13
-        while at < len(data) and data[at] == 0x21:  # extensions: skip their sub-blocks
-            at += 2
-            while at < len(data) and data[at]:
-                at += data[at] + 1
-            at += 1
-        return "P" if at + 9 < len(data) and data[at] == 0x2C and data[at + 9] & 0x80 else "L"
-    if kind == "tiff":
-        mode = ctypes.create_string_buffer(16)
-        _decode_error(lib, lib.tracy_tiff_mode(data, len(data), mode, 16))
-        return mode.value.decode()
-    return "RGB"  # webp: RGB or RGBA, never grey
+        return _gif_mode(data)
+    if kind == "tga":
+        itype, depth = data[2], data[16]
+        if (depth not in (1, 8, 16, 24, 32) or (itype & 7, depth) not in _TGA_KINDS
+                or data[1] and data[7] not in (16, 24, 32)):
+            _unopened("tga", f"of image type {itype} at depth {depth}")
+        if itype in (3, 11):
+            return {1: "1", 16: "LA"}.get(depth, "L")
+        if itype in (1, 9):
+            return "P" if data[1] else "L"
+        return "RGB" if depth == 24 else "RGBA"
+    if kind == "psd":
+        channels, bits, colour = struct.unpack_from(">H8xHH", data, 12)
+        if data[4:6] != b"\0\1" or (colour, bits) not in _PSD_MODES:
+            _unopened("psd", f"of version {data[4:6].hex()}, colour mode {colour} at {bits} bits")
+        mode, need = _PSD_MODES[colour, bits]
+        if need > channels:
+            _unopened("psd", f"of {channels} channels")
+        return "RGBA" if mode == "RGB" and channels == 4 else mode
+    if kind == "qoi":
+        return "RGB" if data[12] == 3 else "RGBA"
+    if kind == "dds":
+        return _dds_mode(data)
+    if kind == "jpeg2000":
+        return _jpeg2000_mode(data)
+    if kind == "ico":
+        # IcoImagePlugin loads on opening: a PNG entry's mode, a bitmap's
+        # RGBA (its AND mask or alpha bytes put in as alpha).
+        entry = _embedded_stream("ico", data)
+        return "RGBA" if entry is None else _header_mode("png", entry)
+    if kind == "cur":
+        return _cur_mode(data)
+    if kind == "blp":
+        alpha = data[8:12] != b"\0\0\0\0" if data[:4] == b"BLP1" else data[9] != 0
+        return "RGBA" if alpha else "RGB"
+    if kind == "ftex":
+        fmt = struct.unpack_from("<i", data, 24)[0]
+        if fmt not in (0, 1):
+            _unopened("ftex", f"of texture format {fmt}")
+        return "RGBA" if fmt == 0 else "RGB"
+    if kind == "icns":
+        return "RGBA"  # IcnsImagePlugin's until it loads (`_core_mode`)
+    if kind in ("tiff", "avif") or kind in LEGACY_FORMATS:
+        return _native_mode(lib, kind, data)
+    return _webp_mode(data)
+
+
+def _core_mode(kind: str, data: bytes, mode: str) -> str:
+    """The mode of the image that PIL's plugin loads, where it is not the
+    mode it opened the file in (`mode`): an ICNS file's PNG or JPEG 2000
+    entry's; a nested IPTC image's picture's, whose own mode is its
+    header's."""
+    if kind == "icns":
+        entry = _embedded_stream("icns", data)
+        return mode if entry is None else _pil_mode(image_format(entry), entry)
+    if kind != "iptc":
+        return mode
+    (compression, _, whole, _, has_data), stream = _iptc_parts(data)
+    if not whole:
+        return mode  # merged into an RGB or CMYK image
+    if not has_data or compression == 1:
+        return "L"
+    inner = _iptc_kind(stream)
+    return _core_mode(inner, stream, _pil_mode(inner, stream))
+
+
+def _iptc_parts(data: bytes):
+    """((compression, bands, whole, band, has data), stream) of an IPTC/NAA
+    image: csrc/image_legacy.cpp's tracy_iptc_stream, the (8, 10) fields'
+    data joined."""
+    lib = get_image_lib()
+    meta = (ctypes.c_int64 * 5)()
+    cap = len(data) // 5 + 1
+    spans = (ctypes.c_int64 * (2 * cap))()
+    count = ctypes.c_int64()
+    _decode_error(lib, lib.tracy_iptc_stream(data, len(data), meta, spans, cap,
+                                             ctypes.byref(count)))
+    stream = b"".join(data[spans[2 * k]:spans[2 * k] + spans[2 * k + 1]]
+                      for k in range(count.value))
+    return tuple(meta), stream
+
+
+def _iptc_kind(stream: bytes) -> str:
+    kind = image_format(stream)
+    if kind is None:
+        raise ValueError("IPTC: the embedded stream is of no format PIL opens")
+    return kind
 
 
 def _iptc_rgba(data: bytes) -> np.ndarray:
     """An IPTC/NAA image as IptcImageFile.load reads it: the (8, 10) fields'
     data joined (behind a P5 header for compression "raw") and opened as an
     image of its own (any of IPTC_STREAMS), which is the picture or fills
-    one band of an RGB or CMYK image whose other bands are 0 (then PIL's
-    mode of it must be L, as Image.merge requires, or 1 in the first band,
-    where merge gives the same). As the picture it is
-    converted from the IPTC image's mode, L, not its own: PIL has no such
-    conversion from I;16 or F."""
-    lib = get_image_lib()
-    meta = (ctypes.c_int64 * 4)()
-    cap = len(data) // 5 + 1
-    spans = (ctypes.c_int64 * (2 * cap))()
-    count = ctypes.c_int64()
-    _decode_error(lib, lib.tracy_iptc_stream(data, len(data), meta, spans, cap,
-                                                     ctypes.byref(count)))
-    compression, bands, band, has_data = meta
+    one band of an RGB or CMYK image whose other bands are 0. A band field
+    of 0 fills the last band, as PIL indexes it. In a band PIL's mode of the
+    stream must be L, as Image.merge requires, or 1 in the first band, where
+    merge gives the same (ROADMAP, hazards: the first band takes any other
+    one-band image's raw samples). As the picture it is converted from the
+    IPTC image's mode, L, not its own: PIL has no such conversion from
+    UNCONVERTIBLE_MODES, and the stream's info["transparency"] is lost."""
+    (compression, bands, whole, band, has_data), stream = _iptc_parts(data)
     if not has_data:
         return _decode_native("iptc", data)  # no image data: PIL's image stays black
-    stream = b"".join(data[spans[2 * k]:spans[2 * k] + spans[2 * k + 1]]
-                      for k in range(count.value))
     if compression == 1:
-        stream = b"P5\n%d %d\n255\n" % _native_size(lib, "iptc", data) + stream
-        mode = "L"
+        stream = b"P5\n%d %d\n255\n" % _native_size(get_image_lib(), "iptc", data) + stream
+        kind = "pnm"
     else:
-        kind = image_format(stream)
-        if kind not in IPTC_STREAMS:
-            raise ValueError(f"IPTC: the embedded {kind or 'unknown'} stream is not read "
-                             f"(the port reads {', '.join(IPTC_STREAMS)} streams)")
-        mode = _pil_mode(kind, stream)
-    if band == -1 and (mode == "F" or mode.startswith("I;16")):
-        raise ValueError(f"IPTC: an embedded image of PIL mode {mode} (PIL cannot convert it "
-                         "from the IPTC image's mode)")
-    img = decode_image_rgba(stream)
-    if band == -1:
+        kind = _iptc_kind(stream)
+    mode = _pil_mode(kind, stream)
+    core = _core_mode(kind, stream, mode)
+    named = mode if core == mode else f"{mode} (its loaded image {core})"
+    if whole:
+        if core in UNCONVERTIBLE_MODES:
+            raise ValueError(f"IPTC: an embedded image of PIL mode {named} (PIL cannot convert "
+                             "it from the IPTC image's mode)")
+        img = decode_image_rgba(stream)
+        if kind in INFO_TRANSPARENCY and mode not in ("LA", "RGBA"):
+            img[..., 3] = 255
         return img
-    if mode != "L" and not (band == 0 and mode == "1"):
+    if not -bands <= band < bands:
+        raise ValueError(f"IPTC: band {band + 1} of a {bands}-band image")
+    if core not in ("L", "1") or not (band == 0 or mode == "L"):
         # Image.merge checks the mode of every band but the first, where
         # PIL copies the raw samples of any one-band image: a palette's
         # indices, a 16-bit image's row bytes, and crashes on I and F.
-        raise ValueError(f"IPTC: band {band + 1} filled by an image of PIL mode {mode}, not "
+        raise ValueError(f"IPTC: band {band + 1} filled by an image of PIL mode {named}, not "
                          "grey (PIL cannot merge it, or merges its raw samples)")
-    if not -bands <= band < bands:
-        raise ValueError(f"IPTC: band {band + 1} of a {bands}-band image")
+    img = decode_image_rgba(stream)
     planes = np.zeros(img.shape[:2] + (bands,), np.int64)
     planes[..., band] = img[..., 0]
     out = np.full(img.shape[:2] + (4,), 255, np.uint8)
@@ -508,7 +803,10 @@ def decode_image_rgba(data: bytes) -> np.ndarray:
     if fmt is None:
         raise ValueError(f"not a {READ_FORMATS} file")
     if fmt == "iptc":
-        return _iptc_rgba(data)
+        try:
+            return _iptc_rgba(data)
+        except RecursionError as e:  # PIL's Image.open of the nested streams fails alike
+            raise ValueError("IPTC: images nested beyond Python's recursion limit") from e
     if fmt in STREAM_FORMATS:
         stream = _embedded_stream(fmt, data)
         if stream is not None:
